@@ -1,0 +1,348 @@
+"""
+Standalone inference for QuanONet / HEAQNN on the port (counterpart of
+quanonet_tpu/infer.py).
+
+Hyper-parameters are parsed from the experiment-ID directory name of the
+checkpoint, with keyword/CLI overrides; both checkpoint formats (.npz and
+MindSpore .ckpt) load.  Runs on ``cuda`` unless ``device='cpu'`` is asked
+for.
+
+Not in this slice: the classical models (ROADMAP §A7), the QPU-emulation
+flags (§A9) and the CLI's test-data generation from the checkpoint name
+(§A10); each raises NotImplementedError.
+
+CLI:  python -m quanonet_torch.infer --ckpt <best_model.ckpt|.npz>
+          (--data <file.npz> | --branch <b.npy> [--trunk <t.npy>])
+          [--output preds.npy] [--device cuda|cpu]
+"""
+import argparse
+import os
+import re
+
+import numpy as np
+import torch
+
+from quanonet_torch import checkpoint as ckpt_io
+from quanonet_torch import resolve_device
+from quanonet_torch.convert import state_dict_from_raw
+from quanonet_torch.metrics import compute_metrics, rel_l2
+
+_NET_RE = re.compile(r'Net(\d+)-(\d+)-(\d+)-(\d+)')
+_NET2_RE = re.compile(r'Net(\d+)-(\d+)(?:[^-]|$)')
+_Q_RE = re.compile(r'_Q(\d+)')
+_S_RE = re.compile(r'_S([\d.]+)')
+_TF_RE = re.compile(r'_(TF|FF|NTF)_')
+_MODEL_RE = re.compile(r'_(QuanONet|HEAQNN|DeepONet|FNN|FNO)_')
+_QB_RE = re.compile(r'_(TQ|Qiskit|PL|torchquantum|qiskit|pennylane)_')
+_QB_MAP = {'TQ': 'torchquantum', 'Qiskit': 'qiskit', 'PL': 'pennylane'}
+# Hamiltonian-ablation suffixes of the experiment ID
+_PAULI_RE = re.compile(r'_Pauli([XYZ])')
+_DIAG_RE = re.compile(r'_Diag([^_]+)')
+_HAM_RE = re.compile(r'_Ham([^_]+)')
+# noise-aware-training suffix _Noise{p}[R{readout_p}][G{damp_gamma}][F{dephase_p}]
+_NOISE_RE = re.compile(r'_Noise([0-9.eE+-]+?)(?:R([0-9.eE+-]+?))?'
+                       r'(?:G([0-9.eE+-]+?))?(?:F([0-9.eE+-]+))?(?=_|$)')
+_NUM_RE = re.compile(r'-?\d+(?:\.\d+)?(?:[eE][+-]?\d+)?')
+# _Shift[Sh{N}] / _Spsa[C{c}][Sh{N}]: recorded for provenance only; the
+# inference forward is the same ideal circuit
+_GRAD_RE = re.compile(r'_(Shift|Spsa)(?:C([0-9.eE+-]+?))?(?:Sh(\d+))?'
+                      r'(?=_|$)')
+
+QUANTUM_MODELS = ('QuanONet', 'HEAQNN')
+
+
+def _parse_joined_floats(s):
+    """Parse ``"-".join(map(str, values))`` where a value may itself be
+    negative: ``[1, -1]`` encodes as ``"1--1"`` and ``[-3, 3]`` as
+    ``"-3-3"``.  Returns None if the string does not parse."""
+    vals, i = [], 0
+    while i < len(s):
+        m = _NUM_RE.match(s, i)
+        if not m:
+            return None
+        vals.append(float(m.group(0)))
+        i = m.end()
+        if i < len(s):
+            if s[i] != '-':
+                return None
+            i += 1
+    return vals or None
+
+
+_DEFAULTS = {
+    'model_type': 'QuanONet',
+    'num_qubits': 5,
+    'net_size': [40, 2, 20, 2],
+    # the reference's infer defaults scale_coeff to 0.1 (its solvers to
+    # 0.01); the infer-side value is kept for CLI parity
+    'scale_coeff': 0.1,
+    'if_trainable_freq': True,
+    'ham_bound': [-5.0, 5.0],
+    'ham_diag': None,
+    'ham_pauli': 'Z',
+    'quantum_backend': 'jax',
+    'batch_size': 128,
+}
+
+
+def _parse_path(ckpt_path: str) -> dict:
+    """Hyper-parameters encoded in the checkpoint's directory name."""
+    name = os.path.basename(os.path.dirname(os.path.abspath(ckpt_path)))
+    cfg = {}
+    m = _MODEL_RE.search(name)
+    if m:
+        cfg['model_type'] = m.group(1)
+    m = _NET_RE.search(name)
+    if m:
+        cfg['net_size'] = [int(m.group(i)) for i in range(1, 5)]
+    else:
+        m = _NET2_RE.search(name)
+        if m:
+            cfg['net_size'] = [int(m.group(1)), int(m.group(2))]
+    m = _Q_RE.search(name)
+    if m:
+        cfg['num_qubits'] = int(m.group(1))
+    m = _S_RE.search(name)
+    if m:
+        cfg['scale_coeff'] = float(m.group(1))
+    m = _TF_RE.search(name)
+    if m:
+        cfg['if_trainable_freq'] = (m.group(1) == 'TF')
+    m = _QB_RE.search(name)
+    if m:
+        cfg['quantum_backend'] = _QB_MAP.get(m.group(1), m.group(1))
+    m = _PAULI_RE.search(name)
+    if m:
+        cfg['ham_pauli'] = m.group(1)
+    m = _DIAG_RE.search(name)
+    if m:
+        diag = _parse_joined_floats(m.group(1))
+        if diag:
+            cfg['ham_diag'] = diag
+    else:
+        m = _HAM_RE.search(name)
+        if m:
+            bound = _parse_joined_floats(m.group(1))
+            if bound and len(bound) == 2:
+                cfg['ham_bound'] = bound
+    m = _NOISE_RE.search(name)
+    if m:
+        try:
+            p = float(m.group(1))
+            cfg['noise_p'] = p if p > 0 else None
+            if m.group(2):
+                cfg['readout_p'] = float(m.group(2))
+            if m.group(3):
+                cfg['damp_gamma'] = float(m.group(3))
+            if m.group(4):
+                cfg['dephase_p'] = float(m.group(4))
+        except ValueError:
+            pass
+    m = _GRAD_RE.search(name)
+    if m:
+        cfg['grad_method'] = m.group(1).lower()
+        if m.group(2):
+            cfg['spsa_c'] = float(m.group(2))
+        if m.group(3):
+            cfg['train_shots'] = int(m.group(3))
+    return cfg
+
+
+def _resolve_config(ckpt_path: str, overrides: dict) -> dict:
+    cfg = {**_DEFAULTS, **_parse_path(ckpt_path)}
+    cfg.update({k: v for k, v in overrides.items() if v is not None})
+    return cfg
+
+
+def _build_model(cfg: dict, branch_in: int, trunk_in: int, device):
+    from quanonet_torch.models import HEAQNN, QuanONet
+    from quanonet_torch.ops.hea import resolve_engine
+
+    mt = cfg['model_type']
+    if mt not in QUANTUM_MODELS:
+        if mt in ('DeepONet', 'FNN', 'FNO'):
+            raise NotImplementedError(
+                f"the classical model {mt} is not ported yet (ROADMAP §A7)")
+        raise ValueError(f"Unknown model_type: {mt}")
+    # --noise_p 0 with no readout error is the ideal model
+    if cfg.get('noise_p') is not None and float(cfg['noise_p']) == 0.0 \
+            and not cfg.get('readout_p'):
+        cfg = {**cfg, 'noise_p': None}
+    nq = int(cfg['num_qubits'])
+    kw = dict(num_qubits=nq,
+              engine=resolve_engine(cfg.get('engine') or 'auto', nq, device),
+              net_size=tuple(cfg['net_size']),
+              scale_coeff=float(cfg['scale_coeff']),
+              if_trainable_freq=bool(cfg['if_trainable_freq']),
+              ham_bound=tuple(cfg['ham_bound']),
+              ham_diag=(tuple(cfg['ham_diag'])
+                        if cfg.get('ham_diag') is not None else None),
+              ham_pauli=cfg.get('ham_pauli', 'Z'),
+              shots=cfg.get('shots'), noise_p=cfg.get('noise_p'),
+              readout_p=cfg.get('readout_p') or 0.0,
+              zne_scales=cfg.get('zne_scales'),
+              damp_gamma=cfg.get('damp_gamma'),
+              dephase_p=cfg.get('dephase_p'),
+              device=device)
+    if mt == 'QuanONet':
+        return QuanONet(branch_input_size=branch_in,
+                        trunk_input_size=trunk_in, **kw)
+    return HEAQNN(input_size=branch_in, **kw)
+
+
+def load_model(ckpt_path: str, branch_in: int, trunk_in: int = 0,
+               device=None, **overrides):
+    """Load a QuanONet / HEAQNN checkpoint (.ckpt / .npz) onto ``device``
+    (default ``cuda``; raises without a card unless ``device='cpu'``).
+
+    Returns (model, cfg); run inference with
+    ``predict(model, branch, trunk, cfg=cfg)``.
+    """
+    device = resolve_device(device)
+    cfg = _resolve_config(ckpt_path, overrides)
+    model = _build_model(cfg, branch_in, trunk_in, device)
+    raw = ckpt_io.load_raw(ckpt_path)
+    model.load_state_dict(state_dict_from_raw(
+        raw, cfg['model_type'], cfg['net_size'], cfg['num_qubits'],
+        cfg['if_trainable_freq']))
+    model.eval()
+    cfg['_backend'] = 'torch'
+    cfg['engine'] = model.engine
+    cfg['device'] = str(device)
+    return model, cfg
+
+
+def predict(model, branch_input, trunk_input=None, cfg=None,
+            batch_size=None):
+    """Batched inference; QuanONet takes (branch, trunk), HEAQNN branch
+    only.  Returns a NumPy (n, 1) array."""
+    if batch_size is None:
+        batch_size = 20000
+    model_type = (cfg or {}).get('model_type', 'QuanONet')
+    two_input = trunk_input is not None and model_type == 'QuanONet'
+    device = next(model.parameters()).device
+    n = branch_input.shape[0]
+    preds = []
+    with torch.inference_mode():
+        for s in range(0, n, batch_size):
+            b = torch.as_tensor(
+                np.asarray(branch_input[s:s + batch_size], np.float32),
+                device=device)
+            if two_input:
+                t = torch.as_tensor(
+                    np.asarray(trunk_input[s:s + batch_size], np.float32),
+                    device=device)
+                out = model(b, t)
+            else:
+                out = model(b)
+            preds.append(out.cpu().numpy())
+    return np.concatenate(preds, axis=0)
+
+
+def evaluate(y_pred, y_true):
+    """Rel-L2 / MSE / MAE."""
+    m = compute_metrics(y_true, y_pred)
+    return {'rel_l2': rel_l2(y_true, y_pred),
+            'mse': m['MSE'], 'mae': m['MAE']}
+
+
+# ── CLI ───────────────────────────────────────────────────────────────────────
+
+def _parser():
+    p = argparse.ArgumentParser(
+        description='QuanONet inference on the PyTorch/CUDA port',
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument('--ckpt', required=True,
+                   help='Checkpoint path (.ckpt / .npz)')
+    p.add_argument('--data', default=None,
+                   help='.npz with test_branch_input / test_trunk_input '
+                        '/ test_output')
+    p.add_argument('--branch', default=None,
+                   help='Branch input .npy (alternative to --data)')
+    p.add_argument('--trunk', default=None, help='Trunk input .npy')
+    p.add_argument('--output', default=None,
+                   help='Save predictions to .npy or .npz')
+    p.add_argument('--batch_size', type=int, default=None,
+                   help='Inference batch (default 20000)')
+    p.add_argument('--device', default=None,
+                   help='cuda (default) or cpu')
+    p.add_argument('--model_type', default=None)
+    p.add_argument('--num_qubits', type=int, default=None)
+    p.add_argument('--net_size', type=int, nargs='+', default=None)
+    p.add_argument('--scale_coeff', type=float, default=None)
+    p.add_argument('--quantum_backend', default=None,
+                   choices=['mindquantum', 'torchquantum', 'qiskit',
+                            'pennylane', 'jax'],
+                   help='CLI-compat override; every backend maps onto the '
+                        'one engine here, so this only annotates the config')
+    p.add_argument('--ham_bound', type=float, nargs=2, default=None)
+    for flag in ('--shots', '--noise_p', '--readout_p', '--damp_gamma',
+                 '--dephase_p'):
+        p.add_argument(flag, type=float if flag != '--shots' else int,
+                       default=None,
+                       help='QPU emulation: not ported yet (ROADMAP §A9)')
+    p.add_argument('--zne', type=float, nargs='+', default=None,
+                   metavar='SCALE',
+                   help='Zero-noise extrapolation: not ported yet '
+                        '(ROADMAP §A9)')
+    return p
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    y_true = None
+    if args.data:
+        d = np.load(args.data)
+        branch = d['test_branch_input'] if 'test_branch_input' in d.files \
+            else d['test_input']
+        trunk = d['test_trunk_input'] if 'test_trunk_input' in d.files \
+            else None
+        if 'test_output' in d.files:
+            y_true = d['test_output']
+    elif args.branch:
+        branch = np.load(args.branch)
+        trunk = np.load(args.trunk) if args.trunk else None
+    else:
+        raise NotImplementedError(
+            "generating test data from the checkpoint name is not ported "
+            "yet (ROADMAP §A10); provide --data <file.npz> or "
+            "--branch <file.npy>")
+
+    branch_in = branch.shape[-1] if branch.ndim == 3 else branch.shape[1]
+    trunk_in = trunk.shape[1] if trunk is not None else 0
+    overrides = dict(model_type=args.model_type, num_qubits=args.num_qubits,
+                     net_size=args.net_size, scale_coeff=args.scale_coeff,
+                     ham_bound=args.ham_bound,
+                     quantum_backend=args.quantum_backend,
+                     shots=args.shots, noise_p=args.noise_p,
+                     readout_p=args.readout_p, damp_gamma=args.damp_gamma,
+                     dephase_p=args.dephase_p,
+                     zne_scales=tuple(args.zne) if args.zne else None)
+    model, cfg = load_model(args.ckpt, branch_in=branch_in,
+                            trunk_in=trunk_in, device=args.device,
+                            **overrides)
+    print(f"Model : {cfg['model_type']}  backend={cfg['_backend']}  "
+          f"engine={cfg['engine']}  device={cfg['device']}")
+    print(f"Config: net_size={cfg['net_size']}  "
+          f"num_qubits={cfg.get('num_qubits', '-')}")
+    preds = predict(model, branch, trunk, cfg=cfg, batch_size=args.batch_size)
+    print(f"Output: {preds.shape}")
+
+    if y_true is not None:
+        m = evaluate(preds, y_true)
+        print(f"Rel-L2 : {m['rel_l2']:.4f}  ({m['rel_l2']:.2%})")
+        print(f"MSE    : {m['mse']:.6f}")
+        print(f"MAE    : {m['mae']:.6f}")
+
+    if args.output:
+        if args.output.endswith('.npz'):
+            np.savez(args.output, predictions=preds,
+                     **(evaluate(preds, y_true) if y_true is not None else {}))
+        else:
+            np.save(args.output, preds)
+        print(f"Saved  : {args.output}")
+    return preds
+
+
+if __name__ == '__main__':
+    main()

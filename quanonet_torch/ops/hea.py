@@ -1,0 +1,423 @@
+"""
+Hardware-Efficient-Ansatz (HEA) statevector engine (counterpart of
+quanonet_tpu/ops/hea.py).
+
+Circuit: a sequence of blocks; each block is
+
+    1. encoding: RX(x_j) on qubit j (data re-uploading),
+    2. ``linear_depth`` ansatz sublayers: RY(w0)/RZ(w1)/RY(w2) on every
+       qubit, then a CNOT ring with control=(i+1)%n -> target=i.
+
+Weights: (total_sublayers, 3, n_qubits), sublayers in circuit order (trunk
+blocks first for QuanONet), gate order [RY, RZ, RY'].  A statevector is the
+split pair (sr, si), each (batch, 2^n) float32.
+
+Engines of this slice:
+
+* ``dense``: each block's ansatz stack compiles to one (2^n, 2^n) unitary;
+  with the Hadamards folded in, the circuit is a chain of block matrices
+  and per-sample diagonal phases (:func:`prepare_chain`,
+  :func:`chain_dense`).  The plain version of the CUDA kernel.
+* ``pallas``: the same chain through the hand-written CUDA kernel
+  (ops/cuda_hea.py).  The name is kept from the JAX package so that
+  configs and ``--engine`` values mean the same thing.
+* ``gates``: literal gate-by-gate application (oracle).
+"""
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from quanonet_torch.ops.gates import (
+    cnot_ring_inverse_permutation,
+    hadamard_kron,
+    kron_chain,
+    make_perm_apply,
+    ry_matrix,
+    z_signs,
+)
+
+
+@dataclass(frozen=True)
+class HEASpec:
+    """Static circuit description.
+
+    block_configs: ((n_encode, linear_depth), ...) in circuit order —
+    trunk blocks then branch blocks for QuanONet.
+    """
+    n_qubits: int
+    block_configs: tuple
+
+    @property
+    def n_blocks(self) -> int:
+        return len(self.block_configs)
+
+    @property
+    def total_sublayers(self) -> int:
+        return sum(ld for _, ld in self.block_configs)
+
+    @property
+    def total_encode(self) -> int:
+        return sum(ne for ne, _ in self.block_configs)
+
+    @property
+    def dim(self) -> int:
+        return 2 ** self.n_qubits
+
+    def weight_shape(self):
+        return (self.total_sublayers, 3, self.n_qubits)
+
+    @property
+    def uniform_encode(self) -> bool:
+        return all(ne == self.n_qubits for ne, _ in self.block_configs)
+
+
+def make_block_configs(num_qubits, trunk_depth, trunk_linear_depth,
+                       branch_depth, branch_linear_depth):
+    """QuanONet layout: trunk blocks first, then branch blocks."""
+    cfg = [(num_qubits, trunk_linear_depth)] * trunk_depth
+    cfg += [(num_qubits, branch_linear_depth)] * branch_depth
+    return tuple(cfg)
+
+
+def quanonet_spec(num_qubits, net_size) -> HEASpec:
+    """net_size = (branch_depth, branch_ld, trunk_depth, trunk_ld)."""
+    bd, bld, td, tld = net_size
+    return HEASpec(num_qubits, make_block_configs(num_qubits, td, tld, bd, bld))
+
+
+def heaqnn_spec(num_qubits, net_size) -> HEASpec:
+    """net_size[:2] = (depth, linear_depth)."""
+    depth, ld = int(net_size[0]), int(net_size[1])
+    return HEASpec(num_qubits, tuple([(num_qubits, ld)] * depth))
+
+
+def _table(arr, like):
+    """Host constant -> float32 tensor on ``like``'s device."""
+    return torch.as_tensor(arr, dtype=torch.float32, device=like.device)
+
+
+# ── split-real primitives ─────────────────────────────────────────────────────
+
+def _init_state(batch, dim, device):
+    sr = torch.zeros((batch, dim), dtype=torch.float32, device=device)
+    sr[:, 0] = 1.0
+    si = torch.zeros((batch, dim), dtype=torch.float32, device=device)
+    return sr, si
+
+
+def _halves(a, q, n_qubits):
+    """(batch, 2^n) -> the amplitudes with bit q = 0 and bit q = 1, each
+    (batch, hi, lo)."""
+    a = a.reshape(a.shape[0], 2 ** (n_qubits - 1 - q), 2, 2 ** q)
+    return a[:, :, 0, :], a[:, :, 1, :]
+
+
+def _join(a0, a1):
+    return torch.stack([a0, a1], dim=2).reshape(a0.shape[0], -1)
+
+
+def _apply_ry(sr, si, q, c, s, n_qubits):
+    """RY = [[c, -s], [s, c]] (real) on qubit q; c/s scalars."""
+    def rot(a):
+        a0, a1 = _halves(a, q, n_qubits)
+        return _join(c * a0 - s * a1, s * a0 + c * a1)
+
+    return rot(sr), rot(si)
+
+
+def _apply_rz(sr, si, q, half, n_qubits):
+    """RZ = diag(e^{-iθ/2}, e^{+iθ/2}) on qubit q; half = θ/2."""
+    c = torch.cos(half)
+    s = torch.sin(half)
+    r0, r1 = _halves(sr, q, n_qubits)
+    i0, i1 = _halves(si, q, n_qubits)
+    # e^{-iθ/2}(r0+i i0) ; e^{+iθ/2}(r1+i i1)
+    return (_join(c * r0 + s * i0, c * r1 - s * i1),
+            _join(c * i0 - s * r0, c * i1 + s * r1))
+
+
+def _rx_single(sr, si, q, theta, n_qubits):
+    """RX(θ) on one qubit with per-sample θ (batch,)."""
+    half = theta / 2.0
+    c = torch.cos(half)[:, None, None]
+    s = torch.sin(half)[:, None, None]
+    r0, r1 = _halves(sr, q, n_qubits)
+    i0, i1 = _halves(si, q, n_qubits)
+    return (_join(c * r0 + s * i1, s * i0 + c * r1),
+            _join(c * i0 - s * r1, -s * r0 + c * i1))
+
+
+def _apply_ring(sr, si, n_qubits):
+    if n_qubits <= 1:
+        return sr, si
+    return make_perm_apply(cnot_ring_inverse_permutation(n_qubits))(sr, si)
+
+
+# ── dense path: compile ansatz stacks to block unitaries ────────────────────
+
+def _sublayer_unitary(w, n_qubits):
+    """Ansatz sublayers -> (ur, ui), each (..., 2^n, 2^n) float32.
+
+    w: (..., 3, n_qubits) = [RY θ, RZ θ, RY' θ].
+    U = Ring · (⊗RY') · (⊗RZ) · (⊗RY); ⊗RZ is diagonal and the ring is a
+    static row permutation, so the dense work is two real kron chains and
+    two real matmuls.
+    """
+    u_ry1 = kron_chain(ry_matrix(w[..., 0, :]))          # (..., D, D) real
+    u_ry2 = kron_chain(ry_matrix(w[..., 2, :]))
+    zsgn = _table(z_signs(n_qubits), w)                  # (D, n)
+    # K = n <= 7: an explicit sum, exact in fp32 whatever the matmul mode
+    phase = 0.5 * (w[..., 1, None, :] * zsgn).sum(-1)    # (..., D)
+    zr = torch.cos(phase)                                # Re e^{-i phase}
+    zi = -torch.sin(phase)                               # Im e^{-i phase}
+    ur = u_ry2 @ (zr[..., :, None] * u_ry1)
+    ui = u_ry2 @ (zi[..., :, None] * u_ry1)
+    ring_rows = make_perm_apply(cnot_ring_inverse_permutation(n_qubits),
+                                axis=-2)
+    return ring_rows(ur, ui)
+
+
+def compile_block_unitaries(spec: HEASpec, weights):
+    """weights (S, 3, n) -> (Ur, Ui), each (n_blocks, 2^n, 2^n) float32.
+
+    Sublayer unitaries are built batched, then folded per block.  Blocks
+    are grouped by linear_depth so the fold is a short static chain.
+    """
+    n = spec.n_qubits
+    dim = spec.dim
+    sub_r, sub_i = _sublayer_unitary(weights, n)
+
+    blocks_r, blocks_i = [], []
+    s = 0
+    i = 0
+    while i < spec.n_blocks:
+        ld = spec.block_configs[i][1]
+        j = i
+        while j < spec.n_blocks and spec.block_configs[j][1] == ld:
+            j += 1
+        g = j - i  # group of g consecutive blocks with equal linear_depth
+        if ld == 0:  # encoding-only block: identity ansatz
+            eye = torch.eye(dim, dtype=torch.float32, device=weights.device)
+            ur = eye.expand(g, dim, dim)
+            ui = torch.zeros((g, dim, dim), dtype=torch.float32,
+                             device=weights.device)
+        else:
+            gr = sub_r[s:s + g * ld].reshape(g, ld, dim, dim)
+            gi = sub_i[s:s + g * ld].reshape(g, ld, dim, dim)
+            ur, ui = gr[:, 0], gi[:, 0]
+            for d in range(1, ld):
+                ar, ai = gr[:, d], gi[:, d]
+                ur, ui = ar @ ur - ai @ ui, ar @ ui + ai @ ur
+        blocks_r.append(ur)
+        blocks_i.append(ui)
+        s += g * ld
+        i = j
+    return torch.cat(blocks_r, 0), torch.cat(blocks_i, 0)
+
+
+def encoding_phases(spec: HEASpec, x):
+    """Raw encoding phases φ (n_blocks, batch, 2^n):
+    φ_{b,k} = ½ Σ_i zsign[k, i] · x_{b,i}, x block-major (batch, nb·n).
+
+    Written as an explicit sum over the K = n ≤ 7 qubits, not a matmul, so
+    it stays exact fp32 whatever the matmul precision (TF32 rounding here
+    random-walks into ~2% output error over a 60-block chain)."""
+    n = spec.n_qubits
+    xb = x.reshape(x.shape[0], spec.n_blocks, n).transpose(0, 1)
+    zsgn = _table(z_signs(n), x)                         # (D, n)
+    phi = xb[..., 0, None] * zsgn[:, 0]
+    for i in range(1, n):
+        phi = phi + xb[..., i, None] * zsgn[:, i]
+    return (0.5 * phi).contiguous()
+
+
+def prepare_chain(spec: HEASpec, weights, x):
+    """Chain operands (counterpart of pallas_hea._prepare).
+
+    Since RX(θ) = H RZ(θ) H, each encoding layer is H·D(x_b)·H with the
+    diagonal D(x_b)_k = e^{-i φ_{b,k}}.  Folding the Hadamards into the
+    batch-independent block unitaries, the circuit is
+
+        ψ = M_B D(x_B) M_{B-1} ... M_1 D(x_1) s0,
+        M_b = H U_b H (b < B),  M_B = U_B H,  s0 = H|0…0⟩ = uniform.
+
+    Returns (mt_r, mt_i, phi): the block matrices transposed for
+    row-vector products, (nb, D, D) each, and the raw phases (nb, batch, D).
+    """
+    ur, ui = compile_block_unitaries(spec, weights)      # (B, D, D)
+    hk = _table(hadamard_kron(spec.n_qubits), weights)
+    uh_r = ur @ hk
+    uh_i = ui @ hk
+    m_r = torch.cat([hk @ uh_r[:-1], uh_r[-1:]], 0)
+    m_i = torch.cat([hk @ uh_i[:-1], uh_i[-1:]], 0)
+    return (m_r.transpose(1, 2).contiguous(),
+            m_i.transpose(1, 2).contiguous(),
+            encoding_phases(spec, x))
+
+
+def _kara(sr, si, tr, ti):
+    """(sr + i si) @ (tr + i ti) in 3 real matmuls (Karatsuba)."""
+    t1 = sr @ tr
+    t2 = si @ ti
+    t3 = (sr + si) @ (tr + ti)
+    return t1 - t2, t3 - t1 - t2
+
+
+def chain_dense(mt_r, mt_i, phi):
+    """Plain PyTorch block chain: (mt_r, mt_i, phi) -> (sr, si).
+
+    s_1 = D(x_1)/√D;  s <- D(x_{b+1}) ⊙ (s·M_bᵀ) for b < nb;  out = s·M_nbᵀ.
+    The plain version of the CUDA kernel (ops/cuda_hea.block_chain)."""
+    nb, _, dim = phi.shape
+    inv_sqrt = float(1.0 / np.sqrt(dim))
+    sr = torch.cos(phi[0]) * inv_sqrt                    # D(x_1) · H|0>
+    si = -torch.sin(phi[0]) * inv_sqrt
+    for b in range(nb - 1):
+        ur, ui = _kara(sr, si, mt_r[b], mt_i[b])
+        pr = torch.cos(phi[b + 1])
+        pi = -torch.sin(phi[b + 1])
+        sr, si = pr * ur - pi * ui, pr * ui + pi * ur
+    return _kara(sr, si, mt_r[nb - 1], mt_i[nb - 1])
+
+
+def forward_dense(spec: HEASpec, weights, x):
+    """Final statevector (sr, si) via the compiled block-unitary chain."""
+    if not spec.uniform_encode:
+        raise ValueError("dense engine requires n_encode == n_qubits per block")
+    return chain_dense(*prepare_chain(spec, weights, x))
+
+
+# ── gates path: literal per-gate application (oracle) ───────────────────────
+
+def forward_gates(spec: HEASpec, weights, x):
+    """Gate-by-gate statevector evolution, the literal oracle."""
+    n = spec.n_qubits
+    sr, si = _init_state(x.shape[0], spec.dim, x.device)
+    col = 0
+    sub = 0
+    for n_encode, linear_depth in spec.block_configs:
+        for j in range(n_encode):
+            if col < x.shape[1]:
+                sr, si = _rx_single(sr, si, j % n, x[:, col], n)
+            col += 1
+        for _ in range(linear_depth):
+            w = weights[sub]  # (3, n)
+            for i in range(n):
+                sr, si = _apply_ry(sr, si, i, torch.cos(w[0, i] / 2),
+                                   torch.sin(w[0, i] / 2), n)
+                sr, si = _apply_rz(sr, si, i, w[1, i] / 2, n)
+                sr, si = _apply_ry(sr, si, i, torch.cos(w[2, i] / 2),
+                                   torch.sin(w[2, i] / 2), n)
+            sr, si = _apply_ring(sr, si, n)
+            sub += 1
+    return sr, si
+
+
+# ── expectation ──────────────────────────────────────────────────────────────
+
+def diag_expectation_pair(sr, si, diag):
+    """⟨H⟩ for diagonal H: Σ_k |ψ_k|² d_k -> (batch, 1).  An elementwise
+    product and a sum, exact fp32 whatever the matmul precision: this
+    reduction is the model output."""
+    return ((sr * sr + si * si) * diag).sum(-1, keepdim=True)
+
+
+def pauli_sum_total(sr, si, pauli, n_qubits):
+    """Raw Σ_q ⟨P_q⟩ for P ∈ {X, Y} -> (batch,)."""
+    total = torch.zeros(sr.shape[0], dtype=torch.float32, device=sr.device)
+    for q in range(n_qubits):
+        r0, r1 = _halves(sr, q, n_qubits)
+        i0, i1 = _halves(si, q, n_qubits)
+        if pauli == 'X':
+            # <X_q> = 2 Re Σ conj(ψ_0) ψ_1
+            val = 2.0 * (r0 * r1 + i0 * i1).sum(dim=(1, 2))
+        elif pauli == 'Y':
+            # <Y_q> = 2 Im Σ conj(ψ_0) ψ_1
+            val = 2.0 * (r0 * i1 - i0 * r1).sum(dim=(1, 2))
+        else:
+            raise ValueError(f"pauli must be X or Y, got {pauli}")
+        total = total + val
+    return total
+
+
+def pauli_sum_expectation_pair(sr, si, pauli, n_qubits, offset, coeff):
+    """⟨offset + coeff·Σ_i P_i⟩ for P ∈ {X, Y} -> (batch, 1)."""
+    total = pauli_sum_total(sr, si, pauli, n_qubits)
+    return (offset + coeff * total)[:, None]
+
+
+# ── public API ───────────────────────────────────────────────────────────────
+
+FUSED_MIN_QUBITS = 8  # the JAX package auto-routes n >= 8 to its fused engines
+
+ENGINES = ('dense', 'gates', 'fused', 'pallas', 'embed', 'pfused')
+
+_UNPORTED = {
+    'fused': "the grouped-kron engine 'fused' is not ported yet "
+             "(ROADMAP §A8)",
+    'pfused': "the fused-group chain kernel 'pfused' is not ported yet "
+              "(ROADMAP §B2)",
+    'embed': "the real-embedding chain kernel 'embed' is not ported yet "
+             "(ROADMAP §B3)",
+}
+
+
+def resolve_engine(engine, n_qubits: int, device) -> str:
+    """Engine name -> the engine that runs.  ``'auto'`` is the CUDA kernel
+    (``'pallas'``) on a card and the plain chain (``'dense'``) on the CPU;
+    explicit ``'dense'``, ``'gates'`` and ``'pallas'`` are honoured on
+    either device.  Engines of later slices raise, never reroute."""
+    if engine in ('auto', None):
+        if n_qubits >= FUSED_MIN_QUBITS:
+            raise NotImplementedError(
+                f"engine 'auto' at {n_qubits} qubits needs the fused-group "
+                f"engines, not ported yet (ROADMAP §A8, §B2)")
+        return 'pallas' if torch.device(device).type == 'cuda' else 'dense'
+    if engine in _UNPORTED:
+        raise NotImplementedError(_UNPORTED[engine])
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine '{engine}' (choose from "
+                         f"{('auto',) + ENGINES})")
+    return engine
+
+
+def hea_forward_pair(spec: HEASpec, weights, x, engine='auto'):
+    """Evolve |0…0⟩; returns (sr, si) each (batch, 2^n) float32."""
+    engine = resolve_engine(engine, spec.n_qubits, x.device)
+    if engine == 'dense':
+        return forward_dense(spec, weights, x)
+    if engine == 'gates':
+        return forward_gates(spec, weights, x)
+    from quanonet_torch.ops.cuda_hea import forward_pallas
+    return forward_pallas(spec, weights, x)
+
+
+def hea_expectation(spec: HEASpec, weights, x, diag=None, pauli='Z',
+                    offset=0.0, coeff=0.0, engine='auto'):
+    """Full circuit + measurement.  Returns (batch, 1) float32.
+
+    diag: (2^n,) diagonal Hamiltonian (includes offset/coeff) when pauli='Z';
+    offset/coeff parameterise Σ X_i / Σ Y_i observables otherwise.
+    """
+    resolved = resolve_engine(engine, spec.n_qubits, x.device)
+    if pauli == 'Z':
+        if diag is None:
+            raise ValueError("Z-basis measurement requires a diagonal")
+        diag = torch.as_tensor(diag, dtype=torch.float32, device=x.device)
+        if resolved == 'pallas':
+            from quanonet_torch.ops.cuda_hea import hea_expectation_pallas
+            return hea_expectation_pallas(spec, weights, x, diag)
+    sr, si = hea_forward_pair(spec, weights, x, engine=resolved)
+    if pauli == 'Z':
+        return diag_expectation_pair(sr, si, diag)
+    return pauli_sum_expectation_pair(sr, si, pauli, spec.n_qubits,
+                                      offset, coeff)
+
+
+def init_ansatz_weights(spec: HEASpec, generator=None, device=None):
+    """U(-π, π) init from ``generator`` (drawn on the CPU, so one seed
+    gives the same weights on every device)."""
+    w = torch.empty(spec.weight_shape(), dtype=torch.float32)
+    w.uniform_(-np.pi, np.pi, generator=generator)
+    return w.to(device) if device is not None else w

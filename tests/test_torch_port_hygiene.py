@@ -1,0 +1,114 @@
+"""
+Boundaries of the port: it imports nothing of JAX or of the JAX package,
+its entry points refuse to fall back to the CPU, and engines of later
+slices raise instead of rerouting.
+"""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from quanonet_torch import resolve_device
+from quanonet_torch.ops.hea import resolve_engine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ANTIDERIV = os.path.join(
+    REPO, 'pretrained_weights/Antideriv/'
+    'Antideriv_QuanONet_Net5-1-5-1_Q2_TF_S0.001_1000x100_Seed0/'
+    'best_model.npz')
+
+_IMPORT_ALL = r"""
+import pkgutil, sys
+import quanonet_torch
+names = [m.name for m in pkgutil.walk_packages(quanonet_torch.__path__,
+                                                'quanonet_torch.')]
+for name in names:
+    __import__(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
+                                    'quanonet_tpu'))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    out = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 14
+
+
+def test_entry_points_refuse_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from quanonet_torch.infer import load_model
+    from quanonet_torch.serve import Predictor
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_model(ANTIDERIV, branch_in=10, trunk_in=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(ANTIDERIV, branch_in=10, trunk_in=1, max_batch=4)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        resolve_device('cuda')
+    assert resolve_device('cpu') == torch.device('cpu')
+
+
+def test_engine_resolution():
+    cpu, cuda = torch.device('cpu'), torch.device('cuda')
+    assert resolve_engine('auto', 5, cpu) == 'dense'
+    assert resolve_engine(None, 5, cpu) == 'dense'
+    assert resolve_engine('auto', 5, cuda) == 'pallas'
+    assert resolve_engine('auto', 7, cuda) == 'pallas'
+    for eng in ('dense', 'gates', 'pallas'):
+        assert resolve_engine(eng, 5, cpu) == eng
+        assert resolve_engine(eng, 5, cuda) == eng
+    with pytest.raises(ValueError, match='unknown engine'):
+        resolve_engine('nope', 5, cpu)
+
+
+@pytest.mark.parametrize("engine,item", [('fused', 'A8'), ('pfused', 'B2'),
+                                         ('embed', 'B3')])
+def test_unported_engines_raise(engine, item):
+    for dev in ('cpu', 'cuda'):
+        with pytest.raises(NotImplementedError, match=item):
+            resolve_engine(engine, 5, torch.device(dev))
+
+
+def test_auto_at_eight_qubits_raises():
+    with pytest.raises(NotImplementedError, match='B2'):
+        resolve_engine('auto', 8, torch.device('cuda'))
+    with pytest.raises(NotImplementedError, match='B2'):
+        resolve_engine('auto', 10, torch.device('cpu'))
+
+
+def test_classical_model_types_raise():
+    from quanonet_torch.infer import load_model
+    with pytest.raises(NotImplementedError, match='A7'):
+        load_model(ANTIDERIV, branch_in=10, trunk_in=1, device='cpu',
+                   model_type='DeepONet')
+    with pytest.raises(ValueError, match='Unknown model_type'):
+        load_model(ANTIDERIV, branch_in=10, trunk_in=1, device='cpu',
+                   model_type='Nope')
+
+
+def test_kernel_wrapper_plain_on_cpu_and_no_grad():
+    """On CPU tensors the wrapper computes the plain chain; it never
+    launches, so the launch count stays put."""
+    from quanonet_torch.ops import cuda_hea, hea
+    g = torch.Generator().manual_seed(0)
+    mt_r = torch.randn(3, 4, 4, generator=g)
+    mt_i = torch.randn(3, 4, 4, generator=g)
+    phi = torch.randn(3, 5, 4, generator=g)
+    before = cuda_hea.launches
+    got = cuda_hea.block_chain(mt_r, mt_i, phi)
+    want = hea.chain_dense(mt_r, mt_i, phi)
+    assert cuda_hea.launches == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
