@@ -30,6 +30,26 @@ Phases, each printed as one JSON line:
              outside that counted window, where the time of the smallest
              and largest bucket goes (request, forward, chain operands,
              kernel).
+5. kernel_bwd — the residual-saving forward kernel and the backward
+             kernels against chain_dense_saved / chain_backward_dense on
+             the card: the flagship at N in {100, 1000, 8192}, Q2
+             Net5-1-5-1 and Q7 Net40-2-20-2 at N = 1000.  Max abs error of
+             Mbar and phibar (<= 1e-4 x max(1, max|plain|)), bit-equality
+             of two backward calls, median times, and the bound.
+6. train_parity — 20 Adam steps of the flagship on `cuda` from one
+             initial state, engine 'pallas' (the kernels) against 'dense'
+             (autograd of the plain chain), on the same batches: per-step
+             losses to 1e-4 relative, parameters to PARITY_PARAM_TOL.
+7. train   — the training path: the quick regime of the port's bench
+             (python -m quanonet_torch.bench --quick) for seeds 0, 1, 2,
+             each seed's rel-L2 held to the band fixed from the JAX
+             package's CPU run (QUICK_BAND_REL_L2), then one epoch of the
+             training CLI at flagship width into a temporary --prefix,
+             whose best_model.ckpt infer.load_model must reproduce; both
+             kernels must have been launched.  Then, outside that counted
+             window, where one training step's time goes at batch 100
+             (train_breakdown: host clock, CUDA events, a torch.profiler
+             window for the device's busy share).
 
 Then the {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check exits non-zero before
@@ -40,6 +60,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -48,10 +69,16 @@ import numpy as np
 import torch
 from torch.utils import cpp_extension
 
+from quanonet_torch import bench, cli
+from quanonet_torch.data.manager import DataManager
 from quanonet_torch.infer import load_model, predict
+from quanonet_torch.models import QuanONet
 from quanonet_torch.ops import _build, cuda_hea, hea
 from quanonet_torch.ops.hamiltonian import simple_ham_diag
 from quanonet_torch.serve import Predictor, make_server
+from quanonet_torch.solver import (
+    ScheduledOptimizer, _decay_tuple_schedule, epoch_permutation,
+)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ANCHOR = os.path.join(
@@ -80,6 +107,29 @@ KERNEL_CASES = [     # (label, qubits, net_size, batch rows N)
     ('Q6 Net10-2-5-2', 6, (10, 2, 5, 2), 37),
 ]
 SERVE_REQUESTS = (1, 37, 1000, 9000)
+
+BWD_CASES = [        # (label, qubits, net_size, batch rows N)
+    *[('Q5 Net40-2-20-2', 5, (40, 2, 20, 2), n) for n in (100, 1000, 8192)],
+    ('Q2 Net5-1-5-1', 2, (5, 1, 5, 1), 1000),
+    ('Q7 Net40-2-20-2', 7, (40, 2, 20, 2), 1000),
+]
+# Mbar sums N rows of products and phibar runs back through 60 blocks, in
+# another order than the plain version: a relative fp32 limit, scaled by
+# the largest plain value (at least 1)
+BWD_REL_TOL = 1e-4
+PARITY_STEPS = 20
+PARITY_LOSS_RTOL = 1e-4
+# After 20 Adam steps at lr <= 3e-3 each parameter has moved by at most
+# ~0.06; gradients that differ in the last bits (another summation order)
+# move it by a small share of one step.  A sixth of one step's size:
+PARITY_PARAM_TOL = 5e-4
+# The quick regime's band (PERF.md, "quality band"): the JAX package's
+# own `python bench.py --cpu --quick --runs 3` on the CPU gave rel-L2
+# 0.3337 / 0.3436 / 0.3365; every seed of the port must stay within 1.25x
+# the worst of them.
+JAX_QUICK_REL_L2 = (0.3337, 0.3436, 0.3365)
+QUICK_BAND_REL_L2 = 1.25 * max(JAX_QUICK_REL_L2)
+CLI_PRED_TOL = 1e-5
 
 
 def emit(obj):
@@ -118,6 +168,22 @@ def chain_bound(nb, n, d):
     flops = (nb * n * (6.0 * d * d + 4.0 * d) + nb * d * d
              + 6.0 * (nb - 1) * n * d)
     nbytes = 4.0 * (2 * nb * d * d + nb * n * d + 2 * n * d)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            'operations' if t_ops >= t_bytes else 'bytes', flops, nbytes)
+
+
+def bwd_bound(nb, n, d):
+    """Least time (ms) the card needs for the chain's backward, the larger
+    of two times.  Operations at the fp32 peak: per block the two products
+    Mbar = conj(s)^T . ubar and sbar = ubar . conj(M^T)^T in the
+    three-product form, 6 flops per complex MAC each, plus that form's
+    additions (3 per output element and the input sums) and the
+    elementwise phase work (15 flops per amplitude; the sincos is not
+    counted).  Bytes at the HBM rate: the inputs mt, phi, states and g
+    read once, the outputs Mbar and phibar written once."""
+    flops = nb * (12.0 * n * d * d + 21.0 * n * d + 4.0 * d * d)
+    nbytes = 4.0 * (4 * nb * d * d + 4 * nb * n * d + 2 * n * d)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
     return (1e3 * max(t_ops, t_bytes),
             'operations' if t_ops >= t_bytes else 'bytes', flops, nbytes)
@@ -307,6 +373,265 @@ def serve_breakdown(pred, rows):
         }
 
 
+def _max_err(got, want):
+    return max((g - w).abs().max().item() for g, w in zip(got, want))
+
+
+def phase_kernel_bwd():
+    """Residual forward and backward kernels vs plain at every case;
+    returns the per-case records."""
+    dev = torch.device('cuda')
+    records = []
+    for label, nq, net, n in BWD_CASES:
+        spec = hea.quanonet_spec(nq, net)
+        rng = np.random.RandomState(2000 * nq + n)
+        w = torch.tensor(rng.uniform(-np.pi, np.pi, spec.weight_shape())
+                         .astype(np.float32), device=dev)
+        x = torch.tensor(rng.uniform(-4, 4, (n, spec.total_encode))
+                         .astype(np.float32), device=dev)
+        g = [torch.tensor(rng.randn(n, spec.dim).astype(np.float32),
+                          device=dev) for _ in range(2)]
+        ops = hea.prepare_chain(spec, w, x)
+        fwd = cuda_hea.chain_forward(*ops, save_residuals=True)
+        primal = cuda_hea.chain_forward(*ops)
+        fwd_plain = hea.chain_dense_saved(*ops)
+        bwd = cuda_hea.chain_backward(*ops, fwd[2], fwd[3], *g)
+        bwd2 = cuda_hea.chain_backward(*ops, fwd[2], fwd[3], *g)
+        bwd_plain = hea.chain_backward_dense(*ops, fwd_plain[2:], *g)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(t).all()) for t in (*fwd, *bwd))
+        err_amp = _max_err(fwd[:2], fwd_plain[:2])
+        err_states = _max_err(fwd[2:], fwd_plain[2:])
+        err_mbar = _max_err(bwd[:2], bwd_plain[:2])
+        err_phibar = _max_err(bwd[2:], bwd_plain[2:])
+        scale_mbar = max(1.0, max(t.abs().max().item() for t in bwd_plain[:2]))
+        scale_phibar = max(1.0, bwd_plain[2].abs().max().item())
+        bit_equal = all(torch.equal(a, b) for a, b in zip(bwd, bwd2))
+        primal_equal = all(torch.equal(a, b) for a, b in zip(primal, fwd))
+        reps = 20 if n >= 1000 else 50
+        ms_saved = time_ms(
+            lambda: cuda_hea.chain_forward(*ops, save_residuals=True), reps)
+        ms = time_ms(lambda: cuda_hea.chain_backward(*ops, fwd[2], fwd[3],
+                                                     *g), reps)
+        plain_ms = time_ms(lambda: hea.chain_backward_dense(
+            *ops, fwd_plain[2:], *g), 5)
+        plain_saved_ms = time_ms(lambda: hea.chain_dense_saved(*ops), 5)
+        bound_ms, bound_by, flops, nbytes = bwd_bound(spec.n_blocks, n,
+                                                      spec.dim)
+        fwd_bound_ms = chain_bound(spec.n_blocks, n, spec.dim)[0]
+        rec = {"phase": "kernel_bwd", "case": label, "nq": nq,
+               "nb": spec.n_blocks, "N": n, "D": spec.dim,
+               "splits": cuda_hea.mbar_splits(
+                   spec.n_blocks, n, spec.dim,
+                   torch.cuda.get_device_properties(dev)
+                   .multi_processor_count),
+               "max_abs_err_amp": err_amp, "max_abs_err_states": err_states,
+               "max_abs_err_mbar": err_mbar, "mbar_scale": scale_mbar,
+               "max_abs_err_phibar": err_phibar,
+               "phibar_scale": scale_phibar,
+               "bwd_bit_equal": bit_equal, "primal_bit_equal": primal_equal,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+               "share_of_bound": bound_ms / ms,
+               "fwd_saved_ms": ms_saved, "fwd_saved_plain_ms": plain_saved_ms,
+               "fwd_bound_ms": fwd_bound_ms}
+        emit(rec)
+        where = f"{label} N={n}"
+        check(finite, f"{where}: backward output not finite")
+        check(err_amp <= AMP_TOL and err_states <= AMP_TOL,
+              f"{where}: residual forward error {err_amp} / {err_states}")
+        check(err_mbar <= BWD_REL_TOL * scale_mbar,
+              f"{where}: Mbar error {err_mbar} > {BWD_REL_TOL} x {scale_mbar}")
+        check(err_phibar <= BWD_REL_TOL * scale_phibar,
+              f"{where}: phibar error {err_phibar} > {BWD_REL_TOL} x "
+              f"{scale_phibar}")
+        check(bit_equal, f"{where}: two backward calls differ")
+        check(primal_equal, f"{where}: residual variant's output differs "
+                            f"from the primal-only kernel's")
+        records.append(rec)
+    return records
+
+
+def quick_data():
+    """The quick regime's Advection data (bench.py --quick), generated
+    from NumPy seed 0 into the repository's data cache."""
+    cfg = dict(operator='Advection', model_type='QuanONet', num_train=200,
+               num_test=100, num_points=100, num_points_0=100,
+               train_sample_num=100, test_sample_num=100)
+    np.random.seed(0)
+    return DataManager(cfg, data_dir=os.path.join(REPO, 'data')).get_data()
+
+
+def phase_train_parity():
+    """20 Adam steps, kernels against autograd of the plain chain."""
+    dev = torch.device('cuda')
+    data = quick_data()
+    inputs = (torch.as_tensor(data['train_branch_input'], device=dev),
+              torch.as_tensor(data['train_trunk_input'], device=dev))
+    target = torch.as_tensor(data['train_output'], device=dev)
+    idx = epoch_permutation(0, 0, target.shape[0])[:100 * PARITY_STEPS]
+    idx = idx.to(dev).reshape(PARITY_STEPS, 100)
+    schedule = _decay_tuple_schedule(3e-3, ('cosine', 2000, 0.0), None)
+    runs = {}
+    for engine in ('pallas', 'dense'):
+        model = QuanONet(5, 100, 2, (40, 2, 20, 2), scale_coeff=0.1,
+                         engine=engine, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        opt = ScheduledOptimizer(torch.optim.Adam(model.parameters()),
+                                 schedule)
+        losses = []
+        for bi in idx:
+            loss = ((model(inputs[0][bi], inputs[1][bi]) - target[bi])
+                    ** 2).mean()
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+        runs[engine] = (losses, {k: v.detach().clone()
+                                 for k, v in model.state_dict().items()})
+    (lk, pk), (ld, pd) = runs['pallas'], runs['dense']
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, ld))
+    param_err = max((pk[k] - pd[k]).abs().max().item() for k in pk)
+    moved = max((pk[k] - init[k]).abs().max().item() for k in pk)
+    emit({"phase": "train_parity", "steps": PARITY_STEPS,
+          "losses_pallas": lk, "losses_dense": ld,
+          "max_loss_rel_diff": loss_rel, "max_param_abs_diff": param_err,
+          "max_param_moved": moved})
+    check(loss_rel <= PARITY_LOSS_RTOL,
+          f"train_parity: step losses differ by {loss_rel} relative")
+    check(param_err <= PARITY_PARAM_TOL,
+          f"train_parity: parameters differ by {param_err}")
+
+
+def phase_train():
+    """The training path: the bench's quick regime for 3 seeds, then one
+    epoch of the CLI; returns the launches of both kernels in it."""
+    quick_data()                      # the bench reads the cache
+    cuda_hea.launches = cuda_hea.bwd_launches = 0   # the path starts here
+    result = bench.run(bench.parser().parse_args(['--quick', '--runs', '3']))
+    with tempfile.TemporaryDirectory() as tmp:
+        stdout = sys.stdout
+        try:
+            solver = cli.main([
+                '--operator', 'Advection', '--model_type', 'QuanONet',
+                '--net_size', '40', '2', '20', '2', '--num_qubits', '5',
+                '--scale_coeff', '0.1', '--num_epochs', '1',
+                '--num_train', '20', '--num_test', '10',
+                '--train_sample_num', '100', '--test_sample_num', '100',
+                '--learning_rate', '0.003', '--prefix',
+                os.path.join(tmp, 'outputs'), '--device', 'cuda'])
+        finally:
+            sys.stdout = stdout       # the Solver logs stdout to its file
+        torch.cuda.synchronize()
+        launches = (cuda_hea.launches, cuda_hea.bwd_launches)  # ... ends here
+        exp_dir = solver.exp_logger.exp_dir
+        with open(os.path.join(exp_dir, 'metric.json')) as f:
+            metrics = json.load(f)['metrics']
+        ckpt = os.path.join(exp_dir, 'best_model.ckpt')
+        written = [os.path.exists(ckpt),
+                   os.path.exists(ckpt.replace('.ckpt', '.npz'))]
+        want = solver.predict_test()
+        model, _ = load_model(ckpt, 100, 2, device='cuda')
+        got = predict(model, solver.test_inputs[0], solver.test_inputs[1])
+        cli_err = float(np.abs(got - want).max())
+    emit({"phase": "train", "bench": result,
+          "band_rel_l2": QUICK_BAND_REL_L2,
+          "jax_quick_rel_l2": list(JAX_QUICK_REL_L2),
+          "cli_run_id": solver.run_id, "cli_metrics": metrics,
+          "cli_ckpt_written": written, "cli_reload_max_abs_err": cli_err,
+          "fwd_launches": launches[0], "bwd_launches": launches[1]})
+    for seed, rel in enumerate(result['rel_l2_runs']):
+        check(np.isfinite(rel) and rel <= QUICK_BAND_REL_L2,
+              f"train: seed {seed} rel-L2 {rel} outside the band "
+              f"{QUICK_BAND_REL_L2}")
+    check(all(np.isfinite(v) for v in metrics.values()),
+          f"train: CLI metric.json not finite: {metrics}")
+    check(all(written), "train: CLI did not write best_model.ckpt/.npz")
+    check(cli_err <= CLI_PRED_TOL,
+          f"train: reloaded checkpoint predicts {cli_err} off the Solver's")
+    check(launches[0] > 0 and launches[1] > 0,
+          f"train: kernel launches {launches}")
+    return launches, result
+
+
+def _device_us(event):
+    for name in ('self_device_time_total', 'self_cuda_time_total'):
+        if hasattr(event, name):
+            return getattr(event, name)
+    return 0.0
+
+
+def train_breakdown(steps=20):
+    """Where one training step's time goes, flagship at batch 100 on the
+    card: host clock with a synchronise for the whole step, the forward
+    (with the graph built), forward + backward, and the Adam step; CUDA
+    events for the two chain kernels; a torch.profiler window for the
+    device's busy share and the kernels that take it.  Runs outside the
+    counted windows."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device('cuda')
+    data = quick_data()
+    idx = epoch_permutation(0, 0, data['train_output'].shape[0])[:100].numpy()
+    b = torch.as_tensor(data['train_branch_input'][idx], device=dev)
+    t = torch.as_tensor(data['train_trunk_input'][idx], device=dev)
+    y = torch.as_tensor(data['train_output'][idx], device=dev)
+    model = QuanONet(5, 100, 2, (40, 2, 20, 2), scale_coeff=0.1, device=dev,
+                     generator=torch.Generator().manual_seed(0))
+    opt = ScheduledOptimizer(torch.optim.Adam(model.parameters()),
+                             lambda s: 1e-3)
+
+    def loss():
+        return ((model(b, t) - y) ** 2).mean()
+
+    def step():
+        opt.zero_grad()
+        loss().backward()
+        opt.step()
+
+    x = torch.cat([model.trunk_freq(t), model.branch_freq(b)], dim=1)
+    ops = [a.detach() for a in hea.prepare_chain(model.spec, model.ansatz,
+                                                 x)]
+    fwd = cuda_hea.chain_forward(*ops, save_residuals=True)
+    g = torch.ones_like(fwd[0])
+    out = {
+        "step_ms": host_ms(step, steps),
+        "forward_ms": host_ms(loss, steps),
+        "forward_backward_ms": host_ms(lambda: loss().backward(), steps),
+        "adam_ms": host_ms(opt.step, steps),
+        "operands_forward_ms": host_ms(lambda: hea.prepare_chain(
+            model.spec, model.ansatz, x), steps),
+        "kernel_fwd_saved_ms": time_ms(lambda: cuda_hea.chain_forward(
+            *ops, save_residuals=True), steps),
+        "kernel_bwd_ms": time_ms(lambda: cuda_hea.chain_backward(
+            *ops, fwd[2], fwd[3], g, g), steps),
+    }
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   or _device_us(e) > 0]
+        busy_us = sum(_device_us(e) for e in kernels)
+        top = sorted(kernels, key=_device_us, reverse=True)[:8]
+        out.update({
+            "profiled_steps": steps, "profiled_wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / wall_us,
+            "device_kernels_per_step": sum(e.count for e in kernels) / steps,
+            "top_device_ms_per_step": {
+                e.key[:60]: _device_us(e) / 1e3 / steps for e in top}})
+    except RuntimeError as e:     # the profiler is a measurement, no check
+        out["profiler_error"] = str(e)[:200]
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -315,21 +640,47 @@ def main():
     phase_build()
     records = phase_kernel()
     launches = phase_serve()
+    bwd_records = phase_kernel_bwd()
+    phase_train_parity()
+    (train_fwd, train_bwd), _ = phase_train()
+    emit({"phase": "train_breakdown", "batch": 100, **train_breakdown()})
     head = next(r for r in records
                 if r['nq'] == 5 and r['N'] == 8192)
+    step = next(r for r in bwd_records
+                if r['nq'] == 5 and r['N'] == 100)
     emit({"kernels": [{
         "name": "hea_chain_fwd", "route": "cuda",
         "source": "quanonet_torch/csrc/hea_chain.cu",
         "replaces": "quanonet_tpu/ops/pallas_hea.py:153",
-        "twin": "quanonet_torch/ops/hea.py:chain_dense",
-        "launches": launches,
-        "max_abs_err": max(r['max_abs_err_amp'] for r in records),
+        "twin": "quanonet_torch/ops/hea.py:chain_dense, chain_dense_saved",
+        "launches": launches + train_fwd,
+        "launches_by_path": {"serve": launches, "train": train_fwd},
+        "max_abs_err": max(r['max_abs_err_amp']
+                           for r in records + bwd_records),
         "max_abs_err_expect": max(r['max_abs_err_expect'] for r in records),
         "ms": head['ms'], "plain_ms": head['plain_ms'],
         "bound_ms": head['bound_ms'], "bound_by": head['bound_by'],
         "library_ms": None,
         "timed_shape": {"nb": head['nb'], "N": head['N'], "D": head['D']},
-        "shapes": [[r['nb'], r['N'], r['D']] for r in records]}]})
+        "residual_variant": {
+            "ms": step['fwd_saved_ms'], "plain_ms": step['fwd_saved_plain_ms'],
+            "bound_ms": step['fwd_bound_ms'],
+            "timed_shape": {"nb": step['nb'], "N": step['N'],
+                            "D": step['D']}},
+        "shapes": [[r['nb'], r['N'], r['D']] for r in records]}, {
+        "name": "hea_chain_bwd", "route": "cuda",
+        "source": "quanonet_torch/csrc/hea_chain.cu",
+        "replaces": "quanonet_tpu/ops/pallas_hea.py:178",
+        "twin": "quanonet_torch/ops/hea.py:chain_backward_dense",
+        "launches": train_bwd,
+        "launches_by_path": {"serve": 0, "train": train_bwd},
+        "max_abs_err": max(max(r['max_abs_err_mbar'], r['max_abs_err_phibar'])
+                           for r in bwd_records),
+        "ms": step['ms'], "plain_ms": step['plain_ms'],
+        "bound_ms": step['bound_ms'], "bound_by": step['bound_by'],
+        "library_ms": None,
+        "timed_shape": {"nb": step['nb'], "N": step['N'], "D": step['D']},
+        "shapes": [[r['nb'], r['N'], r['D']] for r in bwd_records]}]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """
-Checkpoint reading (the port's own copy of quanonet_tpu/checkpoint.py's
-reader; pure NumPy).
+Checkpoint reading and writing (the port's own copy of
+quanonet_tpu/checkpoint.py; pure NumPy).
 
 Two on-disk formats, both reference-compatible:
 
@@ -24,6 +24,8 @@ Key schema:
 The flat ansatz reshapes to (total_sublayers, 3, nq): circuit order —
 trunk sublayers first, per sublayer [RY, RZ, RY'] gate-major.
 """
+import os
+
 import numpy as np
 
 _DTYPES = {
@@ -124,6 +126,95 @@ def load_ms_ckpt(path) -> dict:
         if name is not None and tensor is not None:
             params[name] = tensor
     return params
+
+
+def _write_varint(value: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = value & 0x7F
+        value >>= 7
+        if value:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+_DTYPE_NAMES = {np.dtype(np.float32): 'Float32',
+                np.dtype(np.float64): 'Float64',
+                np.dtype(np.float16): 'Float16',
+                np.dtype(np.int32): 'Int32',
+                np.dtype(np.int64): 'Int64'}
+
+
+def save_ms_ckpt(path, params: dict):
+    """Write {name: array} as a MindSpore-compatible .ckpt (inverse of
+    :func:`load_ms_ckpt`), atomically."""
+    out = bytearray()
+    for name, arr in params.items():
+        arr = np.asarray(arr)      # (ascontiguousarray would make 0-d 1-d)
+        dtype_name = _DTYPE_NAMES.get(arr.dtype)
+        if dtype_name is None:
+            arr = arr.astype(np.float32)
+            dtype_name = 'Float32'
+        # tensor message: dims (field 1), dtype (field 2), data (field 3)
+        tensor = bytearray()
+        dims = [0] if arr.shape == () else list(arr.shape)  # 0 encodes scalar
+        for d in dims:
+            tensor += b'\x08' + _write_varint(d)
+        dt = dtype_name.encode()
+        tensor += b'\x12' + _write_varint(len(dt)) + dt
+        raw = arr.tobytes()
+        tensor += b'\x1a' + _write_varint(len(raw)) + raw
+        # entry: name (field 1), tensor (field 2)
+        nm = name.encode()
+        entry = (b'\x0a' + _write_varint(len(nm)) + nm
+                 + b'\x12' + _write_varint(len(tensor)) + bytes(tensor))
+        out += b'\x0a' + _write_varint(len(entry)) + entry
+    tmp = path + '.tmp'
+    with open(tmp, 'wb') as f:
+        f.write(bytes(out))
+    os.replace(tmp, path)
+
+
+def save_npz(path, params, model_type):
+    """Write the reference-compatible .npz (atomic) of a {'params': ...}
+    tree."""
+    if model_type in ('QuanONet', 'HEAQNN'):
+        raw = quantum_params_to_raw(params, model_type)
+    else:
+        raw = flatten_tree(params)
+    tmp = path + '.tmp.npz'
+    np.savez(tmp, **raw)
+    os.replace(tmp, path)
+
+
+def flatten_tree(params) -> dict:
+    """Nested {'params': ...} tree -> flat {'a.b.c': array} dict."""
+    out = {}
+    p = params['params'] if 'params' in params else params
+
+    def rec(node, pre):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                rec(v, pre + k + '.')
+        else:
+            out[pre[:-1]] = np.asarray(node)
+
+    rec(p, '')
+    return out
+
+
+def unflatten_tree(raw: dict) -> dict:
+    """Inverse of :func:`flatten_tree`."""
+    tree = {}
+    for key, val in raw.items():
+        parts = key.split('.')
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.asarray(val)
+    return {'params': tree}
 
 
 # ── reference keys <-> parameter tree ────────────────────────────────────────

@@ -1,0 +1,67 @@
+"""
+Training/evaluation entry point of the port (counterpart of
+quanonet_tpu/cli.py; reference main.py:16-125, CLI-compatible):
+
+    python -m quanonet_torch.cli --operator Advection --model_type QuanONet \
+        --net_size 40 2 20 2 --num_qubits 5 ... [--device cuda|cpu]
+
+Runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
+card.  The reference's --quantum_backend / --classical_backend flags are
+accepted so its reproduce scripts run unchanged; every value resolves to
+the one engine.  Flags of later slices raise naming their ROADMAP item.
+"""
+import sys
+import traceback
+
+from quanonet_torch import resolve_device
+from quanonet_torch.config import (
+    get_base_parser, load_config, reject_unported, set_random_seed,
+)
+
+
+def main(argv=None):
+    """Train and evaluate as the flags say; returns the Solver (its model
+    holds the evaluated parameters)."""
+    parser = get_base_parser()
+    args = parser.parse_args(argv)
+    config = load_config(args)
+    reject_unported(config)
+    device = resolve_device(config.get('device'))
+
+    model_type = config['model_type']
+    print("\n===========================================================")
+    print(f" QuanONet PyTorch/CUDA Launcher | Model: {model_type} | "
+          f"Operator: {config['operator']}")
+    print(f" Engine: {config.get('engine', 'auto')} on {device} — "
+          f"backend flags accepted for script compat: "
+          f"q={config.get('quantum_backend')}, "
+          f"c={config.get('classical_backend')}")
+    print("===========================================================")
+
+    set_random_seed(config.get('seed', 0))
+
+    from quanonet_torch.solver import Solver
+    try:
+        solver = Solver(config)
+    except Exception as e:   # report and exit non-zero, as the reference
+        print(f"Initialization Failed: {e}")
+        traceback.print_exc()
+        sys.exit(1)
+
+    try:
+        history = solver.train()
+        solver.evaluate(history)
+        print("\nExecution Finished Successfully.")
+    except KeyboardInterrupt:
+        print("\nInterrupted by user.")
+    except SystemExit:
+        raise
+    except Exception as e:   # report and exit non-zero, as the reference
+        print(f"\nExecution Failed: {e}")
+        traceback.print_exc()
+        sys.exit(1)
+    return solver
+
+
+if __name__ == "__main__":
+    main()

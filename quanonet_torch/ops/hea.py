@@ -17,9 +17,12 @@ Engines of this slice:
 * ``dense``: each block's ansatz stack compiles to one (2^n, 2^n) unitary;
   with the Hadamards folded in, the circuit is a chain of block matrices
   and per-sample diagonal phases (:func:`prepare_chain`,
-  :func:`chain_dense`).  The plain version of the CUDA kernel.
-* ``pallas``: the same chain through the hand-written CUDA kernel
-  (ops/cuda_hea.py).  The name is kept from the JAX package so that
+  :func:`chain_dense`), differentiated by autograd.  With
+  :func:`chain_dense_saved` and :func:`chain_backward_dense`, the plain
+  version of the CUDA kernels.
+* ``pallas``: the same chain through the hand-written CUDA kernels
+  (ops/cuda_hea.py), forward and backward.  The name is kept from the JAX
+  package so that
   configs and ``--engine`` values mean the same thing.
 * ``gates``: literal gate-by-gate application (oracle).
 """
@@ -279,6 +282,65 @@ def chain_dense(mt_r, mt_i, phi):
         pi = -torch.sin(phi[b + 1])
         sr, si = pr * ur - pi * ui, pr * ui + pi * ur
     return _kara(sr, si, mt_r[nb - 1], mt_i[nb - 1])
+
+
+def chain_dense_saved(mt_r, mt_i, phi):
+    """:func:`chain_dense` that also returns the backward's residuals:
+    (sr, si, states_r, states_i), states (nb, N, D) the input state of each
+    block.  The plain version of the CUDA kernel's residual variant."""
+    nb, _, dim = phi.shape
+    inv_sqrt = float(1.0 / np.sqrt(dim))
+    sr = torch.cos(phi[0]) * inv_sqrt
+    si = -torch.sin(phi[0]) * inv_sqrt
+    states_r, states_i = [sr], [si]
+    for b in range(nb - 1):
+        ur, ui = _kara(sr, si, mt_r[b], mt_i[b])
+        pr = torch.cos(phi[b + 1])
+        pi = -torch.sin(phi[b + 1])
+        sr, si = pr * ur - pi * ui, pr * ui + pi * ur
+        states_r.append(sr)
+        states_i.append(si)
+    out_r, out_i = _kara(sr, si, mt_r[nb - 1], mt_i[nb - 1])
+    return out_r, out_i, torch.stack(states_r), torch.stack(states_i)
+
+
+def chain_backward_dense(mt_r, mt_i, phi, residuals, gr, gi):
+    """Reverse sweep of the chain, written out (no autograd): the
+    cotangent (gr, gi) of the output -> (mbar_r, mbar_i, phibar), the
+    cotangents of mt_r, mt_i and phi.  ``residuals`` = (states_r, states_i)
+    from :func:`chain_dense_saved`.  The plain version of the CUDA backward
+    kernel, with the algebra of pallas_hea._bwd_kernel:
+
+        ubar_{nb-1} = g;  for b = nb-1 .. 0:
+            mbar_b = conj(s_b)ᵀ · ubar_b         (summed over the batch)
+            sbar_b = ubar_b · conj(mt_b)ᵀ
+            phibar_b, ubar_{b-1} from sbar_b and D_b = cos φ_b − i sin φ_b
+
+    The post-matmul state u_{b-1} = conj(D_b) ⊙ s_b is recovered from the
+    saved input state (|D_b| = 1) instead of being saved."""
+    states_r, states_i = residuals
+    nb, _, dim = phi.shape
+    inv_sqrt = float(1.0 / np.sqrt(dim))
+    mbar_r, mbar_i, phibar = [], [], []
+    ubr, ubi = gr, gi
+    for b in range(nb - 1, -1, -1):
+        sr, si = states_r[b], states_i[b]
+        mr, mi = _kara(sr.T, -si.T, ubr, ubi)
+        mbar_r.append(mr)
+        mbar_i.append(mi)
+        sbr, sbi = _kara(ubr, ubi, mt_r[b].T, -mt_i[b].T)
+        pr = torch.cos(phi[b])
+        pi = -torch.sin(phi[b])
+        if b == 0:   # s_1 = inv_sqrt · (cos φ_0, −sin φ_0)
+            phibar.append(inv_sqrt * (sbr * pi - sbi * pr))
+            break
+        ur, ui = pr * sr + pi * si, pr * si - pi * sr
+        dbr = ur * sbr + ui * sbi
+        dbi = -ui * sbr + ur * sbi
+        phibar.append(dbr * pi - dbi * pr)
+        ubr, ubi = pr * sbr + pi * sbi, pr * sbi - pi * sbr
+    return (torch.stack(mbar_r[::-1]), torch.stack(mbar_i[::-1]),
+            torch.stack(phibar[::-1]))
 
 
 def forward_dense(spec: HEASpec, weights, x):

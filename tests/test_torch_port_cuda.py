@@ -1,7 +1,8 @@
 """
-The CUDA block-chain kernel (quanonet_torch/csrc/hea_chain.cu) against its
-plain version on the card.  Marked ``cuda``: without a card each test
-skips; on the card run them with
+The CUDA block-chain kernels (quanonet_torch/csrc/hea_chain.cu: the
+forward, its residual-saving variant and the backward) against their plain
+versions on the card.  Marked ``cuda``: without a card each test skips; on
+the card run them with
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda
 """
@@ -61,5 +62,83 @@ def test_kernel_rejects_bad_inputs(card):
                              .transpose(0, 1))
     with pytest.raises(ValueError, match='must be'):
         cuda_hea.block_chain(mt_r[:1], mt_i, phi)
-    with pytest.raises(NotImplementedError, match='B1b'):
-        cuda_hea.block_chain(mt_r.requires_grad_(), mt_i, phi)
+    # with a gradient needed the chain goes through BlockChain: the
+    # residual-saving forward, then the backward kernel
+    before = (cuda_hea.launches, cuda_hea.bwd_launches)
+    sr, si = cuda_hea.block_chain(mt_r.requires_grad_(), mt_i, phi)
+    (sr.sum() + si.sum()).backward()
+    torch.cuda.synchronize()
+    assert (cuda_hea.launches, cuda_hea.bwd_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    assert mt_r.grad is not None and torch.isfinite(mt_r.grad).all()
+    with pytest.raises(TypeError, match='float32'):
+        cuda_hea.chain_backward(mt_r.detach(), mt_i, phi, phi, phi,
+                                sr.detach().double(), si.detach())
+
+
+def _bwd_tol(plain):
+    """1e-4 x max(1, max|plain|): Mbar sums N rows, phibar runs back
+    through every block, in another order than the plain version."""
+    return 1e-4 * max(1.0, plain.abs().max().item())
+
+
+@pytest.mark.parametrize("nq,net,n", [
+    (1, (2, 1, 2, 1), 37), (2, (5, 1, 5, 1), 1000), (3, (4, 2, 3, 1), 37),
+    (4, (10, 2, 5, 2), 129), (5, (40, 2, 20, 2), 100),
+    (5, (40, 2, 20, 2), 37), (6, (10, 2, 5, 2), 33),
+    (7, (40, 2, 20, 2), 100), (5, (1, 1, 0, 0), 3),
+])
+def test_backward_kernels_match_plain(card, nq, net, n):
+    spec, ops = _operands(nq, net, n, seed=10 + nq, device=card)
+    rng = np.random.RandomState(n)
+    gr, gi = (torch.tensor(rng.randn(n, spec.dim).astype(np.float32),
+                           device=card) for _ in range(2))
+    before = (cuda_hea.launches, cuda_hea.bwd_launches)
+    sr, si, st_r, st_i = cuda_hea.chain_forward(*ops, save_residuals=True)
+    got = cuda_hea.chain_backward(*ops, st_r, st_i, gr, gi)
+    torch.cuda.synchronize()
+    assert (cuda_hea.launches, cuda_hea.bwd_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    pr, pi, pst_r, pst_i = hea.chain_dense_saved(*ops)
+    for a, b in ((sr, pr), (si, pi), (st_r, pst_r), (st_i, pst_i)):
+        assert (a - b).abs().max().item() <= 2e-5
+    want = hea.chain_backward_dense(*ops, (pst_r, pst_i), gr, gi)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert (a - b).abs().max().item() <= _bwd_tol(b)
+    # the primal-only kernel gives the residual variant's output, bit for bit
+    qr, qi = cuda_hea.chain_forward(*ops)
+    assert torch.equal(qr, sr) and torch.equal(qi, si)
+
+
+@pytest.mark.parametrize("n", [100, 8192])
+def test_backward_is_deterministic(card, n):
+    """Mbar is a cross-CTA sum in a fixed order: equal inputs, equal bits."""
+    spec, ops = _operands(5, (40, 2, 20, 2), n, seed=3, device=card)
+    g = torch.randn(2, n, spec.dim, device=card)
+    _, _, st_r, st_i = cuda_hea.chain_forward(*ops, save_residuals=True)
+    a = cuda_hea.chain_backward(*ops, st_r, st_i, g[0], g[1])
+    b = cuda_hea.chain_backward(*ops, st_r, st_i, g[0], g[1])
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_model_training_step_matches_dense(card):
+    """One Adam step of a Q4 QuanONet through the kernels equals the plain
+    engine's (autograd of chain_dense) on the card."""
+    from quanonet_torch.models import QuanONet
+    rng = np.random.RandomState(0)
+    b = torch.tensor(rng.randn(64, 8).astype(np.float32), device=card)
+    t = torch.tensor(rng.rand(64, 2).astype(np.float32), device=card)
+    y = torch.tensor(rng.randn(64, 1).astype(np.float32), device=card)
+    out = {}
+    for engine in ('pallas', 'dense'):
+        model = QuanONet(4, 8, 2, (6, 2, 4, 2), engine=engine, device=card,
+                         generator=torch.Generator().manual_seed(1))
+        opt = torch.optim.SGD(model.parameters(), lr=0.05)
+        loss = ((model(b, t) - y) ** 2).mean()
+        loss.backward()
+        opt.step()
+        out[engine] = (loss.item(), model.state_dict())
+    assert out['pallas'][0] == pytest.approx(out['dense'][0], rel=1e-5)
+    for k, v in out['pallas'][1].items():
+        assert (v - out['dense'][1][k]).abs().max().item() <= 1e-5, k

@@ -41,7 +41,7 @@ def test_port_imports_no_jax():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 14
+    assert n_modules >= 23
 
 
 def test_entry_points_refuse_cpu_fallback():
@@ -99,16 +99,43 @@ def test_classical_model_types_raise():
 
 
 def test_kernel_wrapper_plain_on_cpu_and_no_grad():
-    """On CPU tensors the wrapper computes the plain chain; it never
-    launches, so the launch count stays put."""
+    """On CPU tensors the wrapper computes the plain chain, with and
+    without a gradient; it never launches, so the launch counts stay put."""
     from quanonet_torch.ops import cuda_hea, hea
     g = torch.Generator().manual_seed(0)
     mt_r = torch.randn(3, 4, 4, generator=g)
     mt_i = torch.randn(3, 4, 4, generator=g)
     phi = torch.randn(3, 5, 4, generator=g)
-    before = cuda_hea.launches
+    before = (cuda_hea.launches, cuda_hea.bwd_launches)
     got = cuda_hea.block_chain(mt_r, mt_i, phi)
     want = hea.chain_dense(mt_r, mt_i, phi)
-    assert cuda_hea.launches == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    # the grad path: BlockChain's plain forward and explicit backward sweep
+    ops = [t.clone().requires_grad_() for t in (mt_r, mt_i, phi)]
+    sr, si = cuda_hea.block_chain(*ops)
+    assert torch.equal(sr.detach(), want[0])
+    grads = torch.autograd.grad((sr * sr + 2 * si).sum(), ops)
+    ref = [t.clone().requires_grad_() for t in (mt_r, mt_i, phi)]
+    pr, pi = hea.chain_dense(*ref)
+    ref_grads = torch.autograd.grad((pr * pr + 2 * pi).sum(), ref)
+    for a, b in zip(grads, ref_grads):
+        # random, unnormalised matrices: values in the tens, so relative
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    assert (cuda_hea.launches, cuda_hea.bwd_launches) == before
+
+
+def test_training_cli_refuses_cpu_fallback():
+    """``python -m quanonet_torch.cli`` without ``--device cpu`` raises on
+    a machine without a card, before it writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    out = subprocess.run(
+        [sys.executable, '-m', 'quanonet_torch.cli', '--operator',
+         'Antideriv', '--model_type', 'QuanONet', '--prefix',
+         os.path.join(REPO, 'outputs', 'never_written')],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr
+    assert not os.path.exists(os.path.join(REPO, 'outputs', 'never_written'))
