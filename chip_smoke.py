@@ -10,9 +10,9 @@ Phases, each printed as one JSON line:
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA
              versions; TF32 matmuls must be off (they shift the model's
              quality band).
-2. build   — builds every kernel of the served path from csrc/
-             (torch.utils.cpp_extension.load, nvcc for sm_90a) and reports
-             the build time.
+2. build   — builds every kernel from csrc/ (torch.utils.cpp_extension
+             .load, nvcc for sm_90a), the sources in parallel, and reports
+             the build times.
 3. kernel  — each kernel against its plain PyTorch version on the card at
              the shapes the served path gives it (random seeded weights):
              the flagship Q5 Net40-2-20-2 at N in {1, 7, 100, 1000, 8192},
@@ -50,13 +50,37 @@ Phases, each printed as one JSON line:
              window, where one training step's time goes at batch 100
              (train_breakdown: host clock, CUDA events, a torch.profiler
              window for the device's busy share).
+8. kernel_fused — the fused-group chain kernels (csrc/fused_chain.cu,
+             8..16 qubits): the forward, primal and residual, against
+             fused_gates.chain_fused / chain_fused_saved at Q10
+             Net40-2-20-2 (N = 1, 100, 8192), Q8, Q9 (ragged), encode-only
+             blocks, Q11-13 Net10-2-10-2, Q14 and, forward only, Q15-16
+             Net5-2-5-2: amplitude and expectation errors, median times,
+             the bound (fused_bound), and at Q10 the whole forward beside
+             the grouped-kron engine 'fused'.
+9. kernel_fused_bwd — the backward against chain_fused_backward at the
+             same cases up to Q14 (1e-4 x max(1, max|plain|), two calls
+             bit-equal).
+10. train_parity_q10 — 20 Adam steps at Q10 Net40-2-20-2, batch 100,
+             'pfused' against autograd of 'fused'.
+11. train_q10 — one epoch of the training CLI at Q10 ('auto' -> 'pfused'),
+             its checkpoint reproduced by infer.load_model, both fused
+             counters up; then train_breakdown_q10.
+12. serve_q10 — a Q10 checkpoint of seeded weights
+             (tests/fixtures/torch_port_q10_fused.npz) through Predictor
+             and HTTP on `cuda`: requests of 1, 37, 1000 rows against the
+             'fused' engine, the fixture's 64 rows against the JAX
+             package's predictions (atol 1e-4).
 
-Then the {"kernels": [...]} line, the nvidia-smi line, and last
-{"ok": true, "device": {...}}.  Any failed check exits non-zero before
-the last line.  Needs one card; exits 1 without CUDA.
+Each path (serve, train, train_q10, serve_q10) starts with every launch
+count at 0 and reads them when it ends.  Then the {"kernels": [...]} line,
+the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failed
+check exits non-zero before the last line.  Needs one card; exits 1
+without CUDA.
 """
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 import shutil
 import subprocess
 import sys
@@ -73,7 +97,9 @@ from quanonet_torch import bench, cli
 from quanonet_torch.data.manager import DataManager
 from quanonet_torch.infer import load_model, predict
 from quanonet_torch.models import QuanONet
-from quanonet_torch.ops import _build, cuda_hea, hea
+from quanonet_torch import checkpoint as ckpt_io
+from quanonet_torch.convert import raw_from_state_dict
+from quanonet_torch.ops import _build, cuda_fused, cuda_hea, fused_gates, hea
 from quanonet_torch.ops.hamiltonian import simple_ham_diag
 from quanonet_torch.serve import Predictor, make_server
 from quanonet_torch.solver import (
@@ -209,11 +235,18 @@ def phase_device():
 
 
 def phase_build():
+    """Every kernel source, one nvcc each, all started together."""
+    names = (cuda_hea.KERNEL, cuda_fused.KERNEL)
     t0 = time.time()
-    lib = _build.build(cuda_hea.KERNEL)
-    seconds = time.time() - t0
-    emit({"phase": "build", "kernel": cuda_hea.KERNEL,
-          "library": os.path.relpath(lib, REPO), "seconds": seconds})
+
+    def build(name):
+        t = time.time()
+        return name, _build.build(name), time.time() - t
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(build, names))
+    emit({"phase": "build", "seconds": time.time() - t0,
+          "kernels": {name: {"library": os.path.relpath(lib, REPO),
+                             "seconds": sec} for name, lib, sec in built}})
 
 
 def phase_kernel():
@@ -278,7 +311,7 @@ def phase_serve():
              rng.rand(n, 2).astype(np.float32)) for n in SERVE_REQUESTS]
     refs = [predict(ref_model, b, t, cfg=ref_cfg) for b, t in reqs]
 
-    cuda_hea.launches = 0            # the served path starts here
+    _zero_counts()                   # the served path starts here
     t0 = time.time()
     pred = Predictor(ANCHOR, branch_in=100, trunk_in=2, max_batch=8192,
                      device='cuda')
@@ -508,7 +541,7 @@ def phase_train():
     """The training path: the bench's quick regime for 3 seeds, then one
     epoch of the CLI; returns the launches of both kernels in it."""
     quick_data()                      # the bench reads the cache
-    cuda_hea.launches = cuda_hea.bwd_launches = 0   # the path starts here
+    _zero_counts()                    # the path starts here
     result = bench.run(bench.parser().parse_args(['--quick', '--runs', '3']))
     with tempfile.TemporaryDirectory() as tmp:
         stdout = sys.stdout
@@ -606,30 +639,487 @@ def train_breakdown(steps=20):
         "kernel_bwd_ms": time_ms(lambda: cuda_hea.chain_backward(
             *ops, fwd[2], fwd[3], g, g), steps),
     }
+    out.update(profile_steps(step, steps, profile, ProfilerActivity))
+    return out
+
+
+# ── the fused-group chain: Q8..Q16 (B2f, B2b) ──────────────────────────────
+
+FUSED_CASES = [      # (label, qubits, net_size or block configs, N, backward)
+    *[('Q10 Net40-2-20-2', 10, (40, 2, 20, 2), n, True)
+      for n in (1, 100, 8192)],
+    ('Q8 Net40-2-20-2', 8, (40, 2, 20, 2), 100, True),
+    ('Q9 Net2-1-2-2', 9, (2, 1, 2, 2), 7, True),
+    ('Q8 encode-only blocks', 8, ((8, 1), (8, 0), (8, 2), (8, 0)), 5, True),
+    *[(f'Q{q} Net10-2-10-2', q, (10, 2, 10, 2), 100, True)
+      for q in (11, 12, 13)],
+    ('Q14 Net5-2-5-2', 14, (5, 2, 5, 2), 32, True),
+    ('Q15 Net5-2-5-2', 15, (5, 2, 5, 2), 16, False),
+    ('Q16 Net5-2-5-2', 16, (5, 2, 5, 2), 8, False),
+]
+Q10_NET = (40, 2, 20, 2)
+Q10_FIXTURE = os.path.join(REPO, 'tests', 'fixtures',
+                           'torch_port_q10_fused.npz')
+Q10_SERVE_REQUESTS = (1, 37, 1000)
+Q10_CLI_TRAIN = 300          # Advection functions of the Q10 CLI epoch
+
+
+def _fused_spec(nq, net):
+    if isinstance(net[0], tuple):
+        return hea.HEASpec(nq, net)
+    return hea.quanonet_spec(nq, net)
+
+
+def _fused_counts(spec, n):
+    """Per-call work of the fused-group chain: (flops of the forward, of
+    the backward, bytes of the inputs and outputs of each) on N = n rows."""
+    nq, d = spec.n_qubits, spec.dim
+    nh = nq - 7
+    amps = n * d
+    fwd = bwd = 0.0
+    for _, ld in spec.block_configs:
+        # H^{(x)n}: n add/sub stages (2 flops an amplitude), two of them in
+        # an encoding-only block; the phase product 6
+        h = (1 + (ld == 0)) * 2.0 * nq * amps
+        fwd += h + 6.0 * amps
+        bwd += h + 15.0 * amps
+        # per sublayer: the low product, 6 flops per complex MAC (the
+        # three-product count); each high qubit's 2x2, 14 an amplitude
+        fwd += ld * (6.0 * 128 * amps + 14.0 * nh * amps)
+        # backward: ct . conj(U7t)^T and U7bar = conj(S)^T . ct, the 2x2's
+        # adjoint (14) and its cotangent sums (16) per high qubit
+        bwd += ld * (12.0 * 128 * amps + 30.0 * nh * amps)
+    s = spec.total_sublayers
+    ops_bytes = 4.0 * (2 * s * 128 * 128 + 2 * s * nh * 4)
+    phi_bytes = 4.0 * spec.n_blocks * amps
+    out_bytes = 4.0 * 2 * amps
+    fwd_bytes = ops_bytes + phi_bytes + out_bytes
+    # backward: operands, phi, the states (2 nb N D) and g read; the
+    # cotangents of the operands and phibar written
+    bwd_bytes = 2 * ops_bytes + 4.0 * 3 * spec.n_blocks * amps + out_bytes
+    return fwd, bwd, fwd_bytes, bwd_bytes
+
+
+def _bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def fused_bound(spec, n):
+    """Least time (ms) the card needs for the fused-group chain's forward
+    on n rows: the larger of its operations at the fp32 peak and its bytes
+    (each input read once, each output written once) at the HBM rate."""
+    flops, _, nbytes, _ = _fused_counts(spec, n)
+    return (*_bound(flops, nbytes), flops, nbytes)
+
+
+def fused_bwd_bound(spec, n):
+    """The same for the backward: the VJP's own products, butterfly and
+    phase work (not the recompute of the forward), against its inputs and
+    outputs read and written once."""
+    _, flops, _, nbytes = _fused_counts(spec, n)
+    return (*_bound(flops, nbytes), flops, nbytes)
+
+
+def _fused_case(nq, net, n, seed, dev):
+    spec = _fused_spec(nq, net)
+    rng = np.random.RandomState(seed)
+    w = torch.tensor(rng.uniform(-np.pi, np.pi, spec.weight_shape())
+                     .astype(np.float32), device=dev)
+    x = torch.tensor(rng.uniform(-4, 4, (n, spec.total_encode))
+                     .astype(np.float32), device=dev)
+    return spec, w, x, rng
+
+
+def phase_kernel_fused():
+    """B2f (primal and residual) against chain_fused / chain_fused_saved at
+    every case; returns the per-case records."""
+    dev = torch.device('cuda')
+    records = []
+    for label, nq, net, n, _ in FUSED_CASES:
+        spec, w, x, _ = _fused_case(nq, net, n, 3000 + 10 * nq + n, dev)
+        with torch.no_grad():
+            ops = fused_gates.prepare_fused_chain(spec, w, x)
+        lds = fused_gates.block_depths(spec)
+        kr, ki = cuda_fused.chain_forward(*ops, lds)
+        pr, pi = fused_gates.chain_fused(*ops, lds)
+        torch.cuda.synchronize()
+        diag = torch.as_tensor(simple_ham_diag(nq, -5, 5), device=dev)
+        err_amp = _max_err((kr, ki), (pr, pi))
+        err_exp = (hea.diag_expectation_pair(kr, ki, diag)
+                   - hea.diag_expectation_pair(pr, pi, diag)
+                   ).abs().max().item()
+        finite = bool(torch.isfinite(kr).all() and torch.isfinite(ki).all())
+        rec = {"phase": "kernel_fused", "case": label, "nq": nq,
+               "nb": spec.n_blocks, "S": spec.total_sublayers, "N": n,
+               "D": spec.dim,
+               "rows_per_cta": cuda_fused.rows_per_cta(
+                   nq, n, torch.cuda.get_device_properties(dev)
+                   .multi_processor_count),
+               "max_abs_err_amp": err_amp, "max_abs_err_expect": err_exp}
+        if nq <= cuda_fused.TRAIN_MAX_QUBITS:
+            fwd = cuda_fused.chain_forward(*ops, lds, save_residuals=True)
+            saved = fused_gates.chain_fused_saved(*ops, lds)
+            torch.cuda.synchronize()
+            rec["max_abs_err_states"] = _max_err(fwd[2:], saved[2:])
+            rec["primal_bit_equal"] = all(
+                torch.equal(a, b) for a, b in zip(fwd[:2], (kr, ki)))
+            del fwd, saved
+        reps = 3 if n * spec.dim >= 2 ** 22 else 20
+        rec["ms"] = time_ms(lambda: cuda_fused.chain_forward(*ops, lds), reps)
+        rec["plain_ms"] = time_ms(lambda: fused_gates.chain_fused(*ops, lds),
+                                  1 if n * spec.dim >= 2 ** 22 else 3)
+        if nq <= cuda_fused.TRAIN_MAX_QUBITS:
+            rec["saved_ms"] = time_ms(lambda: cuda_fused.chain_forward(
+                *ops, lds, save_residuals=True), reps)
+        bound_ms, bound_by, flops, nbytes = fused_bound(spec, n)
+        rec.update({"bound_ms": bound_ms, "bound_by": bound_by,
+                    "flops": flops, "bytes": nbytes,
+                    "share_of_bound": bound_ms / rec["ms"]})
+        if nq == 10 and n in (100, 8192):
+            # yardstick: the whole forward from (weights, x), the
+            # fused-group kernels against the grouped-kron engine
+            with torch.no_grad():
+                rec["pfused_engine_ms"] = time_ms(
+                    lambda: cuda_fused.forward_pfused(spec, w, x), reps)
+                rec["fused_engine_ms"] = time_ms(
+                    lambda: fused_gates.forward_fused(spec, w, x), reps)
+        emit(rec)
+        where = f"{label} N={n}"
+        check(finite, f"{where}: fused kernel output not finite")
+        check(err_amp <= AMP_TOL,
+              f"{where}: amplitude error {err_amp} > {AMP_TOL}")
+        check(err_exp <= EXPECT_TOL,
+              f"{where}: expectation error {err_exp} > {EXPECT_TOL}")
+        if "primal_bit_equal" in rec:
+            check(rec["max_abs_err_states"] <= AMP_TOL,
+                  f"{where}: residual states error "
+                  f"{rec['max_abs_err_states']}")
+            check(rec["primal_bit_equal"], f"{where}: residual variant's "
+                  f"output differs from the primal-only kernel's")
+        records.append(rec)
+        del ops, kr, ki, pr, pi
+        torch.cuda.empty_cache()
+    return records
+
+
+def phase_kernel_fused_bwd():
+    """B2b against chain_fused_backward at every case up to Q14; returns
+    the per-case records."""
+    dev = torch.device('cuda')
+    records = []
+    for label, nq, net, n, bwd in FUSED_CASES:
+        if not bwd:
+            continue
+        spec, w, x, rng = _fused_case(nq, net, n, 4000 + 10 * nq + n, dev)
+        with torch.no_grad():
+            ops = fused_gates.prepare_fused_chain(spec, w, x)
+        lds = fused_gates.block_depths(spec)
+        g = [torch.tensor(rng.randn(n, spec.dim).astype(np.float32),
+                          device=dev) for _ in range(2)]
+        _, _, st_r, st_i = cuda_fused.chain_forward(*ops, lds,
+                                                    save_residuals=True)
+        got = cuda_fused.chain_backward(*ops, lds, st_r, st_i, *g)
+        again = cuda_fused.chain_backward(*ops, lds, st_r, st_i, *g)
+        want = fused_gates.chain_fused_backward(*ops, lds, (st_r, st_i), *g)
+        torch.cuda.synchronize()
+        names = ('u7bar_r', 'u7bar_i', 'u2bar_r', 'u2bar_i', 'phibar')
+        errs = {k: (a - b).abs().max().item()
+                for k, a, b in zip(names, got, want)}
+        scales = {k: max(1.0, b.abs().max().item())
+                  for k, b in zip(names, want)}
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+        big = n * spec.dim >= 2 ** 22
+        ms = time_ms(lambda: cuda_fused.chain_backward(
+            *ops, lds, st_r, st_i, *g), 3 if big else 20)
+        plain_ms = time_ms(lambda: fused_gates.chain_fused_backward(
+            *ops, lds, (st_r, st_i), *g), 1 if big else 3)
+        bound_ms, bound_by, flops, nbytes = fused_bwd_bound(spec, n)
+        rec = {"phase": "kernel_fused_bwd", "case": label, "nq": nq,
+               "nb": spec.n_blocks, "S": spec.total_sublayers, "N": n,
+               "D": spec.dim, "max_abs_err": errs, "scale": scales,
+               "bit_equal": bit_equal, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+               "bytes": nbytes, "share_of_bound": bound_ms / ms,
+               "u7bar_splits": cuda_fused.u7bar_splits(
+                   spec.total_sublayers, n * spec.dim // 128,
+                   torch.cuda.get_device_properties(dev)
+                   .multi_processor_count)}
+        emit(rec)
+        where = f"{label} N={n}"
+        check(finite, f"{where}: fused backward output not finite")
+        for k in names:
+            check(errs[k] <= BWD_REL_TOL * scales[k],
+                  f"{where}: {k} error {errs[k]} > {BWD_REL_TOL} x "
+                  f"{scales[k]}")
+        check(bit_equal, f"{where}: two fused backward calls differ")
+        records.append(rec)
+        del ops, st_r, st_i, got, again, want
+        torch.cuda.empty_cache()
+    return records
+
+
+def phase_train_parity_q10():
+    """20 Adam steps at Q10 Net40-2-20-2, batch 100: the fused-group
+    kernels ('pfused') against autograd of the grouped-kron engine
+    ('fused'), from one initial state on the same batches."""
+    dev = torch.device('cuda')
+    data = quick_data()
+    inputs = (torch.as_tensor(data['train_branch_input'], device=dev),
+              torch.as_tensor(data['train_trunk_input'], device=dev))
+    target = torch.as_tensor(data['train_output'], device=dev)
+    idx = epoch_permutation(1, 0, target.shape[0])[:100 * PARITY_STEPS]
+    idx = idx.to(dev).reshape(PARITY_STEPS, 100)
+    schedule = _decay_tuple_schedule(3e-3, ('cosine', 2000, 0.0), None)
+    runs = {}
+    for engine in ('pfused', 'fused'):
+        model = QuanONet(10, 100, 2, Q10_NET, scale_coeff=0.1,
+                         engine=engine, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        opt = ScheduledOptimizer(torch.optim.Adam(model.parameters()),
+                                 schedule)
+        losses = []
+        for bi in idx:
+            loss = ((model(inputs[0][bi], inputs[1][bi]) - target[bi])
+                    ** 2).mean()
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+        runs[engine] = (losses, {k: v.detach().clone()
+                                 for k, v in model.state_dict().items()})
+    (lk, pk), (lf, pf) = runs['pfused'], runs['fused']
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lf))
+    param_err = max((pk[k] - pf[k]).abs().max().item() for k in pk)
+    moved = max((pk[k] - init[k]).abs().max().item() for k in pk)
+    emit({"phase": "train_parity_q10", "steps": PARITY_STEPS,
+          "losses_pfused": lk, "losses_fused": lf,
+          "max_loss_rel_diff": loss_rel, "max_param_abs_diff": param_err,
+          "max_param_moved": moved})
+    check(all(np.isfinite(lk)), "train_parity_q10: losses not finite")
+    check(loss_rel <= PARITY_LOSS_RTOL,
+          f"train_parity_q10: step losses differ by {loss_rel} relative")
+    check(param_err <= PARITY_PARAM_TOL,
+          f"train_parity_q10: parameters differ by {param_err}")
+
+
+def _zero_counts():
+    cuda_hea.launches = cuda_hea.bwd_launches = 0
+    cuda_fused.launches = cuda_fused.bwd_launches = 0
+
+
+def phase_train_q10():
+    """The training path at Q10: one epoch of the CLI (engine 'auto' ->
+    'pfused'); returns the fused kernels' launches in it."""
+    with tempfile.TemporaryDirectory() as tmp:
+        stdout = sys.stdout
+        _zero_counts()                # the path starts here
+        try:
+            solver = cli.main([
+                '--operator', 'Advection', '--model_type', 'QuanONet',
+                '--net_size', *map(str, Q10_NET), '--num_qubits', '10',
+                '--scale_coeff', '0.1', '--num_epochs', '1',
+                '--num_train', str(Q10_CLI_TRAIN), '--num_test', '20',
+                '--train_sample_num', '100', '--test_sample_num', '100',
+                '--learning_rate', '0.003', '--prefix',
+                os.path.join(tmp, 'outputs'), '--device', 'cuda'])
+        finally:
+            sys.stdout = stdout
+        torch.cuda.synchronize()
+        launches = (cuda_fused.launches, cuda_fused.bwd_launches)
+        other = (cuda_hea.launches, cuda_hea.bwd_launches)  # ... ends here
+        exp_dir = solver.exp_logger.exp_dir
+        with open(os.path.join(exp_dir, 'metric.json')) as f:
+            metrics = json.load(f)['metrics']
+        ckpt = os.path.join(exp_dir, 'best_model.ckpt')
+        written = [os.path.exists(ckpt),
+                   os.path.exists(ckpt.replace('.ckpt', '.npz'))]
+        want = solver.predict_test()
+        model, cfg = load_model(ckpt, 100, 2, device='cuda')
+        got = predict(model, solver.test_inputs[0], solver.test_inputs[1])
+        cli_err = float(np.abs(got - want).max())
+    emit({"phase": "train_q10", "cli_run_id": solver.run_id,
+          "engine": solver.model.engine, "reload_engine": cfg['engine'],
+          "cli_metrics": metrics, "cli_ckpt_written": written,
+          "cli_reload_max_abs_err": cli_err, "fwd_launches": launches[0],
+          "bwd_launches": launches[1], "hea_chain_launches": list(other)})
+    check(all(np.isfinite(v) for v in metrics.values()),
+          f"train_q10: CLI metric.json not finite: {metrics}")
+    check(all(written), "train_q10: CLI did not write best_model.ckpt/.npz")
+    check(cfg['engine'] == 'pfused', f"train_q10: reload engine "
+                                     f"{cfg['engine']}")
+    check(cli_err <= CLI_PRED_TOL,
+          f"train_q10: reloaded checkpoint predicts {cli_err} off the "
+          f"Solver's")
+    check(launches[0] > 0 and launches[1] > 0,
+          f"train_q10: fused kernel launches {launches}")
+    return launches
+
+
+def train_breakdown_q10(steps=10):
+    """Where one Q10 training step's time goes at batch 100: host clock
+    for the step, the forward and the Adam step; CUDA events for the two
+    fused-group kernels; a torch.profiler window for the card's busy
+    share.  Runs outside the counted windows."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device('cuda')
+    data = quick_data()
+    idx = epoch_permutation(0, 0, data['train_output'].shape[0])[:100].numpy()
+    b = torch.as_tensor(data['train_branch_input'][idx], device=dev)
+    t = torch.as_tensor(data['train_trunk_input'][idx], device=dev)
+    y = torch.as_tensor(data['train_output'][idx], device=dev)
+    model = QuanONet(10, 100, 2, Q10_NET, scale_coeff=0.1, device=dev,
+                     generator=torch.Generator().manual_seed(0))
+    opt = ScheduledOptimizer(torch.optim.Adam(model.parameters()),
+                             lambda s: 1e-3)
+
+    def loss():
+        return ((model(b, t) - y) ** 2).mean()
+
+    def step():
+        opt.zero_grad()
+        loss().backward()
+        opt.step()
+
+    x = torch.cat([model.trunk_freq(t), model.branch_freq(b)], dim=1)
+    lds = fused_gates.block_depths(model.spec)
+    ops = [a.detach() for a in fused_gates.prepare_fused_chain(
+        model.spec, model.ansatz, x)]
+    fwd = cuda_fused.chain_forward(*ops, lds, save_residuals=True)
+    g = torch.ones_like(fwd[0])
+    out = {
+        "engine": hea.resolve_engine(model.engine, 10, dev),
+        "step_ms": host_ms(step, steps),
+        "forward_ms": host_ms(loss, steps),
+        "adam_ms": host_ms(opt.step, steps),
+        "operands_forward_ms": host_ms(lambda: fused_gates.prepare_fused_chain(
+            model.spec, model.ansatz, x), steps),
+        "kernel_fwd_saved_ms": time_ms(lambda: cuda_fused.chain_forward(
+            *ops, lds, save_residuals=True), steps),
+        "kernel_bwd_ms": time_ms(lambda: cuda_fused.chain_backward(
+            *ops, lds, fwd[2], fwd[3], g, g), steps),
+    }
+    out.update(profile_steps(step, steps, profile, ProfilerActivity))
+    return out
+
+
+def profile_steps(step, steps, profile, activity):
+    """The card's busy share over ``steps`` calls of step() under
+    torch.profiler, and the kernels that take it."""
     try:
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[activity.CPU, activity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
                 step()
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
+        # the card's own rows (kernels, copies): a CPU op's device time is
+        # that of the kernels it launched, which have rows of their own
         kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   or _device_us(e) > 0]
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_us = sum(_device_us(e) for e in kernels)
+        if not busy_us:
+            return {"profiler_error": "no device rows in the trace"}
         top = sorted(kernels, key=_device_us, reverse=True)[:8]
-        out.update({
+        return {
             "profiled_steps": steps, "profiled_wall_ms": wall_us / 1e3,
             "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us,
             "device_kernels_per_step": sum(e.count for e in kernels) / steps,
             "top_device_ms_per_step": {
-                e.key[:60]: _device_us(e) / 1e3 / steps for e in top}})
+                e.key[:60]: _device_us(e) / 1e3 / steps for e in top}}
     except RuntimeError as e:     # the profiler is a measurement, no check
-        out["profiler_error"] = str(e)[:200]
-    return out
+        return {"profiler_error": str(e)[:200]}
+
+
+def _q10_checkpoint(tmp):
+    """The fixture's seeded Q10 weights as a .ckpt under an experiment-ID
+    directory, as the training CLI would write it; -> its path."""
+    fx = np.load(Q10_FIXTURE)
+    state = {k[len('sd.'):]: torch.as_tensor(fx[k]) for k in fx.files
+             if k.startswith('sd.')}
+    run = os.path.join(tmp, 'Advection_QuanONet_Net40-2-20-2_Q10_TF_S0.1_'
+                            '1000x100_Seed0')
+    os.makedirs(run)
+    path = os.path.join(run, 'best_model.ckpt')
+    ckpt_io.save_ms_ckpt(path, raw_from_state_dict(state, 'QuanONet'))
+    return path, fx['branch'], fx['trunk'], fx['pred']
+
+
+def phase_serve_q10():
+    """The served path at Q10: a seeded checkpoint through Predictor and
+    HTTP on `cuda`; returns the fused kernel's launches in it."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, fb, ft, fpred = _q10_checkpoint(tmp)
+        ref_model, ref_cfg = load_model(ckpt, 100, 2, device='cuda',
+                                        engine='fused')
+        rng = np.random.RandomState(17)
+        reqs = [(rng.randn(n, 100).astype(np.float32),
+                 rng.rand(n, 2).astype(np.float32))
+                for n in Q10_SERVE_REQUESTS]
+        refs = [predict(ref_model, b, t, cfg=ref_cfg) for b, t in reqs]
+
+        _zero_counts()                 # the served path starts here
+        t0 = time.time()
+        pred = Predictor(ckpt, branch_in=100, trunk_in=2, max_batch=1024,
+                         device='cuda')
+        check(pred.cfg['engine'] == 'pfused', f"engine {pred.cfg['engine']}")
+        warm_s = pred.warmup()
+        load_s = time.time() - t0
+        bucket_ms = {}
+        for b in pred.buckets:
+            times = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                pred.predict(np.zeros((b, 100), np.float32),
+                             np.zeros((b, 2), np.float32))
+                times.append(1e3 * (time.perf_counter() - t1))
+            bucket_ms[b] = float(np.median(times))
+        req_err = []
+        for (b, t), ref in zip(reqs, refs):
+            out = pred.predict(b, t)
+            check(out.shape == (b.shape[0], 1) and np.isfinite(out).all(),
+                  f"Q10 request of {b.shape[0]} rows: shape {out.shape} or "
+                  f"not finite")
+            req_err.append(float(np.abs(out - ref).max()))
+        fix_err = float(np.abs(pred.predict(fb, ft) - fpred).max())
+        srv = make_server(pred, host='127.0.0.1', port=0)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        try:
+            code, resp = _post(srv.server_port, '/predict',
+                               {"branch": fb.tolist(), "trunk": ft.tolist()})
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=30)
+        http_err = float(np.abs(np.asarray(resp['pred']) - fpred).max())
+        torch.cuda.synchronize()
+        launches = cuda_fused.launches  # ... and ends here
+        other = (cuda_hea.launches, cuda_fused.bwd_launches)
+    emit({"phase": "serve_q10", "engine": pred.cfg['engine'],
+          "load_and_warmup_s": load_s, "warmup_s": warm_s,
+          "bucket_latency_ms": bucket_ms,
+          "requests": list(Q10_SERVE_REQUESTS),
+          "request_max_abs_err_vs_fused": req_err,
+          "fixture_max_abs_err": fix_err, "http_status": code,
+          "http_buckets": resp['buckets'], "http_max_abs_err": http_err,
+          "kernel_launches": launches,
+          "other_launches": {"hea_chain": other[0],
+                             "fused_chain_bwd": other[1]}})
+    check(max(req_err) <= SERVE_TOL,
+          f"Q10 served requests differ from the fused engine by {req_err}")
+    check(fix_err <= SERVE_TOL,
+          f"Q10 served output differs from the JAX fixture by {fix_err}")
+    check(code == 200 and http_err <= SERVE_TOL,
+          f"Q10 HTTP /predict: status {code}, error {http_err}")
+    check(launches > 0, "the Q10 served path launched no fused kernel")
+    check(not thread.is_alive(), "server thread did not stop")
+    return launches
 
 
 def main():
@@ -644,10 +1134,21 @@ def main():
     phase_train_parity()
     (train_fwd, train_bwd), _ = phase_train()
     emit({"phase": "train_breakdown", "batch": 100, **train_breakdown()})
+    fused_records = phase_kernel_fused()
+    fused_bwd_records = phase_kernel_fused_bwd()
+    phase_train_parity_q10()
+    q10_train_fwd, q10_train_bwd = phase_train_q10()
+    emit({"phase": "train_breakdown_q10", "batch": 100,
+          **train_breakdown_q10()})
+    q10_serve = phase_serve_q10()
     head = next(r for r in records
                 if r['nq'] == 5 and r['N'] == 8192)
     step = next(r for r in bwd_records
                 if r['nq'] == 5 and r['N'] == 100)
+    fhead = next(r for r in fused_records
+                 if r['nq'] == 10 and r['N'] == 100)
+    fstep = next(r for r in fused_bwd_records
+                 if r['nq'] == 10 and r['N'] == 100)
     emit({"kernels": [{
         "name": "hea_chain_fwd", "route": "cuda",
         "source": "quanonet_torch/csrc/hea_chain.cu",
@@ -680,7 +1181,43 @@ def main():
         "bound_ms": step['bound_ms'], "bound_by": step['bound_by'],
         "library_ms": None,
         "timed_shape": {"nb": step['nb'], "N": step['N'], "D": step['D']},
-        "shapes": [[r['nb'], r['N'], r['D']] for r in bwd_records]}]})
+        "shapes": [[r['nb'], r['N'], r['D']] for r in bwd_records]}, {
+        "name": "fused_chain_fwd", "route": "cuda",
+        "source": "quanonet_torch/csrc/fused_chain.cu",
+        "replaces": "quanonet_tpu/ops/pallas_fused.py:492",
+        "twin": "quanonet_torch/ops/fused_gates.py:chain_fused, "
+                "chain_fused_saved",
+        "launches": q10_serve + q10_train_fwd,
+        "launches_by_path": {"serve_q10": q10_serve,
+                             "train_q10": q10_train_fwd},
+        "max_abs_err": max(max(r['max_abs_err_amp'],
+                               r.get('max_abs_err_states', 0.0))
+                           for r in fused_records),
+        "max_abs_err_expect": max(r['max_abs_err_expect']
+                                  for r in fused_records),
+        "ms": fhead['ms'], "plain_ms": fhead['plain_ms'],
+        "bound_ms": fhead['bound_ms'], "bound_by": fhead['bound_by'],
+        "library_ms": None,
+        "timed_shape": {"nq": 10, "nb": fhead['nb'], "N": fhead['N'],
+                        "D": fhead['D']},
+        "residual_variant_ms": fhead['saved_ms'],
+        "fused_engine_ms": fhead['fused_engine_ms'],
+        "pfused_engine_ms": fhead['pfused_engine_ms'],
+        "shapes": [[r['nq'], r['nb'], r['N']] for r in fused_records]}, {
+        "name": "fused_chain_bwd", "route": "cuda",
+        "source": "quanonet_torch/csrc/fused_chain.cu",
+        "replaces": "quanonet_tpu/ops/pallas_fused.py:570",
+        "twin": "quanonet_torch/ops/fused_gates.py:chain_fused_backward",
+        "launches": q10_train_bwd,
+        "launches_by_path": {"serve_q10": 0, "train_q10": q10_train_bwd},
+        "max_abs_err": max(max(r['max_abs_err'].values())
+                           for r in fused_bwd_records),
+        "ms": fstep['ms'], "plain_ms": fstep['plain_ms'],
+        "bound_ms": fstep['bound_ms'], "bound_by": fstep['bound_by'],
+        "library_ms": None,
+        "timed_shape": {"nq": 10, "nb": fstep['nb'], "N": fstep['N'],
+                        "D": fstep['D']},
+        "shapes": [[r['nq'], r['nb'], r['N']] for r in fused_bwd_records]}]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

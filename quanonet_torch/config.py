@@ -40,7 +40,8 @@ DEFAULTS = {
     # the one engine.  'engine' selects the gate-application strategy.
     'quantum_backend': 'mindquantum',
     'classical_backend': 'pytorch',
-    'engine': 'auto',                # 'auto' | 'dense' | 'gates' | 'pallas'
+    # 'auto' | 'dense' | 'gates' | 'pallas' | 'fused' | 'pfused'
+    'engine': 'auto',
 }
 
 
@@ -103,7 +104,12 @@ def get_base_parser():
                         choices=['auto', 'dense', 'gates', 'fused', 'pallas',
                                  'embed', 'pfused'],
                         help='Gate-application strategy for the statevector '
-                             'engine (pallas = the CUDA kernels)')
+                             'engine: pallas = the block-chain CUDA kernels '
+                             '(up to 7 qubits), pfused = the fused-group '
+                             'chain CUDA kernels (8..16 qubits), fused = '
+                             'the grouped-kron PyTorch engine; auto picks '
+                             'as the JAX package does; embed is not '
+                             'ported yet (ROADMAP §B3)')
     parser.add_argument('--num_devices', type=int, default=None,
                         help='Devices for data parallelism: not ported yet '
                              '(ROADMAP §A12)')

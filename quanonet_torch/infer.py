@@ -156,7 +156,7 @@ def _resolve_config(ckpt_path: str, overrides: dict) -> dict:
 
 def _build_model(cfg: dict, branch_in: int, trunk_in: int, device):
     from quanonet_torch.models import HEAQNN, QuanONet
-    from quanonet_torch.ops.hea import resolve_engine
+    from quanonet_torch.ops.hea import resolve_inference_engine
 
     mt = cfg['model_type']
     if mt not in QUANTUM_MODELS:
@@ -170,7 +170,8 @@ def _build_model(cfg: dict, branch_in: int, trunk_in: int, device):
         cfg = {**cfg, 'noise_p': None}
     nq = int(cfg['num_qubits'])
     kw = dict(num_qubits=nq,
-              engine=resolve_engine(cfg.get('engine') or 'auto', nq, device),
+              engine=resolve_inference_engine(cfg.get('engine') or 'auto',
+                                              nq, device),
               net_size=tuple(cfg['net_size']),
               scale_coeff=float(cfg['scale_coeff']),
               if_trainable_freq=bool(cfg['if_trainable_freq']),

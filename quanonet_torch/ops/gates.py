@@ -20,18 +20,56 @@ import numpy as np
 import torch
 
 
+class _PermGather(torch.autograd.Function):
+    """out = (sr, si) gathered by ``idx`` along ``axis``.  A permutation's
+    transpose is its inverse, so the backward is the gather by ``inv``
+    (autograd's own backward of ``index_select`` would scatter-add into
+    zeros, which gives the same bits with a memset and a scatter)."""
+
+    @staticmethod
+    def forward(ctx, sr, si, idx, inv, axis):
+        ctx.inv, ctx.axis = inv, axis
+        return sr.index_select(axis, idx), si.index_select(axis, idx)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        return (gr.index_select(ctx.axis, ctx.inv),
+                gi.index_select(ctx.axis, ctx.inv), None, None, None)
+
+
 def make_perm_apply(perm: np.ndarray, axis: int = -1):
-    """Permutation gather along ``axis`` on the (re, im) pair.  Autograd's
-    own backward of ``index_select`` is a scatter-add, which is right for
-    a permutation; a gather-based backward comes with the training
-    slice."""
+    """Permutation gather along ``axis`` on the (re, im) pair:
+    out[..., k, ...] = s[..., perm[k], ...], differentiable with the gather
+    by the inverse permutation as its backward.  The index tensors are
+    copied to each device once, on first use there."""
     idx = np.asarray(perm, dtype=np.int64)
+    inv = np.empty_like(idx)
+    inv[idx] = np.arange(idx.size, dtype=np.int64)
+    on_device = {}
 
     def apply(sr, si):
-        i = torch.as_tensor(idx, device=sr.device)
-        return sr.index_select(axis, i), si.index_select(axis, i)
+        pair = on_device.get(sr.device)
+        if pair is None:
+            pair = (torch.as_tensor(idx, device=sr.device),
+                    torch.as_tensor(inv, device=sr.device))
+            on_device[sr.device] = pair
+        return _PermGather.apply(sr, si, *pair, axis)
 
     return apply
+
+
+@lru_cache(maxsize=None)
+def ring_apply(n_qubits: int, axis: int = -1):
+    """The CNOT ring on the register (or on the rows of an operator with
+    ``axis=-2``): the gather by :func:`cnot_ring_inverse_permutation`."""
+    return make_perm_apply(cnot_ring_inverse_permutation(n_qubits), axis)
+
+
+@lru_cache(maxsize=None)
+def ring_adjoint_apply(n_qubits: int):
+    """The ring's transpose, which is its inverse: the gather by
+    :func:`cnot_ring_permutation`."""
+    return make_perm_apply(cnot_ring_permutation(n_qubits))
 
 
 def ry_matrix(theta):

@@ -12,7 +12,7 @@ Weights: (total_sublayers, 3, n_qubits), sublayers in circuit order (trunk
 blocks first for QuanONet), gate order [RY, RZ, RY'].  A statevector is the
 split pair (sr, si), each (batch, 2^n) float32.
 
-Engines of this slice:
+Engines:
 
 * ``dense``: each block's ansatz stack compiles to one (2^n, 2^n) unitary;
   with the Hadamards folded in, the circuit is a chain of block matrices
@@ -25,6 +25,16 @@ Engines of this slice:
   package so that
   configs and ``--engine`` values mean the same thing.
 * ``gates``: literal gate-by-gate application (oracle).
+* ``fused``: the grouped-kron engine for 8 qubits and up
+  (ops/fused_gates.py): per-qubit 2x2s applied in qubit groups, never a
+  D×D matrix, differentiated by autograd.
+* ``pfused``: the fused-group chain through the hand-written CUDA kernels
+  (ops/cuda_fused.py), 8..16 qubits forward, to 14 with a gradient.
+
+``auto`` takes ``pallas`` on a card and ``dense`` on the CPU below 8
+qubits; from 8 qubits ``pfused`` on a card up to 14 and ``fused`` above and
+on the CPU (the JAX package's routing, hea.py:436-454), and for no-grad
+callers (:func:`resolve_inference_engine`) ``pfused`` at 15-16 on a card.
 """
 from dataclasses import dataclass
 
@@ -32,10 +42,9 @@ import numpy as np
 import torch
 
 from quanonet_torch.ops.gates import (
-    cnot_ring_inverse_permutation,
     hadamard_kron,
     kron_chain,
-    make_perm_apply,
+    ring_apply,
     ry_matrix,
     z_signs,
 )
@@ -154,7 +163,7 @@ def _rx_single(sr, si, q, theta, n_qubits):
 def _apply_ring(sr, si, n_qubits):
     if n_qubits <= 1:
         return sr, si
-    return make_perm_apply(cnot_ring_inverse_permutation(n_qubits))(sr, si)
+    return ring_apply(n_qubits)(sr, si)
 
 
 # ── dense path: compile ansatz stacks to block unitaries ────────────────────
@@ -176,9 +185,7 @@ def _sublayer_unitary(w, n_qubits):
     zi = -torch.sin(phase)                               # Im e^{-i phase}
     ur = u_ry2 @ (zr[..., :, None] * u_ry1)
     ui = u_ry2 @ (zi[..., :, None] * u_ry1)
-    ring_rows = make_perm_apply(cnot_ring_inverse_permutation(n_qubits),
-                                axis=-2)
-    return ring_rows(ur, ui)
+    return ring_apply(n_qubits, -2)(ur, ui)
 
 
 def compile_block_unitaries(spec: HEASpec, weights):
@@ -223,9 +230,10 @@ def encoding_phases(spec: HEASpec, x):
     """Raw encoding phases φ (n_blocks, batch, 2^n):
     φ_{b,k} = ½ Σ_i zsign[k, i] · x_{b,i}, x block-major (batch, nb·n).
 
-    Written as an explicit sum over the K = n ≤ 7 qubits, not a matmul, so
-    it stays exact fp32 whatever the matmul precision (TF32 rounding here
-    random-walks into ~2% output error over a 60-block chain)."""
+    Written as an explicit sum over the K = n qubits, not a matmul, so it
+    stays exact fp32 whatever the matmul precision (TF32 rounding here
+    random-walks into ~2% output error over a 60-block chain).  At Q10 and
+    a batch of 8192 it is 60 × 8192 × 1024 × 4 B = 2.0 GB."""
     n = spec.n_qubits
     xb = x.reshape(x.shape[0], spec.n_blocks, n).transpose(0, 1)
     zsgn = _table(z_signs(n), x)                         # (D, n)
@@ -416,32 +424,47 @@ FUSED_MIN_QUBITS = 8  # the JAX package auto-routes n >= 8 to its fused engines
 ENGINES = ('dense', 'gates', 'fused', 'pallas', 'embed', 'pfused')
 
 _UNPORTED = {
-    'fused': "the grouped-kron engine 'fused' is not ported yet "
-             "(ROADMAP §A8)",
-    'pfused': "the fused-group chain kernel 'pfused' is not ported yet "
-              "(ROADMAP §B2)",
     'embed': "the real-embedding chain kernel 'embed' is not ported yet "
              "(ROADMAP §B3)",
 }
 
 
 def resolve_engine(engine, n_qubits: int, device) -> str:
-    """Engine name -> the engine that runs.  ``'auto'`` is the CUDA kernel
-    (``'pallas'``) on a card and the plain chain (``'dense'``) on the CPU;
-    explicit ``'dense'``, ``'gates'`` and ``'pallas'`` are honoured on
-    either device.  Engines of later slices raise, never reroute."""
+    """Engine name -> the engine that runs.  ``'auto'``: below
+    FUSED_MIN_QUBITS the block-chain kernels (``'pallas'``) on a card and
+    the plain chain (``'dense'``) on the CPU; from there the fused-group
+    chain kernels (``'pfused'``) on a card up to
+    cuda_fused.AUTO_MAX_QUBITS, the grouped-kron engine (``'fused'``) above
+    and on the CPU.  Explicit engines are honoured on either device;
+    engines of later slices raise, never reroute."""
     if engine in ('auto', None):
+        cuda = torch.device(device).type == 'cuda'
         if n_qubits >= FUSED_MIN_QUBITS:
-            raise NotImplementedError(
-                f"engine 'auto' at {n_qubits} qubits needs the fused-group "
-                f"engines, not ported yet (ROADMAP §A8, §B2)")
-        return 'pallas' if torch.device(device).type == 'cuda' else 'dense'
+            from quanonet_torch.ops.cuda_fused import AUTO_MAX_QUBITS
+            return 'pfused' if cuda and n_qubits <= AUTO_MAX_QUBITS \
+                else 'fused'
+        return 'pallas' if cuda else 'dense'
     if engine in _UNPORTED:
         raise NotImplementedError(_UNPORTED[engine])
     if engine not in ENGINES:
         raise ValueError(f"unknown engine '{engine}' (choose from "
                          f"{('auto',) + ENGINES})")
     return engine
+
+
+def resolve_inference_engine(engine, n_qubits: int, device) -> str:
+    """Engine choice for no-grad callers (infer.py, serve.py): as
+    :func:`resolve_engine`, except that at 15-16 qubits on a card ``auto``
+    takes the primal-only fused-group chain kernel, which serves those
+    widths but cannot train them (the JAX package's
+    hea.resolve_inference_engine)."""
+    if engine in ('auto', None) and torch.device(device).type == 'cuda':
+        from quanonet_torch.ops.cuda_fused import (
+            MAX_QUBITS, TRAIN_MAX_QUBITS,
+        )
+        if TRAIN_MAX_QUBITS < n_qubits <= MAX_QUBITS:
+            return 'pfused'
+    return resolve_engine(engine, n_qubits, device)
 
 
 def hea_forward_pair(spec: HEASpec, weights, x, engine='auto'):
@@ -451,6 +474,12 @@ def hea_forward_pair(spec: HEASpec, weights, x, engine='auto'):
         return forward_dense(spec, weights, x)
     if engine == 'gates':
         return forward_gates(spec, weights, x)
+    if engine == 'fused':
+        from quanonet_torch.ops.fused_gates import forward_fused
+        return forward_fused(spec, weights, x)
+    if engine == 'pfused':
+        from quanonet_torch.ops.cuda_fused import forward_pfused
+        return forward_pfused(spec, weights, x)
     from quanonet_torch.ops.cuda_hea import forward_pallas
     return forward_pallas(spec, weights, x)
 
@@ -470,6 +499,9 @@ def hea_expectation(spec: HEASpec, weights, x, diag=None, pauli='Z',
         if resolved == 'pallas':
             from quanonet_torch.ops.cuda_hea import hea_expectation_pallas
             return hea_expectation_pallas(spec, weights, x, diag)
+        if resolved == 'pfused':
+            from quanonet_torch.ops.cuda_fused import hea_expectation_pfused
+            return hea_expectation_pfused(spec, weights, x, diag)
     sr, si = hea_forward_pair(spec, weights, x, engine=resolved)
     if pauli == 'Z':
         return diag_expectation_pair(sr, si, diag)

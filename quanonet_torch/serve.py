@@ -10,6 +10,10 @@ quanonet_tpu/serve.py), on ``cuda`` unless ``--device cpu`` is asked for.
 * **Parameters on the device once**; requests carry data only.  The
   threaded handler serialises device work under one lock, the right
   behaviour for a one-card server.
+* **Memory.**  A bucket's chain operands grow with the register: from 8
+  qubits the raw phases are (blocks, bucket, 2^n) fp32, 2.0 GB for a Q10
+  Net40-2-20-2 model at bucket 8192 (60 × 8192 × 1024 × 4 B), beside the
+  state's 2 × 8192 × 1024 × 4 B; lower --max_batch for wider registers.
 
 CLI:  python -m quanonet_torch.serve --ckpt <best_model.ckpt|.npz>
           --branch_in 100 [--trunk_in 2] [--port 8777] [--max_batch 8192]

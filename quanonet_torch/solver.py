@@ -7,9 +7,11 @@ loops: an epoch is a loop over shuffled, masked minibatches
 (:func:`make_train_epoch`), a segment a loop over epochs with best-epoch
 parameter tracking (:func:`make_run_segment`).  The loss of each step stays
 on the card; the host reads one value per epoch.  Under autograd the
-``pallas`` engine runs the CUDA block-chain kernels forward and backward
-(ops/cuda_hea.BlockChain); evaluation runs under ``torch.inference_mode``
-and takes the primal-only forward kernel.
+``pallas`` engine (up to 7 qubits) runs the CUDA block-chain kernels
+forward and backward (ops/cuda_hea.BlockChain), the ``pfused`` engine
+(8..14 qubits) the fused-group chain kernels (ops/cuda_fused.FusedChain);
+evaluation runs under ``torch.inference_mode`` and takes the primal-only
+forward kernels.
 
 Contract kept from the JAX package: resume-skip on metric.json, best and
 final checkpoints in both reference formats (.npz + MindSpore .ckpt),

@@ -1,7 +1,8 @@
 """
-The CUDA block-chain kernels (quanonet_torch/csrc/hea_chain.cu: the
-forward, its residual-saving variant and the backward) against their plain
-versions on the card.  Marked ``cuda``: without a card each test skips; on
+The CUDA kernels against their plain versions on the card: the block chain
+(quanonet_torch/csrc/hea_chain.cu: the forward, its residual-saving
+variant and the backward) and the fused-group chain (csrc/fused_chain.cu,
+8..16 qubits, the same three).  Marked ``cuda``: without a card each test skips; on
 the card run them with
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda
@@ -142,3 +143,119 @@ def test_model_training_step_matches_dense(card):
     assert out['pallas'][0] == pytest.approx(out['dense'][0], rel=1e-5)
     for k, v in out['pallas'][1].items():
         assert (v - out['dense'][1][k]).abs().max().item() <= 1e-5, k
+
+
+# ── the fused-group chain kernels (csrc/fused_chain.cu) ─────────────────────
+
+def _fused_operands(nq, net, n, seed, device, configs=None):
+    from quanonet_torch.ops import fused_gates
+    spec = hea.HEASpec(nq, configs) if configs else hea.quanonet_spec(nq, net)
+    rng = np.random.RandomState(seed)
+    w = torch.tensor(rng.uniform(-np.pi, np.pi, spec.weight_shape())
+                     .astype(np.float32), device=device)
+    x = torch.tensor(rng.uniform(-4, 4, (n, spec.total_encode))
+                     .astype(np.float32), device=device)
+    with torch.no_grad():
+        ops = fused_gates.prepare_fused_chain(spec, w, x)
+    return spec, ops, fused_gates.block_depths(spec), rng
+
+
+@pytest.mark.parametrize("nq,net,n,configs", [
+    (8, (3, 2, 2, 1), 5, None), (9, (2, 1, 2, 2), 7, None),
+    (8, None, 5, ((8, 1), (8, 0), (8, 2), (8, 0))),
+    (10, (40, 2, 20, 2), 100, None), (12, (1, 1, 1, 1), 9, None),
+    (13, (1, 1, 1, 1), 3, None), (14, (1, 1, 1, 1), 2, None),
+    (16, (1, 1, 1, 1), 2, None),
+])
+def test_fused_kernel_matches_plain(card, nq, net, n, configs):
+    """B2f against chain_fused, in shared memory (to 13 qubits) and in
+    device memory (from 14)."""
+    from quanonet_torch.ops import cuda_fused, fused_gates
+    spec, ops, lds, _ = _fused_operands(nq, net, n, nq, card, configs)
+    before = cuda_fused.launches
+    kr, ki = cuda_fused.fused_chain(*ops, lds)
+    torch.cuda.synchronize()
+    assert cuda_fused.launches == before + 1
+    pr, pi = fused_gates.chain_fused(*ops, lds)
+    assert (kr - pr).abs().max().item() <= 2e-5
+    assert (ki - pi).abs().max().item() <= 2e-5
+    diag = torch.as_tensor(simple_ham_diag(nq, -5, 5), device=card)
+    ek = hea.diag_expectation_pair(kr, ki, diag)
+    ep = hea.diag_expectation_pair(pr, pi, diag)
+    assert (ek - ep).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("nq,net,n,configs", [
+    (8, (3, 2, 2, 1), 5, None), (9, (2, 1, 2, 2), 7, None),
+    (8, None, 5, ((8, 1), (8, 0), (8, 2), (8, 0))),
+    (10, (40, 2, 20, 2), 100, None), (12, (1, 1, 1, 1), 9, None),
+    (13, (1, 1, 1, 1), 3, None), (14, (1, 1, 1, 1), 2, None),
+])
+def test_fused_backward_kernels_match_plain(card, nq, net, n, configs):
+    """B2b against chain_fused_backward, the residual variant against
+    chain_fused_saved; two backward calls give equal bits."""
+    from quanonet_torch.ops import cuda_fused, fused_gates
+    spec, ops, lds, rng = _fused_operands(nq, net, n, 10 + nq, card, configs)
+    g = [torch.tensor(rng.randn(n, spec.dim).astype(np.float32),
+                      device=card) for _ in range(2)]
+    sr, si, st_r, st_i = cuda_fused.chain_forward(*ops, lds,
+                                                  save_residuals=True)
+    got = cuda_fused.chain_backward(*ops, lds, st_r, st_i, *g)
+    again = cuda_fused.chain_backward(*ops, lds, st_r, st_i, *g)
+    torch.cuda.synchronize()
+    pr, pi, pst_r, pst_i = fused_gates.chain_fused_saved(*ops, lds)
+    for a, b in ((sr, pr), (si, pi), (st_r, pst_r), (st_i, pst_i)):
+        assert (a - b).abs().max().item() <= 2e-5
+    want = fused_gates.chain_fused_backward(*ops, lds, (pst_r, pst_i), *g)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert (a - b).abs().max().item() <= _bwd_tol(b)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    qr, qi = cuda_fused.chain_forward(*ops, lds)
+    assert torch.equal(qr, sr) and torch.equal(qi, si)
+
+
+def test_fused_kernel_rejects_bad_inputs(card):
+    from quanonet_torch.ops import cuda_fused
+    _, (u7r, u7i, u2r, u2i, phi), lds, _ = _fused_operands(
+        9, (2, 1, 2, 1), 4, 0, card)
+    with pytest.raises(TypeError, match='float32'):
+        cuda_fused.fused_chain(u7r.double(), u7i, u2r, u2i, phi, lds)
+    with pytest.raises(ValueError, match='contiguous'):
+        cuda_fused.fused_chain(u7r.transpose(1, 2), u7i, u2r, u2i, phi, lds)
+    with pytest.raises(ValueError, match='must be'):
+        cuda_fused.fused_chain(u7r[:1], u7i, u2r, u2i, phi, lds)
+    with pytest.raises(ValueError, match='block depths'):
+        cuda_fused.fused_chain(u7r, u7i, u2r, u2i, phi, lds[:-1])
+    # with a gradient the chain goes through FusedChain: the residual
+    # forward, then the backward kernels
+    before = (cuda_fused.launches, cuda_fused.bwd_launches)
+    sr, si = cuda_fused.fused_chain(u7r.requires_grad_(), u7i, u2r, u2i,
+                                    phi, lds)
+    (sr.sum() + si.sum()).backward()
+    torch.cuda.synchronize()
+    assert (cuda_fused.launches, cuda_fused.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert u7r.grad is not None and torch.isfinite(u7r.grad).all()
+
+
+def test_q8_training_step_pfused_matches_fused(card):
+    """One Adam step of a Q8 QuanONet through the fused-group kernels
+    equals autograd of the grouped-kron engine on the card."""
+    from quanonet_torch.models import QuanONet
+    rng = np.random.RandomState(0)
+    b = torch.tensor(rng.randn(64, 8).astype(np.float32), device=card)
+    t = torch.tensor(rng.rand(64, 2).astype(np.float32), device=card)
+    y = torch.tensor(rng.randn(64, 1).astype(np.float32), device=card)
+    out = {}
+    for engine in ('pfused', 'fused'):
+        model = QuanONet(8, 8, 2, (6, 2, 4, 2), engine=engine, device=card,
+                         generator=torch.Generator().manual_seed(1))
+        opt = torch.optim.Adam(model.parameters(), lr=0.01)
+        loss = ((model(b, t) - y) ** 2).mean()
+        loss.backward()
+        opt.step()
+        out[engine] = (loss.item(), model.state_dict())
+    assert out['pfused'][0] == pytest.approx(out['fused'][0], rel=1e-5)
+    for k, v in out['pfused'][1].items():
+        assert (v - out['fused'][1][k]).abs().max().item() <= 1e-5, k

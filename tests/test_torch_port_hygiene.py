@@ -1,7 +1,7 @@
 """
 Boundaries of the port: it imports nothing of JAX or of the JAX package,
-its entry points refuse to fall back to the CPU, and engines of later
-slices raise instead of rerouting.
+its entry points refuse to fall back to the CPU, engines route as the JAX
+package's do, and engines of later slices raise instead of rerouting.
 """
 import os
 import subprocess
@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from quanonet_torch import resolve_device
-from quanonet_torch.ops.hea import resolve_engine
+from quanonet_torch.ops.hea import resolve_engine, resolve_inference_engine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ANTIDERIV = os.path.join(
@@ -41,7 +41,7 @@ def test_port_imports_no_jax():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 23
+    assert n_modules >= 26
 
 
 def test_entry_points_refuse_cpu_fallback():
@@ -76,16 +76,48 @@ def test_engine_resolution():
 @pytest.mark.parametrize("engine,item", [('fused', 'A8'), ('pfused', 'B2'),
                                          ('embed', 'B3')])
 def test_unported_engines_raise(engine, item):
+    """'embed' (ROADMAP §B3) raises naming its item; 'fused' (§A8) and
+    'pfused' (§B2) are ported and honoured on either device."""
     for dev in ('cpu', 'cuda'):
-        with pytest.raises(NotImplementedError, match=item):
-            resolve_engine(engine, 5, torch.device(dev))
+        if engine == 'embed':
+            with pytest.raises(NotImplementedError, match=item):
+                resolve_engine(engine, 5, torch.device(dev))
+        else:
+            for nq in (5, 10, 16):
+                assert resolve_engine(engine, nq, torch.device(dev)) == engine
 
 
 def test_auto_at_eight_qubits_raises():
-    with pytest.raises(NotImplementedError, match='B2'):
-        resolve_engine('auto', 8, torch.device('cuda'))
-    with pytest.raises(NotImplementedError, match='B2'):
-        resolve_engine('auto', 10, torch.device('cpu'))
+    """From 8 qubits 'auto' routes as the JAX package's (hea.py:436-472):
+    'pfused' on a card up to 14 qubits, 'fused' above and on the CPU; a
+    no-grad caller takes 'pfused' at 15-16 on a card.  'pfused' itself
+    raises outside 8..16 qubits and with a gradient above 14."""
+    from quanonet_torch.ops import cuda_fused
+    from quanonet_torch.ops.hea import HEASpec
+    cpu, cuda = torch.device('cpu'), torch.device('cuda')
+    for nq in range(8, 15):
+        assert resolve_engine('auto', nq, cuda) == 'pfused'
+        assert resolve_inference_engine('auto', nq, cuda) == 'pfused'
+    for nq in range(8, 18):
+        assert resolve_engine('auto', nq, cpu) == 'fused'
+        assert resolve_inference_engine('auto', nq, cpu) == 'fused'
+    for nq in (15, 16):
+        assert resolve_engine('auto', nq, cuda) == 'fused'
+        assert resolve_inference_engine('auto', nq, cuda) == 'pfused'
+    assert resolve_engine('auto', 17, cuda) == 'fused'
+    assert resolve_inference_engine('auto', 17, cuda) == 'fused'
+    assert resolve_inference_engine('auto', 7, cuda) == 'pallas'
+    assert resolve_inference_engine('dense', 15, cuda) == 'dense'
+    for nq in (7, 17):
+        spec = HEASpec(nq, ((nq, 1),))
+        with pytest.raises(ValueError, match="engine 'pfused' takes 8..16"):
+            cuda_fused.forward_pfused(spec, torch.zeros(1, 3, nq),
+                                      torch.zeros(1, nq))
+    ops = [torch.zeros(1, 128, 128), torch.zeros(1, 128, 128),
+           torch.zeros(1, 8, 4), torch.zeros(1, 8, 4),
+           torch.zeros(1, 1, 2 ** 15, requires_grad=True)]
+    with pytest.raises(ValueError, match="engine='fused'"):
+        cuda_fused.fused_chain(*ops, (1,))
 
 
 def test_classical_model_types_raise():
