@@ -72,8 +72,35 @@ Phases, each printed as one JSON line:
              'fused' engine, the fixture's 64 rows against the JAX
              package's predictions (atol 1e-4).
 
-Each path (serve, train, train_q10, serve_q10) starts with every launch
-count at 0 and reads them when it ends.  Then the {"kernels": [...]} line,
+13. kernel_ucomp — the block-matrix compile kernels (csrc/ucomp.cu)
+             against ucomp_dense / ucomp_backward_dense at the flagship
+             (nb 60, ld 2, D 32), Q2 ld 1, Q3 ld 3, HEAQNN Q4, Q6 and Q7
+             Net40-2-20-2 (D = 128) and a single block: forward to 2e-5,
+             backward to 1e-4 x max(1, max|plain|), two backward calls
+             bit-equal, median times, the bound (ucomp_counts), what the
+             smallest launch costs, and at the flagship the autograd fold
+             they replace (hea.fold_block_mats) with its device rows.
+14. kernel_adam — the one-launch Adam (csrc/adam.cu) against
+             adam_step_dense on the flagship's six leaves over 25 steps
+             (atol 2e-6, rtol 1e-5), two runs bit-equal, its time and
+             bound, and torch.optim.Adam(fused=True) as the yardstick.
+15. train_parity_ucomp — 20 Adam steps of the flagship with USE_UCOMP on
+             and FusedAdam against train_parity's default run (the fold
+             and torch.optim.Adam) on the same batches.
+16. profile_step — quanonet_torch.profile_step.main at full width on
+             `cuda`, twice: the default path (the compile and Adam kernels
+             must stay unlaunched), then USE_UCOMP on with --fused_adam
+             (B1f, B1b, B4f, B4b and B5 all launched).  Then, outside the
+             counted windows, the step at batch 100 in four arms (default,
+             +ucomp, +fused Adam, both), interleaved in one process:
+             step_ms, device rows a step and the card's busy share.
+17. serve_ucomp — the Advection anchor through load_model -> Predictor ->
+             HTTP with USE_UCOMP on: the JAX fixture within 1e-4, the
+             compile kernel's count up; then buckets 1 and 8192 with the
+             toggle on and off, in turns.
+
+Each path (serve, train, train_q10, serve_q10, profile_step, serve_ucomp)
+starts with every launch count at 0 and reads them when it ends.  Then the {"kernels": [...]} line,
 the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failed
 check exits non-zero before the last line.  Needs one card; exits 1
 without CUDA.
@@ -93,13 +120,15 @@ import numpy as np
 import torch
 from torch.utils import cpp_extension
 
-from quanonet_torch import bench, cli
+from quanonet_torch import bench, cli, profile_step
 from quanonet_torch.data.manager import DataManager
 from quanonet_torch.infer import load_model, predict
 from quanonet_torch.models import QuanONet
 from quanonet_torch import checkpoint as ckpt_io
 from quanonet_torch.convert import raw_from_state_dict
-from quanonet_torch.ops import _build, cuda_fused, cuda_hea, fused_gates, hea
+from quanonet_torch.ops import (
+    _build, cuda_adam, cuda_fused, cuda_hea, cuda_ucomp, fused_gates, hea,
+)
 from quanonet_torch.ops.hamiltonian import simple_ham_diag
 from quanonet_torch.serve import Predictor, make_server
 from quanonet_torch.solver import (
@@ -236,7 +265,8 @@ def phase_device():
 
 def phase_build():
     """Every kernel source, one nvcc each, all started together."""
-    names = (cuda_hea.KERNEL, cuda_fused.KERNEL)
+    names = (cuda_hea.KERNEL, cuda_fused.KERNEL, cuda_ucomp.KERNEL,
+             cuda_adam.KERNEL)
     t0 = time.time()
 
     def build(name):
@@ -495,16 +525,38 @@ def quick_data():
     return DataManager(cfg, data_dir=os.path.join(REPO, 'data')).get_data()
 
 
-def phase_train_parity():
-    """20 Adam steps, kernels against autograd of the plain chain."""
-    dev = torch.device('cuda')
+def _parity_batches(dev):
+    """The parity runs' data: (inputs, target, PARITY_STEPS batches of 100
+    sample indices, the learning-rate schedule)."""
     data = quick_data()
     inputs = (torch.as_tensor(data['train_branch_input'], device=dev),
               torch.as_tensor(data['train_trunk_input'], device=dev))
     target = torch.as_tensor(data['train_output'], device=dev)
     idx = epoch_permutation(0, 0, target.shape[0])[:100 * PARITY_STEPS]
     idx = idx.to(dev).reshape(PARITY_STEPS, 100)
-    schedule = _decay_tuple_schedule(3e-3, ('cosine', 2000, 0.0), None)
+    return inputs, target, idx, _decay_tuple_schedule(
+        3e-3, ('cosine', 2000, 0.0), None)
+
+
+def _parity_steps(model, opt, inputs, target, idx):
+    """One step per batch of idx; -> (losses, final parameters)."""
+    losses = []
+    for bi in idx:
+        loss = ((model(inputs[0][bi], inputs[1][bi]) - target[bi])
+                ** 2).mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    return losses, {k: v.detach().clone()
+                    for k, v in model.state_dict().items()}
+
+
+def phase_train_parity():
+    """20 Adam steps, kernels against autograd of the plain chain; returns
+    the kernels' run (losses, parameters)."""
+    dev = torch.device('cuda')
+    inputs, target, idx, schedule = _parity_batches(dev)
     runs = {}
     for engine in ('pallas', 'dense'):
         model = QuanONet(5, 100, 2, (40, 2, 20, 2), scale_coeff=0.1,
@@ -513,16 +565,7 @@ def phase_train_parity():
         init = {k: v.detach().clone() for k, v in model.state_dict().items()}
         opt = ScheduledOptimizer(torch.optim.Adam(model.parameters()),
                                  schedule)
-        losses = []
-        for bi in idx:
-            loss = ((model(inputs[0][bi], inputs[1][bi]) - target[bi])
-                    ** 2).mean()
-            opt.zero_grad()
-            loss.backward()
-            opt.step()
-            losses.append(loss.item())
-        runs[engine] = (losses, {k: v.detach().clone()
-                                 for k, v in model.state_dict().items()})
+        runs[engine] = _parity_steps(model, opt, inputs, target, idx)
     (lk, pk), (ld, pd) = runs['pallas'], runs['dense']
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, ld))
     param_err = max((pk[k] - pd[k]).abs().max().item() for k in pk)
@@ -535,6 +578,7 @@ def phase_train_parity():
           f"train_parity: step losses differ by {loss_rel} relative")
     check(param_err <= PARITY_PARAM_TOL,
           f"train_parity: parameters differ by {param_err}")
+    return runs['pallas']
 
 
 def phase_train():
@@ -909,6 +953,18 @@ def phase_train_parity_q10():
 def _zero_counts():
     cuda_hea.launches = cuda_hea.bwd_launches = 0
     cuda_fused.launches = cuda_fused.bwd_launches = 0
+    cuda_ucomp.launches = cuda_ucomp.bwd_launches = 0
+    cuda_adam.launches = 0
+
+
+def _counts():
+    return {"hea_chain_fwd": cuda_hea.launches,
+            "hea_chain_bwd": cuda_hea.bwd_launches,
+            "fused_chain_fwd": cuda_fused.launches,
+            "fused_chain_bwd": cuda_fused.bwd_launches,
+            "ucomp_fwd": cuda_ucomp.launches,
+            "ucomp_bwd": cuda_ucomp.bwd_launches,
+            "adam_step": cuda_adam.launches}
 
 
 def phase_train_q10():
@@ -1122,6 +1178,474 @@ def phase_serve_q10():
     return launches
 
 
+# ── the flagship's step with the compile and Adam kernels (B4f, B4b, B5) ────
+
+FLAGSHIP = (5, (40, 2, 20, 2))
+UCOMP_CASES = [      # (label, spec)
+    ('Q5 Net40-2-20-2', hea.quanonet_spec(*FLAGSHIP)),
+    ('Q2 Net5-1-5-1', hea.quanonet_spec(2, (5, 1, 5, 1))),
+    ('Q3 Net2-3-2-3', hea.quanonet_spec(3, (2, 3, 2, 3))),
+    ('Q4 HEAQNN 5-2', hea.heaqnn_spec(4, (5, 2))),
+    ('Q6 Net40-2-20-2', hea.quanonet_spec(6, (40, 2, 20, 2))),
+    ('Q7 Net40-2-20-2', hea.quanonet_spec(7, (40, 2, 20, 2))),
+    ('Q5 one block', hea.HEASpec(5, ((5, 2),))),
+]
+ADAM_ATOL, ADAM_RTOL = 2e-6, 1e-5   # the kernel contracts multiply-adds
+ADAM_STEPS = 25
+PROFILE_ITERS = 40
+ARM_ROUNDS, ARM_STEPS = 5, 20
+
+
+def ucomp_counts(nb, ld, d):
+    """Work of the block-matrix compile as its plain version writes it:
+    (flops forward, flops backward, bytes forward, bytes backward).  A real
+    D x D product is 2 D^3 flops, a complex one four of them.  Forward, per
+    block: ld products U1t . B' (2 real each), ld - 1 fold products (4),
+    H . acc (2) and . R (2; none for the last block).  Backward: the ld
+    sublayer products and the ld - 2 fold prefixes again, H g R (4), per
+    fold step Sbar and the next accbar (4 + 4), per sublayer U1bar and
+    B'bar (2 + 2).  Bytes: every input read once, every output written
+    once."""
+    real = 2.0 * d ** 3
+    fwd = nb * real * (2 * ld + 4 * (ld - 1) + 4) - 2 * real
+    bwd = nb * real * (2 * ld + 4 * max(ld - 2, 0) + 4 + 8 * (ld - 1)
+                       + 4 * ld) - 2 * real
+    ops_bytes = 4.0 * 3 * nb * ld * d * d
+    mt_bytes = 4.0 * 2 * nb * d * d
+    return fwd, bwd, ops_bytes + mt_bytes, 2 * ops_bytes + mt_bytes
+
+
+def smallest_launch():
+    """What one launch costs on this card when the kernel does next to
+    nothing: the Adam kernel on a single one-element leaf, per launch in a
+    back-to-back run of 200 (CUDA events) and alone with a synchronise
+    (host clock)."""
+    leaf = [torch.zeros(1, device='cuda') for _ in range(4)]
+
+    def launch():
+        cuda_adam.adam_step(leaf[:1], leaf[1:2], leaf[2:3], leaf[3:], 0.0, 1)
+
+    def burst():
+        for _ in range(200):
+            launch()
+    return {"back_to_back_ms": time_ms(burst, 10) / 200,
+            "alone_with_sync_ms": host_ms(launch, 50)}
+
+
+def _profiled(step, steps=10):
+    from torch.profiler import ProfilerActivity, profile
+    return profile_steps(step, steps, profile, ProfilerActivity)
+
+
+def kernel_device_ms(fn, match, reps=20):
+    """Time on the card alone (ms a call) of the kernels whose name holds
+    ``match``, from a torch.profiler window over ``reps`` calls of fn():
+    the CUDA-event times around a wrapper also hold the host's part of a
+    call, which for a kernel of microseconds is most of it.  None when the
+    trace has no such row."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and match in e.key]
+    return sum(_device_us(e) for e in rows) / 1e3 / reps if rows else None
+
+
+def phase_kernel_ucomp():
+    """B4f and B4b against their plain versions at every case; returns the
+    per-case records."""
+    dev = torch.device('cuda')
+    launch = smallest_launch()
+    records = []
+    for label, spec in UCOMP_CASES:
+        nb, d, ld = spec.n_blocks, spec.dim, spec.block_configs[0][1]
+        last = nb - 1
+        rng = np.random.RandomState(5000 + 10 * spec.n_qubits + nb)
+        w = torch.tensor(rng.uniform(-np.pi, np.pi, spec.weight_shape())
+                         .astype(np.float32), device=dev)
+        ops = cuda_ucomp.compile_operands(spec, w)
+        g = [torch.tensor(rng.randn(nb, d, d).astype(np.float32), device=dev)
+             for _ in range(2)]
+        fwd = cuda_ucomp.ucomp_forward(*ops, ld, last)
+        bwd = cuda_ucomp.ucomp_backward(*ops, ld, last, *g)
+        again = cuda_ucomp.ucomp_backward(*ops, ld, last, *g)
+        fwd_plain = cuda_ucomp.ucomp_dense(*ops, ld, last)
+        bwd_plain = cuda_ucomp.ucomp_backward_dense(*ops, ld, last, *g)
+        fold = hea.fold_block_mats(spec, w)
+        torch.cuda.synchronize()
+        names = ('u1bar', 'bbar_r', 'bbar_i')
+        errs = {k: (a - b).abs().max().item()
+                for k, a, b in zip(names, bwd, bwd_plain)}
+        scales = {k: max(1.0, b.abs().max().item())
+                  for k, b in zip(names, bwd_plain)}
+        f_flops, b_flops, f_bytes, b_bytes = ucomp_counts(nb, ld, d)
+        fwd_bound, fwd_by = _bound(f_flops, f_bytes)
+        bwd_bound, bwd_by = _bound(b_flops, b_bytes)
+        rec = {"phase": "kernel_ucomp", "case": label, "nq": spec.n_qubits,
+               "nb": nb, "ld": ld, "D": d,
+               "panel_rows": cuda_ucomp.panel_rows(d),
+               "max_abs_err_fwd": _max_err(fwd, fwd_plain),
+               "max_abs_err_vs_fold": _max_err(fwd, fold),
+               "max_abs_err_bwd": errs, "bwd_scale": scales,
+               "bwd_bit_equal": all(torch.equal(a, b)
+                                    for a, b in zip(bwd, again)),
+               "fwd_ms": time_ms(lambda: cuda_ucomp.ucomp_forward(
+                   *ops, ld, last), 30),
+               "fwd_plain_ms": time_ms(lambda: cuda_ucomp.ucomp_dense(
+                   *ops, ld, last), 5),
+               "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by,
+               "fwd_flops": f_flops, "fwd_bytes": f_bytes,
+               "bwd_ms": time_ms(lambda: cuda_ucomp.ucomp_backward(
+                   *ops, ld, last, *g), 30),
+               "bwd_plain_ms": time_ms(
+                   lambda: cuda_ucomp.ucomp_backward_dense(
+                       *ops, ld, last, *g), 5),
+               "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by,
+               "bwd_flops": b_flops, "bwd_bytes": b_bytes,
+               "fwd_device_ms": kernel_device_ms(
+                   lambda: cuda_ucomp.ucomp_forward(*ops, ld, last),
+                   'ucomp_fwd'),
+               "bwd_device_ms": kernel_device_ms(
+                   lambda: cuda_ucomp.ucomp_backward(*ops, ld, last, *g),
+                   'ucomp_bwd'),
+               "smallest_launch": launch,
+               "launch_bound": max(fwd_bound, bwd_bound)
+               < launch["back_to_back_ms"]}
+        if (spec.n_qubits, nb) == (5, 60):
+            rec["replaces"] = _fold_against_compile(spec, w)
+        emit(rec)
+        finite = all(bool(torch.isfinite(t).all()) for t in (*fwd, *bwd))
+        check(finite, f"ucomp {label}: output not finite")
+        check(rec["max_abs_err_fwd"] <= AMP_TOL,
+              f"ucomp {label}: forward error {rec['max_abs_err_fwd']}")
+        check(rec["max_abs_err_vs_fold"] <= AMP_TOL,
+              f"ucomp {label}: differs from the fold by "
+              f"{rec['max_abs_err_vs_fold']}")
+        for k in names:
+            check(errs[k] <= BWD_REL_TOL * scales[k],
+                  f"ucomp {label}: {k} error {errs[k]} > {BWD_REL_TOL} x "
+                  f"{scales[k]}")
+        check(rec["bwd_bit_equal"], f"ucomp {label}: two backward calls differ")
+        records.append(rec)
+    return records
+
+
+def _fold_against_compile(spec, w):
+    """At the flagship: the autograd fold that the compile kernels replace
+    and the compile path as the engine takes it (elementwise build under
+    autograd + the kernels), forward and forward + backward, from the
+    weights: host clock with a synchronise, and the device rows of one
+    forward + backward."""
+    wg = w.clone().requires_grad_()
+
+    def fwd_bwd(mats):
+        def run():
+            mr, mi = mats(spec, wg)
+            torch.autograd.grad((mr * mr).sum() + (mi * mi).sum(), wg)
+        return run
+
+    out = {}
+    for name, mats in (('fold', hea.fold_block_mats),
+                       ('compile', cuda_ucomp.compile_block_mats)):
+        with torch.no_grad():
+            out[f"{name}_forward_ms"] = host_ms(lambda: mats(spec, w))
+        out[f"{name}_forward_backward_ms"] = host_ms(fwd_bwd(mats))
+        prof = _profiled(fwd_bwd(mats))
+        out[f"{name}_device_rows"] = prof.get("device_kernels_per_step")
+        out[f"{name}_device_busy_ms"] = (
+            prof["device_busy_ms"] / prof["profiled_steps"]
+            if "device_busy_ms" in prof else None)
+    with torch.no_grad():
+        out["compile_operands_forward_ms"] = host_ms(
+            lambda: cuda_ucomp.compile_operands(spec, w))
+    return out
+
+
+def _flagship_model(dev, engine='pallas'):
+    return QuanONet(FLAGSHIP[0], 100, 2, FLAGSHIP[1], scale_coeff=0.1,
+                    engine=engine, device=dev,
+                    generator=torch.Generator().manual_seed(0))
+
+
+def phase_kernel_adam():
+    """B5 against adam_step_dense on the flagship's leaves; returns the
+    record."""
+    dev = torch.device('cuda')
+    shapes = [tuple(p.shape) for p in _flagship_model(dev).parameters()]
+    n_params = sum(int(np.prod(s)) for s in shapes)
+
+    def leaves(seed):
+        rng = np.random.RandomState(seed)
+        return [torch.tensor(np.asarray(rng.randn(*s), np.float32),
+                             device=dev) for s in shapes]
+
+    def run(step):
+        p = leaves(0)
+        m = [torch.zeros_like(a) for a in p]
+        v = [torch.zeros_like(a) for a in p]
+        for t in range(1, ADAM_STEPS + 1):
+            step(p, leaves(100 + t), m, v, 1e-2 * 0.95 ** t, t)
+        torch.cuda.synchronize()
+        return p + m + v
+
+    got, again = run(cuda_adam.adam_step), run(cuda_adam.adam_step)
+    want = run(cuda_adam.adam_step_dense)
+    err = _max_err(got, want)
+    close = all(torch.allclose(a, b, atol=ADAM_ATOL, rtol=ADAM_RTOL)
+                for a, b in zip(got, want))
+    bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+
+    p, g = leaves(1), leaves(2)
+    m, v = [torch.zeros_like(a) for a in p], [torch.zeros_like(a) for a in p]
+    params = [torch.nn.Parameter(a.clone()) for a in p]
+    for q, gq in zip(params, g):
+        q.grad = gq
+    library = torch.optim.Adam(params, lr=1e-3, fused=True)
+    default = torch.optim.Adam([torch.nn.Parameter(a.clone()) for a in p],
+                               lr=1e-3)
+    for q, gq in zip(default.param_groups[0]['params'], g):
+        q.grad = gq
+    nbytes = 7.0 * n_params * 4
+    bound_ms, bound_by = _bound(12.0 * n_params, nbytes)
+    rec = {"phase": "kernel_adam", "leaves": [list(s) for s in shapes],
+           "parameters": n_params, "steps": ADAM_STEPS,
+           "max_abs_err": err, "close": close, "bit_equal": bit_equal,
+           "ms": time_ms(lambda: cuda_adam.adam_step(p, g, m, v, 1e-3, 3),
+                         100),
+           "host_ms": host_ms(lambda: cuda_adam.adam_step(p, g, m, v, 1e-3,
+                                                          3), 50),
+           "device_ms": kernel_device_ms(
+               lambda: cuda_adam.adam_step(p, g, m, v, 1e-3, 3),
+               'adam_kernel'),
+           "plain_ms": time_ms(lambda: cuda_adam.adam_step_dense(
+               p, g, m, v, 1e-3, 3), 20),
+           "library_ms": time_ms(library.step, 100),
+           "library_host_ms": host_ms(library.step, 50),
+           "torch_adam_default_ms": time_ms(default.step, 50),
+           "torch_adam_default_host_ms": host_ms(default.step, 50),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "smallest_launch": smallest_launch()}
+    emit(rec)
+    check(all(bool(torch.isfinite(t).all()) for t in got),
+          "adam: output not finite")
+    check(close, f"adam: kernel differs from the plain version by {err} "
+                 f"(atol {ADAM_ATOL}, rtol {ADAM_RTOL})")
+    check(bit_equal, "adam: two runs of 25 steps differ")
+    return rec
+
+
+def phase_train_parity_ucomp(default_run):
+    """20 Adam steps of the flagship with USE_UCOMP on and FusedAdam
+    against the default path's run (train_parity's 'pallas': the fold and
+    torch.optim.Adam), same initial state, batches and schedule."""
+    dev = torch.device('cuda')
+    inputs, target, idx, schedule = _parity_batches(dev)
+    model = _flagship_model(dev)
+    opt = cuda_adam.fused_adam(schedule).init(model.parameters())
+    _zero_counts()
+    cuda_hea.USE_UCOMP = True
+    try:
+        lu, pu = _parity_steps(model, opt, inputs, target, idx)
+    finally:
+        cuda_hea.USE_UCOMP = False
+    counts = _counts()
+    ld, pd = default_run
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lu, ld))
+    param_err = max((pu[k] - pd[k]).abs().max().item() for k in pu)
+    emit({"phase": "train_parity_ucomp", "steps": PARITY_STEPS,
+          "losses_ucomp_fused_adam": lu, "losses_default": ld,
+          "max_loss_rel_diff": loss_rel, "max_param_abs_diff": param_err,
+          "launches": counts})
+    check(all(np.isfinite(lu)), "train_parity_ucomp: losses not finite")
+    check(loss_rel <= PARITY_LOSS_RTOL,
+          f"train_parity_ucomp: step losses differ by {loss_rel} relative")
+    check(param_err <= PARITY_PARAM_TOL,
+          f"train_parity_ucomp: parameters differ by {param_err}")
+    check(counts["ucomp_fwd"] == counts["ucomp_bwd"] == counts["adam_step"]
+          == PARITY_STEPS, f"train_parity_ucomp: launches {counts}")
+
+
+def phase_profile_step():
+    """profile_step.main at full width on the card: the default path, then
+    USE_UCOMP on with --fused_adam; returns the second run's launches."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, ucomp, extra in (('default', False, []),
+                                   ('ucomp_fused_adam', True,
+                                    ['--fused_adam'])):
+            out = os.path.join(tmp, f'{name}.json')
+            _zero_counts()             # the path starts here
+            cuda_hea.USE_UCOMP = ucomp
+            stdout = sys.stdout
+            sys.stdout = sys.stderr    # its results line is not this script's
+            try:
+                res = profile_step.main(['--iters', str(PROFILE_ITERS),
+                                         '--out', out] + extra)
+            finally:
+                sys.stdout = stdout
+                cuda_hea.USE_UCOMP = False
+            torch.cuda.synchronize()
+            counts = _counts()         # ... and ends here
+            with open(out) as f:
+                written = json.load(f)
+            runs[name] = (res, counts, written == res)
+    emit({"phase": "profile_step", "iters": PROFILE_ITERS,
+          **{name: {"results": res, "launches": counts,
+                    "json_written": same}
+             for name, (res, counts, same) in runs.items()}})
+    for name, (res, counts, same) in runs.items():
+        check(same, f"profile_step {name}: --out differs from the results")
+        check(res['platform'] == 'cuda' and res['nvidia_smi'],
+              f"profile_step {name}: platform {res['platform']}, card "
+              f"{res['nvidia_smi']}")
+        for k in ('full_step[pallas] bs=100', 'fwd_only[pallas] bs=100',
+                  'full_step[dense] bs=100', 'fwd_only[dense] bs=100',
+                  'full_step[pallas] bs=400', 'full_step[pallas] bs=1600',
+                  'compile_path fwd+bwd', 'adam_only'):
+            check(np.isfinite(res.get(k, np.nan)) and res[k] > 0,
+                  f"profile_step {name}: component {k!r} is {res.get(k)}")
+        check(counts["hea_chain_fwd"] > 0 and counts["hea_chain_bwd"] > 0,
+              f"profile_step {name}: chain launches {counts}")
+    off, on = runs['default'][1], runs['ucomp_fused_adam'][1]
+    check(off["ucomp_fwd"] == off["ucomp_bwd"] == off["adam_step"] == 0,
+          f"profile_step: the default path launched an opt-in kernel: {off}")
+    check(on["ucomp_fwd"] > 0 and on["ucomp_bwd"] > 0 and on["adam_step"] > 0,
+          f"profile_step: toggles on, yet launches {on}")
+    return on
+
+
+def four_arm_step():
+    """The flagship's step at batch 100 in four arms (default, +ucomp,
+    +fused Adam, both), in turns within this process so that all see the
+    same host: median step time over ARM_ROUNDS rounds of ARM_STEPS steps
+    (host clock with a synchronise), then each arm's device rows a step and
+    the card's busy share under torch.profiler.  Outside the counted
+    windows."""
+    dev = torch.device('cuda')
+    rng = np.random.RandomState(0)
+    b = torch.as_tensor(rng.randn(100, 100).astype(np.float32), device=dev)
+    t = torch.as_tensor(rng.rand(100, 2).astype(np.float32), device=dev)
+    y = torch.as_tensor(rng.randn(100, 1).astype(np.float32), device=dev)
+    arms = {}
+    for name, ucomp, fused in (('default', False, False),
+                               ('ucomp', True, False),
+                               ('fused_adam', False, True),
+                               ('both', True, True)):
+        model = _flagship_model(dev)
+        opt = (cuda_adam.fused_adam(1e-4).init(model.parameters()) if fused
+               else torch.optim.Adam(model.parameters(), lr=1e-4))
+
+        def step(model=model, opt=opt, ucomp=ucomp):
+            cuda_hea.USE_UCOMP = ucomp
+            try:
+                loss = ((model(b, t) - y) ** 2).mean()
+                opt.zero_grad()
+                loss.backward()
+                opt.step()
+            finally:
+                cuda_hea.USE_UCOMP = False
+        arms[name] = step
+    times = {name: [] for name in arms}
+    for step in arms.values():
+        for _ in range(3):
+            step()
+    for _ in range(ARM_ROUNDS):
+        for name, step in arms.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ARM_STEPS):
+                step()
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0) / ARM_STEPS)
+    out = {}
+    for name, step in arms.items():
+        prof = _profiled(step)
+        out[name] = {"step_ms": float(np.median(times[name])),
+                     "step_ms_rounds": times[name],
+                     "device_rows_per_step": prof.get(
+                         "device_kernels_per_step"),
+                     "device_busy_share": prof.get("device_busy_share"),
+                     "device_busy_ms_per_step": (
+                         prof["device_busy_ms"] / prof["profiled_steps"]
+                         if "device_busy_ms" in prof else None),
+                     "profiler_error": prof.get("profiler_error")}
+    return out
+
+
+def phase_serve_ucomp():
+    """The served path with USE_UCOMP on: the Advection anchor through
+    load_model -> Predictor -> HTTP on `cuda`; returns the compile
+    kernel's launches in it."""
+    fixture = np.load(FIXTURE)
+    fb, ft, fpred = fixture['branch'], fixture['trunk'], fixture['pred']
+    _zero_counts()                     # the served path starts here
+    cuda_hea.USE_UCOMP = True
+    try:
+        model, cfg = load_model(ANCHOR, 100, 2, device='cuda')
+        load_err = float(np.abs(predict(model, fb, ft, cfg=cfg)
+                                - fpred).max())
+        pred = Predictor(ANCHOR, branch_in=100, trunk_in=2, max_batch=8192,
+                         device='cuda')
+        check(pred.cfg['engine'] == 'pallas', f"engine {pred.cfg['engine']}")
+        warm_s = pred.warmup()
+        fix_err = float(np.abs(pred.predict(fb, ft) - fpred).max())
+        srv = make_server(pred, host='127.0.0.1', port=0)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        try:
+            code, resp = _post(srv.server_port, '/predict',
+                               {"branch": fb.tolist(), "trunk": ft.tolist()})
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=30)
+        http_err = float(np.abs(np.asarray(resp['pred']) - fpred).max())
+        torch.cuda.synchronize()
+        counts = _counts()             # ... and ends here
+    finally:
+        cuda_hea.USE_UCOMP = False
+    # outside the counted window: each bucket with the toggle on and off,
+    # in turns
+    bucket_ms = {}
+    for rows in (1, 8192):
+        bn, tn = (np.zeros((rows, 100), np.float32),
+                  np.zeros((rows, 2), np.float32))
+        times = {True: [], False: []}
+        for _ in range(3):
+            for on in (True, False):
+                cuda_hea.USE_UCOMP = on
+                try:
+                    times[on].append(host_ms(lambda: pred.predict(bn, tn), 10))
+                finally:
+                    cuda_hea.USE_UCOMP = False
+        bucket_ms[rows] = {"ucomp_ms": float(np.median(times[True])),
+                           "default_ms": float(np.median(times[False])),
+                           "ucomp_rounds": times[True],
+                           "default_rounds": times[False]}
+    emit({"phase": "serve_ucomp", "ckpt": os.path.relpath(ANCHOR, REPO),
+          "engine": pred.cfg['engine'], "warmup_s": warm_s,
+          "load_model_fixture_max_abs_err": load_err,
+          "fixture_max_abs_err": fix_err, "http_status": code,
+          "http_max_abs_err": http_err, "launches": counts,
+          "bucket_request_ms": bucket_ms})
+    check(max(load_err, fix_err) <= SERVE_TOL,
+          f"serve_ucomp: output differs from the JAX fixture by "
+          f"{load_err} / {fix_err}")
+    check(code == 200 and http_err <= SERVE_TOL,
+          f"serve_ucomp HTTP /predict: status {code}, error {http_err}")
+    check(counts["ucomp_fwd"] > 0 and counts["hea_chain_fwd"] > 0,
+          f"serve_ucomp: launches {counts}")
+    check(counts["ucomp_bwd"] == 0, f"serve_ucomp: a backward ran: {counts}")
+    check(not thread.is_alive(), "server thread did not stop")
+    return counts["ucomp_fwd"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1131,7 +1655,7 @@ def main():
     records = phase_kernel()
     launches = phase_serve()
     bwd_records = phase_kernel_bwd()
-    phase_train_parity()
+    default_run = phase_train_parity()
     (train_fwd, train_bwd), _ = phase_train()
     emit({"phase": "train_breakdown", "batch": 100, **train_breakdown()})
     fused_records = phase_kernel_fused()
@@ -1141,6 +1665,15 @@ def main():
     emit({"phase": "train_breakdown_q10", "batch": 100,
           **train_breakdown_q10()})
     q10_serve = phase_serve_q10()
+    ucomp_records = phase_kernel_ucomp()
+    adam = phase_kernel_adam()
+    phase_train_parity_ucomp(default_run)
+    ps_counts = phase_profile_step()
+    emit({"phase": "four_arm_step", "batch": 100, "rounds": ARM_ROUNDS,
+          "steps_per_round": ARM_STEPS, **four_arm_step()})
+    serve_ucomp = phase_serve_ucomp()
+    ustep = next(r for r in ucomp_records if (r['nq'], r['nb']) == (5, 60))
+    ucomp_shape = {"nb": ustep['nb'], "ld": ustep['ld'], "D": ustep['D']}
     head = next(r for r in records
                 if r['nq'] == 5 and r['N'] == 8192)
     step = next(r for r in bwd_records
@@ -1154,8 +1687,9 @@ def main():
         "source": "quanonet_torch/csrc/hea_chain.cu",
         "replaces": "quanonet_tpu/ops/pallas_hea.py:153",
         "twin": "quanonet_torch/ops/hea.py:chain_dense, chain_dense_saved",
-        "launches": launches + train_fwd,
-        "launches_by_path": {"serve": launches, "train": train_fwd},
+        "launches": launches + train_fwd + ps_counts["hea_chain_fwd"],
+        "launches_by_path": {"serve": launches, "train": train_fwd,
+                             "profile_step": ps_counts["hea_chain_fwd"]},
         "max_abs_err": max(r['max_abs_err_amp']
                            for r in records + bwd_records),
         "max_abs_err_expect": max(r['max_abs_err_expect'] for r in records),
@@ -1173,8 +1707,9 @@ def main():
         "source": "quanonet_torch/csrc/hea_chain.cu",
         "replaces": "quanonet_tpu/ops/pallas_hea.py:178",
         "twin": "quanonet_torch/ops/hea.py:chain_backward_dense",
-        "launches": train_bwd,
-        "launches_by_path": {"serve": 0, "train": train_bwd},
+        "launches": train_bwd + ps_counts["hea_chain_bwd"],
+        "launches_by_path": {"serve": 0, "train": train_bwd,
+                             "profile_step": ps_counts["hea_chain_bwd"]},
         "max_abs_err": max(max(r['max_abs_err_mbar'], r['max_abs_err_phibar'])
                            for r in bwd_records),
         "ms": step['ms'], "plain_ms": step['plain_ms'],
@@ -1217,7 +1752,58 @@ def main():
         "library_ms": None,
         "timed_shape": {"nq": 10, "nb": fstep['nb'], "N": fstep['N'],
                         "D": fstep['D']},
-        "shapes": [[r['nq'], r['nb'], r['N']] for r in fused_bwd_records]}]})
+        "shapes": [[r['nq'], r['nb'], r['N']] for r in fused_bwd_records]}, {
+        "name": "ucomp_fwd", "route": "cuda",
+        "source": "quanonet_torch/csrc/ucomp.cu",
+        "replaces": "quanonet_tpu/ops/pallas_ucomp.py:118",
+        "twin": "quanonet_torch/ops/cuda_ucomp.py:ucomp_dense",
+        "launches": ps_counts["ucomp_fwd"] + serve_ucomp,
+        "launches_by_path": {"profile_step": ps_counts["ucomp_fwd"],
+                             "serve_ucomp": serve_ucomp},
+        "max_abs_err": max(r['max_abs_err_fwd'] for r in ucomp_records),
+        "ms": ustep['fwd_ms'], "plain_ms": ustep['fwd_plain_ms'],
+        "bound_ms": ustep['fwd_bound_ms'], "bound_by": ustep['fwd_bound_by'],
+        "library_ms": None, "timed_shape": ucomp_shape,
+        "device_ms": ustep['fwd_device_ms'],
+        "smallest_launch_ms": ustep['smallest_launch']['back_to_back_ms'],
+        "fold_forward_ms": ustep['replaces']['fold_forward_ms'],
+        "compile_forward_ms": ustep['replaces']['compile_forward_ms'],
+        "shapes": [[r['nb'], r['ld'], r['D']] for r in ucomp_records]}, {
+        "name": "ucomp_bwd", "route": "cuda",
+        "source": "quanonet_torch/csrc/ucomp.cu",
+        "replaces": "quanonet_tpu/ops/pallas_ucomp.py:142",
+        "twin": "quanonet_torch/ops/cuda_ucomp.py:ucomp_backward_dense",
+        "launches": ps_counts["ucomp_bwd"],
+        "launches_by_path": {"profile_step": ps_counts["ucomp_bwd"],
+                             "serve_ucomp": 0},
+        "max_abs_err": max(max(r['max_abs_err_bwd'].values())
+                           for r in ucomp_records),
+        "ms": ustep['bwd_ms'], "plain_ms": ustep['bwd_plain_ms'],
+        "bound_ms": ustep['bwd_bound_ms'], "bound_by": ustep['bwd_bound_by'],
+        "library_ms": None, "timed_shape": ucomp_shape,
+        "device_ms": ustep['bwd_device_ms'],
+        "smallest_launch_ms": ustep['smallest_launch']['back_to_back_ms'],
+        "fold_forward_backward_ms":
+            ustep['replaces']['fold_forward_backward_ms'],
+        "compile_forward_backward_ms":
+            ustep['replaces']['compile_forward_backward_ms'],
+        "shapes": [[r['nb'], r['ld'], r['D']] for r in ucomp_records]}, {
+        "name": "adam_step", "route": "cuda",
+        "source": "quanonet_torch/csrc/adam.cu",
+        "replaces": "quanonet_tpu/ops/pallas_adam.py:51",
+        "twin": "quanonet_torch/ops/cuda_adam.py:adam_step_dense",
+        "launches": ps_counts["adam_step"],
+        "launches_by_path": {"profile_step": ps_counts["adam_step"],
+                             "serve_ucomp": 0},
+        "max_abs_err": adam['max_abs_err'],
+        "ms": adam['ms'], "plain_ms": adam['plain_ms'],
+        "bound_ms": adam['bound_ms'], "bound_by": adam['bound_by'],
+        "library_ms": adam['library_ms'],
+        "timed_shape": {"leaves": len(adam['leaves']),
+                        "parameters": adam['parameters']},
+        "device_ms": adam['device_ms'],
+        "smallest_launch_ms": adam['smallest_launch']['back_to_back_ms'],
+        "torch_adam_default_ms": adam['torch_adam_default_ms']}]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,10 @@ Weights carried across between the JAX package and the port.
   keys (quanonet_torch/checkpoint.py); ``raw_from_state_dict`` is its
   inverse.
 
+* ``adam_state_from_flax(count, mu, nu, names)``: an optax-Adam or JAX
+  ``FusedAdam`` state -> the ``state_dict`` of the port's
+  ``ops/cuda_adam.FusedAdam``.
+
 A nested key ``branch_freq/weights`` of the tree is ``branch_freq.weights``
 in the state_dict; top-level leaves (``ansatz``, ``bias``) keep their names.
 """
@@ -42,6 +46,18 @@ def flax_from_state_dict(state_dict) -> dict:
         else:
             params[name] = arr
     return {'params': params}
+
+
+def adam_state_from_flax(count, mu, nu, names) -> dict:
+    """An Adam state of the JAX package as NumPy arrays (the update count
+    and the two moment trees, shaped like the parameter tree) -> the
+    ``state_dict`` that ``ops/cuda_adam.FusedAdam.load_state_dict`` takes.
+    ``names``: the state_dict keys of the optimizer's parameters, in its
+    order (``[k for k, _ in model.named_parameters()]``)."""
+    mu, nu = state_dict_from_flax(mu), state_dict_from_flax(nu)
+    return {'count': int(count),
+            'state': {i: {'mu': mu[k], 'nu': nu[k]}
+                      for i, k in enumerate(names)}}
 
 
 def state_dict_from_raw(raw, model_type, net_size, num_qubits,

@@ -4,10 +4,13 @@ The HEA block chain through the hand-written CUDA kernels
 whose ``_fwd_kernel`` and ``_bwd_kernel`` they replace; engine name
 ``'pallas'``).
 
-The operands come from :func:`quanonet_torch.ops.hea.prepare_chain` (the
-block-matrix fold with the Hadamards, and the raw phases).  The kernels run
-the whole chain of one batch tile per CTA, whatever the batch: no padding,
-no chunking, no fallback.
+The operands come from :func:`_prepare`: the raw phases, and the block
+matrices with the Hadamards folded in, by default from
+:func:`quanonet_torch.ops.hea.fold_block_mats` (batched products under
+autograd) and with ``USE_UCOMP=1`` from the compile kernels
+(ops/cuda_ucomp.py), where they apply.  The kernels run the whole chain of
+one batch tile per CTA, whatever the batch: no padding, no chunking, no
+fallback.
 
 :func:`block_chain` dispatches:
 
@@ -21,10 +24,12 @@ no chunking, no fallback.
   CUDA tensors launch the kernels or raise.
 """
 import ctypes
+import os
 
 import torch
 
 from quanonet_torch.ops import _build
+from quanonet_torch.ops import cuda_ucomp as _ucomp
 from quanonet_torch.ops import hea as _hea
 
 KERNEL = 'hea_chain'
@@ -38,6 +43,10 @@ MAX_SPLITS = 1024
 # ran the kernels.
 launches = 0
 bwd_launches = 0
+
+# Block matrices from the compile kernels instead of the autograd fold
+# (the JAX package's toggle of the same name; off by default, as there).
+USE_UCOMP = os.environ.get('USE_UCOMP', '0') == '1'
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -208,12 +217,26 @@ def block_chain(mt_r, mt_i, phi):
     return chain_forward(mt_r, mt_i, phi)
 
 
+def block_mats(spec, weights):
+    """(mt_r, mt_i) of the chain: the compile kernels when ``USE_UCOMP``
+    is on and they apply, else the autograd fold."""
+    if USE_UCOMP and _ucomp.ucomp_applicable(spec):
+        return _ucomp.compile_block_mats(spec, weights)
+    return _hea.fold_block_mats(spec, weights)
+
+
+def _prepare(spec, weights, x):
+    """Chain operands (mt_r, mt_i, phi), the counterpart of
+    pallas_hea._prepare."""
+    return (*block_mats(spec, weights), _hea.encoding_phases(spec, x))
+
+
 def forward_pallas(spec, weights, x):
     """(sr, si) of the circuit through the block-chain kernels."""
     if not spec.uniform_encode:
         raise ValueError(
             "the block-chain engine requires n_encode == n_qubits per block")
-    return block_chain(*_hea.prepare_chain(spec, weights, x))
+    return block_chain(*_prepare(spec, weights, x))
 
 
 def hea_expectation_pallas(spec, weights, x, diag):

@@ -243,6 +243,21 @@ def encoding_phases(spec: HEASpec, x):
     return (0.5 * phi).contiguous()
 
 
+def fold_block_mats(spec: HEASpec, weights):
+    """weights (S, 3, n) -> (mt_r, mt_i), each (n_blocks, D, D) float32
+    contiguous: the block matrices of :func:`prepare_chain`, by batched
+    products under autograd.  The plain path, and the oracle of the compile
+    kernel (ops/cuda_ucomp.compile_block_mats)."""
+    ur, ui = compile_block_unitaries(spec, weights)      # (B, D, D)
+    hk = _table(hadamard_kron(spec.n_qubits), weights)
+    uh_r = ur @ hk
+    uh_i = ui @ hk
+    m_r = torch.cat([hk @ uh_r[:-1], uh_r[-1:]], 0)
+    m_i = torch.cat([hk @ uh_i[:-1], uh_i[-1:]], 0)
+    return (m_r.transpose(1, 2).contiguous(),
+            m_i.transpose(1, 2).contiguous())
+
+
 def prepare_chain(spec: HEASpec, weights, x):
     """Chain operands (counterpart of pallas_hea._prepare).
 
@@ -256,15 +271,7 @@ def prepare_chain(spec: HEASpec, weights, x):
     Returns (mt_r, mt_i, phi): the block matrices transposed for
     row-vector products, (nb, D, D) each, and the raw phases (nb, batch, D).
     """
-    ur, ui = compile_block_unitaries(spec, weights)      # (B, D, D)
-    hk = _table(hadamard_kron(spec.n_qubits), weights)
-    uh_r = ur @ hk
-    uh_i = ui @ hk
-    m_r = torch.cat([hk @ uh_r[:-1], uh_r[-1:]], 0)
-    m_i = torch.cat([hk @ uh_i[:-1], uh_i[-1:]], 0)
-    return (m_r.transpose(1, 2).contiguous(),
-            m_i.transpose(1, 2).contiguous(),
-            encoding_phases(spec, x))
+    return (*fold_block_mats(spec, weights), encoding_phases(spec, x))
 
 
 def _kara(sr, si, tr, ti):

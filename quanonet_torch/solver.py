@@ -174,6 +174,18 @@ class ScheduledOptimizer:
         self.optimizer.step()
         self.count += 1
 
+    def state_dict(self):
+        """{'count', 'state': {i: {name: tensor}}}: the update count and
+        the torch optimizer's per-parameter state."""
+        return {'count': self.count,
+                'state': self.optimizer.state_dict()['state']}
+
+    def load_state_dict(self, sd):
+        inner = self.optimizer.state_dict()
+        inner['state'] = sd['state']
+        self.optimizer.load_state_dict(inner)
+        self.count = int(sd['count'])
+
 
 def _torch_optimizer(name, params, opt_kw):
     """optax optimizer name and keyword arguments -> the torch.optim
@@ -217,6 +229,10 @@ def build_optimizer(config, total_steps, params):
 def make_train_epoch(model, optimizer, num_samples, batch_size, per_sample):
     """One training epoch: ``train_epoch(perm, inputs, outputs) ->
     (avg_loss, sse)``, both 0-d float32 tensors on the outputs' device.
+    ``optimizer`` is a :class:`ScheduledOptimizer` or anything else with
+    its ``zero_grad``/``step`` pair over the model's parameters, such as
+    the one-launch Adam ``ops/cuda_adam.FusedAdam`` (the counterpart of
+    the JAX package's ``fused_step`` route).
 
     ``perm`` (num_samples,) orders the samples; the last batch wraps
     around and its extra rows are masked out, reproducing the reference's
@@ -287,16 +303,18 @@ def save_train_state(path, done, model, optimizer, best_loss, best_params,
                      loss_hist):
     """Atomic elastic-resume snapshot at a segment boundary, in plain .npz
     (no pickling): parameters and best parameters in state_dict order,
-    the optimizer's per-parameter state, and its update count."""
+    the optimizer's per-parameter state, and its update count (from its
+    ``state_dict()``: a :class:`ScheduledOptimizer` or a ``FusedAdam``)."""
+    opt_state = optimizer.state_dict()
     arrs = {'done': np.asarray(done, np.int64),
-            'count': np.asarray(optimizer.count, np.int64),
+            'count': np.asarray(opt_state['count'], np.int64),
             'best_loss': np.asarray(best_loss, np.float32),
             'loss_hist': np.asarray(loss_hist, np.float32)}
     for i, v in enumerate(model.state_dict().values()):
         arrs[f'p{i}'] = v.detach().cpu().numpy()
     for i, v in enumerate(best_params.values()):
         arrs[f'b{i}'] = v.detach().cpu().numpy()
-    for idx, st in optimizer.optimizer.state_dict()['state'].items():
+    for idx, st in opt_state['state'].items():
         for key, val in st.items():
             arrs[f'o{idx}.{key}'] = (val.detach().cpu().numpy()
                                      if torch.is_tensor(val)
@@ -322,10 +340,8 @@ def load_train_state(path, model, optimizer):
             if name.startswith('o'):
                 idx, key = name[1:].split('.', 1)
                 state.setdefault(int(idx), {})[key] = torch.as_tensor(z[name])
-        sd = optimizer.optimizer.state_dict()
-        sd['state'] = state
-        optimizer.optimizer.load_state_dict(sd)
-        optimizer.count = int(z['count'])
+        optimizer.load_state_dict({'count': int(z['count']),
+                                   'state': state})
         return (int(z['done']), float(z['best_loss']), best_params,
                 [float(x) for x in z['loss_hist']])
 

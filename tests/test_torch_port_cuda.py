@@ -259,3 +259,152 @@ def test_q8_training_step_pfused_matches_fused(card):
     assert out['pfused'][0] == pytest.approx(out['fused'][0], rel=1e-5)
     for k, v in out['pfused'][1].items():
         assert (v - out['fused'][1][k]).abs().max().item() <= 1e-5, k
+
+
+# ── the block-matrix compile kernels (csrc/ucomp.cu) ────────────────────────
+
+UCOMP_CASES = [      # (qubits, block configs or net_size)
+    (5, (40, 2, 20, 2)), (2, (3, 1, 2, 1)), (3, (2, 3, 2, 3)),
+    (4, ((4, 2),) * 5), (6, (3, 2, 2, 2)), (7, (2, 2, 2, 2)),
+    (1, (2, 1, 1, 1)), (5, ((5, 2),)),
+]
+
+
+def _ucomp_operands(nq, net, seed, device):
+    from quanonet_torch.ops import cuda_ucomp
+    spec = (hea.HEASpec(nq, net) if isinstance(net[0], tuple)
+            else hea.quanonet_spec(nq, net))
+    rng = np.random.RandomState(seed)
+    w = torch.tensor(rng.uniform(-np.pi, np.pi, spec.weight_shape())
+                     .astype(np.float32), device=device)
+    ops = cuda_ucomp.compile_operands(spec, w)
+    return spec, w, ops, spec.block_configs[0][1], rng
+
+
+@pytest.mark.parametrize("nq,net", UCOMP_CASES)
+def test_ucomp_kernels_match_plain(card, nq, net):
+    """B4f against ucomp_dense (2e-5) and B4b against ucomp_backward_dense
+    (1e-4 x max(1, max|plain|): another order of products); two backward
+    calls give equal bits; the forward equals the autograd fold."""
+    from quanonet_torch.ops import cuda_ucomp
+    spec, w, ops, ld, rng = _ucomp_operands(nq, net, 20 + nq, card)
+    last = spec.n_blocks - 1
+    before = (cuda_ucomp.launches, cuda_ucomp.bwd_launches)
+    got = cuda_ucomp.ucomp_forward(*ops, ld, last)
+    g = [torch.tensor(rng.randn(spec.n_blocks, spec.dim, spec.dim)
+                      .astype(np.float32), device=card) for _ in range(2)]
+    bwd = cuda_ucomp.ucomp_backward(*ops, ld, last, *g)
+    again = cuda_ucomp.ucomp_backward(*ops, ld, last, *g)
+    torch.cuda.synchronize()
+    assert (cuda_ucomp.launches, cuda_ucomp.bwd_launches) == (
+        before[0] + 1, before[1] + 2)
+    for a, b in zip(got, cuda_ucomp.ucomp_dense(*ops, ld, last)):
+        assert a.shape == b.shape and a.is_contiguous()
+        assert (a - b).abs().max().item() <= 2e-5
+    for a, b in zip(got, hea.fold_block_mats(spec, w)):
+        assert (a - b).abs().max().item() <= 2e-5
+    want = cuda_ucomp.ucomp_backward_dense(*ops, ld, last, *g)
+    for a, b in zip(bwd, want):
+        assert a.shape == b.shape
+        assert (a - b).abs().max().item() <= _bwd_tol(b)
+    assert all(torch.equal(a, b) for a, b in zip(bwd, again))
+    # a block that is not the last takes H on the right
+    mid = cuda_ucomp.ucomp_forward(*ops, ld, -1)
+    for a, b in zip(mid, cuda_ucomp.ucomp_dense(*ops, ld, -1)):
+        assert (a - b).abs().max().item() <= 2e-5
+
+
+def test_ucomp_rejects_bad_inputs_and_trains(card, monkeypatch):
+    from quanonet_torch.ops import cuda_ucomp
+    spec, w, (u1t, br, bi), ld, _ = _ucomp_operands(3, (2, 2, 2, 2), 0, card)
+    with pytest.raises(TypeError, match='float32'):
+        cuda_ucomp.ucomp(u1t.double(), br, bi, ld, 3)
+    with pytest.raises(ValueError, match='contiguous'):
+        cuda_ucomp.ucomp(u1t, br.transpose(1, 2), bi, ld, 3)
+    with pytest.raises(ValueError, match='blocks of'):
+        cuda_ucomp.ucomp(u1t[:3], br[:3], bi[:3], ld, 0)
+    with pytest.raises(ValueError, match='last'):
+        cuda_ucomp.ucomp(u1t, br, bi, ld, 4)
+    # with USE_UCOMP on, the 'pallas' engine's gradient goes through both
+    # compile kernels and equals the default path's
+    monkeypatch.setattr(cuda_hea, 'USE_UCOMP', True)
+    x = torch.randn(6, spec.total_encode, device=card)
+    diag = torch.as_tensor(simple_ham_diag(3, -5, 5), device=card)
+    grads = {}
+    for on in (True, False):
+        monkeypatch.setattr(cuda_hea, 'USE_UCOMP', on)
+        before = (cuda_ucomp.launches, cuda_ucomp.bwd_launches)
+        wg = w.clone().requires_grad_()
+        out = hea.hea_expectation(spec, wg, x, diag=diag, engine='pallas')
+        (grads[on],) = torch.autograd.grad(out.sum(), wg)
+        used = (cuda_ucomp.launches - before[0],
+                cuda_ucomp.bwd_launches - before[1])
+        assert used == ((1, 1) if on else (0, 0))
+    assert (grads[True] - grads[False]).abs().max().item() <= 1e-4
+
+
+# ── the one-launch Adam (csrc/adam.cu) ──────────────────────────────────────
+
+def _adam_leaves(device, seed=0):
+    rng = np.random.RandomState(seed)
+    shapes = [(120, 3, 5), (), (200,), (200,), (100,), (100,), (1,), (257,)]
+    return [torch.tensor(np.asarray(rng.randn(*s), np.float32), device=device)
+            for s in shapes]
+
+
+def test_adam_kernel_matches_plain(card):
+    """B5 against adam_step_dense over 25 steps (atol 2e-6, rtol 1e-5: the
+    kernel contracts multiply-adds), a 0-d leaf and a ragged one included;
+    the same run twice gives equal bits."""
+    from quanonet_torch.ops import cuda_adam
+    runs = []
+    for kernel in (True, True, False):
+        p, m, v = (_adam_leaves(card, 0), [torch.zeros_like(a) for a in
+                                           _adam_leaves(card, 0)],
+                   [torch.zeros_like(a) for a in _adam_leaves(card, 0)])
+        before = cuda_adam.launches
+        for t in range(1, 26):
+            g = _adam_leaves(card, 100 + t)
+            step = cuda_adam.adam_step if kernel else cuda_adam.adam_step_dense
+            step(p, g, m, v, 1e-2 * 0.95 ** t, t)
+        torch.cuda.synchronize()
+        assert cuda_adam.launches - before == (25 if kernel else 0)
+        runs.append(p + m + v)
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    for a, b in zip(runs[0], runs[2]):
+        torch.testing.assert_close(a, b, atol=2e-6, rtol=1e-5)
+
+
+def test_fused_adam_on_card(card):
+    """FusedAdam's step on CUDA parameters: one launch, parameters moved as
+    torch.optim.Adam moves them (1e-6: beta**t in double on the host
+    against expf in fp32 on the card); more than 64 leaves take two
+    launches; a non-contiguous gradient raises."""
+    from quanonet_torch.ops import cuda_adam
+    leaves = _adam_leaves(card, 1)
+    a = [torch.nn.Parameter(x.clone()) for x in leaves]
+    b = [torch.nn.Parameter(x.clone()) for x in leaves]
+    fused = cuda_adam.fused_adam(1e-2).init(a)
+    ref = torch.optim.Adam(b, lr=1e-2)
+    before = cuda_adam.launches
+    for t in range(5):
+        for pa, pb, g in zip(a, b, _adam_leaves(card, 50 + t)):
+            pa.grad, pb.grad = g, g.clone()
+        fused.step()
+        ref.step()
+    torch.cuda.synchronize()
+    assert cuda_adam.launches == before + 5 and fused.count == 5
+    for pa, pb in zip(a, b):
+        assert (pa - pb).abs().max().item() <= 1e-6
+    many = [torch.nn.Parameter(torch.ones(3, device=card)) for _ in range(70)]
+    opt = cuda_adam.fused_adam(0.1).init(many)
+    for q in many:
+        q.grad = torch.ones_like(q)
+    before = cuda_adam.launches
+    opt.step()
+    torch.cuda.synchronize()
+    assert cuda_adam.launches == before + 2
+    assert all(torch.allclose(q, torch.full_like(q, 0.9)) for q in many)
+    many[0].grad = torch.ones(3, 2, device=card)[:, 0]
+    with pytest.raises(ValueError, match='contiguous'):
+        opt.step()

@@ -41,7 +41,61 @@ def test_port_imports_no_jax():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 26
+    assert n_modules >= 29
+
+
+_IMPORT_KERNEL_MODULES = r"""
+import sys
+from quanonet_torch import profile_step
+from quanonet_torch.ops import _build, cuda_adam, cuda_hea, cuda_ucomp
+assert _build._loaded == {}, _build._loaded
+assert cuda_hea.USE_UCOMP is False
+assert 'triton' not in sys.modules
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
+                                    'quanonet_tpu'))
+assert not bad, bad
+for mod in (cuda_ucomp, cuda_adam):
+    print(_build.build_dir(mod.KERNEL))
+"""
+
+
+def test_new_kernel_modules_import_clean():
+    """Importing the compile and Adam wrappers (and profile_step) imports
+    no JAX, loads no library and builds nothing; USE_UCOMP is off unless
+    the environment sets it."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ('PYTHONPATH', 'USE_UCOMP')}
+    out = subprocess.run([sys.executable, '-c', _IMPORT_KERNEL_MODULES],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    dirs = out.stdout.split()
+    assert len(dirs) == 2
+    if not torch.cuda.is_available():
+        assert not any(os.path.exists(d) for d in dirs)
+
+
+def test_new_kernel_wrappers_raise_on_cpu_tensors():
+    """The launching wrappers take CUDA tensors only: on CPU tensors they
+    raise instead of computing the plain version, and count no launch; the
+    dispatching ones (ucomp, FusedAdam.step) take the plain versions."""
+    from quanonet_torch.ops import cuda_adam, cuda_ucomp
+    ops = [torch.eye(4).repeat(2, 1, 1) for _ in range(3)]
+    before = (cuda_ucomp.launches, cuda_ucomp.bwd_launches, cuda_adam.launches)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        cuda_ucomp.ucomp_forward(*ops, 1, 1)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        cuda_ucomp.ucomp_backward(*ops, 1, 1, ops[0], ops[0])
+    leaf = [torch.ones(3)]
+    with pytest.raises(ValueError, match='CUDA leaves'):
+        cuda_adam.adam_step(leaf, leaf, [torch.zeros(3)], [torch.zeros(3)],
+                            0.1, 1)
+    got = cuda_ucomp.ucomp(*ops, 1, 1)
+    want = cuda_ucomp.ucomp_dense(*ops, 1, 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (cuda_ucomp.launches, cuda_ucomp.bwd_launches,
+            cuda_adam.launches) == before
 
 
 def test_entry_points_refuse_cpu_fallback():
