@@ -1062,9 +1062,10 @@ def train_breakdown_q10(steps=10):
     return out
 
 
-def profile_steps(step, steps, profile, activity):
+def profile_steps(step, steps, profile, activity, match=None):
     """The card's busy share over ``steps`` calls of step() under
-    torch.profiler, and the kernels that take it."""
+    torch.profiler, and the kernels that take it; with ``match``, only the
+    kernels whose name holds it."""
     try:
         torch.cuda.synchronize()
         with profile(activities=[activity.CPU, activity.CUDA]) as prof:
@@ -1076,7 +1077,8 @@ def profile_steps(step, steps, profile, activity):
         # the card's own rows (kernels, copies): a CPU op's device time is
         # that of the kernels it launched, which have rows of their own
         kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and (match is None or match in e.key)]
         busy_us = sum(_device_us(e) for e in kernels)
         if not busy_us:
             return {"profiler_error": "no device rows in the trace"}
@@ -1196,20 +1198,24 @@ PROFILE_ITERS = 40
 ARM_ROUNDS, ARM_STEPS = 5, 20
 
 
-def ucomp_counts(nb, ld, d):
-    """Work of the block-matrix compile as its plain version writes it:
-    (flops forward, flops backward, bytes forward, bytes backward).  A real
-    D x D product is 2 D^3 flops, a complex one four of them.  Forward, per
-    block: ld products U1t . B' (2 real each), ld - 1 fold products (4),
-    H . acc (2) and . R (2; none for the last block).  Backward: the ld
-    sublayer products and the ld - 2 fold prefixes again, H g R (4), per
-    fold step Sbar and the next accbar (4 + 4), per sublayer U1bar and
-    B'bar (2 + 2).  Bytes: every input read once, every output written
-    once."""
+def ucomp_counts(nb, ld, d, n):
+    """Least work of the block-matrix compile, counted as chain_bound and
+    fused_bwd_bound count: (flops forward, flops backward, bytes forward,
+    bytes backward).  A real D x D product is 2 D^3 flops.  A real-by-complex
+    product is two of them; a complex-by-complex product three (the
+    three-product form) plus that form's 5 D^2 additions.  H and R are n
+    butterfly stages, 2 n D^2 additions on a complex matrix.  Forward, per
+    block: ld products U1t . B' (real by complex), ld - 1 fold products
+    (complex), H . acc and . R (butterflies; no R on the last block).
+    Backward, the VJP's own products and not the recompute of the forward:
+    H g R (butterflies), per fold step Sbar and the next accbar (complex
+    each), per sublayer U1bar and B'bar (two real products each).  Bytes:
+    every input read once, every output written once."""
     real = 2.0 * d ** 3
-    fwd = nb * real * (2 * ld + 4 * (ld - 1) + 4) - 2 * real
-    bwd = nb * real * (2 * ld + 4 * max(ld - 2, 0) + 4 + 8 * (ld - 1)
-                       + 4 * ld) - 2 * real
+    cplx = 3 * real + 5.0 * d * d
+    hr = (2 * nb - 1) * 2.0 * n * d * d
+    fwd = nb * (2 * ld * real + (ld - 1) * cplx) + hr
+    bwd = nb * (2 * (ld - 1) * cplx + 4 * ld * real) + hr
     ops_bytes = 4.0 * 3 * nb * ld * d * d
     mt_bytes = 4.0 * 2 * nb * d * d
     return fwd, bwd, ops_bytes + mt_bytes, 2 * ops_bytes + mt_bytes
@@ -1232,9 +1238,9 @@ def smallest_launch():
             "alone_with_sync_ms": host_ms(launch, 50)}
 
 
-def _profiled(step, steps=10):
+def _profiled(step, steps=10, match=None):
     from torch.profiler import ProfilerActivity, profile
-    return profile_steps(step, steps, profile, ProfilerActivity)
+    return profile_steps(step, steps, profile, ProfilerActivity, match)
 
 
 def kernel_device_ms(fn, match, reps=20):
@@ -1243,25 +1249,15 @@ def kernel_device_ms(fn, match, reps=20):
     the CUDA-event times around a wrapper also hold the host's part of a
     call, which for a kernel of microseconds is most of it.  None when the
     trace has no such row."""
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and match in e.key]
-    return sum(_device_us(e) for e in rows) / 1e3 / reps if rows else None
+    prof = _profiled(fn, reps, match)
+    return prof["device_busy_ms"] / reps if "device_busy_ms" in prof else None
 
 
-def phase_kernel_ucomp():
-    """B4f and B4b against their plain versions at every case; returns the
-    per-case records."""
+def phase_kernel_ucomp(launch):
+    """B4f and B4b against their plain versions at every case, beside what
+    the smallest launch costs (``launch``); returns the per-case records."""
     dev = torch.device('cuda')
-    launch = smallest_launch()
     records = []
     for label, spec in UCOMP_CASES:
         nb, d, ld = spec.n_blocks, spec.dim, spec.block_configs[0][1]
@@ -1284,7 +1280,7 @@ def phase_kernel_ucomp():
                 for k, a, b in zip(names, bwd, bwd_plain)}
         scales = {k: max(1.0, b.abs().max().item())
                   for k, b in zip(names, bwd_plain)}
-        f_flops, b_flops, f_bytes, b_bytes = ucomp_counts(nb, ld, d)
+        f_flops, b_flops, f_bytes, b_bytes = ucomp_counts(nb, ld, d, spec.n_qubits)
         fwd_bound, fwd_by = _bound(f_flops, f_bytes)
         bwd_bound, bwd_by = _bound(b_flops, b_bytes)
         rec = {"phase": "kernel_ucomp", "case": label, "nq": spec.n_qubits,
@@ -1373,9 +1369,9 @@ def _flagship_model(dev, engine='pallas'):
                     generator=torch.Generator().manual_seed(0))
 
 
-def phase_kernel_adam():
-    """B5 against adam_step_dense on the flagship's leaves; returns the
-    record."""
+def phase_kernel_adam(launch):
+    """B5 against adam_step_dense on the flagship's leaves, beside what the
+    smallest launch costs (``launch``); returns the record."""
     dev = torch.device('cuda')
     shapes = [tuple(p.shape) for p in _flagship_model(dev).parameters()]
     n_params = sum(int(np.prod(s)) for s in shapes)
@@ -1430,7 +1426,7 @@ def phase_kernel_adam():
            "torch_adam_default_ms": time_ms(default.step, 50),
            "torch_adam_default_host_ms": host_ms(default.step, 50),
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-           "smallest_launch": smallest_launch()}
+           "smallest_launch": launch}
     emit(rec)
     check(all(bool(torch.isfinite(t).all()) for t in got),
           "adam: output not finite")
@@ -1580,8 +1576,8 @@ def four_arm_step():
 
 def phase_serve_ucomp():
     """The served path with USE_UCOMP on: the Advection anchor through
-    load_model -> Predictor -> HTTP on `cuda`; returns the compile
-    kernel's launches in it."""
+    load_model -> Predictor -> HTTP on `cuda`; returns the launches in
+    it."""
     fixture = np.load(FIXTURE)
     fb, ft, fpred = fixture['branch'], fixture['trunk'], fixture['pred']
     _zero_counts()                     # the served path starts here
@@ -1643,7 +1639,7 @@ def phase_serve_ucomp():
           f"serve_ucomp: launches {counts}")
     check(counts["ucomp_bwd"] == 0, f"serve_ucomp: a backward ran: {counts}")
     check(not thread.is_alive(), "server thread did not stop")
-    return counts["ucomp_fwd"]
+    return counts
 
 
 def main():
@@ -1665,8 +1661,9 @@ def main():
     emit({"phase": "train_breakdown_q10", "batch": 100,
           **train_breakdown_q10()})
     q10_serve = phase_serve_q10()
-    ucomp_records = phase_kernel_ucomp()
-    adam = phase_kernel_adam()
+    launch = smallest_launch()
+    ucomp_records = phase_kernel_ucomp(launch)
+    adam = phase_kernel_adam(launch)
     phase_train_parity_ucomp(default_run)
     ps_counts = phase_profile_step()
     emit({"phase": "four_arm_step", "batch": 100, "rounds": ARM_ROUNDS,
@@ -1687,9 +1684,11 @@ def main():
         "source": "quanonet_torch/csrc/hea_chain.cu",
         "replaces": "quanonet_tpu/ops/pallas_hea.py:153",
         "twin": "quanonet_torch/ops/hea.py:chain_dense, chain_dense_saved",
-        "launches": launches + train_fwd + ps_counts["hea_chain_fwd"],
+        "launches": (launches + train_fwd + ps_counts["hea_chain_fwd"]
+                     + serve_ucomp["hea_chain_fwd"]),
         "launches_by_path": {"serve": launches, "train": train_fwd,
-                             "profile_step": ps_counts["hea_chain_fwd"]},
+                             "profile_step": ps_counts["hea_chain_fwd"],
+                             "serve_ucomp": serve_ucomp["hea_chain_fwd"]},
         "max_abs_err": max(r['max_abs_err_amp']
                            for r in records + bwd_records),
         "max_abs_err_expect": max(r['max_abs_err_expect'] for r in records),
@@ -1709,7 +1708,8 @@ def main():
         "twin": "quanonet_torch/ops/hea.py:chain_backward_dense",
         "launches": train_bwd + ps_counts["hea_chain_bwd"],
         "launches_by_path": {"serve": 0, "train": train_bwd,
-                             "profile_step": ps_counts["hea_chain_bwd"]},
+                             "profile_step": ps_counts["hea_chain_bwd"],
+                             "serve_ucomp": 0},
         "max_abs_err": max(max(r['max_abs_err_mbar'], r['max_abs_err_phibar'])
                            for r in bwd_records),
         "ms": step['ms'], "plain_ms": step['plain_ms'],
@@ -1757,9 +1757,9 @@ def main():
         "source": "quanonet_torch/csrc/ucomp.cu",
         "replaces": "quanonet_tpu/ops/pallas_ucomp.py:118",
         "twin": "quanonet_torch/ops/cuda_ucomp.py:ucomp_dense",
-        "launches": ps_counts["ucomp_fwd"] + serve_ucomp,
+        "launches": ps_counts["ucomp_fwd"] + serve_ucomp["ucomp_fwd"],
         "launches_by_path": {"profile_step": ps_counts["ucomp_fwd"],
-                             "serve_ucomp": serve_ucomp},
+                             "serve_ucomp": serve_ucomp["ucomp_fwd"]},
         "max_abs_err": max(r['max_abs_err_fwd'] for r in ucomp_records),
         "ms": ustep['fwd_ms'], "plain_ms": ustep['fwd_plain_ms'],
         "bound_ms": ustep['fwd_bound_ms'], "bound_by": ustep['fwd_bound_by'],

@@ -31,8 +31,9 @@ versions on the CPU.  ``--fused_adam`` takes the one-launch Adam
 (ops/cuda_adam.py) in full_step and adam_only; ``USE_UCOMP=1`` in the
 environment takes the compile kernels in every 'pallas' step and in
 compile_path.  Both are off by default.  Writes the results, with the
-card's name and power limit, to ``--out`` and prints them as the last line
-of stdout; a table goes to stderr.
+card's name and power limit, to ``--out`` (relative to the current
+directory) and prints them as the last line of stdout; a table goes to
+stderr.
 """
 import argparse
 import json
@@ -50,7 +51,6 @@ from quanonet_torch.ops import cuda_hea
 from quanonet_torch.ops.cuda_adam import fused_adam
 from quanonet_torch.ops.hea import quanonet_spec, resolve_engine
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NUM_QUBITS, NET_SIZE = 5, (40, 2, 20, 2)   # the flagship's shape
 WARMUP = 3
 
@@ -67,8 +67,8 @@ def parser():
     ap.add_argument('--fused_adam', action='store_true',
                     help='use the one-launch Adam (ops/cuda_adam.py) in '
                          'full_step and adam_only')
-    ap.add_argument('--out', default=os.path.join(
-        REPO, 'docs', 'step_profile_torch.json'))
+    ap.add_argument('--out', default='docs/step_profile_torch.json',
+                    help='results file, relative to the current directory')
     return ap
 
 
