@@ -99,8 +99,37 @@ Phases, each printed as one JSON line:
              compile kernel's count up; then buckets 1 and 8192 with the
              toggle on and off, in turns.
 
-Each path (serve, train, train_q10, serve_q10, profile_step, serve_ucomp)
-starts with every launch count at 0 and reads them when it ends.  Then the {"kernels": [...]} line,
+18. kernel_embed — the real-embedding chain kernels (csrc/embed_chain.cu):
+             the forward, primal and residual, against chain_embed /
+             chain_embed_saved on random general E and t at the shapes of
+             Q1 .. Q7 models, the flagship (nb 60, d 32) at N in {1, 37,
+             100, 8192}: amplitudes (<= 2e-5), expectation (<= 1e-4),
+             median times, time on the card alone, the bound (embed_bound).
+19. kernel_embed_bwd — the backward against chain_embed_backward at the
+             same cases (1e-4 x max(1, max|plain|), two calls bit-equal).
+20. train_parity_embed — 20 Adam steps of the flagship with engine
+             'embed': the kernels against autograd of the plain chain and
+             against train_parity's 'pallas' run, on the same batches.
+21. train_embed — the quick regime through --engine embed for seeds 0, 1,
+             2 (each within QUICK_BAND_REL_L2), then one CLI epoch with
+             --engine embed whose checkpoint infer.load_model reproduces;
+             both embed kernels launched, the block-chain kernels not.
+22. serve_embed — the Advection anchor through load_model -> Predictor ->
+             HTTP with engine='embed' against the JAX fixture (atol 1e-4);
+             then buckets 1 and 8192 in turns with 'pallas'.
+23. embed_vs_pallas — the flagship's step at batch 100, the two engines
+             in turns in one process: step ms, device rows a step and the
+             card's busy share.  (profile_step, phase 16, times 'embed'
+             among its engines.)
+24. classical — FNN, DeepONet and FNO each take a few epochs through the
+             training CLI on the card (loss finite and falling, parameters
+             on `cuda`); the DeepONet checkpoint is served through
+             Predictor, whose prediction equals infer.predict's.  No
+             hand-written kernel runs here: these models are plain matrix
+             products.
+
+Each path (serve, train, train_q10, serve_q10, profile_step, serve_ucomp,
+train_embed, serve_embed) starts with every launch count at 0 and reads them when it ends.  Then the {"kernels": [...]} line,
 the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failed
 check exits non-zero before the last line.  Needs one card; exits 1
 without CUDA.
@@ -127,7 +156,8 @@ from quanonet_torch.models import QuanONet
 from quanonet_torch import checkpoint as ckpt_io
 from quanonet_torch.convert import raw_from_state_dict
 from quanonet_torch.ops import (
-    _build, cuda_adam, cuda_fused, cuda_hea, cuda_ucomp, fused_gates, hea,
+    _build, cuda_adam, cuda_embed, cuda_fused, cuda_hea, cuda_ucomp,
+    fused_gates, hea,
 )
 from quanonet_torch.ops.hamiltonian import simple_ham_diag
 from quanonet_torch.serve import Predictor, make_server
@@ -266,7 +296,7 @@ def phase_device():
 def phase_build():
     """Every kernel source, one nvcc each, all started together."""
     names = (cuda_hea.KERNEL, cuda_fused.KERNEL, cuda_ucomp.KERNEL,
-             cuda_adam.KERNEL)
+             cuda_adam.KERNEL, cuda_embed.KERNEL)
     t0 = time.time()
 
     def build(name):
@@ -330,6 +360,23 @@ def _post(port, path, payload):
         return r.status, json.loads(r.read())
 
 
+def _http_predict(pred, branch, trunk):
+    """One POST /predict over loopback to a server around ``pred``; ->
+    (status, response, whether the server's thread has stopped)."""
+    srv = make_server(pred, host='127.0.0.1', port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        code, resp = _post(srv.server_port, '/predict',
+                           {"branch": branch.tolist(),
+                            "trunk": trunk.tolist()})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    return code, resp, not thread.is_alive()
+
+
 def phase_serve():
     """The served path on the card; returns the kernel launches it made."""
     fixture = np.load(FIXTURE)
@@ -366,16 +413,7 @@ def phase_serve():
         req_err.append(float(np.abs(out - ref).max()))
     fix_err = float(np.abs(pred.predict(fb, ft) - fpred).max())
 
-    srv = make_server(pred, host='127.0.0.1', port=0)
-    thread = threading.Thread(target=srv.serve_forever, daemon=True)
-    thread.start()
-    try:
-        code, resp = _post(srv.server_port, '/predict',
-                           {"branch": fb.tolist(), "trunk": ft.tolist()})
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        thread.join(timeout=30)
+    code, resp, stopped = _http_predict(pred, fb, ft)
     http_err = float(np.abs(np.asarray(resp['pred']) - fpred).max())
     torch.cuda.synchronize()
     launches = cuda_hea.launches     # ... and ends here
@@ -394,7 +432,7 @@ def phase_serve():
     check(code == 200 and http_err <= SERVE_TOL,
           f"HTTP /predict: status {code}, error {http_err}")
     check(launches > 0, "the served path launched no kernel")
-    check(not thread.is_alive(), "server thread did not stop")
+    check(stopped, "server thread did not stop")
     for rows in (1, 8192):
         emit({"phase": "serve_breakdown", "rows": rows,
               **serve_breakdown(pred, rows)})
@@ -955,6 +993,7 @@ def _zero_counts():
     cuda_fused.launches = cuda_fused.bwd_launches = 0
     cuda_ucomp.launches = cuda_ucomp.bwd_launches = 0
     cuda_adam.launches = 0
+    cuda_embed.launches = cuda_embed.bwd_launches = 0
 
 
 def _counts():
@@ -964,7 +1003,9 @@ def _counts():
             "fused_chain_bwd": cuda_fused.bwd_launches,
             "ucomp_fwd": cuda_ucomp.launches,
             "ucomp_bwd": cuda_ucomp.bwd_launches,
-            "adam_step": cuda_adam.launches}
+            "adam_step": cuda_adam.launches,
+            "embed_chain_fwd": cuda_embed.launches,
+            "embed_chain_bwd": cuda_embed.bwd_launches}
 
 
 def phase_train_q10():
@@ -1145,16 +1186,7 @@ def phase_serve_q10():
                   f"not finite")
             req_err.append(float(np.abs(out - ref).max()))
         fix_err = float(np.abs(pred.predict(fb, ft) - fpred).max())
-        srv = make_server(pred, host='127.0.0.1', port=0)
-        thread = threading.Thread(target=srv.serve_forever, daemon=True)
-        thread.start()
-        try:
-            code, resp = _post(srv.server_port, '/predict',
-                               {"branch": fb.tolist(), "trunk": ft.tolist()})
-        finally:
-            srv.shutdown()
-            srv.server_close()
-            thread.join(timeout=30)
+        code, resp, stopped = _http_predict(pred, fb, ft)
         http_err = float(np.abs(np.asarray(resp['pred']) - fpred).max())
         torch.cuda.synchronize()
         launches = cuda_fused.launches  # ... and ends here
@@ -1176,7 +1208,7 @@ def phase_serve_q10():
     check(code == 200 and http_err <= SERVE_TOL,
           f"Q10 HTTP /predict: status {code}, error {http_err}")
     check(launches > 0, "the Q10 served path launched no fused kernel")
-    check(not thread.is_alive(), "server thread did not stop")
+    check(stopped, "server thread did not stop")
     return launches
 
 
@@ -1501,12 +1533,15 @@ def phase_profile_step():
               f"profile_step {name}: platform {res['platform']}, card "
               f"{res['nvidia_smi']}")
         for k in ('full_step[pallas] bs=100', 'fwd_only[pallas] bs=100',
+                  'full_step[embed] bs=100', 'fwd_only[embed] bs=100',
                   'full_step[dense] bs=100', 'fwd_only[dense] bs=100',
                   'full_step[pallas] bs=400', 'full_step[pallas] bs=1600',
                   'compile_path fwd+bwd', 'adam_only'):
             check(np.isfinite(res.get(k, np.nan)) and res[k] > 0,
                   f"profile_step {name}: component {k!r} is {res.get(k)}")
-        check(counts["hea_chain_fwd"] > 0 and counts["hea_chain_bwd"] > 0,
+        check(counts["hea_chain_fwd"] > 0 and counts["hea_chain_bwd"] > 0
+              and counts["embed_chain_fwd"] > 0
+              and counts["embed_chain_bwd"] > 0,
               f"profile_step {name}: chain launches {counts}")
     off, on = runs['default'][1], runs['ucomp_fused_adam'][1]
     check(off["ucomp_fwd"] == off["ucomp_bwd"] == off["adam_step"] == 0,
@@ -1514,6 +1549,40 @@ def phase_profile_step():
     check(on["ucomp_fwd"] > 0 and on["ucomp_bwd"] > 0 and on["adam_step"] > 0,
           f"profile_step: toggles on, yet launches {on}")
     return on
+
+
+def _arms_in_turns(arms):
+    """{name: step} -> per arm the median step time over ARM_ROUNDS rounds
+    of ARM_STEPS steps, the arms taking turns (host clock with a
+    synchronise), then its device rows a step, the card's busy share and
+    its top kernels under torch.profiler."""
+    times = {name: [] for name in arms}
+    for step in arms.values():
+        for _ in range(3):
+            step()
+    for _ in range(ARM_ROUNDS):
+        for name, step in arms.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ARM_STEPS):
+                step()
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0) / ARM_STEPS)
+    out = {}
+    for name, step in arms.items():
+        prof = _profiled(step)
+        out[name] = {"step_ms": float(np.median(times[name])),
+                     "step_ms_rounds": times[name],
+                     "device_rows_per_step": prof.get(
+                         "device_kernels_per_step"),
+                     "device_busy_share": prof.get("device_busy_share"),
+                     "device_busy_ms_per_step": (
+                         prof["device_busy_ms"] / prof["profiled_steps"]
+                         if "device_busy_ms" in prof else None),
+                     "top_device_ms_per_step": prof.get(
+                         "top_device_ms_per_step"),
+                     "profiler_error": prof.get("profiler_error")}
+    return out
 
 
 def four_arm_step():
@@ -1547,31 +1616,7 @@ def four_arm_step():
             finally:
                 cuda_hea.USE_UCOMP = False
         arms[name] = step
-    times = {name: [] for name in arms}
-    for step in arms.values():
-        for _ in range(3):
-            step()
-    for _ in range(ARM_ROUNDS):
-        for name, step in arms.items():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(ARM_STEPS):
-                step()
-            torch.cuda.synchronize()
-            times[name].append(1e3 * (time.perf_counter() - t0) / ARM_STEPS)
-    out = {}
-    for name, step in arms.items():
-        prof = _profiled(step)
-        out[name] = {"step_ms": float(np.median(times[name])),
-                     "step_ms_rounds": times[name],
-                     "device_rows_per_step": prof.get(
-                         "device_kernels_per_step"),
-                     "device_busy_share": prof.get("device_busy_share"),
-                     "device_busy_ms_per_step": (
-                         prof["device_busy_ms"] / prof["profiled_steps"]
-                         if "device_busy_ms" in prof else None),
-                     "profiler_error": prof.get("profiler_error")}
-    return out
+    return _arms_in_turns(arms)
 
 
 def phase_serve_ucomp():
@@ -1591,16 +1636,7 @@ def phase_serve_ucomp():
         check(pred.cfg['engine'] == 'pallas', f"engine {pred.cfg['engine']}")
         warm_s = pred.warmup()
         fix_err = float(np.abs(pred.predict(fb, ft) - fpred).max())
-        srv = make_server(pred, host='127.0.0.1', port=0)
-        thread = threading.Thread(target=srv.serve_forever, daemon=True)
-        thread.start()
-        try:
-            code, resp = _post(srv.server_port, '/predict',
-                               {"branch": fb.tolist(), "trunk": ft.tolist()})
-        finally:
-            srv.shutdown()
-            srv.server_close()
-            thread.join(timeout=30)
+        code, resp, stopped = _http_predict(pred, fb, ft)
         http_err = float(np.abs(np.asarray(resp['pred']) - fpred).max())
         torch.cuda.synchronize()
         counts = _counts()             # ... and ends here
@@ -1638,8 +1674,453 @@ def phase_serve_ucomp():
     check(counts["ucomp_fwd"] > 0 and counts["hea_chain_fwd"] > 0,
           f"serve_ucomp: launches {counts}")
     check(counts["ucomp_bwd"] == 0, f"serve_ucomp: a backward ran: {counts}")
-    check(not thread.is_alive(), "server thread did not stop")
+    check(stopped, "server thread did not stop")
     return counts
+
+
+# ── the real-embedding chain (B3f, B3b) and the classical baselines ─────────
+
+EMBED_CASES = [      # (label, qubits, net_size, batch rows N)
+    *[('Q5 Net40-2-20-2', 5, (40, 2, 20, 2), n) for n in (1, 37, 100, 8192)],
+    ('Q1 Net2-1-2-1', 1, (2, 1, 2, 1), 37),
+    ('Q2 Net5-1-5-1', 2, (5, 1, 5, 1), 1000),
+    ('Q3 Net4-2-3-1', 3, (4, 2, 3, 1), 37),
+    ('Q4 Net10-2-5-2', 4, (10, 2, 5, 2), 37),
+    ('Q6 Net10-2-5-2', 6, (10, 2, 5, 2), 100),
+    ('Q7 Net40-2-20-2', 7, (40, 2, 20, 2), 100),
+    ('Q7 Net2-1-2-1', 7, (2, 1, 2, 1), 1000),
+    ('Q5 one block', 5, (1, 1, 0, 0), 37),
+]
+CLASSICAL_RUNS = [   # (model type, extra CLI flags)
+    ('FNN', ['--net_size', '3', '20']),
+    ('DeepONet', ['--net_size', '3', '20', '3', '20']),
+    ('FNO', ['--net_size', '15', '14', '3', '32', '--batch_size', '20']),
+]
+CLASSICAL_EPOCHS = 5
+
+
+def embed_counts(nb, n, d):
+    """Least work of the real-embedding chain as the function is given
+    (general E and t): (flops forward, flops backward, bytes forward,
+    bytes backward, bytes of the residuals s and u).  A real (2d x 2d)
+    product per row and block is 2 (2d)^2 flops; the phase step 3 flops a
+    column (the sincos is not counted).  The backward does two such
+    products and the outer product Ebar a block, and 7 flops a column for
+    tbar and ubar.  Bytes: each input read once (the backward's: E, t, s,
+    u, g), each output written once."""
+    w = 2 * d
+    prod = 2.0 * nb * n * w * w
+    fwd = prod + 3.0 * (nb - 1) * n * w + n * w
+    bwd = 3 * prod + 7.0 * (nb - 1) * n * w + 2.0 * n * w
+    e_bytes, row_bytes = 4.0 * nb * w * w, 4.0 * n * w
+    residual_bytes = (2 * nb - 1) * row_bytes
+    fwd_bytes = e_bytes + (nb + 1) * row_bytes
+    bwd_bytes = 2 * e_bytes + (2 * nb + 1) * row_bytes + residual_bytes
+    return fwd, bwd, fwd_bytes, bwd_bytes, residual_bytes
+
+
+def embed_bound(nb, n, d):
+    """Least time (ms) the card needs for the real-embedding chain's
+    forward: the larger of its operations at the fp32 peak and its bytes at
+    the HBM rate; -> (ms, bound_by, flops, bytes)."""
+    flops, _, nbytes, _, _ = embed_counts(nb, n, d)
+    return (*_bound(flops, nbytes), flops, nbytes)
+
+
+def embed_bwd_bound(nb, n, d):
+    """The same for the backward."""
+    _, flops, _, nbytes, _ = embed_counts(nb, n, d)
+    return (*_bound(flops, nbytes), flops, nbytes)
+
+
+def _embed_case(nq, net, n, seed, dev):
+    """Random general operands at a model's shapes: E with no block
+    structure, scaled so the row keeps its size; t with no antisymmetry,
+    |t| up to 12 rad; a cotangent."""
+    spec = hea.quanonet_spec(nq, net)
+    rng = np.random.RandomState(seed)
+    w = 2 * spec.dim
+    e, t, g = (torch.tensor(a.astype(np.float32), device=dev) for a in (
+        rng.randn(spec.n_blocks, w, w) / np.sqrt(w),
+        rng.uniform(-12, 12, (spec.n_blocks, n, w)), rng.randn(n, w)))
+    return spec, e, t, g
+
+
+def _embed_expectation(out, d, diag):
+    """<H> of the state [re | im] = out, normalised: a general E is not
+    unitary and a general t's phase step keeps no norm, so the row is
+    brought back to a state before it is measured."""
+    sr, si = out[:, :d], out[:, d:]
+    norm = (sr * sr + si * si).sum(-1, keepdim=True)
+    return hea.diag_expectation_pair(sr, si, diag) / norm
+
+
+def phase_kernel_embed():
+    """B3f (primal and residual) against chain_embed / chain_embed_saved at
+    every case; returns the per-case records."""
+    dev = torch.device('cuda')
+    records = []
+    for label, nq, net, n in EMBED_CASES:
+        spec, e, t, _ = _embed_case(nq, net, n, 6000 + 10 * nq + n, dev)
+        nb, d = spec.n_blocks, spec.dim
+        out = cuda_embed.embed_chain(e, t)
+        saved = cuda_embed.embed_forward(e, t, save_residuals=True)
+        plain = cuda_embed.chain_embed_saved(e, t)
+        torch.cuda.synchronize()
+        diag = torch.as_tensor(simple_ham_diag(nq, -5, 5), device=dev)
+        err_exp = (_embed_expectation(out, d, diag)
+                   - _embed_expectation(plain[0], d, diag)
+                   ).abs().max().item()
+        reps = 20 if n >= 1000 else 50
+        bound_ms, bound_by, flops, nbytes = embed_bound(nb, n, d)
+        residual_bytes = embed_counts(nb, n, d)[4]
+        rec = {"phase": "kernel_embed", "case": label, "nq": nq, "nb": nb,
+               "N": n, "d": d,
+               "max_abs_err_amp": (out - plain[0]).abs().max().item(),
+               "max_abs_err_expect": err_exp,
+               "max_abs_err_s": (saved[1] - plain[1]).abs().max().item(),
+               "max_abs_err_u": ((saved[2] - plain[2]).abs().max().item()
+                                 if nb > 1 else 0.0),
+               "primal_bit_equal": torch.equal(out, saved[0]),
+               "ms": time_ms(lambda: cuda_embed.embed_chain(e, t), reps),
+               "device_ms": kernel_device_ms(
+                   lambda: cuda_embed.embed_chain(e, t), 'embed_chain_fwd'),
+               "plain_ms": time_ms(lambda: cuda_embed.chain_embed(e, t), 5),
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+               "bytes": nbytes,
+               "saved_ms": time_ms(lambda: cuda_embed.embed_forward(
+                   e, t, save_residuals=True), reps),
+               "saved_plain_ms": time_ms(
+                   lambda: cuda_embed.chain_embed_saved(e, t), 5),
+               "saved_bound_ms": _bound(flops, nbytes + residual_bytes)[0]}
+        rec["share_of_bound"] = bound_ms / rec["ms"]
+        emit(rec)
+        where = f"embed {label} N={n}"
+        check(bool(torch.isfinite(out).all()), f"{where}: output not finite")
+        check(rec["max_abs_err_amp"] <= AMP_TOL,
+              f"{where}: amplitude error {rec['max_abs_err_amp']}")
+        check(err_exp <= EXPECT_TOL, f"{where}: expectation error {err_exp}")
+        check(max(rec["max_abs_err_s"], rec["max_abs_err_u"]) <= AMP_TOL,
+              f"{where}: residual error {rec['max_abs_err_s']} / "
+              f"{rec['max_abs_err_u']}")
+        check(rec["primal_bit_equal"], f"{where}: residual variant's output "
+                                       f"differs from the primal kernel's")
+        records.append(rec)
+    return records
+
+
+def phase_kernel_embed_bwd():
+    """B3b against chain_embed_backward at every case; returns the
+    per-case records."""
+    dev = torch.device('cuda')
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    records = []
+    for label, nq, net, n in EMBED_CASES:
+        spec, e, t, g = _embed_case(nq, net, n, 6500 + 10 * nq + n, dev)
+        nb, d = spec.n_blocks, spec.dim
+        _, s, u = cuda_embed.embed_forward(e, t, save_residuals=True)
+        got = cuda_embed.embed_backward(e, t, s, u, g)
+        again = cuda_embed.embed_backward(e, t, s, u, g)
+        want = cuda_embed.chain_embed_backward(e, t, s, u, g)
+        torch.cuda.synchronize()
+        names = ('ebar', 'tbar')
+        errs = {k: (a - b).abs().max().item()
+                for k, a, b in zip(names, got, want)}
+        scales = {k: max(1.0, b.abs().max().item())
+                  for k, b in zip(names, want)}
+        reps = 20 if n >= 1000 else 50
+        bound_ms, bound_by, flops, nbytes = embed_bwd_bound(nb, n, d)
+        rec = {"phase": "kernel_embed_bwd", "case": label, "nq": nq,
+               "nb": nb, "N": n, "d": d,
+               "splits": cuda_embed.ebar_splits(nb, n, 2 * d, sms),
+               "max_abs_err": errs, "scale": scales,
+               "bit_equal": all(torch.equal(a, b)
+                                for a, b in zip(got, again)),
+               "ms": time_ms(lambda: cuda_embed.embed_backward(
+                   e, t, s, u, g), reps),
+               "device_ms": kernel_device_ms(
+                   lambda: cuda_embed.embed_backward(e, t, s, u, g), None),
+               "plain_ms": time_ms(lambda: cuda_embed.chain_embed_backward(
+                   e, t, s, u, g), 5),
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+               "bytes": nbytes}
+        rec["share_of_bound"] = bound_ms / rec["ms"]
+        emit(rec)
+        where = f"embed {label} N={n}"
+        check(all(bool(torch.isfinite(a).all()) for a in got),
+              f"{where}: backward output not finite")
+        for k in names:
+            check(errs[k] <= BWD_REL_TOL * scales[k],
+                  f"{where}: {k} error {errs[k]} > {BWD_REL_TOL} x "
+                  f"{scales[k]}")
+        check(rec["bit_equal"], f"{where}: two backward calls differ")
+        records.append(rec)
+    return records
+
+
+def phase_train_parity_embed(pallas_run):
+    """20 Adam steps of the flagship with engine 'embed': the kernels
+    against autograd of the plain chain (chain_embed in the kernels'
+    place) and against train_parity's 'pallas' run, same initial state,
+    batches and schedule."""
+    dev = torch.device('cuda')
+    inputs, target, idx, schedule = _parity_batches(dev)
+    runs, counts = {}, {}
+    kernels = cuda_embed.embed_chain
+    for name, chain in (('kernels', kernels),
+                        ('plain', cuda_embed.chain_embed)):
+        model = _flagship_model(dev, engine='embed')
+        opt = ScheduledOptimizer(torch.optim.Adam(model.parameters()),
+                                 schedule)
+        _zero_counts()
+        cuda_embed.embed_chain = chain
+        try:
+            runs[name] = _parity_steps(model, opt, inputs, target, idx)
+        finally:
+            cuda_embed.embed_chain = kernels
+        counts[name] = _counts()
+    (lk, pk), (lp, pp) = runs['kernels'], runs['plain']
+    ld, pd = pallas_run
+
+    def diffs(la, pa, lb, pb):
+        return (max(abs(a - b) / abs(b) for a, b in zip(la, lb)),
+                max((pa[k] - pb[k]).abs().max().item() for k in pa))
+    vs_plain, vs_pallas = diffs(lk, pk, lp, pp), diffs(lk, pk, ld, pd)
+    emit({"phase": "train_parity_embed", "steps": PARITY_STEPS,
+          "losses_embed": lk, "losses_plain": lp, "losses_pallas": ld,
+          "max_loss_rel_diff_vs_plain": vs_plain[0],
+          "max_param_abs_diff_vs_plain": vs_plain[1],
+          "max_loss_rel_diff_vs_pallas": vs_pallas[0],
+          "max_param_abs_diff_vs_pallas": vs_pallas[1],
+          "launches": counts})
+    check(all(np.isfinite(lk)), "train_parity_embed: losses not finite")
+    for what, (loss_rel, param_err) in (('plain', vs_plain),
+                                        ('pallas', vs_pallas)):
+        check(loss_rel <= PARITY_LOSS_RTOL,
+              f"train_parity_embed: step losses differ from {what} by "
+              f"{loss_rel} relative")
+        check(param_err <= PARITY_PARAM_TOL,
+              f"train_parity_embed: parameters differ from {what} by "
+              f"{param_err}")
+    on, off = counts['kernels'], counts['plain']
+    check(on["embed_chain_fwd"] == on["embed_chain_bwd"] == PARITY_STEPS,
+          f"train_parity_embed: launches {on}")
+    check(off["embed_chain_fwd"] == off["embed_chain_bwd"] == 0,
+          f"train_parity_embed: the plain run launched a kernel: {off}")
+
+
+def phase_train_embed():
+    """The training path with --engine embed: the bench's quick regime for
+    3 seeds, then one epoch of the CLI; returns the launches in it."""
+    quick_data()
+    _zero_counts()                    # the path starts here
+    result = bench.run(bench.parser().parse_args(
+        ['--quick', '--runs', '3', '--engine', 'embed']))
+    with tempfile.TemporaryDirectory() as tmp:
+        stdout = sys.stdout
+        try:
+            solver = cli.main([
+                '--operator', 'Advection', '--model_type', 'QuanONet',
+                '--net_size', '40', '2', '20', '2', '--num_qubits', '5',
+                '--scale_coeff', '0.1', '--num_epochs', '1',
+                '--num_train', '20', '--num_test', '10',
+                '--train_sample_num', '100', '--test_sample_num', '100',
+                '--learning_rate', '0.003', '--engine', 'embed', '--prefix',
+                os.path.join(tmp, 'outputs'), '--device', 'cuda'])
+        finally:
+            sys.stdout = stdout
+        torch.cuda.synchronize()
+        counts = _counts()            # ... and ends here
+        exp_dir = solver.exp_logger.exp_dir
+        with open(os.path.join(exp_dir, 'metric.json')) as f:
+            metrics = json.load(f)['metrics']
+        ckpt = os.path.join(exp_dir, 'best_model.ckpt')
+        want = solver.predict_test()
+        model, cfg = load_model(ckpt, 100, 2, device='cuda', engine='embed')
+        got = predict(model, solver.test_inputs[0], solver.test_inputs[1])
+        cli_err = float(np.abs(got - want).max())
+    emit({"phase": "train_embed", "bench": result,
+          "band_rel_l2": QUICK_BAND_REL_L2, "cli_run_id": solver.run_id,
+          "cli_engine": solver.model.engine, "reload_engine": cfg['engine'],
+          "cli_metrics": metrics, "cli_reload_max_abs_err": cli_err,
+          "launches": counts})
+    check(result['resolved_engine'] == 'embed'
+          and solver.model.engine == 'embed' and cfg['engine'] == 'embed',
+          f"train_embed: engines {result['resolved_engine']}, "
+          f"{solver.model.engine}, {cfg['engine']}")
+    for seed, rel in enumerate(result['rel_l2_runs']):
+        check(np.isfinite(rel) and rel <= QUICK_BAND_REL_L2,
+              f"train_embed: seed {seed} rel-L2 {rel} outside the band "
+              f"{QUICK_BAND_REL_L2}")
+    check(all(np.isfinite(v) for v in metrics.values()),
+          f"train_embed: CLI metric.json not finite: {metrics}")
+    check(cli_err <= CLI_PRED_TOL,
+          f"train_embed: reloaded checkpoint predicts {cli_err} off the "
+          f"Solver's")
+    check(counts["embed_chain_fwd"] > 0 and counts["embed_chain_bwd"] > 0,
+          f"train_embed: kernel launches {counts}")
+    check(counts["hea_chain_fwd"] == counts["hea_chain_bwd"] == 0,
+          f"train_embed: the block-chain kernels ran: {counts}")
+    return counts, result
+
+
+def phase_serve_embed():
+    """The served path with engine='embed': the Advection anchor through
+    load_model -> Predictor -> HTTP on `cuda`; returns the launches in
+    it."""
+    fixture = np.load(FIXTURE)
+    fb, ft, fpred = fixture['branch'], fixture['trunk'], fixture['pred']
+    rng = np.random.RandomState(27)
+    reqs = [(rng.randn(n, 100).astype(np.float32),
+             rng.rand(n, 2).astype(np.float32)) for n in SERVE_REQUESTS]
+    pallas = Predictor(ANCHOR, branch_in=100, trunk_in=2, max_batch=8192,
+                       device='cuda')
+    refs = [pallas.predict(b, t) for b, t in reqs]
+    _zero_counts()                     # the served path starts here
+    model, cfg = load_model(ANCHOR, 100, 2, device='cuda', engine='embed')
+    load_err = float(np.abs(predict(model, fb, ft, cfg=cfg) - fpred).max())
+    pred = Predictor(ANCHOR, branch_in=100, trunk_in=2, max_batch=8192,
+                     device='cuda', engine='embed')
+    check(pred.cfg['engine'] == 'embed', f"engine {pred.cfg['engine']}")
+    warm_s = pred.warmup()
+    req_err = []
+    for (b, t), ref in zip(reqs, refs):
+        out = pred.predict(b, t)
+        check(out.shape == (b.shape[0], 1) and np.isfinite(out).all(),
+              f"embed request of {b.shape[0]} rows: shape {out.shape} or "
+              f"not finite")
+        req_err.append(float(np.abs(out - ref).max()))
+    fix_err = float(np.abs(pred.predict(fb, ft) - fpred).max())
+    code, resp, stopped = _http_predict(pred, fb, ft)
+    http_err = float(np.abs(np.asarray(resp['pred']) - fpred).max())
+    torch.cuda.synchronize()
+    counts = _counts()                 # ... and ends here
+    # outside the counted window: each bucket through both engines, in turns
+    bucket_ms = {}
+    for rows in (1, 8192):
+        bn, tn = (np.zeros((rows, 100), np.float32),
+                  np.zeros((rows, 2), np.float32))
+        times = {'embed': [], 'pallas': []}
+        for _ in range(3):
+            for name, p in (('embed', pred), ('pallas', pallas)):
+                times[name].append(host_ms(lambda: p.predict(bn, tn), 10))
+        bucket_ms[rows] = {"embed_ms": float(np.median(times['embed'])),
+                           "pallas_ms": float(np.median(times['pallas'])),
+                           "embed_rounds": times['embed'],
+                           "pallas_rounds": times['pallas']}
+    emit({"phase": "serve_embed", "ckpt": os.path.relpath(ANCHOR, REPO),
+          "engine": pred.cfg['engine'], "warmup_s": warm_s,
+          "requests": list(SERVE_REQUESTS),
+          "request_max_abs_err_vs_pallas": req_err,
+          "load_model_fixture_max_abs_err": load_err,
+          "fixture_max_abs_err": fix_err, "http_status": code,
+          "http_max_abs_err": http_err, "launches": counts,
+          "bucket_request_ms": bucket_ms})
+    check(max(req_err) <= SERVE_TOL,
+          f"serve_embed: requests differ from the pallas engine by {req_err}")
+    check(max(load_err, fix_err) <= SERVE_TOL,
+          f"serve_embed: output differs from the JAX fixture by "
+          f"{load_err} / {fix_err}")
+    check(code == 200 and http_err <= SERVE_TOL,
+          f"serve_embed HTTP /predict: status {code}, error {http_err}")
+    check(counts["embed_chain_fwd"] > 0, f"serve_embed: launches {counts}")
+    check(counts["embed_chain_bwd"] == counts["hea_chain_fwd"] == 0,
+          f"serve_embed: another kernel ran: {counts}")
+    check(stopped, "server thread did not stop")
+    return counts
+
+
+def embed_vs_pallas():
+    """The flagship's step at batch 100 through 'pallas' and 'embed', in
+    turns within this process so that both see the same host: median step
+    time over ARM_ROUNDS rounds of ARM_STEPS steps (host clock with a
+    synchronise), then each engine's device rows a step and the card's
+    busy share under torch.profiler.  Outside the counted windows."""
+    dev = torch.device('cuda')
+    rng = np.random.RandomState(0)
+    b = torch.as_tensor(rng.randn(100, 100).astype(np.float32), device=dev)
+    t = torch.as_tensor(rng.rand(100, 2).astype(np.float32), device=dev)
+    y = torch.as_tensor(rng.randn(100, 1).astype(np.float32), device=dev)
+    arms = {}
+    for engine in ('pallas', 'embed'):
+        model = _flagship_model(dev, engine=engine)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+
+        def step(model=model, opt=opt):
+            loss = ((model(b, t) - y) ** 2).mean()
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+        arms[engine] = step
+    return _arms_in_turns(arms)
+
+
+def phase_classical():
+    """FNN, DeepONet and FNO through the training CLI on the card, and the
+    DeepONet checkpoint through Predictor.  These models are plain matrix
+    products (nn.Linear, einsum): no hand-written kernel runs here."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _zero_counts()
+        for mt, flags in CLASSICAL_RUNS:
+            stdout = sys.stdout
+            t0 = time.time()
+            try:
+                solver = cli.main([
+                    '--operator', 'Antideriv', '--model_type', mt, *flags,
+                    '--num_epochs', str(CLASSICAL_EPOCHS), '--num_train',
+                    '100', '--num_test', '20', '--learning_rate', '0.003',
+                    '--prefix', os.path.join(tmp, 'outputs'), '--device',
+                    'cuda'])
+            finally:
+                sys.stdout = stdout
+            torch.cuda.synchronize()
+            with open(os.path.join(solver.exp_logger.exp_dir,
+                                   'metric.json')) as f:
+                saved = json.load(f)
+            runs[mt] = {
+                "run_id": solver.run_id, "seconds": time.time() - t0,
+                "parameters": sum(p.numel()
+                                  for p in solver.model.parameters()),
+                "devices": sorted({p.device.type
+                                   for p in solver.model.parameters()}),
+                "loss_train": saved['history']['loss_train'],
+                "rel_l2": saved['metrics']['rel_l2']}
+            if mt == 'DeepONet':
+                ckpt = os.path.join(solver.exp_logger.exp_dir,
+                                    'best_model.ckpt')
+                b, t = solver.test_inputs
+                pred = Predictor(ckpt, branch_in=b.shape[1],
+                                 trunk_in=t.shape[1], max_batch=256,
+                                 device='cuda')
+                served = pred.predict(b[:300], t[:300])
+                model, cfg = load_model(ckpt, b.shape[1], t.shape[1],
+                                        device='cuda')
+                direct = predict(model, b[:300], t[:300], cfg=cfg)
+                runs[mt]["served_max_abs_err_vs_predict"] = float(
+                    np.abs(served - direct).max())
+                runs[mt]["served_max_abs_err_vs_solver"] = float(
+                    np.abs(served - solver.predict_test()[:300]).max())
+        counts = _counts()
+    emit({"phase": "classical", "epochs": CLASSICAL_EPOCHS,
+          "hand_written_kernels": "none: plain matrix products",
+          "launches": counts, **runs})
+    for mt, r in runs.items():
+        losses = r["loss_train"]
+        check(len(losses) == CLASSICAL_EPOCHS and all(np.isfinite(losses))
+              and losses[-1] < losses[0],
+              f"classical {mt}: losses {losses}")
+        check(np.isfinite(r["rel_l2"]), f"classical {mt}: rel-L2 not finite")
+        check(r["devices"] == ['cuda'],
+              f"classical {mt}: parameters on {r['devices']}")
+    d = runs['DeepONet']
+    check(d["served_max_abs_err_vs_predict"] <= 1e-6
+          and d["served_max_abs_err_vs_solver"] <= CLI_PRED_TOL,
+          f"classical DeepONet: served prediction off by "
+          f"{d['served_max_abs_err_vs_predict']} / "
+          f"{d['served_max_abs_err_vs_solver']}")
+    check(not any(counts.values()),
+          f"classical: a quantum kernel was launched: {counts}")
 
 
 def main():
@@ -1669,6 +2150,21 @@ def main():
     emit({"phase": "four_arm_step", "batch": 100, "rounds": ARM_ROUNDS,
           "steps_per_round": ARM_STEPS, **four_arm_step()})
     serve_ucomp = phase_serve_ucomp()
+    embed_records = phase_kernel_embed()
+    embed_bwd_records = phase_kernel_embed_bwd()
+    phase_train_parity_embed(default_run)
+    train_embed, _ = phase_train_embed()
+    serve_embed = phase_serve_embed()
+    emit({"phase": "embed_vs_pallas", "batch": 100, "rounds": ARM_ROUNDS,
+          "steps_per_round": ARM_STEPS, **embed_vs_pallas()})
+    phase_classical()
+    ehead = next(r for r in embed_records
+                 if r['nq'] == 5 and r['N'] == 8192)
+    estep = next(r for r in embed_records if r['nq'] == 5 and r['N'] == 100)
+    ebwd = next(r for r in embed_bwd_records
+                if r['nq'] == 5 and r['N'] == 100)
+    ebwd_big = next(r for r in embed_bwd_records
+                    if r['nq'] == 5 and r['N'] == 8192)
     ustep = next(r for r in ucomp_records if (r['nq'], r['nb']) == (5, 60))
     ucomp_shape = {"nb": ustep['nb'], "ld": ustep['ld'], "D": ustep['D']}
     head = next(r for r in records
@@ -1803,7 +2299,51 @@ def main():
                         "parameters": adam['parameters']},
         "device_ms": adam['device_ms'],
         "smallest_launch_ms": adam['smallest_launch']['back_to_back_ms'],
-        "torch_adam_default_ms": adam['torch_adam_default_ms']}]})
+        "torch_adam_default_ms": adam['torch_adam_default_ms']}, {
+        "name": "embed_chain_fwd", "route": "cuda",
+        "source": "quanonet_torch/csrc/embed_chain.cu",
+        "replaces": "quanonet_tpu/ops/pallas_embed.py:68",
+        "twin": "quanonet_torch/ops/cuda_embed.py:chain_embed, "
+                "chain_embed_saved",
+        "launches": (train_embed["embed_chain_fwd"]
+                     + serve_embed["embed_chain_fwd"]
+                     + ps_counts["embed_chain_fwd"]),
+        "launches_by_path": {"train_embed": train_embed["embed_chain_fwd"],
+                             "serve_embed": serve_embed["embed_chain_fwd"],
+                             "profile_step": ps_counts["embed_chain_fwd"]},
+        "max_abs_err": max(max(r['max_abs_err_amp'], r['max_abs_err_s'],
+                               r['max_abs_err_u']) for r in embed_records),
+        "max_abs_err_expect": max(r['max_abs_err_expect']
+                                  for r in embed_records),
+        "ms": ehead['ms'], "plain_ms": ehead['plain_ms'],
+        "bound_ms": ehead['bound_ms'], "bound_by": ehead['bound_by'],
+        "library_ms": None, "device_ms": ehead['device_ms'],
+        "timed_shape": {"nb": ehead['nb'], "N": ehead['N'], "d": ehead['d']},
+        "residual_variant": {
+            "ms": estep['saved_ms'], "plain_ms": estep['saved_plain_ms'],
+            "bound_ms": estep['saved_bound_ms'],
+            "timed_shape": {"nb": estep['nb'], "N": estep['N'],
+                            "d": estep['d']}},
+        "shapes": [[r['nb'], r['N'], r['d']] for r in embed_records]}, {
+        "name": "embed_chain_bwd", "route": "cuda",
+        "source": "quanonet_torch/csrc/embed_chain.cu",
+        "replaces": "quanonet_tpu/ops/pallas_embed.py:85",
+        "twin": "quanonet_torch/ops/cuda_embed.py:chain_embed_backward",
+        "launches": (train_embed["embed_chain_bwd"]
+                     + ps_counts["embed_chain_bwd"]),
+        "launches_by_path": {"train_embed": train_embed["embed_chain_bwd"],
+                             "serve_embed": 0,
+                             "profile_step": ps_counts["embed_chain_bwd"]},
+        "max_abs_err": max(max(r['max_abs_err'].values())
+                           for r in embed_bwd_records),
+        "ms": ebwd['ms'], "plain_ms": ebwd['plain_ms'],
+        "bound_ms": ebwd['bound_ms'], "bound_by": ebwd['bound_by'],
+        "library_ms": None, "device_ms": ebwd['device_ms'],
+        "timed_shape": {"nb": ebwd['nb'], "N": ebwd['N'], "d": ebwd['d']},
+        "at_N_8192": {"ms": ebwd_big['ms'], "plain_ms": ebwd_big['plain_ms'],
+                      "bound_ms": ebwd_big['bound_ms'],
+                      "bound_by": ebwd_big['bound_by']},
+        "shapes": [[r['nb'], r['N'], r['d']] for r in embed_bwd_records]}]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ lines 258-480), on one CUDA card.
 
     python -m quanonet_torch.bench [--quick] [--runs R] [--epochs E]
         [--lr LR] [--schedule cosine|none] [--batch_size B]
-        [--engine auto|dense|gates|pallas] [--device cuda|cpu]
+        [--engine auto|dense|gates|fused|pallas|embed|pfused]
+        [--device cuda|cpu]
 
 The regime: 1000 train functions x 100 points, batch 100, Adam with
 cosine decay from 3e-3 (``--schedule none``: the reference's fixed 1e-4),
@@ -19,7 +20,8 @@ CUDA synchronise.  fp32 throughout; TF32 stays off.
 
 Prints ONE JSON line with the JAX bench's keys (metric, value, unit,
 vs_baseline, rel_l2_runs, beats_anchor_all_runs, ...) and the card it ran
-on, the kernel launches of the run, and the seconds it took.
+on, the kernel launches of the run, the model-FLOP rate against the
+card's fp32 peak (:func:`flops_per_sample`), and the seconds it took.
 """
 import argparse
 import copy
@@ -35,7 +37,7 @@ from quanonet_torch import resolve_device
 from quanonet_torch.data.manager import DataManager
 from quanonet_torch.infer import load_model
 from quanonet_torch.models import QuanONet
-from quanonet_torch.ops import cuda_hea
+from quanonet_torch.ops import cuda_embed, cuda_fused, cuda_hea
 from quanonet_torch.ops.hea import resolve_engine
 from quanonet_torch.solver import (
     ScheduledOptimizer, _decay_tuple_schedule, epoch_permutation,
@@ -51,10 +53,36 @@ ANCHOR_CKPT = os.path.join(
 REFERENCE_ANCHOR_REL_L2 = 0.1697   # fallback if the ckpt is absent
 DATA_DIR = os.path.join(REPO, 'data')   # shared with the repo's bench.py
 EVAL_CHUNK = 20000
+PEAK_FP32_FLOPS = 67e12    # H100 SXM datasheet, fp32 outside tensor cores
+# the module whose launch counters a resolved engine moves
+KERNEL_MODULES = {'pallas': cuda_hea, 'embed': cuda_embed,
+                  'pfused': cuda_fused}
 
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
+
+
+def flops_per_sample(engine, n_qubits, n_blocks):
+    """Model-FLOP cost per sample of one train step (forward + backward),
+    by engine, as the JAX bench counts it.
+
+    dense / pallas (three-product split-real chain): per block the forward
+    is one complex (1, D) x (D, D) product = 3 real products = 6 D^2 flops;
+    the backward adds the mbar and sbar pairs = 12 D^2: 18 D^2 a block.
+
+    embed (real-embedding chain): the forward is one real (1, 2D) x
+    (2D, 2D) product = 2 (2D)^2 = 8 D^2 flops; the backward is
+    ebar = s^T g and sbar = g E^T, 8 D^2 each: 24 D^2 a block.
+
+    fused / pfused / gates apply kron-factored operators (no D x D product
+    per block), so this model does not describe them: None."""
+    D = 2 ** n_qubits
+    if engine in ('dense', 'pallas'):
+        return 18 * D * D * n_blocks
+    if engine == 'embed':
+        return 24 * D * D * n_blocks
+    return None
 
 
 def parser():
@@ -75,7 +103,8 @@ def parser():
     ap.add_argument('--schedule', default='cosine', choices=['none', 'cosine'])
     ap.add_argument('--batch_size', type=int, default=100)
     ap.add_argument('--engine', default='auto',
-                    choices=['auto', 'dense', 'gates', 'pallas'])
+                    choices=['auto', 'dense', 'gates', 'fused', 'pallas',
+                             'embed', 'pfused'])
     ap.add_argument('--device', default=None, help='cuda (default) or cpu')
     return ap
 
@@ -146,7 +175,9 @@ def run(args):
             f"rel_l2 {anchor_rel:.4f}")
     anchor = anchor_rel if anchor_rel is not None else REFERENCE_ANCHOR_REL_L2
 
-    launches0 = (cuda_hea.launches, cuda_hea.bwd_launches)
+    resolved = resolve_engine(args.engine, 5, device)
+    kernels = KERNEL_MODULES.get(resolved)
+    launches0 = (kernels.launches, kernels.bwd_launches) if kernels else None
     sps = None
     rels = []
     seeds = [args.first_seed + r for r in range(runs)]
@@ -207,6 +238,8 @@ def run(args):
     log(f"rel_l2 over {runs} run(s): mean {np.mean(rels):.4f} "
         f"min {min(rels):.4f} max {rel_worst:.4f} (measured anchor "
         f"{anchor:.4f}; worst-run beats anchor: {rel_worst < anchor})")
+    fps = flops_per_sample(resolved, 5, 60)
+    tflops = sps * fps / 1e12 if fps else None
     return {
         "metric": "quanonet_q5_advection_train_samples_per_sec_per_chip",
         "regime": "quick" if args.quick else "reference",
@@ -226,14 +259,19 @@ def run(args):
         "runs": runs,
         "batch_size": batch_size,
         "engine": args.engine,
-        "resolved_engine": resolve_engine(args.engine, 5, device),
+        "resolved_engine": resolved,
+        "model_flops_per_sample": fps,
+        "model_tflops_per_sec": tflops,
+        "mfu_pct": (100.0 * tflops * 1e12 / PEAK_FP32_FLOPS
+                    if fps and device.type == 'cuda' else None),
         "lr": peak_lr,
         "lr_schedule": args.schedule,
         "device": str(device),
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == 'cuda' else 'cpu'),
-        "fwd_launches": cuda_hea.launches - launches0[0],
-        "bwd_launches": cuda_hea.bwd_launches - launches0[1],
+        "fwd_launches": kernels.launches - launches0[0] if kernels else 0,
+        "bwd_launches": (kernels.bwd_launches - launches0[1]
+                         if kernels else 0),
         "seconds": time.time() - t_start,
     }
 

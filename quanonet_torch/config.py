@@ -40,7 +40,7 @@ DEFAULTS = {
     # the one engine.  'engine' selects the gate-application strategy.
     'quantum_backend': 'mindquantum',
     'classical_backend': 'pytorch',
-    # 'auto' | 'dense' | 'gates' | 'pallas' | 'fused' | 'pfused'
+    # 'auto' | 'dense' | 'gates' | 'pallas' | 'embed' | 'fused' | 'pfused'
     'engine': 'auto',
 }
 
@@ -54,7 +54,8 @@ def get_base_parser():
     parser.add_argument('--operator', '-o', type=str, required=True,
                         help='Operator type (e.g., Antideriv, Darcy)')
     parser.add_argument('--model_type', '-m', type=str, required=True,
-                        help='Model architecture (e.g., QuanONet, HEAQNN)')
+                        help='Model architecture: QuanONet, HEAQNN, '
+                             'DeepONet, FNN or FNO')
     parser.add_argument('--config', '-c', type=str, default=None,
                         help='Path to JSON config file')
 
@@ -105,11 +106,12 @@ def get_base_parser():
                                  'embed', 'pfused'],
                         help='Gate-application strategy for the statevector '
                              'engine: pallas = the block-chain CUDA kernels '
-                             '(up to 7 qubits), pfused = the fused-group '
-                             'chain CUDA kernels (8..16 qubits), fused = '
-                             'the grouped-kron PyTorch engine; auto picks '
-                             'as the JAX package does; embed is not '
-                             'ported yet (ROADMAP §B3)')
+                             '(up to 7 qubits), embed = the real-embedding '
+                             'chain CUDA kernels (up to 7 qubits, opt-in), '
+                             'pfused = the fused-group chain CUDA kernels '
+                             '(8..16 qubits), fused = the grouped-kron '
+                             'PyTorch engine; auto picks as the JAX package '
+                             'does')
     parser.add_argument('--num_devices', type=int, default=None,
                         help='Devices for data parallelism: not ported yet '
                              '(ROADMAP §A12)')

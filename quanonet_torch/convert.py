@@ -8,6 +8,11 @@ Weights carried across between the JAX package and the port.
   keys (quanonet_torch/checkpoint.py); ``raw_from_state_dict`` is its
   inverse.
 
+* ``classical_state_dict_from_flax(tree)`` / ``flax_from_classical_state_dict``:
+  the same for FNN, DeepONet and FNO, whose trees nest deeper
+  (``branch/dense_0/kernel``) and whose dense kernels are transposed: a
+  flax ``Dense`` kernel is (in, out), ``nn.Linear.weight`` (out, in).
+
 * ``adam_state_from_flax(count, mu, nu, names)``: an optax-Adam or JAX
   ``FusedAdam`` state -> the ``state_dict`` of the port's
   ``ops/cuda_adam.FusedAdam``.
@@ -19,8 +24,11 @@ import numpy as np
 import torch
 
 from quanonet_torch.checkpoint import (
-    quantum_params_from_raw, quantum_params_to_raw,
+    flatten_tree, quantum_params_from_raw, quantum_params_to_raw,
+    unflatten_tree,
 )
+
+QUANTUM_MODELS = ('QuanONet', 'HEAQNN')
 
 
 def state_dict_from_flax(tree) -> dict:
@@ -48,6 +56,34 @@ def flax_from_state_dict(state_dict) -> dict:
     return {'params': params}
 
 
+def classical_state_dict_from_flax(tree) -> dict:
+    """A classical model's {'params': ...} tree (or its flat
+    {'a.b.kernel': array} form, the classical checkpoint's keys) -> the
+    port's state_dict: ``x.kernel`` (in, out) becomes ``x.weight``
+    (out, in); every other leaf (dense biases, DeepONet's 0-d ``bias``,
+    ``conv_i.w_re/w_im``) keeps its name and shape."""
+    sd = {}
+    for key, value in flatten_tree(tree).items():
+        arr = np.array(value, dtype=np.float32)
+        head, _, leaf = key.rpartition('.')
+        if leaf == 'kernel':
+            key, arr = f'{head}.weight', arr.T.copy()
+        sd[key] = torch.tensor(arr)
+    return sd
+
+
+def flax_from_classical_state_dict(state_dict) -> dict:
+    """Inverse of :func:`classical_state_dict_from_flax` (NumPy leaves)."""
+    raw = {}
+    for key, value in state_dict.items():
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        head, _, leaf = key.rpartition('.')
+        if leaf == 'weight':
+            key, arr = f'{head}.kernel', arr.T.copy()
+        raw[key] = arr
+    return unflatten_tree(raw)
+
+
 def adam_state_from_flax(count, mu, nu, names) -> dict:
     """An Adam state of the JAX package as NumPy arrays (the update count
     and the two moment trees, shaped like the parameter tree) -> the
@@ -62,12 +98,18 @@ def adam_state_from_flax(count, mu, nu, names) -> dict:
 
 def state_dict_from_raw(raw, model_type, net_size, num_qubits,
                         if_trainable_freq) -> dict:
-    """Reference checkpoint keys -> the port's state_dict."""
+    """Checkpoint keys -> the port's state_dict: the reference's keys for
+    the quantum models, the flattened flax tree for the classical ones."""
+    if model_type not in QUANTUM_MODELS:
+        return classical_state_dict_from_flax(raw)
     return state_dict_from_flax(quantum_params_from_raw(
         raw, model_type, tuple(net_size), int(num_qubits),
         bool(if_trainable_freq)))
 
 
 def raw_from_state_dict(state_dict, model_type) -> dict:
-    """The port's state_dict -> reference checkpoint keys."""
+    """The port's state_dict -> checkpoint keys (see
+    :func:`state_dict_from_raw`)."""
+    if model_type not in QUANTUM_MODELS:
+        return flatten_tree(flax_from_classical_state_dict(state_dict))
     return quantum_params_to_raw(flax_from_state_dict(state_dict), model_type)

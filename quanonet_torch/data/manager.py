@@ -3,7 +3,7 @@ DataManager: generation -> encoding -> processed-data disk cache (the
 port's own copy of quanonet_tpu/data/manager.py, host generators only;
 reference data_utils/data_manager.py:36-193).  The cache file names are
 the JAX package's, so the two packages share datasets:
-``{op}_{num_train}_{num_test}_{pts}_{pts0}_{tsn}_{tesn}.npz``.
+``{op}_{num_train}_{num_test}_{pts}_{pts0}[_FNO|_{tsn}_{tesn}].npz``.
 """
 import logging
 import os
@@ -11,7 +11,9 @@ import os
 import numpy as np
 
 from quanonet_torch.data import generation as gen
-from quanonet_torch.data.processing import ode_encode, pde_encode
+from quanonet_torch.data.processing import (
+    ode_encode, ode_fncode, pde_encode, pde_fncode,
+)
 
 GENERATOR_MAP = {
     'Identity': 'ode', 'Antideriv': 'ode', 'Homogeneous': 'ode',
@@ -37,10 +39,6 @@ class DataManager:
             raise NotImplementedError(
                 f"datagen {datagen if datagen != 'host' else 'native'}: "
                 f"only the host generators are ported (ROADMAP §A10)")
-        if self.model_type == 'FNO':
-            raise NotImplementedError(
-                "the FNO grid encoding comes with the classical models "
-                "(ROADMAP §A7)")
         self.num_points = config.get('num_points', 100)
         self.num_points_0 = config.get('num_points_0', 100)
         if config.get('num_cal') is not None:
@@ -79,9 +77,11 @@ class DataManager:
     def _get_filename(self):
         """Cache filename contract (reference data_manager.py:108-121)."""
         c = self.config
-        return (f"{self.operator_type}_{c['num_train']}_{c['num_test']}"
-                f"_{self.num_points}_{self.num_points_0}"
-                f"_{c.get('train_sample_num', 10)}"
+        base = (f"{self.operator_type}_{c['num_train']}_{c['num_test']}"
+                f"_{self.num_points}_{self.num_points_0}")
+        if self.model_type == 'FNO':
+            return f"{base}_FNO.npz"
+        return (f"{base}_{c.get('train_sample_num', 10)}"
                 f"_{c.get('test_sample_num', 100)}.npz")
 
     def _generate_and_process(self):
@@ -95,6 +95,15 @@ class DataManager:
                            self.num_points, self.num_points_0,
                            num_cal=self.num_cal,
                            input_sampler=self.input_sampler)
+
+        if self.model_type == 'FNO':
+            encoder = pde_fncode if is_pde else ode_fncode
+            train_in, _, train_out, test_in, _, test_out = encoder(
+                gen_func, c['num_train'], c['num_test'], self.num_points)
+            return {
+                'train_input': train_in, 'train_output': train_out,
+                'test_input': test_in, 'test_output': test_out,
+            }
 
         encoder = pde_encode if is_pde else ode_encode
         (train_branch, train_trunk, train_out,
@@ -110,7 +119,7 @@ class DataManager:
             'test_branch_input': test_branch,
             'test_trunk_input': test_trunk,
             'test_output': test_out,
-            # combined input for HEAQNN (data_manager.py:191-192)
+            # combined input for FNN / HEAQNN (data_manager.py:191-192)
             'train_input': np.concatenate([train_branch, train_trunk], axis=1),
             'test_input': np.concatenate([test_branch, test_trunk], axis=1),
         }

@@ -1,15 +1,15 @@
 """
-Standalone inference for QuanONet / HEAQNN on the port (counterpart of
-quanonet_tpu/infer.py).
+Standalone inference for QuanONet / HEAQNN / DeepONet / FNN / FNO on the
+port (counterpart of quanonet_tpu/infer.py).
 
 Hyper-parameters are parsed from the experiment-ID directory name of the
 checkpoint, with keyword/CLI overrides; both checkpoint formats (.npz and
 MindSpore .ckpt) load.  Runs on ``cuda`` unless ``device='cpu'`` is asked
 for.
 
-Not in this slice: the classical models (ROADMAP §A7), the QPU-emulation
-flags (§A9) and the CLI's test-data generation from the checkpoint name
-(§A10); each raises NotImplementedError.
+Not ported yet: the QPU-emulation flags (ROADMAP §A9) and the CLI's
+test-data generation from the checkpoint name (§A10); each raises
+NotImplementedError.
 
 CLI:  python -m quanonet_torch.infer --ckpt <best_model.ckpt|.npz>
           (--data <file.npz> | --branch <b.npy> [--trunk <t.npy>])
@@ -155,14 +155,23 @@ def _resolve_config(ckpt_path: str, overrides: dict) -> dict:
 
 
 def _build_model(cfg: dict, branch_in: int, trunk_in: int, device):
-    from quanonet_torch.models import HEAQNN, QuanONet
+    from quanonet_torch.models import (
+        FNN, FNO, DeepONet, HEAQNN, QuanONet, deeponet_layer_sizes,
+        fno_sizes,
+    )
     from quanonet_torch.ops.hea import resolve_inference_engine
 
     mt = cfg['model_type']
+    net_size = list(cfg['net_size'])
+    if mt == 'DeepONet':
+        bl, tl = deeponet_layer_sizes(net_size, branch_in, trunk_in)
+        return DeepONet(branch_in, trunk_in, bl, tl, device=device)
+    if mt == 'FNN':
+        # the FNN's one input is the concatenation [branch | trunk]
+        return FNN(branch_in + trunk_in, net_size, device=device)
+    if mt == 'FNO':
+        return FNO(branch_in, **fno_sizes(net_size), device=device)
     if mt not in QUANTUM_MODELS:
-        if mt in ('DeepONet', 'FNN', 'FNO'):
-            raise NotImplementedError(
-                f"the classical model {mt} is not ported yet (ROADMAP §A7)")
         raise ValueError(f"Unknown model_type: {mt}")
     # --noise_p 0 with no readout error is the ideal model
     if cfg.get('noise_p') is not None and float(cfg['noise_p']) == 0.0 \
@@ -193,7 +202,7 @@ def _build_model(cfg: dict, branch_in: int, trunk_in: int, device):
 
 def load_model(ckpt_path: str, branch_in: int, trunk_in: int = 0,
                device=None, **overrides):
-    """Load a QuanONet / HEAQNN checkpoint (.ckpt / .npz) onto ``device``
+    """Load a checkpoint (.ckpt / .npz) of any model type onto ``device``
     (default ``cuda``; raises without a card unless ``device='cpu'``).
 
     Returns (model, cfg); run inference with
@@ -208,19 +217,22 @@ def load_model(ckpt_path: str, branch_in: int, trunk_in: int = 0,
         cfg['if_trainable_freq']))
     model.eval()
     cfg['_backend'] = 'torch'
-    cfg['engine'] = model.engine
+    cfg['engine'] = getattr(model, 'engine', None)
     cfg['device'] = str(device)
     return model, cfg
 
 
 def predict(model, branch_input, trunk_input=None, cfg=None,
             batch_size=None):
-    """Batched inference; QuanONet takes (branch, trunk), HEAQNN branch
-    only.  Returns a NumPy (n, 1) array."""
+    """Batched inference: QuanONet and DeepONet take (branch, trunk), FNN
+    their concatenation, HEAQNN branch only, FNO the grid tensor.  Returns
+    a NumPy array, (n, 1) for all but FNO's (n, points, 1)."""
     if batch_size is None:
         batch_size = 20000
     model_type = (cfg or {}).get('model_type', 'QuanONet')
-    two_input = trunk_input is not None and model_type == 'QuanONet'
+    two_input = trunk_input is not None and \
+        model_type in ('QuanONet', 'DeepONet')
+    concat = trunk_input is not None and model_type == 'FNN'
     device = next(model.parameters()).device
     n = branch_input.shape[0]
     preds = []
@@ -229,11 +241,12 @@ def predict(model, branch_input, trunk_input=None, cfg=None,
             b = torch.as_tensor(
                 np.asarray(branch_input[s:s + batch_size], np.float32),
                 device=device)
-            if two_input:
+            if two_input or concat:
                 t = torch.as_tensor(
                     np.asarray(trunk_input[s:s + batch_size], np.float32),
                     device=device)
-                out = model(b, t)
+                out = model(torch.cat([b, t], dim=1)) if concat \
+                    else model(b, t)
             else:
                 out = model(b)
             preds.append(out.cpu().numpy())

@@ -430,11 +430,6 @@ FUSED_MIN_QUBITS = 8  # the JAX package auto-routes n >= 8 to its fused engines
 
 ENGINES = ('dense', 'gates', 'fused', 'pallas', 'embed', 'pfused')
 
-_UNPORTED = {
-    'embed': "the real-embedding chain kernel 'embed' is not ported yet "
-             "(ROADMAP §B3)",
-}
-
 
 def resolve_engine(engine, n_qubits: int, device) -> str:
     """Engine name -> the engine that runs.  ``'auto'``: below
@@ -451,8 +446,6 @@ def resolve_engine(engine, n_qubits: int, device) -> str:
             return 'pfused' if cuda and n_qubits <= AUTO_MAX_QUBITS \
                 else 'fused'
         return 'pallas' if cuda else 'dense'
-    if engine in _UNPORTED:
-        raise NotImplementedError(_UNPORTED[engine])
     if engine not in ENGINES:
         raise ValueError(f"unknown engine '{engine}' (choose from "
                          f"{('auto',) + ENGINES})")
@@ -487,6 +480,9 @@ def hea_forward_pair(spec: HEASpec, weights, x, engine='auto'):
     if engine == 'pfused':
         from quanonet_torch.ops.cuda_fused import forward_pfused
         return forward_pfused(spec, weights, x)
+    if engine == 'embed':
+        from quanonet_torch.ops.cuda_embed import forward_embed
+        return forward_embed(spec, weights, x)
     from quanonet_torch.ops.cuda_hea import forward_pallas
     return forward_pallas(spec, weights, x)
 
@@ -509,6 +505,9 @@ def hea_expectation(spec: HEASpec, weights, x, diag=None, pauli='Z',
         if resolved == 'pfused':
             from quanonet_torch.ops.cuda_fused import hea_expectation_pfused
             return hea_expectation_pfused(spec, weights, x, diag)
+        if resolved == 'embed':
+            from quanonet_torch.ops.cuda_embed import hea_expectation_embed
+            return hea_expectation_embed(spec, weights, x, diag)
     sr, si = hea_forward_pair(spec, weights, x, engine=resolved)
     if pauli == 'Z':
         return diag_expectation_pair(sr, si, diag)

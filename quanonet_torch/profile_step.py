@@ -23,13 +23,13 @@ Components (microseconds per iteration):
 
 Usage:
     python -m quanonet_torch.profile_step [--iters N]
-        [--engines pallas,dense] [--fused_adam] [--device cuda|cpu]
+        [--engines pallas,embed,dense] [--fused_adam] [--device cuda|cpu]
         [--out docs/step_profile_torch.json]
 
 Runs on the card and raises without one; ``--device cpu`` times the plain
 versions on the CPU.  ``--fused_adam`` takes the one-launch Adam
 (ops/cuda_adam.py) in full_step and adam_only; ``USE_UCOMP=1`` in the
-environment takes the compile kernels in every 'pallas' step and in
+environment takes the compile kernels in every 'pallas' and 'embed' step and in
 compile_path.  Both are off by default.  Writes the results, with the
 card's name and power limit, to ``--out`` (relative to the current
 directory) and prints them as the last line of stdout; a table goes to
@@ -62,7 +62,7 @@ def log(*a):
 def parser():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--iters', type=int, default=200)
-    ap.add_argument('--engines', default='pallas,dense')
+    ap.add_argument('--engines', default='pallas,embed,dense')
     ap.add_argument('--device', default='cuda')
     ap.add_argument('--fused_adam', action='store_true',
                     help='use the one-launch Adam (ops/cuda_adam.py) in '
@@ -89,7 +89,7 @@ def main(argv=None):
     dev = resolve_device(args.device)
     engines = args.engines.split(',')
     for engine in engines:
-        resolve_engine(engine, NUM_QUBITS, dev)   # raises if unported
+        resolve_engine(engine, NUM_QUBITS, dev)   # raises if unknown
     iters = args.iters
     log(f"device: {dev}  iters={iters}  USE_UCOMP={cuda_hea.USE_UCOMP}  "
         f"fused_adam={args.fused_adam}")

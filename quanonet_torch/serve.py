@@ -62,8 +62,9 @@ class Predictor:
         self.requests = 0
         self.rows = 0
         self._lock = threading.Lock()
-        self._two_input = (trunk_in > 0
-                           and self.cfg.get('model_type') == 'QuanONet')
+        mt = self.cfg.get('model_type')
+        self._two_input = trunk_in > 0 and mt in ('QuanONet', 'DeepONet')
+        self._concat = trunk_in > 0 and mt == 'FNN'
 
     def _bucket(self, n):
         for b in self.buckets:
@@ -85,7 +86,7 @@ class Predictor:
             raise ValueError(
                 f"branch must be (n, {self.branch_in}), got {branch.shape}")
         n = branch.shape[0]
-        if self._two_input and trunk is None:
+        if (self._two_input or self._concat) and trunk is None:
             # never silently zero-fill a REQUIRED input: a client that
             # forgets the trunk would get confidently wrong predictions
             raise ValueError(
@@ -114,11 +115,12 @@ class Predictor:
         bp = np.zeros((b, self.branch_in), np.float32)
         bp[:nb] = branch
         inp = [bp]
-        if self._two_input:
+        if self._two_input or self._concat:
             tp = np.zeros((b, self.trunk_in), np.float32)
             if trunk is not None:
                 tp[:nb] = trunk
-            inp.append(tp)
+            inp = [np.concatenate([bp, tp], axis=1)] if self._concat \
+                else [bp, tp]
         with self._lock, torch.inference_mode():
             out = self.model(*(torch.as_tensor(a, device=self.device)
                                for a in inp))

@@ -1,6 +1,6 @@
 """
-The training loop of the port (counterpart of quanonet_tpu/solver.py),
-quantum models only.
+The training loop of the port (counterpart of quanonet_tpu/solver.py), for
+the quantum models and the classical baselines (FNN, DeepONet, FNO).
 
 PyTorch runs eagerly, so the JAX package's jitted scans become plain
 loops: an epoch is a loop over shuffled, masked minibatches
@@ -8,8 +8,10 @@ loops: an epoch is a loop over shuffled, masked minibatches
 parameter tracking (:func:`make_run_segment`).  The loss of each step stays
 on the card; the host reads one value per epoch.  Under autograd the
 ``pallas`` engine (up to 7 qubits) runs the CUDA block-chain kernels
-forward and backward (ops/cuda_hea.BlockChain), the ``pfused`` engine
-(8..14 qubits) the fused-group chain kernels (ops/cuda_fused.FusedChain);
+forward and backward (ops/cuda_hea.BlockChain), the opt-in ``embed``
+engine the real-embedding chain kernels (ops/cuda_embed.EmbedChain), the
+``pfused`` engine (8..14 qubits) the fused-group chain kernels
+(ops/cuda_fused.FusedChain);
 evaluation runs under ``torch.inference_mode`` and takes the primal-only
 forward kernels.
 
@@ -60,12 +62,34 @@ def _segment_size(epochs, cap=64):
 
 
 def _check_model_type(model_type):
-    if model_type in CLASSICAL_MODELS:
-        raise NotImplementedError(
-            f"the classical model {model_type} is not ported yet "
-            f"(ROADMAP §A7)")
-    if model_type not in QUANTUM_MODELS:
+    if model_type not in QUANTUM_MODELS + CLASSICAL_MODELS:
         raise ValueError(f"Unknown model type: {model_type}")
+
+
+def _build_classical(config, data, device, generator):
+    """FNN / DeepONet / FNO with the JAX package's net-size defaults."""
+    from quanonet_torch.models import (
+        FNN, FNO, DeepONet, deeponet_layer_sizes, fno_sizes,
+    )
+    model_type = config['model_type']
+    net_size = config.get('net_size')
+    noise = [k for k in ('noise_p', 'readout_p', 'damp_gamma', 'dephase_p',
+                         'train_shots') if config.get(k)]
+    if noise or str(config.get('grad_method') or 'autodiff') != 'autodiff':
+        raise ValueError(
+            f"--noise_p/--readout_p/--damp_gamma/--dephase_p/--grad_method/"
+            f"--train_shots apply to quantum models only, not {model_type}")
+    kw = dict(device=device, generator=generator)
+    if model_type == 'DeepONet':
+        branch_in = data['train_branch_input'].shape[1]
+        trunk_in = data['train_trunk_input'].shape[1]
+        bl, tl = deeponet_layer_sizes(net_size, branch_in, trunk_in)
+        return DeepONet(branch_in, trunk_in, bl, tl, **kw), 'tuple'
+    if model_type == 'FNN':
+        return FNN(data['train_input'].shape[1],
+                   tuple(net_size or (3, 20)), **kw), 'single'
+    return FNO(data['train_input'].shape[-1], **fno_sizes(net_size),
+               **kw), 'single'
 
 
 def build_model(config, data, device=None, generator=None):
@@ -74,6 +98,8 @@ def build_model(config, data, device=None, generator=None):
     from quanonet_torch.models import HEAQNN, QuanONet
     model_type = config['model_type']
     _check_model_type(model_type)
+    if model_type in CLASSICAL_MODELS:
+        return _build_classical(config, data, device, generator)
     net_size = config.get('net_size')
     ham_diag = config.get('ham_diag')
     kw = dict(num_qubits=config['num_qubits'],
@@ -389,7 +415,7 @@ class Solver:
     # ── data routing (reference solver_ms.py:72-89) ─────────────────────────
     def _route_data(self):
         d = self.data
-        if self.model_type == 'HEAQNN':
+        if self.model_type in ('HEAQNN', 'FNN', 'FNO'):
             self.train_inputs = (d['train_input'].astype(np.float32),)
             self.test_inputs = (d['test_input'].astype(np.float32),)
         else:
@@ -550,7 +576,7 @@ class Solver:
         self.model.load_state_dict(state_dict_from_raw(
             ckpt_io.load_raw(path), self.model_type,
             tuple(self.config.get('net_size') or default),
-            self.config['num_qubits'],
+            self.config.get('num_qubits'),
             parse_bool(self.config.get('if_trainable_freq', 'true'))))
         self.params = _clone(self.model)
 

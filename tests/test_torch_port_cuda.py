@@ -1,8 +1,10 @@
 """
 The CUDA kernels against their plain versions on the card: the block chain
 (quanonet_torch/csrc/hea_chain.cu: the forward, its residual-saving
-variant and the backward) and the fused-group chain (csrc/fused_chain.cu,
-8..16 qubits, the same three).  Marked ``cuda``: without a card each test skips; on
+variant and the backward), the fused-group chain (csrc/fused_chain.cu,
+8..16 qubits, the same three), the block-matrix compile (csrc/ucomp.cu), the
+one-launch Adam (csrc/adam.cu) and the real-embedding chain
+(csrc/embed_chain.cu).  Marked ``cuda``: without a card each test skips; on
 the card run them with
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda
@@ -408,3 +410,95 @@ def test_fused_adam_on_card(card):
     many[0].grad = torch.ones(3, 2, device=card)[:, 0]
     with pytest.raises(ValueError, match='contiguous'):
         opt.step()
+
+
+# ── the real-embedding chain kernels (csrc/embed_chain.cu) ──────────────────
+
+def _embed_operands(d, nb, n, seed, device):
+    """Random general E (no block structure), t (no antisymmetry), g."""
+    rng = np.random.RandomState(seed)
+    w = 2 * d
+    return [torch.tensor(a.astype(np.float32), device=device) for a in (
+        rng.randn(nb, w, w) / np.sqrt(w), rng.uniform(-12, 12, (nb, n, w)),
+        rng.randn(n, w))]
+
+
+EMBED_CASES = [(1, 3, 37), (2, 5, 1000), (8, 5, 37), (16, 7, 100),
+               (32, 60, 1), (32, 60, 100), (32, 60, 8192), (64, 15, 37),
+               (128, 6, 1000), (32, 1, 37), (128, 1, 5)]
+
+
+@pytest.mark.parametrize("d,nb,n", EMBED_CASES)
+def test_embed_kernels_match_plain(card, d, nb, n):
+    """B3f (primal and residual) within 2e-5 of chain_embed_saved, B3b
+    within 1e-4 x max(1, max|plain|) of chain_embed_backward, two backward
+    calls bit-equal, each wrapper counting its launch."""
+    from quanonet_torch.ops import cuda_embed
+    e, t, g = _embed_operands(d, nb, n, 7000 + d + nb + n, card)
+    before = (cuda_embed.launches, cuda_embed.bwd_launches)
+    out = cuda_embed.embed_chain(e, t)
+    saved, s, u = cuda_embed.embed_forward(e, t, save_residuals=True)
+    got = cuda_embed.embed_backward(e, t, s, u, g)
+    again = cuda_embed.embed_backward(e, t, s, u, g)
+    torch.cuda.synchronize()
+    assert (cuda_embed.launches, cuda_embed.bwd_launches) == (
+        before[0] + 2, before[1] + 2)
+    want, ws, wu = cuda_embed.chain_embed_saved(e, t)
+    assert torch.equal(out, saved)
+    assert (out - want).abs().max().item() <= 2e-5
+    assert (s - ws).abs().max().item() <= 2e-5
+    if nb > 1:
+        assert (u - wu).abs().max().item() <= 2e-5
+    for a, b, c in zip(got, again,
+                       cuda_embed.chain_embed_backward(e, t, ws, wu, g)):
+        assert torch.equal(a, b)
+        scale = max(1.0, c.abs().max().item())
+        assert (a - c).abs().max().item() <= 1e-4 * scale
+
+
+def test_embed_kernel_rejects_bad_inputs_and_trains(card):
+    from quanonet_torch.ops import cuda_embed
+    e, t, g = _embed_operands(4, 3, 5, 1, card)
+    with pytest.raises(TypeError, match='float32'):
+        cuda_embed.embed_chain(e.double(), t)
+    with pytest.raises(ValueError, match='contiguous'):
+        cuda_embed.embed_chain(e.transpose(1, 2), t)
+    with pytest.raises(ValueError, match='must be'):
+        cuda_embed.embed_chain(e[:1], t)
+    with pytest.raises(ValueError, match='takes d in'):
+        cuda_embed.embed_chain(torch.zeros(1, 6, 6, device=card),
+                               torch.zeros(1, 2, 6, device=card))
+    assert tuple(cuda_embed.embed_chain(e, t[:, :0]).shape) == (0, 8)
+    before = (cuda_embed.launches, cuda_embed.bwd_launches)
+    ops = [e.clone().requires_grad_(), t.clone().requires_grad_()]
+    got = torch.autograd.grad((cuda_embed.embed_chain(*ops) * g).sum(), ops)
+    torch.cuda.synchronize()
+    assert (cuda_embed.launches, cuda_embed.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = [e.clone().requires_grad_(), t.clone().requires_grad_()]
+    want = torch.autograd.grad((cuda_embed.chain_embed(*ref) * g).sum(), ref)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4 * max(
+            1.0, b.abs().max().item())
+
+
+def test_model_training_step_embed_matches_dense(card):
+    """One SGD step of a Q4 QuanONet through the embed kernels equals the
+    plain engine's on the card."""
+    from quanonet_torch.models import QuanONet
+    rng = np.random.RandomState(0)
+    b = torch.tensor(rng.randn(64, 8).astype(np.float32), device=card)
+    t = torch.tensor(rng.rand(64, 2).astype(np.float32), device=card)
+    y = torch.tensor(rng.randn(64, 1).astype(np.float32), device=card)
+    out = {}
+    for engine in ('embed', 'dense'):
+        model = QuanONet(4, 8, 2, (6, 2, 4, 2), engine=engine, device=card,
+                         generator=torch.Generator().manual_seed(1))
+        opt = torch.optim.SGD(model.parameters(), lr=0.05)
+        loss = ((model(b, t) - y) ** 2).mean()
+        loss.backward()
+        opt.step()
+        out[engine] = (loss.item(), model.state_dict())
+    assert out['embed'][0] == pytest.approx(out['dense'][0], rel=1e-5)
+    for k, v in out['embed'][1].items():
+        assert (v - out['dense'][1][k]).abs().max().item() <= 1e-5, k

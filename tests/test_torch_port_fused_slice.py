@@ -142,8 +142,9 @@ def test_q8_cli_epoch_and_infer_match_jax(tmp_path, monkeypatch):
 
 def test_qubit_scaling_bench_rows(monkeypatch, capsys):
     """python -m quanonet_torch.bench_qubit_scaling: the JAX bench's rows
-    and FLOP model, one JSON line per row with its keys; an engine of a
-    later slice is reported and skipped, not rerouted."""
+    and FLOP model, one JSON line per row with its keys; an engine that
+    does not take the width ('embed' at 8 qubits) is reported and skipped,
+    not rerouted."""
     import bench_qubit_scaling as j_bench
     from quanonet_torch import bench_qubit_scaling as t_bench
     assert [(q, n, e, b, t, s) for q, n, e, b, t, s in t_bench.CONFIGS] == \

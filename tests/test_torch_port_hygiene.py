@@ -1,7 +1,8 @@
 """
 Boundaries of the port: it imports nothing of JAX or of the JAX package,
 its entry points refuse to fall back to the CPU, engines route as the JAX
-package's do, and engines of later slices raise instead of rerouting.
+package's do, and every engine and model type of the JAX package is
+honoured.
 """
 import os
 import subprocess
@@ -41,13 +42,16 @@ def test_port_imports_no_jax():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 29
+    assert n_modules >= 31
 
 
 _IMPORT_KERNEL_MODULES = r"""
 import sys
 from quanonet_torch import profile_step
-from quanonet_torch.ops import _build, cuda_adam, cuda_hea, cuda_ucomp
+from quanonet_torch.models import classical
+from quanonet_torch.ops import (
+    _build, cuda_adam, cuda_embed, cuda_hea, cuda_ucomp,
+)
 assert _build._loaded == {}, _build._loaded
 assert cuda_hea.USE_UCOMP is False
 assert 'triton' not in sys.modules
@@ -55,13 +59,14 @@ bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                     'quanonet_tpu'))
 assert not bad, bad
-for mod in (cuda_ucomp, cuda_adam):
+for mod in (cuda_ucomp, cuda_adam, cuda_embed):
     print(_build.build_dir(mod.KERNEL))
 """
 
 
 def test_new_kernel_modules_import_clean():
-    """Importing the compile and Adam wrappers (and profile_step) imports
+    """Importing the compile, Adam and embed-chain wrappers, the classical
+    models and profile_step imports
     no JAX, loads no library and builds nothing; USE_UCOMP is off unless
     the environment sets it."""
     env = {k: v for k, v in os.environ.items()
@@ -71,7 +76,7 @@ def test_new_kernel_modules_import_clean():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     dirs = out.stdout.split()
-    assert len(dirs) == 2
+    assert len(dirs) == 3
     if not torch.cuda.is_available():
         assert not any(os.path.exists(d) for d in dirs)
 
@@ -80,7 +85,16 @@ def test_new_kernel_wrappers_raise_on_cpu_tensors():
     """The launching wrappers take CUDA tensors only: on CPU tensors they
     raise instead of computing the plain version, and count no launch; the
     dispatching ones (ucomp, FusedAdam.step) take the plain versions."""
-    from quanonet_torch.ops import cuda_adam, cuda_ucomp
+    from quanonet_torch.ops import cuda_adam, cuda_embed, cuda_ucomp
+    e, t = torch.eye(4).repeat(2, 1, 1), torch.zeros(2, 3, 4)
+    counts = (cuda_embed.launches, cuda_embed.bwd_launches)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        cuda_embed.embed_forward(e, t)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        cuda_embed.embed_backward(e, t, t, t[:1], t[0])
+    assert torch.equal(cuda_embed.embed_chain(e, t),
+                       cuda_embed.chain_embed(e, t))
+    assert (cuda_embed.launches, cuda_embed.bwd_launches) == counts
     ops = [torch.eye(4).repeat(2, 1, 1) for _ in range(3)]
     before = (cuda_ucomp.launches, cuda_ucomp.bwd_launches, cuda_adam.launches)
     with pytest.raises(ValueError, match='CUDA tensors'):
@@ -130,15 +144,13 @@ def test_engine_resolution():
 @pytest.mark.parametrize("engine,item", [('fused', 'A8'), ('pfused', 'B2'),
                                          ('embed', 'B3')])
 def test_unported_engines_raise(engine, item):
-    """'embed' (ROADMAP §B3) raises naming its item; 'fused' (§A8) and
-    'pfused' (§B2) are ported and honoured on either device."""
+    """'fused' (ROADMAP §A8), 'pfused' (§B2) and 'embed' (§B3) are ported
+    and honoured on either device; 'embed' stays opt-in: 'auto' never
+    picks it."""
     for dev in ('cpu', 'cuda'):
-        if engine == 'embed':
-            with pytest.raises(NotImplementedError, match=item):
-                resolve_engine(engine, 5, torch.device(dev))
-        else:
-            for nq in (5, 10, 16):
-                assert resolve_engine(engine, nq, torch.device(dev)) == engine
+        for nq in (5, 10, 16):
+            assert resolve_engine(engine, nq, torch.device(dev)) == engine
+            assert resolve_engine('auto', nq, torch.device(dev)) != 'embed'
 
 
 def test_auto_at_eight_qubits_raises():
@@ -174,11 +186,29 @@ def test_auto_at_eight_qubits_raises():
         cuda_fused.fused_chain(*ops, (1,))
 
 
-def test_classical_model_types_raise():
-    from quanonet_torch.infer import load_model
-    with pytest.raises(NotImplementedError, match='A7'):
-        load_model(ANTIDERIV, branch_in=10, trunk_in=1, device='cpu',
-                   model_type='DeepONet')
+def test_classical_model_types_raise(tmp_path):
+    """The classical model types load (a DeepONet checkpoint written from
+    a seeded model gives its predictions back); an unknown type raises."""
+    import numpy as np
+    from quanonet_torch import checkpoint as ckpt_io
+    from quanonet_torch.convert import raw_from_state_dict
+    from quanonet_torch.infer import load_model, predict
+    from quanonet_torch.models import DeepONet
+    ref = DeepONet(10, 1, (6, 6), (6, 6), device='cpu',
+                   generator=torch.Generator().manual_seed(0))
+    run = tmp_path / 'Antideriv_DeepONet_Net2-6_20x100_Seed0'
+    run.mkdir()
+    ckpt_io.save_ms_ckpt(str(run / 'best_model.ckpt'),
+                         raw_from_state_dict(ref.state_dict(), 'DeepONet'))
+    model, cfg = load_model(str(run / 'best_model.ckpt'), branch_in=10,
+                            trunk_in=1, device='cpu')
+    assert cfg['model_type'] == 'DeepONet' and cfg['engine'] is None
+    rng = np.random.RandomState(0)
+    b, t = (rng.randn(5, 10).astype(np.float32),
+            rng.rand(5, 1).astype(np.float32))
+    with torch.no_grad():
+        want = ref(torch.as_tensor(b), torch.as_tensor(t)).numpy()
+    np.testing.assert_array_equal(predict(model, b, t, cfg=cfg), want)
     with pytest.raises(ValueError, match='Unknown model_type'):
         load_model(ANTIDERIV, branch_in=10, trunk_in=1, device='cpu',
                    model_type='Nope')

@@ -332,5 +332,14 @@ def test_cli_unported_flags_raise(isolated, flags, item):
 
 
 def test_classical_models_raise(isolated):
-    with pytest.raises(NotImplementedError, match='A7'):
-        t_solver.Solver(_solver_cfg('outC', model_type='DeepONet'))
+    """The classical model types build (DeepONet by the reference's 4-arg
+    net-size policy); an unknown type raises, and so does a noise flag on a
+    classical model."""
+    from quanonet_torch.models import DeepONet
+    solver = t_solver.Solver(_solver_cfg('outC', model_type='DeepONet'))
+    assert isinstance(solver.model, DeepONet)
+    assert solver.input_mode == 'tuple'
+    with pytest.raises(ValueError, match='Unknown model type'):
+        t_solver.build_model(dict(model_type='Nope'), {})
+    with pytest.raises(ValueError, match='quantum models only'):
+        t_solver.build_model(dict(model_type='FNN', noise_p=0.01), {})

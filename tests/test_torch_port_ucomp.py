@@ -203,12 +203,13 @@ def test_profile_step_on_cpu(tmp_path, monkeypatch, capsys, ucomp, extra):
 
 def test_profile_step_defaults():
     """It runs on the card unless asked, never writes the JAX package's
-    TPU profile, and refuses the unported engine by its ROADMAP item."""
+    TPU profile, times the root script's engines ('embed' among them) and
+    refuses an unknown one."""
     args = profile_step.parser().parse_args([])
-    assert args.device == 'cuda' and args.engines == 'pallas,dense'
+    assert args.device == 'cuda' and args.engines == 'pallas,embed,dense'
     assert args.out == 'docs/step_profile_torch.json'
-    with pytest.raises(NotImplementedError, match='B3'):
-        profile_step.main(['--device', 'cpu', '--engines', 'embed'])
+    with pytest.raises(ValueError, match='unknown engine'):
+        profile_step.main(['--device', 'cpu', '--engines', 'nope'])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             profile_step.main(['--iters', '1'])
