@@ -19,7 +19,9 @@ Phases, each printed as one JSON line:
              Q2 Net5-1-5-1, Q7 (D = 128), and the other widths.  Max abs
              error on the amplitudes (<= 2e-5) and the expectation
              (<= 1e-4); median times over CUDA events; the bound from the
-             H100 SXM datasheet (67 TFLOP/s fp32, 3.35 TB/s).
+             H100 SXM datasheet (67 TFLOP/s fp32, 3.35 TB/s); the launch
+             geometry (cuda_hea.chain_geometry), and at the flagship's
+             N = 100 and 8192 the time on the card alone (device_ms).
 4. serve   — the served path: the shipped Advection anchor through
              infer.load_model -> serve.Predictor -> HTTP on `cuda`.  Warms
              every bucket, answers requests of 1, 37, 1000 and 9000 rows,
@@ -35,7 +37,10 @@ Phases, each printed as one JSON line:
              the card: the flagship at N in {100, 1000, 8192}, Q2
              Net5-1-5-1 and Q7 Net40-2-20-2 at N = 1000.  Max abs error of
              Mbar and phibar (<= 1e-4 x max(1, max|plain|)), bit-equality
-             of two backward calls, median times, and the bound.
+             of two backward calls, median times, the bound, the launch
+             geometry and Mbar slices, and at the flagship's N = 100 and
+             8192 the time on the card alone of all the backward's launches
+             and of the residual forward.
 6. train_parity — 20 Adam steps of the flagship on `cuda` from one
              initial state, engine 'pallas' (the kernels) against 'dense'
              (autograd of the plain chain), on the same batches: per-step
@@ -192,6 +197,9 @@ KERNEL_CASES = [     # (label, qubits, net_size, batch rows N)
     ('Q6 Net10-2-5-2', 6, (10, 2, 5, 2), 37),
 ]
 SERVE_REQUESTS = (1, 37, 1000, 9000)
+# (qubits, N) of the flagship where the chain kernels are also timed on the
+# card alone (kernel_device_ms): the training batch and the largest bucket
+FLAGSHIP_DEVICE_CASES = ((5, 100), (5, 8192))
 
 BWD_CASES = [        # (label, qubits, net_size, batch rows N)
     *[('Q5 Net40-2-20-2', 5, (40, 2, 20, 2), n) for n in (100, 1000, 8192)],
@@ -338,10 +346,14 @@ def phase_kernel():
                                                         spec.dim)
         rec = {"phase": "kernel", "case": label, "nq": nq,
                "nb": spec.n_blocks, "N": n, "D": spec.dim,
+               "geometry": _chain_geometry(spec.n_blocks, n, spec.dim),
                "max_abs_err_amp": err_amp, "max_abs_err_expect": err_exp,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "flops": flops, "bytes": nbytes,
                "share_of_bound": bound_ms / ms}
+        if (nq, n) in FLAGSHIP_DEVICE_CASES:
+            rec["device_ms"] = kernel_device_ms(
+                lambda: cuda_hea.block_chain(*ops), 'hea_chain_fwd')
         emit(rec)
         check(finite, f"{label} N={n}: kernel output not finite")
         check(err_amp <= AMP_TOL,
@@ -478,6 +490,14 @@ def _max_err(got, want):
     return max((g - w).abs().max().item() for g, w in zip(got, want))
 
 
+def _chain_geometry(nb, n, d):
+    """The launch geometry of the block-chain kernels for (nb, N, D) on
+    this card, and the Mbar reduction's slices."""
+    sms = cuda_hea.sm_count(torch.cuda.current_device())
+    return {**cuda_hea.chain_geometry(n, d, sms)._asdict(),
+            "mbar_splits": cuda_hea.mbar_splits(nb, n, d, sms)}
+
+
 def phase_kernel_bwd():
     """Residual forward and backward kernels vs plain at every case;
     returns the per-case records."""
@@ -535,7 +555,17 @@ def phase_kernel_bwd():
                "bound_by": bound_by, "flops": flops, "bytes": nbytes,
                "share_of_bound": bound_ms / ms,
                "fwd_saved_ms": ms_saved, "fwd_saved_plain_ms": plain_saved_ms,
-               "fwd_bound_ms": fwd_bound_ms}
+               "fwd_bound_ms": fwd_bound_ms,
+               "geometry": _chain_geometry(spec.n_blocks, n, spec.dim)}
+        if (nq, n) in FLAGSHIP_DEVICE_CASES:
+            # every launch of the backward (sweep, Mbar, slices) and the
+            # residual forward, on the card alone
+            rec["device_ms"] = kernel_device_ms(
+                lambda: cuda_hea.chain_backward(*ops, fwd[2], fwd[3], *g),
+                None)
+            rec["fwd_saved_device_ms"] = kernel_device_ms(
+                lambda: cuda_hea.chain_forward(*ops, save_residuals=True),
+                'hea_chain_fwd')
         emit(rec)
         where = f"{label} N={n}"
         check(finite, f"{where}: backward output not finite")
@@ -2171,6 +2201,10 @@ def main():
                 if r['nq'] == 5 and r['N'] == 8192)
     step = next(r for r in bwd_records
                 if r['nq'] == 5 and r['N'] == 100)
+    bwd_big = next(r for r in bwd_records
+                   if r['nq'] == 5 and r['N'] == 8192)
+    fwd_step = next(r for r in records
+                    if r['nq'] == 5 and r['N'] == 100)
     fhead = next(r for r in fused_records
                  if r['nq'] == 10 and r['N'] == 100)
     fstep = next(r for r in fused_bwd_records
@@ -2190,11 +2224,16 @@ def main():
         "max_abs_err_expect": max(r['max_abs_err_expect'] for r in records),
         "ms": head['ms'], "plain_ms": head['plain_ms'],
         "bound_ms": head['bound_ms'], "bound_by": head['bound_by'],
-        "library_ms": None,
+        "library_ms": None, "device_ms": head['device_ms'],
+        "geometry": head['geometry'],
         "timed_shape": {"nb": head['nb'], "N": head['N'], "D": head['D']},
+        "at_N_100": {"ms": fwd_step['ms'], "device_ms": fwd_step['device_ms'],
+                     "bound_ms": fwd_step['bound_ms'],
+                     "geometry": fwd_step['geometry']},
         "residual_variant": {
             "ms": step['fwd_saved_ms'], "plain_ms": step['fwd_saved_plain_ms'],
             "bound_ms": step['fwd_bound_ms'],
+            "device_ms": step['fwd_saved_device_ms'],
             "timed_shape": {"nb": step['nb'], "N": step['N'],
                             "D": step['D']}},
         "shapes": [[r['nb'], r['N'], r['D']] for r in records]}, {
@@ -2210,8 +2249,13 @@ def main():
                            for r in bwd_records),
         "ms": step['ms'], "plain_ms": step['plain_ms'],
         "bound_ms": step['bound_ms'], "bound_by": step['bound_by'],
-        "library_ms": None,
+        "library_ms": None, "device_ms": step['device_ms'],
+        "geometry": step['geometry'],
         "timed_shape": {"nb": step['nb'], "N": step['N'], "D": step['D']},
+        "at_N_8192": {"ms": bwd_big['ms'], "device_ms": bwd_big['device_ms'],
+                      "bound_ms": bwd_big['bound_ms'],
+                      "bound_by": bwd_big['bound_by'],
+                      "geometry": bwd_big['geometry']},
         "shapes": [[r['nb'], r['N'], r['D']] for r in bwd_records]}, {
         "name": "fused_chain_fwd", "route": "cuda",
         "source": "quanonet_torch/csrc/fused_chain.cu",

@@ -34,11 +34,24 @@ class DataManager:
 
         self.operator_type = config['operator']
         self.model_type = config.get('model_type', 'DeepONet')
+        # 'host' (the NumPy/SciPy generators, the cache's byte contract);
+        # 'device' and 'native' are not ported yet and raise below
         datagen = config.get('datagen') or 'host'
-        if datagen != 'host' or os.environ.get('QUANONET_NATIVE') == '1':
+        if datagen == 'host' and os.environ.get('QUANONET_NATIVE') == '1':
+            datagen = 'native'    # legacy env opt-in == --datagen native
+        if datagen not in ('host', 'device', 'native'):
+            raise ValueError(f"datagen must be host|device|native, "
+                             f"got {datagen!r}")
+        if datagen != 'host' and self.input_sampler is not None:
+            self.logger.info("custom input_sampler supplied: forcing "
+                             "datagen=host (the sampler is a host-side "
+                             "function seam)")
+            datagen = 'host'
+        if datagen != 'host':
             raise NotImplementedError(
-                f"datagen {datagen if datagen != 'host' else 'native'}: "
-                f"only the host generators are ported (ROADMAP §A10)")
+                f"datagen {datagen}: only the host generators are ported "
+                f"(ROADMAP §A item 7)")
+        self.datagen = datagen
         self.num_points = config.get('num_points', 100)
         self.num_points_0 = config.get('num_points_0', 100)
         if config.get('num_cal') is not None:
@@ -61,7 +74,7 @@ class DataManager:
             try:
                 with np.load(filepath) as data:
                     return {k: data[k] for k in data.files}
-            except (OSError, ValueError) as e:
+            except Exception as e:   # a damaged file, e.g. BadZipFile
                 self.logger.warning(f"Failed to load cache: {e}. "
                                     f"Regenerating.")
 

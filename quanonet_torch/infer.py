@@ -7,9 +7,10 @@ checkpoint, with keyword/CLI overrides; both checkpoint formats (.npz and
 MindSpore .ckpt) load.  Runs on ``cuda`` unless ``device='cpu'`` is asked
 for.
 
-Not ported yet: the QPU-emulation flags (ROADMAP §A9) and the CLI's
-test-data generation from the checkpoint name (§A10); each raises
-NotImplementedError.
+Not ported yet: the CLI's test-data generation from the checkpoint name
+(ROADMAP §A item 1), finite shots (item 4) and the noise, ZNE and T1/T2
+flags (item 5).  The CLI parses every flag of the JAX package's, and each
+of these raises NotImplementedError naming its item.
 
 CLI:  python -m quanonet_torch.infer --ckpt <best_model.ckpt|.npz>
           (--data <file.npz> | --branch <b.npy> [--trunk <t.npy>])
@@ -262,6 +263,35 @@ def evaluate(y_pred, y_true):
 
 # ── CLI ───────────────────────────────────────────────────────────────────────
 
+# the reference CLI's QPU-emulation flags, each parsed here and refused
+# naming the ROADMAP item that ports it
+_UNPORTED_ITEMS = {'shots': 'ROADMAP §A item 4', 'noise': 'ROADMAP §A item 5'}
+_UNPORTED_FLAGS = {
+    '--shots': 'shots', '--shot_seed': 'shots', '--noise_p': 'noise',
+    '--noise_traj': 'noise', '--readout_p': 'noise', '--t1_us': 'noise',
+    '--t2_us': 'noise', '--block_time_us': 'noise', '--damp_gamma': 'noise',
+    '--dephase_p': 'noise'}
+_INT_FLAGS = ('--shots', '--shot_seed', '--noise_traj')
+
+
+def _reject_unported_flags(args):
+    """Raise for the QPU-emulation flags that were given.  ``--noise_p 0``
+    and ``--readout_p 0`` are the ideal model and pass, as in the JAX
+    package."""
+    used = [flag for flag in _UNPORTED_FLAGS
+            if getattr(args, flag[2:]) is not None
+            and not (flag in ('--noise_p', '--readout_p')
+                     and getattr(args, flag[2:]) == 0.0)]
+    if args.zne:
+        used.append('--zne')
+    if used:
+        items = sorted({_UNPORTED_ITEMS[_UNPORTED_FLAGS.get(f, 'noise')]
+                        for f in used})
+        raise NotImplementedError(
+            f"{', '.join(used)}: QPU emulation is not ported yet "
+            f"({'; '.join(items)}); the port measures exactly")
+
+
 def _parser():
     p = argparse.ArgumentParser(
         description='QuanONet inference on the PyTorch/CUDA port',
@@ -274,6 +304,9 @@ def _parser():
     p.add_argument('--branch', default=None,
                    help='Branch input .npy (alternative to --data)')
     p.add_argument('--trunk', default=None, help='Trunk input .npy')
+    p.add_argument('--num_points_0', type=int, default=None,
+                   help='Branch points of the data generated from the '
+                        'checkpoint name: not ported yet (ROADMAP §A item 1)')
     p.add_argument('--output', default=None,
                    help='Save predictions to .npy or .npz')
     p.add_argument('--batch_size', type=int, default=None,
@@ -290,20 +323,21 @@ def _parser():
                    help='CLI-compat override; every backend maps onto the '
                         'one engine here, so this only annotates the config')
     p.add_argument('--ham_bound', type=float, nargs=2, default=None)
-    for flag in ('--shots', '--noise_p', '--readout_p', '--damp_gamma',
-                 '--dephase_p'):
-        p.add_argument(flag, type=float if flag != '--shots' else int,
+    for flag, kind in _UNPORTED_FLAGS.items():
+        item = _UNPORTED_ITEMS[kind]
+        p.add_argument(flag, type=int if flag in _INT_FLAGS else float,
                        default=None,
-                       help='QPU emulation: not ported yet (ROADMAP §A9)')
+                       help=f'QPU emulation: not ported yet ({item})')
     p.add_argument('--zne', type=float, nargs='+', default=None,
                    metavar='SCALE',
                    help='Zero-noise extrapolation: not ported yet '
-                        '(ROADMAP §A9)')
+                        f"({_UNPORTED_ITEMS['noise']})")
     return p
 
 
 def main(argv=None):
     args = _parser().parse_args(argv)
+    _reject_unported_flags(args)
     y_true = None
     if args.data:
         d = np.load(args.data)
@@ -319,7 +353,7 @@ def main(argv=None):
     else:
         raise NotImplementedError(
             "generating test data from the checkpoint name is not ported "
-            "yet (ROADMAP §A10); provide --data <file.npz> or "
+            "yet (ROADMAP §A item 1); provide --data <file.npz> or "
             "--branch <file.npy>")
 
     branch_in = branch.shape[-1] if branch.ndim == 3 else branch.shape[1]

@@ -10,7 +10,11 @@ matrices with the Hadamards folded in, by default from
 autograd) and with ``USE_UCOMP=1`` from the compile kernels
 (ops/cuda_ucomp.py), where they apply.  The kernels run the whole chain of
 one batch tile per CTA, whatever the batch: no padding, no chunking, no
-fallback.
+fallback.  The tile's size is chosen per call from N, D and the card's SM
+count (:func:`chain_geometry`): small at the training batch, so that it
+spreads over many SMs, large at large N, so that each thread's register
+tile keeps the FMA units busy.  The library handle and the SM count are
+read once.
 
 :func:`block_chain` dispatches:
 
@@ -25,6 +29,8 @@ fallback.
 """
 import ctypes
 import os
+from collections import namedtuple
+from functools import lru_cache
 
 import torch
 
@@ -34,8 +40,27 @@ from quanonet_torch.ops import hea as _hea
 
 KERNEL = 'hea_chain'
 DIMS = (2, 4, 8, 16, 32, 64, 128)   # n = 1..7 qubits
-MIN_SPLIT_ROWS = 64   # fewest batch rows per slice of the Mbar reduction
+MIN_SPLIT_ROWS = 1024   # fewest batch rows per slice of the Mbar reduction
 MAX_SPLITS = 1024
+
+# The kernels' launch geometries, (threads, CJ, P) per width in order of
+# growing row tile R = threads / (D / CJ) * P: a thread owns P rows and CJ
+# amplitudes.  The same table as HEA_TILES in csrc/hea_chain.cu (the tests
+# compare them; the library is checked against it when loaded).
+TILES = {
+    2: ((32, 1, 1), (128, 1, 2), (256, 2, 2)),
+    4: ((32, 1, 1), (128, 2, 2), (256, 4, 2)),
+    8: ((64, 1, 1), (128, 2, 2), (256, 4, 2)),
+    16: ((128, 1, 1), (256, 2, 2), (256, 4, 2)),
+    32: ((256, 1, 1), (256, 4, 1), (256, 4, 2)),
+    64: ((256, 1, 1), (256, 2, 2), (256, 4, 2)),
+    128: ((256, 1, 1), (256, 2, 2), (256, 4, 2)),
+}
+SMEM_LIMIT = 232448   # bytes of shared memory a CTA may use (sm_90)
+MAX_THREADS = 1024
+
+Geometry = namedtuple('Geometry', 'tile threads cj p rows grid fwd_smem '
+                                  'bwd_smem')
 
 # Launches since import: ``launches`` counts the forward kernel (primal and
 # residual variants), ``bwd_launches`` the backward.  chip_smoke.py zeroes
@@ -51,20 +76,60 @@ USE_UCOMP = os.environ.get('USE_UCOMP', '0') == '1'
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 
 
+def tile_geometry(d, tile, n):
+    """The launch geometry of tile ``tile`` at width d for n batch rows,
+    with the shared memory of its forward and sweep kernels (the formulas
+    of ``Tile`` in csrc/hea_chain.cu)."""
+    threads, cj, p = TILES[d][tile]
+    rows = threads // (d // cj) * p
+    ld = d if d < 4 else d + 4           # padded row of the tile and sweep's M
+    nbuf = 2 if d <= 64 else 1           # block-matrix buffers
+    return Geometry(tile, threads, cj, p, rows, -(-n // rows),
+                    4 * (2 * rows * ld + 2 * nbuf * d * d),
+                    4 * (2 * rows * ld + 2 * nbuf * d * ld))
+
+
+def chain_geometry(n, d, sms):
+    """The geometry both block-chain kernels launch with for n batch rows
+    at width d on a card of ``sms`` SMs: the largest row tile that still
+    gives at least half as many CTAs as SMs, else the smallest (the
+    training batch: N = 100 at D = 32 runs 13 CTAs of 8 rows).  The primal
+    and residual forward of one (n, d) share it, and so their bits."""
+    geos = [tile_geometry(d, t, n) for t in range(len(TILES[d]))]
+    fill = [g for g in geos if 2 * g.grid >= sms]
+    return fill[-1] if fill else geos[0]
+
+
+@lru_cache(maxsize=None)
 def _lib():
     lib = _build.load(KERNEL)
-    lib.hea_chain_forward.argtypes = [_VP] * 7 + [_I] * 3 + [_VP]
+    lib.hea_chain_forward.argtypes = [_VP] * 7 + [_I] * 4 + [_VP]
     lib.hea_chain_forward.restype = _I
-    lib.hea_chain_backward.argtypes = [_VP] * 14 + [_I] * 4 + [_VP]
+    lib.hea_chain_backward.argtypes = [_VP] * 14 + [_I] * 5 + [_VP]
     lib.hea_chain_backward.restype = _I
     lib.hea_chain_error_string.argtypes = [_I]
     lib.hea_chain_error_string.restype = ctypes.c_char_p
+    lib.hea_chain_tile_rows.argtypes = [_I, _I]
+    lib.hea_chain_tile_rows.restype = _I
+    for d in DIMS:
+        for t in range(len(TILES[d])):
+            built = lib.hea_chain_tile_rows(d, t)
+            if built != tile_geometry(d, t, 1).rows:
+                raise RuntimeError(
+                    f"csrc/hea_chain.cu tile {t} at D = {d} has {built} rows, "
+                    f"cuda_hea.TILES {tile_geometry(d, t, 1).rows}")
     return lib
+
+
+@lru_cache(maxsize=None)
+def sm_count(index):
+    """SMs of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(named, device):
     """Each (name, tensor, shape) is float32, contiguous, on ``device``;
-    the block matrices also 16-byte aligned."""
+    the block matrices and the phases also 16-byte aligned."""
     for name, t, shape in named:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
@@ -74,9 +139,10 @@ def _check(named, device):
             raise ValueError(f"{name} is on {t.device}, phi on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if name.startswith('mt_') and t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned "
-                             f"(the kernels read it as float4)")
+        if name.startswith('mt_') or name == 'phi':
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned "
+                                 f"(the kernels read it as float4)")
 
 
 def _check_operands(mt_r, mt_i, phi):
@@ -120,20 +186,28 @@ def chain_forward(mt_r, mt_i, phi, save_residuals=False):
     if n:
         lib = _lib()
         st_ptrs = [t.data_ptr() for t in st] or [None, None]
+        geo = chain_geometry(n, d, sm_count(dev.index))
         with torch.cuda.device(dev):
             err = lib.hea_chain_forward(
                 mt_r.data_ptr(), mt_i.data_ptr(), phi.data_ptr(),
                 out_r.data_ptr(), out_i.data_ptr(), *st_ptrs, nb, n, d,
-                _stream(dev))
+                geo.tile, _stream(dev))
         _raise_on(lib, err, 'hea_chain_forward')
         launches += 1
     return (out_r, out_i, *st)
 
 
+def mbar_tile_side(d):
+    """Side of one output tile of the Mbar kernel (``MbarTile::TS``)."""
+    return d if d < 32 else (32 if d < 64 else 64)
+
+
 def mbar_splits(nb, n, d, sms):
-    """Slices of the batch rows for the Mbar reduction: enough CTAs to
-    fill ``sms`` SMs twice over, at least MIN_SPLIT_ROWS rows each."""
-    tiles = (d // min(d, 32)) ** 2
+    """Slices of the batch rows for the Mbar reduction, summed in slice
+    order by a third launch when there is more than one: enough CTAs to
+    fill ``sms`` SMs twice over, at least MIN_SPLIT_ROWS rows each, so the
+    training batch (N = 100) runs one slice and no third launch."""
+    tiles = (d // mbar_tile_side(d)) ** 2
     want = -(-2 * sms // (nb * tiles))
     splits = max(1, min(want, -(-n // MIN_SPLIT_ROWS), MAX_SPLITS))
     rows = -(-n // splits)
@@ -158,8 +232,8 @@ def chain_backward(mt_r, mt_i, phi, states_r, states_i, gr, gi):
                 phibar)
     mbar_r = torch.empty((nb, d, d), dtype=torch.float32, device=dev)
     mbar_i = torch.empty((nb, d, d), dtype=torch.float32, device=dev)
-    splits = mbar_splits(
-        nb, n, d, torch.cuda.get_device_properties(dev).multi_processor_count)
+    sms = sm_count(dev.index)
+    splits = mbar_splits(nb, n, d, sms)
     ub_r = torch.empty((nb, n, d), dtype=torch.float32, device=dev)
     ub_i = torch.empty((nb, n, d), dtype=torch.float32, device=dev)
     part = ((torch.empty((splits, nb, d, d), dtype=torch.float32, device=dev),
@@ -173,7 +247,7 @@ def chain_backward(mt_r, mt_i, phi, states_r, states_i, gr, gi):
             states_r.data_ptr(), states_i.data_ptr(), gr.data_ptr(),
             gi.data_ptr(), ub_r.data_ptr(), ub_i.data_ptr(), *part_ptrs,
             mbar_r.data_ptr(), mbar_i.data_ptr(), phibar.data_ptr(),
-            nb, n, d, splits, _stream(dev))
+            nb, n, d, chain_geometry(n, d, sms).tile, splits, _stream(dev))
     _raise_on(lib, err, 'hea_chain_backward')
     bwd_launches += 1
     return mbar_r, mbar_i, phibar

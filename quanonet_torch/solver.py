@@ -213,10 +213,71 @@ class ScheduledOptimizer:
         self.count = int(sd['count'])
 
 
+class RMSprop(torch.optim.Optimizer):
+    """optax.rmsprop's update rule (optax 0.2.6), which torch.optim.RMSprop
+    does not give: epsilon inside the square root by default
+    (``eps_in_sqrt``), g / sqrt(v + eps) where torch takes
+    g / (sqrt(v) + eps), and the momentum trace taken over the
+    learning-rate-scaled update, as optax's ``trace`` follows
+    ``scale_by_learning_rate``.  Per step, with v and m starting at
+    ``initial_scale`` and 0:
+
+        v = decay v + (1 - decay) g^2;  centered: m = decay m + (1 - decay) g,
+            v - m^2 in place of v below
+        u = -lr g / sqrt(v + eps)      (eps_in_sqrt=False: sqrt(v) + eps)
+        momentum: t = u + momentum t;  u = t (nesterov: u + momentum t)
+        p = p + u
+    """
+
+    def __init__(self, params, lr=0.0, decay=0.9, eps=1e-8,
+                 initial_scale=0.0, eps_in_sqrt=True, centered=False,
+                 momentum=None, nesterov=False):
+        super().__init__(params, dict(
+            lr=lr, decay=decay, eps=eps, initial_scale=initial_scale,
+            eps_in_sqrt=eps_in_sqrt, centered=centered,
+            momentum=momentum, nesterov=nesterov))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            decay, eps = group['decay'], group['eps']
+            for p in group['params']:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                state = self.state[p]
+                if not state:
+                    state['nu'] = torch.full_like(p, group['initial_scale'])
+                    if group['centered']:
+                        state['mu'] = torch.zeros_like(p)
+                    if group['momentum'] is not None:
+                        state['trace'] = torch.zeros_like(p)
+                nu = state['nu']
+                nu.copy_((1 - decay) * g * g + decay * nu)
+                var = nu
+                if group['centered']:
+                    mu = state['mu']
+                    mu.copy_((1 - decay) * g + decay * mu)
+                    var = nu - mu * mu
+                if group['eps_in_sqrt']:
+                    u = torch.rsqrt(var + eps) * g
+                else:
+                    u = g / (torch.sqrt(var) + eps)
+                u = -group['lr'] * u
+                if group['momentum'] is not None:
+                    trace = state['trace']
+                    trace.copy_(u + group['momentum'] * trace)
+                    u = (u + group['momentum'] * trace
+                         if group['nesterov'] else trace)
+                p.add_(u)
+        return None
+
+
 def _torch_optimizer(name, params, opt_kw):
-    """optax optimizer name and keyword arguments -> the torch.optim
-    optimizer with the same update rule (optax's defaults where torch's
-    differ: adamw's weight decay 1e-4, rmsprop's decay 0.9)."""
+    """optax optimizer name and keyword arguments -> the torch optimizer
+    with the same update rule (optax's defaults where torch's differ:
+    adamw's weight decay 1e-4; rmsprop is the port's own :class:`RMSprop`,
+    since torch.optim.RMSprop puts epsilon outside the square root)."""
     kw = dict(opt_kw)
     if name in ('adam', 'adamw'):
         args = dict(lr=0.0, betas=(kw.pop('b1', 0.9), kw.pop('b2', 0.999)),
@@ -230,11 +291,11 @@ def _torch_optimizer(name, params, opt_kw):
         args = dict(lr=0.0, momentum=kw.pop('momentum', None) or 0.0,
                     nesterov=kw.pop('nesterov', False))
         cls = torch.optim.SGD
-    else:   # rmsprop; torch puts eps outside the square root, optax inside
-        args = dict(lr=0.0, alpha=kw.pop('decay', 0.9), eps=kw.pop('eps', 1e-8),
-                    momentum=kw.pop('momentum', None) or 0.0,
-                    centered=kw.pop('centered', False))
-        cls = torch.optim.RMSprop
+    else:
+        args = {k: kw.pop(k) for k in ('decay', 'eps', 'initial_scale',
+                                        'eps_in_sqrt', 'centered',
+                                        'momentum', 'nesterov') if k in kw}
+        cls = RMSprop
     if kw:
         raise ValueError(f"optimizer_kwargs {sorted(kw)} have no "
                          f"torch.optim counterpart for {name}")

@@ -125,6 +125,55 @@ def test_backward_is_deterministic(card, n):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def _unitary_operands(d, nb, n, seed, device):
+    """Random unitary block matrices (as M^T) and phases in [-8, 8]."""
+    rng = np.random.RandomState(seed)
+    mats = []
+    for _ in range(nb):
+        q, _ = np.linalg.qr(rng.randn(d, d) + 1j * rng.randn(d, d))
+        mats.append(q.T)
+    mt = np.stack(mats)
+    phi = rng.uniform(-8, 8, (nb, n, d))
+    return [torch.tensor(np.ascontiguousarray(a, np.float32), device=device)
+            for a in (mt.real, mt.imag, phi)], rng
+
+
+@pytest.mark.parametrize("tile", [0, 1, 2])
+@pytest.mark.parametrize("d", cuda_hea.DIMS)
+def test_every_tile_ragged_and_at_its_boundaries(card, monkeypatch, d, tile):
+    """Each launch geometry of both kernels (forced in turn) at N = 1, one
+    row either side of its row tile and a ragged multiple, with one block
+    and with several: forward and residuals within 2e-5 of the plain
+    version, the primal equal to the residual variant bit for bit, the
+    backward within 1e-4 x max(1, max|plain|), two backward calls equal."""
+    rows = cuda_hea.tile_geometry(d, tile, 1).rows
+    monkeypatch.setattr(cuda_hea, 'chain_geometry',
+                        lambda n, dd, sms: cuda_hea.tile_geometry(dd, tile, n))
+    for nb in (1, 4):
+        for n in sorted({1, max(1, rows - 1), rows + 1, 2 * rows + 3}):
+            (mt_r, mt_i, phi), rng = _unitary_operands(
+                d, nb, n, 100 * d + 10 * tile + nb, card)
+            gr, gi = (torch.tensor(rng.randn(n, d).astype(np.float32),
+                                   device=card) for _ in range(2))
+            where = f"D={d} tile={tile} nb={nb} N={n}"
+            sr, si, st_r, st_i = cuda_hea.chain_forward(
+                mt_r, mt_i, phi, save_residuals=True)
+            qr, qi = cuda_hea.chain_forward(mt_r, mt_i, phi)
+            got = cuda_hea.chain_backward(mt_r, mt_i, phi, st_r, st_i, gr, gi)
+            again = cuda_hea.chain_backward(mt_r, mt_i, phi, st_r, st_i, gr,
+                                            gi)
+            torch.cuda.synchronize()
+            pr, pi, pst_r, pst_i = hea.chain_dense_saved(mt_r, mt_i, phi)
+            for a, b in ((sr, pr), (si, pi), (st_r, pst_r), (st_i, pst_i)):
+                assert (a - b).abs().max().item() <= 2e-5, where
+            assert torch.equal(qr, sr) and torch.equal(qi, si), where
+            want = hea.chain_backward_dense(mt_r, mt_i, phi, (pst_r, pst_i),
+                                            gr, gi)
+            for a, b in zip(got, want):
+                assert (a - b).abs().max().item() <= _bwd_tol(b), where
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), where
+
+
 def test_model_training_step_matches_dense(card):
     """One Adam step of a Q4 QuanONet through the kernels equals the plain
     engine's (autograd of chain_dense) on the card."""

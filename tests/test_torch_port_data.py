@@ -49,8 +49,8 @@ def test_data_manager_byte_equal_to_jax(tmp_path, monkeypatch, cfg):
 
 
 @pytest.mark.parametrize("over,item", [
-    (dict(datagen='device'), 'A10'), (dict(datagen='native'), 'A10'),
-    (dict(model_type='FNO'), None)])
+    (dict(datagen='device'), '§A item 7'), (dict(datagen='native'), '§A item 7'),
+    (dict(model_type='FNO'), None)], ids=['over0-A10', 'over1-A10', 'over2-None'])
 def test_unported_generators_raise(over, item):
     """The device and native generators raise naming their ROADMAP item;
     the FNO grid encoding is ported and names its own cache file."""
@@ -68,3 +68,68 @@ def test_unported_generators_raise(over, item):
 def test_unknown_operator_raises():
     with pytest.raises(ValueError, match='Unknown operator'):
         DataManager(dict(operator='Nope', num_train=1, num_test=1))
+
+
+def _ode_cfg(**over):
+    cfg = dict(operator='Antideriv', model_type='QuanONet', num_train=6,
+               num_test=4, num_points=12, num_points_0=6, train_sample_num=3,
+               test_sample_num=4, num_cal=50)
+    cfg.update(over)
+    return cfg
+
+
+def test_damaged_cache_regenerates(tmp_path, monkeypatch, caplog):
+    """A truncated .npz (a run killed while writing it) raises BadZipFile in
+    np.load: the cache is regenerated, as the JAX package does."""
+    monkeypatch.setattr(t_gen, 'DATA_ROOT', str(tmp_path / 'raw'))
+    np.random.seed(0)
+    dm = DataManager(_ode_cfg(), data_dir=str(tmp_path / 'data'))
+    want = dm.get_data()
+    path = tmp_path / 'data' / 'Antideriv' / dm._get_filename()
+    path.write_bytes(path.read_bytes()[:100])
+    np.random.seed(0)
+    with caplog.at_level('WARNING'):
+        got = DataManager(_ode_cfg(), data_dir=str(tmp_path / 'data')
+                          ).get_data()
+    assert any('Failed to load cache' in r.getMessage()
+               and 'Regenerating' in r.getMessage() for r in caplog.records)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == want[k].shape and np.isfinite(got[k]).all(), k
+
+
+def _zero_input(n):
+    """An input sampler: u0 = 0 (the function and its samples)."""
+    return (lambda x: 0.0 * np.asarray(x)), np.zeros(n)
+
+
+def test_input_sampler_forces_host(tmp_path, monkeypatch, caplog):
+    """A custom input_sampler with datagen 'device' or 'native' runs on the
+    host generators (the JAX package's rule), logging why."""
+    monkeypatch.setattr(t_gen, 'DATA_ROOT', str(tmp_path / 'raw'))
+    for datagen in ('device', 'native'):
+        with caplog.at_level('INFO'):
+            dm = DataManager(_ode_cfg(datagen=datagen),
+                             data_dir=str(tmp_path / 'data'),
+                             input_sampler=_zero_input)
+        assert dm.datagen == 'host'
+        assert any('forcing datagen=host' in r.getMessage()
+                   for r in caplog.records)
+        data = dm.get_data()
+        assert not np.abs(data['train_branch_input']).any()
+        assert not np.abs(data['train_output']).any()
+    jdm = JDataManager(_ode_cfg(datagen='device'),
+                       input_sampler=lambda n: (None, np.zeros(n)))
+    assert jdm.datagen == dm.datagen
+
+
+def test_datagen_env_and_unknown(monkeypatch):
+    """QUANONET_NATIVE=1 asks for the native generators (not ported: it
+    raises naming the item); an unknown datagen is a ValueError."""
+    monkeypatch.setenv('QUANONET_NATIVE', '1')
+    with pytest.raises(NotImplementedError, match='native'):
+        DataManager(_ode_cfg())
+    monkeypatch.delenv('QUANONET_NATIVE')
+    with pytest.raises(ValueError, match='host|device|native'):
+        DataManager(_ode_cfg(datagen='gpu'))
+    assert DataManager(_ode_cfg()).datagen == 'host'

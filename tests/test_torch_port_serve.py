@@ -96,8 +96,40 @@ def test_infer_cli_on_data_file(tmp_path):
     np.testing.assert_allclose(np.load(out), preds, atol=0)
     np.testing.assert_allclose(
         preds, t_infer.predict(model, branch, trunk, cfg=cfg), atol=1e-6)
-    with pytest.raises(NotImplementedError, match='A10'):
+    with pytest.raises(NotImplementedError, match='§A item 1'):
         t_infer.main(['--ckpt', ADVECTION, '--device', 'cpu'])
+    # --num_points_0 is parsed (it shapes the data generated from the
+    # checkpoint name; with --data it is not read, as in the JAX package)
+    again = t_infer.main(['--ckpt', ADVECTION, '--data', str(data),
+                          '--device', 'cpu', '--num_points_0', '7'])
+    np.testing.assert_array_equal(again, preds)
+
+
+@pytest.mark.parametrize("flags,item", [
+    (['--shots', '100'], '§A item 4'), (['--shot_seed', '3'], '§A item 4'),
+    (['--noise_traj', '8'], '§A item 5'), (['--t1_us', '50'], '§A item 5'),
+    (['--t2_us', '70'], '§A item 5'), (['--block_time_us', '1.5'], '§A item 5'),
+    (['--noise_p', '0.01'], '§A item 5'), (['--zne', '1', '2'], '§A item 5'),
+    (['--damp_gamma', '0.1', '--shots', '8'], 'item 4; ROADMAP §A item 5'),
+])
+def test_infer_cli_parses_every_reference_flag(tmp_path, flags, item):
+    """Every flag of the JAX package's infer CLI parses; a QPU-emulation
+    flag that is not ported raises NotImplementedError naming its ROADMAP
+    item (not argparse's 'unrecognized arguments' exit)."""
+    from quanonet_tpu.infer import _parser as j_parser
+    ref = {a.dest for a in j_parser()._actions}
+    port = {a.dest for a in t_infer._parser()._actions}
+    assert ref <= port
+    branch, trunk = anchor_inputs(2, seed=1)
+    data = tmp_path / 'd.npz'
+    np.savez(data, test_branch_input=branch, test_trunk_input=trunk)
+    with pytest.raises(NotImplementedError, match=item):
+        t_infer.main(['--ckpt', ADVECTION, '--data', str(data),
+                      '--device', 'cpu', *flags])
+    # --noise_p 0 is the ideal model: it passes
+    if flags == ['--noise_p', '0.01']:
+        t_infer.main(['--ckpt', ADVECTION, '--data', str(data),
+                      '--device', 'cpu', '--noise_p', '0'])
 
 
 # ── counterparts of tests/test_serve.py ─────────────────────────────────────
