@@ -56,16 +56,20 @@ Phases, each printed as one JSON line:
              (train_breakdown: host clock, CUDA events, a torch.profiler
              window for the device's busy share).
 8. kernel_fused — the fused-group chain kernels (csrc/fused_chain.cu,
-             8..16 qubits): the forward, primal and residual, against
-             fused_gates.chain_fused / chain_fused_saved at Q10
-             Net40-2-20-2 (N = 1, 100, 8192), Q8, Q9 (ragged), encode-only
-             blocks, Q11-13 Net10-2-10-2, Q14 and, forward only, Q15-16
-             Net5-2-5-2: amplitude and expectation errors, median times,
-             the bound (fused_bound), and at Q10 the whole forward beside
-             the grouped-kron engine 'fused'.
-9. kernel_fused_bwd — the backward against chain_fused_backward at the
+             8..16 qubits, taking the angles x): the forward, primal and
+             residual, against fused_gates.chain_fused_x /
+             chain_fused_saved_x at Q10 Net40-2-20-2 (N = 1, 100, 8192),
+             Q8, Q9 (ragged), encode-only blocks, Q11-13 Net10-2-10-2, Q14
+             and, forward only, Q15-16 Net5-2-5-2: amplitude and
+             expectation errors, median times and the time on the card
+             alone, the bounds (fused_bound at the fp32 peak,
+             fused_tc_bound with the products on the tensor cores), and at
+             Q10 the whole forward beside the grouped-kron engine 'fused'.
+9. kernel_fused_bwd — the backward against chain_fused_backward_x at the
              same cases up to Q14 (1e-4 x max(1, max|plain|), two calls
-             bit-equal).
+             bit-equal), its time on the card alone in all and by launch,
+             and the U7bar launch's yardstick, one torch.bmm on complex64
+             of its shapes (u7bar_library_ms).
 10. train_parity_q10 — 20 Adam steps at Q10 Net40-2-20-2, batch 100,
              'pfused' against autograd of 'fused'.
 11. train_q10 — one epoch of the training CLI at Q10 ('auto' -> 'pfused'),
@@ -180,6 +184,7 @@ FIXTURE = os.path.join(REPO, 'tests', 'fixtures',
 
 # H100 SXM datasheet peaks at its full 700 W limit
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 AMP_TOL = 2e-5       # fp32 chain of up to 60 block products, other order
@@ -834,6 +839,30 @@ def fused_bwd_bound(spec, n):
     return (*_bound(flops, nbytes), flops, nbytes)
 
 
+def fused_tc_bound(spec, n, backward=False):
+    """The least time (ms) with the low products on the tensor cores in
+    the 3xTF32 split the kernels use: each real product three TF32 products
+    at 495 TFLOP/s, the rest of the work (butterflies, phases) at the fp32
+    peak, against the same bytes."""
+    fwd, bwd, fwd_bytes, bwd_bytes = _fused_counts(spec, n)
+    amps = n * spec.dim
+    products = (2 if backward else 1) * 6.0 * 128 * amps * spec.total_sublayers
+    flops = (bwd if backward else fwd) - products
+    t = 3 * products / PEAK_TF32_FLOPS + flops / PEAK_FP32_FLOPS
+    return 1e3 * max(t, (bwd_bytes if backward else fwd_bytes) / PEAK_HBM_BYTES)
+
+
+def u7bar_library_ms(spec, n, dev, reps):
+    """The yardstick of the U7bar launch: one torch.bmm on complex64 of its
+    shapes, (S, 128, N hi) x (S, N hi, 128), on random inputs."""
+    s, rows = spec.total_sublayers, n * spec.dim // 128
+    a = torch.randn(s, 128, rows, dtype=torch.complex64, device=dev)
+    b = torch.randn(s, rows, 128, dtype=torch.complex64, device=dev)
+    ms = time_ms(lambda: torch.bmm(a, b), reps)
+    del a, b
+    return ms
+
+
 def _fused_case(nq, net, n, seed, dev):
     spec = _fused_spec(nq, net)
     rng = np.random.RandomState(seed)
@@ -852,10 +881,10 @@ def phase_kernel_fused():
     for label, nq, net, n, _ in FUSED_CASES:
         spec, w, x, _ = _fused_case(nq, net, n, 3000 + 10 * nq + n, dev)
         with torch.no_grad():
-            ops = fused_gates.prepare_fused_chain(spec, w, x)
+            ops = fused_gates.prepare_fused_chain_x(spec, w, x)
         lds = fused_gates.block_depths(spec)
         kr, ki = cuda_fused.chain_forward(*ops, lds)
-        pr, pi = fused_gates.chain_fused(*ops, lds)
+        pr, pi = fused_gates.chain_fused_x(*ops, lds)
         torch.cuda.synchronize()
         diag = torch.as_tensor(simple_ham_diag(nq, -5, 5), device=dev)
         err_amp = _max_err((kr, ki), (pr, pi))
@@ -872,7 +901,7 @@ def phase_kernel_fused():
                "max_abs_err_amp": err_amp, "max_abs_err_expect": err_exp}
         if nq <= cuda_fused.TRAIN_MAX_QUBITS:
             fwd = cuda_fused.chain_forward(*ops, lds, save_residuals=True)
-            saved = fused_gates.chain_fused_saved(*ops, lds)
+            saved = fused_gates.chain_fused_saved_x(*ops, lds)
             torch.cuda.synchronize()
             rec["max_abs_err_states"] = _max_err(fwd[2:], saved[2:])
             rec["primal_bit_equal"] = all(
@@ -880,13 +909,21 @@ def phase_kernel_fused():
             del fwd, saved
         reps = 3 if n * spec.dim >= 2 ** 22 else 20
         rec["ms"] = time_ms(lambda: cuda_fused.chain_forward(*ops, lds), reps)
-        rec["plain_ms"] = time_ms(lambda: fused_gates.chain_fused(*ops, lds),
+        rec["device_ms"] = kernel_device_ms(
+            lambda: cuda_fused.chain_forward(*ops, lds), 'fused_chain_fwd',
+            reps)
+        rec["plain_ms"] = time_ms(lambda: fused_gates.chain_fused_x(*ops, lds),
                                   1 if n * spec.dim >= 2 ** 22 else 3)
         if nq <= cuda_fused.TRAIN_MAX_QUBITS:
             rec["saved_ms"] = time_ms(lambda: cuda_fused.chain_forward(
                 *ops, lds, save_residuals=True), reps)
+            rec["saved_device_ms"] = kernel_device_ms(
+                lambda: cuda_fused.chain_forward(*ops, lds,
+                                                 save_residuals=True),
+                'fused_chain_fwd', reps)
         bound_ms, bound_by, flops, nbytes = fused_bound(spec, n)
         rec.update({"bound_ms": bound_ms, "bound_by": bound_by,
+                    "tc_bound_ms": fused_tc_bound(spec, n),
                     "flops": flops, "bytes": nbytes,
                     "share_of_bound": bound_ms / rec["ms"]})
         if nq == 10 and n in (100, 8192):
@@ -926,7 +963,7 @@ def phase_kernel_fused_bwd():
             continue
         spec, w, x, rng = _fused_case(nq, net, n, 4000 + 10 * nq + n, dev)
         with torch.no_grad():
-            ops = fused_gates.prepare_fused_chain(spec, w, x)
+            ops = fused_gates.prepare_fused_chain_x(spec, w, x)
         lds = fused_gates.block_depths(spec)
         g = [torch.tensor(rng.randn(n, spec.dim).astype(np.float32),
                           device=dev) for _ in range(2)]
@@ -934,9 +971,10 @@ def phase_kernel_fused_bwd():
                                                     save_residuals=True)
         got = cuda_fused.chain_backward(*ops, lds, st_r, st_i, *g)
         again = cuda_fused.chain_backward(*ops, lds, st_r, st_i, *g)
-        want = fused_gates.chain_fused_backward(*ops, lds, (st_r, st_i), *g)
+        want = fused_gates.chain_fused_backward_x(*ops, lds, (st_r, st_i),
+                                                  *g)
         torch.cuda.synchronize()
-        names = ('u7bar_r', 'u7bar_i', 'u2bar_r', 'u2bar_i', 'phibar')
+        names = ('u7bar_r', 'u7bar_i', 'u2bar_r', 'u2bar_i', 'xbar')
         errs = {k: (a - b).abs().max().item()
                 for k, a, b in zip(names, got, want)}
         scales = {k: max(1.0, b.abs().max().item())
@@ -944,17 +982,29 @@ def phase_kernel_fused_bwd():
         finite = all(bool(torch.isfinite(t).all()) for t in got)
         bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
         big = n * spec.dim >= 2 ** 22
-        ms = time_ms(lambda: cuda_fused.chain_backward(
-            *ops, lds, st_r, st_i, *g), 3 if big else 20)
-        plain_ms = time_ms(lambda: fused_gates.chain_fused_backward(
+
+        def bwd():
+            cuda_fused.chain_backward(*ops, lds, st_r, st_i, *g)
+        ms = time_ms(bwd, 3 if big else 20)
+        # on the card alone: all its launches, and each on its own
+        device_ms = kernel_device_ms(bwd, None, 3 if big else 20)
+        split = _profiled(bwd, 3 if big else 20).get("top_device_ms_per_step")
+        plain_ms = time_ms(lambda: fused_gates.chain_fused_backward_x(
             *ops, lds, (st_r, st_i), *g), 1 if big else 3)
         bound_ms, bound_by, flops, nbytes = fused_bwd_bound(spec, n)
         rec = {"phase": "kernel_fused_bwd", "case": label, "nq": nq,
                "nb": spec.n_blocks, "S": spec.total_sublayers, "N": n,
                "D": spec.dim, "max_abs_err": errs, "scale": scales,
-               "bit_equal": bit_equal, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-               "bytes": nbytes, "share_of_bound": bound_ms / ms,
+               "bit_equal": bit_equal, "ms": ms, "device_ms": device_ms,
+               "device_ms_by_launch": split, "plain_ms": plain_ms,
+               # (not at the largest batch: its complex64 operands
+               # would take 16 GB beside the backward's own scratch)
+               "u7bar_library_ms": (None if big else
+                                    u7bar_library_ms(spec, n, dev, 20)),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "tc_bound_ms": fused_tc_bound(spec, n, backward=True),
+               "flops": flops, "bytes": nbytes,
+               "share_of_bound": bound_ms / ms,
                "u7bar_splits": cuda_fused.u7bar_splits(
                    spec.total_sublayers, n * spec.dim // 128,
                    torch.cuda.get_device_properties(dev)
@@ -1113,7 +1163,7 @@ def train_breakdown_q10(steps=10):
 
     x = torch.cat([model.trunk_freq(t), model.branch_freq(b)], dim=1)
     lds = fused_gates.block_depths(model.spec)
-    ops = [a.detach() for a in fused_gates.prepare_fused_chain(
+    ops = [a.detach() for a in fused_gates.prepare_fused_chain_x(
         model.spec, model.ansatz, x)]
     fwd = cuda_fused.chain_forward(*ops, lds, save_residuals=True)
     g = torch.ones_like(fwd[0])
@@ -1122,8 +1172,9 @@ def train_breakdown_q10(steps=10):
         "step_ms": host_ms(step, steps),
         "forward_ms": host_ms(loss, steps),
         "adam_ms": host_ms(opt.step, steps),
-        "operands_forward_ms": host_ms(lambda: fused_gates.prepare_fused_chain(
-            model.spec, model.ansatz, x), steps),
+        "operands_forward_ms": host_ms(
+            lambda: fused_gates.prepare_fused_chain_x(model.spec, model.ansatz,
+                                                      x), steps),
         "kernel_fwd_saved_ms": time_ms(lambda: cuda_fused.chain_forward(
             *ops, lds, save_residuals=True), steps),
         "kernel_bwd_ms": time_ms(lambda: cuda_fused.chain_backward(
@@ -2272,10 +2323,12 @@ def main():
                                   for r in fused_records),
         "ms": fhead['ms'], "plain_ms": fhead['plain_ms'],
         "bound_ms": fhead['bound_ms'], "bound_by": fhead['bound_by'],
-        "library_ms": None,
+        "library_ms": None, "device_ms": fhead['device_ms'],
+        "tc_bound_ms": fhead['tc_bound_ms'],
         "timed_shape": {"nq": 10, "nb": fhead['nb'], "N": fhead['N'],
                         "D": fhead['D']},
         "residual_variant_ms": fhead['saved_ms'],
+        "residual_variant_device_ms": fhead['saved_device_ms'],
         "fused_engine_ms": fhead['fused_engine_ms'],
         "pfused_engine_ms": fhead['pfused_engine_ms'],
         "shapes": [[r['nq'], r['nb'], r['N']] for r in fused_records]}, {
@@ -2289,7 +2342,10 @@ def main():
                            for r in fused_bwd_records),
         "ms": fstep['ms'], "plain_ms": fstep['plain_ms'],
         "bound_ms": fstep['bound_ms'], "bound_by": fstep['bound_by'],
-        "library_ms": None,
+        "library_ms": None, "device_ms": fstep['device_ms'],
+        "tc_bound_ms": fstep['tc_bound_ms'],
+        "device_ms_by_launch": fstep['device_ms_by_launch'],
+        "u7bar_library_ms": fstep['u7bar_library_ms'],
         "timed_shape": {"nq": 10, "nb": fstep['nb'], "N": fstep['N'],
                         "D": fstep['D']},
         "shapes": [[r['nq'], r['nb'], r['N']] for r in fused_bwd_records]}, {

@@ -5,9 +5,11 @@ whose ``_fwd_kernel`` and ``_bwd_kernel`` they replace; engine name
 ``'pfused'``), for 8 to 16 qubits.
 
 The operands come from :func:`quanonet_torch.ops.fused_gates.
-prepare_fused_chain` (the low-group unitaries, the high qubits' 2x2s, the
-raw phases).  The kernels run the whole chain of R rows per CTA, whatever
-the batch: no padding, no tiles to pick, no fallback.
+prepare_fused_chain_x` (the low-group unitaries, the high qubits' 2x2s, the
+encoding angles x as (nb, N, n)); the kernels build each block's phases
+from x and the backward returns x̄ of that shape, so the (nb, N, 2^n) phase
+tensor is never allocated.  The kernels run the whole chain of R rows per
+CTA, whatever the batch: no padding, no tiles to pick, no fallback.
 
 :func:`fused_chain` dispatches:
 
@@ -15,9 +17,9 @@ the batch: no padding, no tiles to pick, no fallback.
   ``_make_chain``'s custom VJP): its forward runs the residual-saving
   forward kernel, its backward the backward kernels;
 * no gradient (eval, serving) -> the primal-only forward kernel;
-* CPU tensors -> the plain versions (:func:`fused_gates.chain_fused`,
-  :func:`fused_gates.chain_fused_saved`,
-  :func:`fused_gates.chain_fused_backward`); CUDA tensors launch the
+* CPU tensors -> the plain versions (:func:`fused_gates.chain_fused_x`,
+  :func:`fused_gates.chain_fused_saved_x`,
+  :func:`fused_gates.chain_fused_backward_x`); CUDA tensors launch the
   kernels or raise.
 
 Widths: MIN_QUBITS..MAX_QUBITS (8..16) forward, training to
@@ -26,14 +28,12 @@ raises with a pointer to ``engine='fused'``.  Outside the range the engine
 raises (the JAX package reroutes to 'fused' there).
 """
 import ctypes
+from functools import lru_cache
 
 import torch
 
 from quanonet_torch.ops import _build
 from quanonet_torch.ops import fused_gates as _fg
-from quanonet_torch.ops.gates import (
-    cnot_ring_inverse_permutation, cnot_ring_permutation,
-)
 
 KERNEL = 'fused_chain'
 LANE_QUBITS = 7
@@ -42,10 +42,13 @@ MAX_QUBITS = 16
 TRAIN_MAX_QUBITS = 14
 AUTO_MAX_QUBITS = 14       # 'auto' takes 'pfused' with a gradient up to here
 # Up to these the kernels keep a CTA's rows in shared memory, above in a
-# per-CTA scratch in device memory: the forward's 2 buffers (and the 72 KB
-# of U7t staging) fit at 13 qubits (200 KB), the backward's 3 at 12.
+# per-CTA scratch in device memory: the forward's 2 buffer pairs (and two
+# 36 KB slots of U7t staging) fit at 13 qubits (209 KB), the backward's 4
+# at 12.
 FWD_SMEM_MAX_QUBITS = 13
 BWD_SMEM_MAX_QUBITS = 12
+PITCH = 132                # floats of a tile row of 128 lanes in a buffer
+                           # (csrc/fused_chain.cu kPitch)
 MIN_SPLIT_ROWS = 256       # fewest tile rows per slice of the U7bar reduction
 MAX_SPLITS = 64
 
@@ -58,14 +61,16 @@ bwd_launches = 0
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _sub_offsets = {}
-_ring_tables = {}
+_schedules = {}
 
 
+@lru_cache(maxsize=None)
 def _lib():
+    """The library, loaded (and built) once, its argument types set."""
     lib = _build.load(KERNEL)
     lib.fused_chain_forward.argtypes = [_VP] * 12 + [_I] * 4 + [_VP]
     lib.fused_chain_forward.restype = _I
-    lib.fused_chain_backward.argtypes = [_VP] * 25 + [_I] * 6 + [_VP]
+    lib.fused_chain_backward.argtypes = [_VP] * 24 + [_I] * 6 + [_VP]
     lib.fused_chain_backward.restype = _I
     lib.fused_chain_error_string.argtypes = [_I]
     lib.fused_chain_error_string.restype = ctypes.c_char_p
@@ -74,13 +79,18 @@ def _lib():
 
 def rows_per_cta(n_qubits, batch, sms):
     """Batch rows each CTA owns: enough for 8 tile rows of 128 lanes
-    (2^(n-7) a row), and for a batch that fills the card 16 times over
-    (at most 16 lanes-rows a row) 32 tile rows, so that each sublayer's
-    128 KB U7t is read from L2 once per 32 tile rows instead of per 8."""
+    (2^(n-7) a row) while those CTAs fit on the card at once; for a batch
+    that would need more, 32 tile rows (16 at 8 qubits: the backward's 4
+    buffer pairs, two staging slots and the phase factors of 16 rows would
+    not fit in shared memory), so that each sublayer's 128 KB U7t and each
+    A fragment serve 4 n8 tiles instead of one.  A CTA takes one SM (its
+    registers), so past one wave the larger tile wins: the Q10 forward at
+    N = 1000 took 7.3 ms on an H100 with 8 tile rows (8 waves), 4.3 ms
+    with 32."""
     hi = 2 ** (n_qubits - LANE_QUBITS)
     rows = max(1, 8 // hi)
-    if hi <= 16 and batch >= 16 * sms:
-        rows = 32 // hi
+    if hi <= 16 and -(-batch // rows) > sms:
+        rows = (32 if hi >= 4 else 16) // hi
     return rows
 
 
@@ -108,17 +118,34 @@ def _sub_off(lds, device):
     return t
 
 
-def _rings(nq, device):
-    """(inverse, forward) maps of the CNOT ring as 2^n int32 tables on
-    ``device``, copied there once per width."""
-    key = (nq, device)
-    pair = _ring_tables.get(key)
-    if pair is None:
-        pair = tuple(torch.as_tensor(t, dtype=torch.int32, device=device)
-                     for t in (cnot_ring_inverse_permutation(nq),
-                               cnot_ring_permutation(nq)))
-        _ring_tables[key] = pair
-    return pair
+def schedule(lds, backward):
+    """The order in which the kernels stream the sublayers' U7t, entry
+    2 t + adj: the forward takes sublayers 0..S-1; the backward, per block
+    in reverse, its sublayers in order (the recompute), then in reverse
+    (the adjoint products)."""
+    off = [0]
+    for ld in lds:
+        off.append(off[-1] + ld)
+    if not backward:
+        return [2 * t for t in range(off[-1])]
+    out = []
+    for b in range(len(lds) - 1, -1, -1):
+        out += [2 * t for t in range(off[b], off[b + 1])]
+        out += [2 * t + 1 for t in range(off[b + 1] - 1, off[b] - 1, -1)]
+    return out
+
+
+def _sched(lds, backward, device):
+    """:func:`schedule` as int32 on ``device``, copied there once per
+    layout (one entry at least: a valid pointer for a chain of encoding
+    blocks only)."""
+    key = (tuple(lds), backward, device)
+    t = _schedules.get(key)
+    if t is None:
+        t = torch.tensor(schedule(lds, backward) or [0], dtype=torch.int32,
+                         device=device)
+        _schedules[key] = t
+    return t
 
 
 def _check(named, device):
@@ -128,7 +155,7 @@ def _check(named, device):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, phi on {device}")
+            raise ValueError(f"{name} is on {t.device}, x on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if name.startswith('u7t') and t.data_ptr() % 16:
@@ -136,15 +163,14 @@ def _check(named, device):
                              f"read it as float4)")
 
 
-def _check_operands(u7t_r, u7t_i, u2_r, u2_i, phi, lds):
+def _check_operands(u7t_r, u7t_i, u2_r, u2_i, x, lds):
     """-> n_qubits, after checking the operands the kernels take."""
-    if phi.dim() != 3:
-        raise ValueError(f"phi must be (nb, N, 2^n), got {tuple(phi.shape)}")
-    nb, n, d = phi.shape
-    nq = d.bit_length() - 1
-    if d != 2 ** nq or not MIN_QUBITS <= nq <= MAX_QUBITS:
-        raise ValueError(f"the fused-chain kernel takes 2^n amplitudes with "
-                         f"{MIN_QUBITS} <= n <= {MAX_QUBITS}, got {d}")
+    if x.dim() != 3:
+        raise ValueError(f"x must be (nb, N, n), got {tuple(x.shape)}")
+    nb, n, nq = x.shape
+    if not MIN_QUBITS <= nq <= MAX_QUBITS:
+        raise ValueError(f"the fused-chain kernel takes {MIN_QUBITS} <= n <= "
+                         f"{MAX_QUBITS} qubits, got x of {nq} angles a block")
     if nb < 1 or len(lds) != nb or min(lds) < 0:
         raise ValueError(f"block depths {tuple(lds)} do not match {nb} "
                          f"blocks")
@@ -153,7 +179,7 @@ def _check_operands(u7t_r, u7t_i, u2_r, u2_i, phi, lds):
     s, nh = sum(lds), nq - LANE_QUBITS
     _check((('u7t_r', u7t_r, (s, 128, 128)), ('u7t_i', u7t_i, (s, 128, 128)),
             ('u2_r', u2_r, (s, nh, 4)), ('u2_i', u2_i, (s, nh, 4)),
-            ('phi', phi, (nb, n, d))), phi.device)
+            ('x', x, (nb, n, nq))), x.device)
     return nq
 
 
@@ -176,23 +202,27 @@ def _geometry(nq, n, dev):
     return rows, -(-n // rows)
 
 
-def _scratch(nq, rows, grid, buffers, dev):
-    """Device-memory tiles of the forward (4 buffers) above
-    FWD_SMEM_MAX_QUBITS and of the backward (6) above BWD_SMEM_MAX_QUBITS."""
-    if nq <= (FWD_SMEM_MAX_QUBITS if buffers == 4 else BWD_SMEM_MAX_QUBITS):
+def _scratch(nq, rows, grid, backward, dev):
+    """Device-memory tiles (padded tile rows) of the forward's 2 buffer
+    pairs above FWD_SMEM_MAX_QUBITS and of the backward's 4 above
+    BWD_SMEM_MAX_QUBITS."""
+    if nq <= (BWD_SMEM_MAX_QUBITS if backward else FWD_SMEM_MAX_QUBITS):
         return None
-    return torch.empty((grid, buffers, rows << nq), dtype=torch.float32,
-                       device=dev)
+    pairs = 4 if backward else 2
+    tile_rows = rows << (nq - LANE_QUBITS)
+    return torch.empty((grid, 2 * pairs, tile_rows * PITCH),
+                       dtype=torch.float32, device=dev)
 
 
-def chain_forward(u7t_r, u7t_i, u2_r, u2_i, phi, lds, save_residuals=False):
-    """The forward kernel on CUDA tensors: (sr, si), and with
+def chain_forward(u7t_r, u7t_i, u2_r, u2_i, x, lds, save_residuals=False):
+    """The forward kernel on CUDA tensors, x (nb, N, n): (sr, si), and with
     ``save_residuals`` also (states_r, states_i), each block's input state
     (nb, N, 2^n)."""
     global launches
-    nq = _check_operands(u7t_r, u7t_i, u2_r, u2_i, phi, lds)
-    nb, n, d = phi.shape
-    dev = phi.device
+    nq = _check_operands(u7t_r, u7t_i, u2_r, u2_i, x, lds)
+    nb, n, _ = x.shape
+    d = 2 ** nq
+    dev = x.device
     out_r = torch.empty((n, d), dtype=torch.float32, device=dev)
     out_i = torch.empty((n, d), dtype=torch.float32, device=dev)
     st = ((torch.empty((nb, n, d), dtype=torch.float32, device=dev),
@@ -200,14 +230,14 @@ def chain_forward(u7t_r, u7t_i, u2_r, u2_i, phi, lds, save_residuals=False):
           if save_residuals else ())
     if n:
         rows, grid = _geometry(nq, n, dev)
-        scratch = _scratch(nq, rows, grid, 4, dev)
+        scratch = _scratch(nq, rows, grid, False, dev)
         lib = _lib()
         with torch.cuda.device(dev):
             err = lib.fused_chain_forward(
                 u7t_r.data_ptr(), u7t_i.data_ptr(), u2_r.data_ptr(),
-                u2_i.data_ptr(), phi.data_ptr(),
+                u2_i.data_ptr(), x.data_ptr(),
                 _sub_off(lds, dev).data_ptr(),
-                _rings(nq, dev)[0].data_ptr(), out_r.data_ptr(),
+                _sched(lds, False, dev).data_ptr(), out_r.data_ptr(),
                 out_i.data_ptr(), *_ptrs(st),
                 None if scratch is None else scratch.data_ptr(), nb, n, nq,
                 rows, torch.cuda.current_stream(dev).cuda_stream)
@@ -216,18 +246,20 @@ def chain_forward(u7t_r, u7t_i, u2_r, u2_i, phi, lds, save_residuals=False):
     return (out_r, out_i, *st)
 
 
-def chain_backward(u7t_r, u7t_i, u2_r, u2_i, phi, lds, states_r, states_i,
+def chain_backward(u7t_r, u7t_i, u2_r, u2_i, x, lds, states_r, states_i,
                    gr, gi):
     """The backward kernels on CUDA tensors: the output's cotangent
-    (gr, gi) -> (u7bar_r, u7bar_i, u2bar_r, u2bar_i, phibar).
-    Deterministic: two calls on equal inputs give equal bits."""
+    (gr, gi) -> (u7bar_r, u7bar_i, u2bar_r, u2bar_i, xbar), xbar
+    (nb, N, n).  Deterministic: two calls on equal inputs give equal
+    bits."""
     global bwd_launches
-    nq = _check_operands(u7t_r, u7t_i, u2_r, u2_i, phi, lds)
+    nq = _check_operands(u7t_r, u7t_i, u2_r, u2_i, x, lds)
     if nq > TRAIN_MAX_QUBITS:
         raise _train_limit(nq)
-    nb, n, d = phi.shape
+    nb, n, _ = x.shape
+    d = 2 ** nq
     s, nh = sum(lds), nq - LANE_QUBITS
-    dev = phi.device
+    dev = x.device
     _check((('states_r', states_r, (nb, n, d)),
             ('states_i', states_i, (nb, n, d)),
             ('gr', gr, (n, d)), ('gi', gi, (n, d))), dev)
@@ -236,9 +268,9 @@ def chain_backward(u7t_r, u7t_i, u2_r, u2_i, phi, lds, states_r, states_i,
         return torch.zeros(shape, dtype=torch.float32, device=dev)
     u7bar = (zeros(s, 128, 128), zeros(s, 128, 128))
     u2bar = (zeros(s, nh, 4), zeros(s, nh, 4))
-    phibar = torch.empty((nb, n, d), dtype=torch.float32, device=dev)
+    xbar = torch.empty((nb, n, nq), dtype=torch.float32, device=dev)
     if not n:
-        return (*u7bar, *u2bar, phibar.zero_())
+        return (*u7bar, *u2bar, xbar.zero_())
     rows, grid = _geometry(nq, n, dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     splits = u7bar_splits(s, n << (nq - LANE_QUBITS), sms)
@@ -248,21 +280,21 @@ def chain_backward(u7t_r, u7t_i, u2_r, u2_i, phi, lds, states_r, states_i,
     part = ([torch.empty((splits, s, 128, 128), dtype=torch.float32,
                          device=dev) for _ in range(2)]
             if splits > 1 else [])
-    scratch = _scratch(nq, rows, grid, 6, dev)
+    scratch = _scratch(nq, rows, grid, True, dev)
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.fused_chain_backward(
             u7t_r.data_ptr(), u7t_i.data_ptr(), u2_r.data_ptr(),
-            u2_i.data_ptr(), phi.data_ptr(), _sub_off(lds, dev).data_ptr(),
-            *[t.data_ptr() for t in _rings(nq, dev)], states_r.data_ptr(),
+            u2_i.data_ptr(), x.data_ptr(), _sub_off(lds, dev).data_ptr(),
+            _sched(lds, True, dev).data_ptr(), states_r.data_ptr(),
             states_i.data_ptr(), gr.data_ptr(), gi.data_ptr(),
             *[t.data_ptr() for t in pre], u2part.data_ptr(),
             *_ptrs(part), None if scratch is None else scratch.data_ptr(),
-            *[t.data_ptr() for t in u7bar + u2bar], phibar.data_ptr(), nb, s,
+            *[t.data_ptr() for t in u7bar + u2bar], xbar.data_ptr(), nb, s,
             n, nq, rows, splits, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, 'fused_chain_backward')
     bwd_launches += 1
-    return (*u7bar, *u2bar, phibar)
+    return (*u7bar, *u2bar, xbar)
 
 
 def _train_limit(nq):
@@ -274,48 +306,49 @@ def _train_limit(nq):
 
 
 class FusedChain(torch.autograd.Function):
-    """(u7t_r, u7t_i, u2_r, u2_i, phi) -> (sr, si) with the backward kernels
-    as its gradient (the counterpart of pallas_fused._make_chain).  On CPU
-    tensors both passes are the plain versions."""
+    """(u7t_r, u7t_i, u2_r, u2_i, x) -> (sr, si), x (nb, N, n), with the
+    backward kernels as its gradient (the counterpart of
+    pallas_fused._make_chain; x̄ comes back as (nb, N, n)).  On CPU tensors
+    both passes are the plain versions."""
 
     @staticmethod
-    def forward(ctx, u7t_r, u7t_i, u2_r, u2_i, phi, lds):
-        if phi.device.type == 'cpu':
-            sr, si, st_r, st_i = _fg.chain_fused_saved(u7t_r, u7t_i, u2_r,
-                                                       u2_i, phi, lds)
+    def forward(ctx, u7t_r, u7t_i, u2_r, u2_i, x, lds):
+        if x.device.type == 'cpu':
+            sr, si, st_r, st_i = _fg.chain_fused_saved_x(u7t_r, u7t_i, u2_r,
+                                                         u2_i, x, lds)
         else:
-            sr, si, st_r, st_i = chain_forward(u7t_r, u7t_i, u2_r, u2_i, phi,
+            sr, si, st_r, st_i = chain_forward(u7t_r, u7t_i, u2_r, u2_i, x,
                                                lds, save_residuals=True)
         ctx.lds = lds
-        ctx.save_for_backward(u7t_r, u7t_i, u2_r, u2_i, phi, st_r, st_i)
+        ctx.save_for_backward(u7t_r, u7t_i, u2_r, u2_i, x, st_r, st_i)
         return sr, si
 
     @staticmethod
     def backward(ctx, gr, gi):
-        u7t_r, u7t_i, u2_r, u2_i, phi, st_r, st_i = ctx.saved_tensors
-        if phi.device.type == 'cpu':
-            grads = _fg.chain_fused_backward(u7t_r, u7t_i, u2_r, u2_i, phi,
-                                             ctx.lds, (st_r, st_i), gr, gi)
+        u7t_r, u7t_i, u2_r, u2_i, x, st_r, st_i = ctx.saved_tensors
+        if x.device.type == 'cpu':
+            grads = _fg.chain_fused_backward_x(u7t_r, u7t_i, u2_r, u2_i, x,
+                                               ctx.lds, (st_r, st_i), gr, gi)
         else:
-            grads = chain_backward(u7t_r, u7t_i, u2_r, u2_i, phi, ctx.lds,
+            grads = chain_backward(u7t_r, u7t_i, u2_r, u2_i, x, ctx.lds,
                                    st_r, st_i, gr.contiguous(),
                                    gi.contiguous())
         return (*grads, None)
 
 
-def fused_chain(u7t_r, u7t_i, u2_r, u2_i, phi, lds):
-    """(u7t_r, u7t_i, u2_r, u2_i, phi) -> (sr, si): the chain of
-    :func:`quanonet_torch.ops.fused_gates.chain_fused`, through the CUDA
+def fused_chain(u7t_r, u7t_i, u2_r, u2_i, x, lds):
+    """(u7t_r, u7t_i, u2_r, u2_i, x) -> (sr, si), x (nb, N, n): the chain of
+    :func:`quanonet_torch.ops.fused_gates.chain_fused_x`, through the CUDA
     kernels for CUDA tensors.  lds: the blocks' linear depths."""
     lds = tuple(lds)
-    ops = (u7t_r, u7t_i, u2_r, u2_i, phi)
+    ops = (u7t_r, u7t_i, u2_r, u2_i, x)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
-        nq = phi.shape[-1].bit_length() - 1
+        nq = x.shape[-1]
         if nq > TRAIN_MAX_QUBITS:
             raise _train_limit(nq)
         return FusedChain.apply(*ops, lds)
-    if phi.device.type == 'cpu':
-        return _fg.chain_fused(*ops, lds)
+    if x.device.type == 'cpu':
+        return _fg.chain_fused_x(*ops, lds)
     return chain_forward(*ops, lds)
 
 
@@ -333,7 +366,7 @@ def forward_pfused(spec, weights, x):
             f"engine 'pfused' takes {MIN_QUBITS}..{MAX_QUBITS} qubits with "
             f"n_encode == n_qubits per block, got {spec.n_qubits} qubits, "
             f"blocks {spec.block_configs}; use engine='fused'")
-    return fused_chain(*_fg.prepare_fused_chain(spec, weights, x),
+    return fused_chain(*_fg.prepare_fused_chain_x(spec, weights, x),
                        _fg.block_depths(spec))
 
 

@@ -22,7 +22,7 @@ qubit group's (2^k, 2^k) unitary as a three-product complex contraction,
 differentiated by autograd, each block under ``torch.utils.checkpoint``
 from 12 qubits up (where the JAX package rematerialises).
 
-The kernels' contract (:func:`prepare_fused_chain`): the low group (qubits
+The chain's operands (:func:`prepare_fused_chain`): the low group (qubits
 0..6) as one 128×128 unitary per sublayer, transposed for row-vector
 products (u7t), the high qubits 7..n-1 as per-qubit 2x2 entries
 [u00, u01, u10, u11] (u2, ``build_high_rot2x2``; their tensor product is
@@ -30,9 +30,16 @@ the dense high-group unitary, the JAX kernel's butterfly mode), and the raw
 phases φ (nb, N, 2^n).  :func:`chain_fused`, :func:`chain_fused_saved` and
 :func:`chain_fused_backward` compute the chain, its block input states and
 its reverse sweep on those operands, with the algebra of
-pallas_fused._fwd_kernel and _bwd_kernel.  They are what the kernels'
-wrappers (ops/cuda_fused.py) run on CPU tensors, and what the kernels are
-held against on the card.
+pallas_fused._fwd_kernel and _bwd_kernel.
+
+The kernels take the encoding angles instead of φ
+(:func:`prepare_fused_chain_x`: x as (nb, N, n)) and build the phases
+themselves from :func:`phase_factors`; :func:`chain_fused_x`,
+:func:`chain_fused_saved_x` and :func:`chain_fused_backward_x` are the
+plain versions in that contract (φ by :func:`angle_phases`, then the chain
+above, and x̄ = ½ φ̄·z).  They are what the kernels' wrappers
+(ops/cuda_fused.py) run on CPU tensors, and what the kernels are held
+against on the card.
 """
 from functools import lru_cache
 
@@ -41,9 +48,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from quanonet_torch.ops.gates import (
-    _kron2, ring_adjoint_apply, ring_apply,
+    _kron2, ring_adjoint_apply, ring_apply, z_signs,
 )
-from quanonet_torch.ops.hea import encoding_phases
+from quanonet_torch.ops.hea import _table, encoding_phases
 
 MAX_GROUP_QUBITS = 7   # 2^7 = 128: the low group of the chain kernels
 LANE_QUBITS = 7
@@ -254,6 +261,88 @@ def prepare_fused_chain(spec, weights, x):
     u7r, u7i = _group_unitary(rr, ri, 0, LANE_QUBITS)
     return (u7r.transpose(1, 2).contiguous(), u7i.transpose(1, 2).contiguous(),
             *_entries(rr, ri, LANE_QUBITS), encoding_phases(spec, x))
+
+
+def block_angles(spec, x):
+    """x (batch, nb·n), block-major -> (nb, batch, n) contiguous: the
+    angles of each block, the kernels' phase operand."""
+    n = spec.n_qubits
+    return x.reshape(x.shape[0], spec.n_blocks, n).transpose(0, 1).contiguous()
+
+
+def prepare_fused_chain_x(spec, weights, x):
+    """The chain kernels' operands: (u7t_r, u7t_i, u2_r, u2_i, xb), those of
+    :func:`prepare_fused_chain` with the angles xb (nb, N, n)
+    (:func:`block_angles`) in place of φ.  Differentiable in weights and
+    x."""
+    if spec.n_qubits <= LANE_QUBITS:
+        raise ValueError(f"the fused-group chain needs more than "
+                         f"{LANE_QUBITS} qubits, got {spec.n_qubits}")
+    rr, ri = folded_rot2x2(spec, weights)
+    u7r, u7i = _group_unitary(rr, ri, 0, LANE_QUBITS)
+    return (u7r.transpose(1, 2).contiguous(), u7i.transpose(1, 2).contiguous(),
+            *_entries(rr, ri, LANE_QUBITS), block_angles(spec, x))
+
+
+def angle_phases(xb):
+    """xb (nb, N, n) -> φ (nb, N, 2^n), φ_k = ½ Σ_i z_i(k) x_i: the sum of
+    :func:`quanonet_torch.ops.hea.encoding_phases`, term by term in qubit
+    order (exact fp32 whatever the matmul precision)."""
+    n = xb.shape[-1]
+    zsgn = _table(z_signs(n), xb)                        # (D, n)
+    phi = xb[..., 0, None] * zsgn[:, 0]
+    for i in range(1, n):
+        phi = phi + xb[..., i, None] * zsgn[:, i]
+    return 0.5 * phi
+
+
+def phase_factors(xb):
+    """exp(-iφ) of :func:`angle_phases` as the kernels build it: a low
+    factor over qubits 0..6 and a high factor over qubits 7..n-1, one angle
+    sum and one sincos each, exp(-iφ)[k] = low[k & 127] · high[k >> 7].
+    -> ((low_r, low_i) (..., 128), (high_r, high_i) (..., 2^(n-7)))."""
+    n = xb.shape[-1]
+
+    def factor(angles, k):
+        zsgn = _table(z_signs(k), angles)                # (2^k, k)
+        a = angles[..., 0, None] * zsgn[:, 0]
+        for i in range(1, k):
+            a = a + angles[..., i, None] * zsgn[:, i]
+        return torch.cos(0.5 * a), -torch.sin(0.5 * a)
+    return factor(xb[..., :LANE_QUBITS], LANE_QUBITS), \
+        factor(xb[..., LANE_QUBITS:], n - LANE_QUBITS)
+
+
+def angles_cotangent(phibar):
+    """φ̄ (nb, N, 2^n) -> x̄ (nb, N, n), x̄_i = ½ Σ_k z_i(k) φ̄_k, qubit by
+    qubit (exact fp32)."""
+    n = phibar.shape[-1].bit_length() - 1
+    zsgn = _table(z_signs(n), phibar)
+    return 0.5 * torch.stack([(phibar * zsgn[:, i]).sum(-1)
+                              for i in range(n)], -1)
+
+
+def chain_fused_x(u7t_r, u7t_i, u2_r, u2_i, xb, lds):
+    """:func:`chain_fused` on the angles xb (nb, N, n): the plain version of
+    the forward kernel."""
+    return chain_fused(u7t_r, u7t_i, u2_r, u2_i, angle_phases(xb), lds)
+
+
+def chain_fused_saved_x(u7t_r, u7t_i, u2_r, u2_i, xb, lds):
+    """:func:`chain_fused_saved` on the angles xb: the plain version of the
+    forward kernel's residual variant."""
+    return chain_fused_saved(u7t_r, u7t_i, u2_r, u2_i, angle_phases(xb), lds)
+
+
+def chain_fused_backward_x(u7t_r, u7t_i, u2_r, u2_i, xb, lds, residuals,
+                           gr, gi):
+    """:func:`chain_fused_backward` on the angles xb -> (u7bar_r, u7bar_i,
+    u2bar_r, u2bar_i, xbar), xbar (nb, N, n): the plain version of the
+    backward kernels."""
+    *grads, phibar = chain_fused_backward(u7t_r, u7t_i, u2_r, u2_i,
+                                          angle_phases(xb), lds, residuals,
+                                          gr, gi)
+    return (*grads, angles_cotangent(phibar))
 
 
 def _halves(a, q):

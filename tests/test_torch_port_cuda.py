@@ -207,7 +207,7 @@ def _fused_operands(nq, net, n, seed, device, configs=None):
     x = torch.tensor(rng.uniform(-4, 4, (n, spec.total_encode))
                      .astype(np.float32), device=device)
     with torch.no_grad():
-        ops = fused_gates.prepare_fused_chain(spec, w, x)
+        ops = fused_gates.prepare_fused_chain_x(spec, w, x)
     return spec, ops, fused_gates.block_depths(spec), rng
 
 
@@ -219,7 +219,7 @@ def _fused_operands(nq, net, n, seed, device, configs=None):
     (16, (1, 1, 1, 1), 2, None),
 ])
 def test_fused_kernel_matches_plain(card, nq, net, n, configs):
-    """B2f against chain_fused, in shared memory (to 13 qubits) and in
+    """B2f against chain_fused_x, in shared memory (to 13 qubits) and in
     device memory (from 14)."""
     from quanonet_torch.ops import cuda_fused, fused_gates
     spec, ops, lds, _ = _fused_operands(nq, net, n, nq, card, configs)
@@ -227,7 +227,7 @@ def test_fused_kernel_matches_plain(card, nq, net, n, configs):
     kr, ki = cuda_fused.fused_chain(*ops, lds)
     torch.cuda.synchronize()
     assert cuda_fused.launches == before + 1
-    pr, pi = fused_gates.chain_fused(*ops, lds)
+    pr, pi = fused_gates.chain_fused_x(*ops, lds)
     assert (kr - pr).abs().max().item() <= 2e-5
     assert (ki - pi).abs().max().item() <= 2e-5
     diag = torch.as_tensor(simple_ham_diag(nq, -5, 5), device=card)
@@ -243,8 +243,9 @@ def test_fused_kernel_matches_plain(card, nq, net, n, configs):
     (13, (1, 1, 1, 1), 3, None), (14, (1, 1, 1, 1), 2, None),
 ])
 def test_fused_backward_kernels_match_plain(card, nq, net, n, configs):
-    """B2b against chain_fused_backward, the residual variant against
-    chain_fused_saved; two backward calls give equal bits."""
+    """B2b against chain_fused_backward_x (xbar (nb, N, n)), the residual
+    variant against chain_fused_saved_x; two backward calls give equal
+    bits."""
     from quanonet_torch.ops import cuda_fused, fused_gates
     spec, ops, lds, rng = _fused_operands(nq, net, n, 10 + nq, card, configs)
     g = [torch.tensor(rng.randn(n, spec.dim).astype(np.float32),
@@ -254,10 +255,11 @@ def test_fused_backward_kernels_match_plain(card, nq, net, n, configs):
     got = cuda_fused.chain_backward(*ops, lds, st_r, st_i, *g)
     again = cuda_fused.chain_backward(*ops, lds, st_r, st_i, *g)
     torch.cuda.synchronize()
-    pr, pi, pst_r, pst_i = fused_gates.chain_fused_saved(*ops, lds)
+    pr, pi, pst_r, pst_i = fused_gates.chain_fused_saved_x(*ops, lds)
     for a, b in ((sr, pr), (si, pi), (st_r, pst_r), (st_i, pst_i)):
         assert (a - b).abs().max().item() <= 2e-5
-    want = fused_gates.chain_fused_backward(*ops, lds, (pst_r, pst_i), *g)
+    want = fused_gates.chain_fused_backward_x(*ops, lds, (pst_r, pst_i),
+                                              *g)
     for a, b in zip(got, want):
         assert a.shape == b.shape
         assert (a - b).abs().max().item() <= _bwd_tol(b)
@@ -268,26 +270,54 @@ def test_fused_backward_kernels_match_plain(card, nq, net, n, configs):
 
 def test_fused_kernel_rejects_bad_inputs(card):
     from quanonet_torch.ops import cuda_fused
-    _, (u7r, u7i, u2r, u2i, phi), lds, _ = _fused_operands(
+    _, (u7r, u7i, u2r, u2i, xb), lds, _ = _fused_operands(
         9, (2, 1, 2, 1), 4, 0, card)
     with pytest.raises(TypeError, match='float32'):
-        cuda_fused.fused_chain(u7r.double(), u7i, u2r, u2i, phi, lds)
+        cuda_fused.fused_chain(u7r.double(), u7i, u2r, u2i, xb, lds)
     with pytest.raises(ValueError, match='contiguous'):
-        cuda_fused.fused_chain(u7r.transpose(1, 2), u7i, u2r, u2i, phi, lds)
+        cuda_fused.fused_chain(u7r.transpose(1, 2), u7i, u2r, u2i, xb, lds)
     with pytest.raises(ValueError, match='must be'):
-        cuda_fused.fused_chain(u7r[:1], u7i, u2r, u2i, phi, lds)
+        cuda_fused.fused_chain(u7r[:1], u7i, u2r, u2i, xb, lds)
     with pytest.raises(ValueError, match='block depths'):
-        cuda_fused.fused_chain(u7r, u7i, u2r, u2i, phi, lds[:-1])
+        cuda_fused.fused_chain(u7r, u7i, u2r, u2i, xb, lds[:-1])
+    with pytest.raises(ValueError, match='x must be'):
+        cuda_fused.fused_chain(u7r, u7i, u2r, u2i, xb[0], lds)
     # with a gradient the chain goes through FusedChain: the residual
-    # forward, then the backward kernels
+    # forward, then the backward kernels, x's gradient (nb, N, n)
     before = (cuda_fused.launches, cuda_fused.bwd_launches)
+    xg = xb.clone().requires_grad_()
     sr, si = cuda_fused.fused_chain(u7r.requires_grad_(), u7i, u2r, u2i,
-                                    phi, lds)
+                                    xg, lds)
     (sr.sum() + si.sum()).backward()
     torch.cuda.synchronize()
     assert (cuda_fused.launches, cuda_fused.bwd_launches) == (
         before[0] + 1, before[1] + 1)
     assert u7r.grad is not None and torch.isfinite(u7r.grad).all()
+    assert xg.grad.shape == xb.shape and torch.isfinite(xg.grad).all()
+
+
+@pytest.mark.parametrize("nq,n", [(8, 4000), (10, 4000), (11, 2200)])
+def test_fused_kernels_at_large_batch_tiles(card, nq, n):
+    """The geometry of a batch that fills the card 16 times over (32 tile
+    rows a CTA, 16 at 8 qubits): both kernels launch (their shared memory
+    fits) and match the plain versions."""
+    from quanonet_torch.ops import cuda_fused, fused_gates
+    spec, ops, lds, rng = _fused_operands(nq, (2, 1, 1, 1), n, nq, card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    rows = cuda_fused.rows_per_cta(nq, n, sms)
+    assert rows << (nq - 7) == (16 if nq == 8 else 32)
+    g = [torch.tensor(rng.randn(n, spec.dim).astype(np.float32),
+                      device=card) for _ in range(2)]
+    sr, si, st_r, st_i = cuda_fused.chain_forward(*ops, lds,
+                                                  save_residuals=True)
+    got = cuda_fused.chain_backward(*ops, lds, st_r, st_i, *g)
+    torch.cuda.synchronize()
+    pr, pi, pst_r, pst_i = fused_gates.chain_fused_saved_x(*ops, lds)
+    for a, b in ((sr, pr), (si, pi), (st_r, pst_r), (st_i, pst_i)):
+        assert (a - b).abs().max().item() <= 2e-5
+    want = fused_gates.chain_fused_backward_x(*ops, lds, (pst_r, pst_i), *g)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= _bwd_tol(b)
 
 
 def test_q8_training_step_pfused_matches_fused(card):

@@ -181,7 +181,7 @@ def test_auto_at_eight_qubits_raises():
                                       torch.zeros(1, nq))
     ops = [torch.zeros(1, 128, 128), torch.zeros(1, 128, 128),
            torch.zeros(1, 8, 4), torch.zeros(1, 8, 4),
-           torch.zeros(1, 1, 2 ** 15, requires_grad=True)]
+           torch.zeros(1, 1, 15, requires_grad=True)]
     with pytest.raises(ValueError, match="engine='fused'"):
         cuda_fused.fused_chain(*ops, (1,))
 
