@@ -112,8 +112,10 @@ Phases, each printed as one JSON line:
              the forward, primal and residual, against chain_embed /
              chain_embed_saved on random general E and t at the shapes of
              Q1 .. Q7 models, the flagship (nb 60, d 32) at N in {1, 37,
-             100, 8192}: amplitudes (<= 2e-5), expectation (<= 1e-4),
-             median times, time on the card alone, the bound (embed_bound).
+             100, 1000, 1025, 8192}: amplitudes (<= 2e-5), expectation
+             (<= 1e-4), the residual u (<= 2e-5), median times, time on the
+             card alone, the bound (embed_bound), the launch geometry
+             (cuda_embed.embed_geometry) and Ebar's slices.
 19. kernel_embed_bwd — the backward against chain_embed_backward at the
              same cases (1e-4 x max(1, max|plain|), two calls bit-equal).
 20. train_parity_embed — 20 Adam steps of the flagship with engine
@@ -127,9 +129,10 @@ Phases, each printed as one JSON line:
              HTTP with engine='embed' against the JAX fixture (atol 1e-4);
              then buckets 1 and 8192 in turns with 'pallas'.
 23. embed_vs_pallas — the flagship's step at batch 100, the two engines
-             in turns in one process: step ms, device rows a step and the
-             card's busy share.  (profile_step, phase 16, times 'embed'
-             among its engines.)
+             in turns in one process: step ms, device rows a step, the
+             card's busy share and each chain kernel's card ms inside the
+             step.  (profile_step, phase 16, times 'embed' among its
+             engines.)
 24. classical — FNN, DeepONet and FNO each take a few epochs through the
              training CLI on the card (loss finite and falling, parameters
              on `cuda`); the DeepONet checkpoint is served through
@@ -1762,7 +1765,8 @@ def phase_serve_ucomp():
 # ── the real-embedding chain (B3f, B3b) and the classical baselines ─────────
 
 EMBED_CASES = [      # (label, qubits, net_size, batch rows N)
-    *[('Q5 Net40-2-20-2', 5, (40, 2, 20, 2), n) for n in (1, 37, 100, 8192)],
+    *[('Q5 Net40-2-20-2', 5, (40, 2, 20, 2), n)
+      for n in (1, 37, 100, 1000, 1025, 8192)],
     ('Q1 Net2-1-2-1', 1, (2, 1, 2, 1), 37),
     ('Q2 Net5-1-5-1', 2, (5, 1, 5, 1), 1000),
     ('Q3 Net4-2-3-1', 3, (4, 2, 3, 1), 37),
@@ -1783,7 +1787,8 @@ CLASSICAL_EPOCHS = 5
 def embed_counts(nb, n, d):
     """Least work of the real-embedding chain as the function is given
     (general E and t): (flops forward, flops backward, bytes forward,
-    bytes backward, bytes of the residuals s and u).  A real (2d x 2d)
+    bytes backward, bytes of the residual u, (nb-1) rows written by the
+    forward and read by the backward).  A real (2d x 2d)
     product per row and block is 2 (2d)^2 flops; the phase step 3 flops a
     column (the sincos is not counted).  The backward does two such
     products and the outer product Ebar a block, and 7 flops a column for
@@ -1794,7 +1799,7 @@ def embed_counts(nb, n, d):
     fwd = prod + 3.0 * (nb - 1) * n * w + n * w
     bwd = 3 * prod + 7.0 * (nb - 1) * n * w + 2.0 * n * w
     e_bytes, row_bytes = 4.0 * nb * w * w, 4.0 * n * w
-    residual_bytes = (2 * nb - 1) * row_bytes
+    residual_bytes = (nb - 1) * row_bytes
     fwd_bytes = e_bytes + (nb + 1) * row_bytes
     bwd_bytes = 2 * e_bytes + (2 * nb + 1) * row_bytes + residual_bytes
     return fwd, bwd, fwd_bytes, bwd_bytes, residual_bytes
@@ -1827,6 +1832,14 @@ def _embed_case(nq, net, n, seed, dev):
     return spec, e, t, g
 
 
+def _embed_geometry(nb, n, d):
+    """The launch geometry of the real-embedding chain kernels for
+    (nb, N, d) on this card, and the Ebar reduction's slices."""
+    sms = cuda_hea.sm_count(torch.cuda.current_device())
+    return (cuda_embed.embed_geometry(n, d, sms)._asdict(),
+            cuda_embed.ebar_splits(nb, n, 2 * d, sms))
+
+
 def _embed_expectation(out, d, diag):
     """<H> of the state [re | im] = out, normalised: a general E is not
     unitary and a general t's phase step keeps no norm, so the row is
@@ -1834,6 +1847,13 @@ def _embed_expectation(out, d, diag):
     sr, si = out[:, :d], out[:, d:]
     norm = (sr * sr + si * si).sum(-1, keepdim=True)
     return hea.diag_expectation_pair(sr, si, diag) / norm
+
+
+def _embed_geometry_by_case(records):
+    """Each kernel_embed* case's shape, launch geometry and Ebar slices."""
+    return [{"case": r['case'], "nb": r['nb'], "N": r['N'], "d": r['d'],
+             **{k: r['geometry'][k] for k in ('tile', 'rows', 'grid')},
+             "ebar_splits": r['ebar_splits']} for r in records]
 
 
 def phase_kernel_embed():
@@ -1855,13 +1875,12 @@ def phase_kernel_embed():
         reps = 20 if n >= 1000 else 50
         bound_ms, bound_by, flops, nbytes = embed_bound(nb, n, d)
         residual_bytes = embed_counts(nb, n, d)[4]
+        geometry, splits = _embed_geometry(nb, n, d)
         rec = {"phase": "kernel_embed", "case": label, "nq": nq, "nb": nb,
-               "N": n, "d": d,
+               "N": n, "d": d, "geometry": geometry, "ebar_splits": splits,
                "max_abs_err_amp": (out - plain[0]).abs().max().item(),
                "max_abs_err_expect": err_exp,
-               "max_abs_err_s": (saved[1] - plain[1]).abs().max().item(),
-               "max_abs_err_u": ((saved[2] - plain[2]).abs().max().item()
-                                 if nb > 1 else 0.0),
+               "max_abs_err_u": (saved[1] - plain[1]).abs().max().item(),
                "primal_bit_equal": torch.equal(out, saved[0]),
                "ms": time_ms(lambda: cuda_embed.embed_chain(e, t), reps),
                "device_ms": kernel_device_ms(
@@ -1881,9 +1900,8 @@ def phase_kernel_embed():
         check(rec["max_abs_err_amp"] <= AMP_TOL,
               f"{where}: amplitude error {rec['max_abs_err_amp']}")
         check(err_exp <= EXPECT_TOL, f"{where}: expectation error {err_exp}")
-        check(max(rec["max_abs_err_s"], rec["max_abs_err_u"]) <= AMP_TOL,
-              f"{where}: residual error {rec['max_abs_err_s']} / "
-              f"{rec['max_abs_err_u']}")
+        check(rec["max_abs_err_u"] <= AMP_TOL,
+              f"{where}: residual error {rec['max_abs_err_u']}")
         check(rec["primal_bit_equal"], f"{where}: residual variant's output "
                                        f"differs from the primal kernel's")
         records.append(rec)
@@ -1894,15 +1912,14 @@ def phase_kernel_embed_bwd():
     """B3b against chain_embed_backward at every case; returns the
     per-case records."""
     dev = torch.device('cuda')
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     records = []
     for label, nq, net, n in EMBED_CASES:
         spec, e, t, g = _embed_case(nq, net, n, 6500 + 10 * nq + n, dev)
         nb, d = spec.n_blocks, spec.dim
-        _, s, u = cuda_embed.embed_forward(e, t, save_residuals=True)
-        got = cuda_embed.embed_backward(e, t, s, u, g)
-        again = cuda_embed.embed_backward(e, t, s, u, g)
-        want = cuda_embed.chain_embed_backward(e, t, s, u, g)
+        _, u = cuda_embed.embed_forward(e, t, save_residuals=True)
+        got = cuda_embed.embed_backward(e, t, u, g)
+        again = cuda_embed.embed_backward(e, t, u, g)
+        want = cuda_embed.chain_embed_backward(e, t, u, g)
         torch.cuda.synchronize()
         names = ('ebar', 'tbar')
         errs = {k: (a - b).abs().max().item()
@@ -1911,18 +1928,19 @@ def phase_kernel_embed_bwd():
                   for k, b in zip(names, want)}
         reps = 20 if n >= 1000 else 50
         bound_ms, bound_by, flops, nbytes = embed_bwd_bound(nb, n, d)
+        geometry, splits = _embed_geometry(nb, n, d)
         rec = {"phase": "kernel_embed_bwd", "case": label, "nq": nq,
-               "nb": nb, "N": n, "d": d,
-               "splits": cuda_embed.ebar_splits(nb, n, 2 * d, sms),
+               "nb": nb, "N": n, "d": d, "geometry": geometry,
+               "ebar_splits": splits,
                "max_abs_err": errs, "scale": scales,
                "bit_equal": all(torch.equal(a, b)
                                 for a, b in zip(got, again)),
                "ms": time_ms(lambda: cuda_embed.embed_backward(
-                   e, t, s, u, g), reps),
+                   e, t, u, g), reps),
                "device_ms": kernel_device_ms(
-                   lambda: cuda_embed.embed_backward(e, t, s, u, g), None),
+                   lambda: cuda_embed.embed_backward(e, t, u, g), None),
                "plain_ms": time_ms(lambda: cuda_embed.chain_embed_backward(
-                   e, t, s, u, g), 5),
+                   e, t, u, g), 5),
                "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
                "bytes": nbytes}
         rec["share_of_bound"] = bound_ms / rec["ms"]
@@ -2115,8 +2133,10 @@ def embed_vs_pallas():
     """The flagship's step at batch 100 through 'pallas' and 'embed', in
     turns within this process so that both see the same host: median step
     time over ARM_ROUNDS rounds of ARM_STEPS steps (host clock with a
-    synchronise), then each engine's device rows a step and the card's
-    busy share under torch.profiler.  Outside the counted windows."""
+    synchronise), then each engine's device rows a step, the card's busy
+    share under torch.profiler, and the card ms a step of each chain
+    kernel (B3f, B3b's launches; B1f, B1b's).  Outside the counted
+    windows."""
     dev = torch.device('cuda')
     rng = np.random.RandomState(0)
     b = torch.as_tensor(rng.randn(100, 100).astype(np.float32), device=dev)
@@ -2133,7 +2153,12 @@ def embed_vs_pallas():
             loss.backward()
             opt.step()
         arms[engine] = step
-    return _arms_in_turns(arms)
+    out = _arms_in_turns(arms)
+    for arm in out.values():
+        arm["chain_kernels_device_ms_per_step"] = {
+            k: v for k, v in (arm["top_device_ms_per_step"] or {}).items()
+            if 'chain' in k or 'sum_splits' in k}
+    return out
 
 
 def phase_classical():
@@ -2411,20 +2436,23 @@ def main():
         "launches_by_path": {"train_embed": train_embed["embed_chain_fwd"],
                              "serve_embed": serve_embed["embed_chain_fwd"],
                              "profile_step": ps_counts["embed_chain_fwd"]},
-        "max_abs_err": max(max(r['max_abs_err_amp'], r['max_abs_err_s'],
-                               r['max_abs_err_u']) for r in embed_records),
+        "max_abs_err": max(max(r['max_abs_err_amp'], r['max_abs_err_u'])
+                           for r in embed_records),
         "max_abs_err_expect": max(r['max_abs_err_expect']
                                   for r in embed_records),
         "ms": ehead['ms'], "plain_ms": ehead['plain_ms'],
         "bound_ms": ehead['bound_ms'], "bound_by": ehead['bound_by'],
         "library_ms": None, "device_ms": ehead['device_ms'],
         "timed_shape": {"nb": ehead['nb'], "N": ehead['N'], "d": ehead['d']},
+        "geometry": ehead['geometry'],
         "residual_variant": {
             "ms": estep['saved_ms'], "plain_ms": estep['saved_plain_ms'],
             "bound_ms": estep['saved_bound_ms'],
             "timed_shape": {"nb": estep['nb'], "N": estep['N'],
-                            "d": estep['d']}},
-        "shapes": [[r['nb'], r['N'], r['d']] for r in embed_records]}, {
+                            "d": estep['d']},
+            "geometry": estep['geometry']},
+        "shapes": [[r['nb'], r['N'], r['d']] for r in embed_records],
+        "geometry_by_case": _embed_geometry_by_case(embed_records)}, {
         "name": "embed_chain_bwd", "route": "cuda",
         "source": "quanonet_torch/csrc/embed_chain.cu",
         "replaces": "quanonet_tpu/ops/pallas_embed.py:85",
@@ -2440,10 +2468,14 @@ def main():
         "bound_ms": ebwd['bound_ms'], "bound_by": ebwd['bound_by'],
         "library_ms": None, "device_ms": ebwd['device_ms'],
         "timed_shape": {"nb": ebwd['nb'], "N": ebwd['N'], "d": ebwd['d']},
+        "geometry": ebwd['geometry'], "ebar_splits": ebwd['ebar_splits'],
         "at_N_8192": {"ms": ebwd_big['ms'], "plain_ms": ebwd_big['plain_ms'],
                       "bound_ms": ebwd_big['bound_ms'],
-                      "bound_by": ebwd_big['bound_by']},
-        "shapes": [[r['nb'], r['N'], r['d']] for r in embed_bwd_records]}]})
+                      "bound_by": ebwd_big['bound_by'],
+                      "device_ms": ebwd_big['device_ms'],
+                      "ebar_splits": ebwd_big['ebar_splits']},
+        "shapes": [[r['nb'], r['N'], r['d']] for r in embed_bwd_records],
+        "geometry_by_case": _embed_geometry_by_case(embed_bwd_records)}]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

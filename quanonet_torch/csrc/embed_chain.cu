@@ -15,183 +15,394 @@
 //   representation of a complex block matrix); swap exchanges the two halves
 //   of the row.  Inputs: e (nb, W, W), t (nb, N, W), both general: nothing
 //   here assumes E's block structure or t's antisymmetry.  Outputs: out
-//   (N, W); with residuals also s (nb, N, W), each block's input row, and
-//   u (nb-1, N, W), each product before its phase step, as the TPU kernel
-//   saves them.  (u cannot be recovered from s_{b+1} as the block chain
-//   recovers it: for a general t the phase step's 2x2 map has determinant
-//   cos(t_lo + t_hi), which vanishes.)
+//   (N, W); with residuals also u (max(nb-1, 1), N, W), each product before
+//   its phase step.  The TPU kernel also saves each block's input row s;
+//   here s_b is rebuilt where the backward needs it, one phase step from
+//   u_{b-1} (s_0 from t_0 alone), which halves the residual bytes.  (u
+//   cannot be recovered from s_{b+1} instead: for a general t the phase
+//   step's 2x2 map has determinant cos(t_lo + t_hi), which vanishes.)
 //
-//   B3b  _bwd_kernel, the reverse sweep, here as three launches:
+//   B3b  _bwd_kernel, the reverse sweep, here as two launches (three when
+//   the batch is split into slices):
 //
 //     embed_chain_bwd_kernel   ubar_{nb-1} = g;  for b = nb-1 .. 0:
 //                                sbar_b = ubar_b . E_b^T
 //                                tbar_b, ubar_{b-1} from sbar_b, u_{b-1}, t_b
 //     embed_chain_ebar_kernel  Ebar_b = s_b^T . ubar_b, summed over the batch
-//                              rows of one slice
-//     sum_splits_kernel        the slices summed in a fixed order
+//                              rows of one slice, s_b rebuilt from u_{b-1}
+//                              and t_b
+//     sum_splits_kernel        the slices summed in a fixed order (N > 1,024)
 //
 //   Plain versions: quanonet_torch/ops/cuda_embed.py chain_embed (primal),
 //   chain_embed_saved (residuals), chain_embed_backward (backward).
 //
 // What bounds them.  Each pass does nb*N*W^2 real MACs per product (the
-// forward one, the backward two and the outer product Ebar), 2 flops each,
-// against 4*(nb*N*W*k + nb*W^2) bytes with k = 1 (forward: t) .. 5
-// (backward: t, s, u read, tbar written, and ubar through scratch): about
-// W/(2k) flops per byte.  The H100's fp32 ridge (67 TFLOP/s over 3.35 TB/s)
-// is 20 flops per byte, so at the flagship's W = 64 the primal forward is
-// bound by fp32 operations, and the residual forward and the backward by
-// bytes.  At the training batch N = 100 neither bound is near: each pass is
-// nb = 60 dependent block steps on 4 CTAs, bound by the latency of the
-// staged matrices and barriers, as the block chain is.
+// forward one, the backward three: two in the sweep's products and the
+// outer product Ebar), 2 flops each, against about 4*nb*N*W*k bytes with
+// k = 1 (forward: t), 2 (with u saved), 3 (backward: t, u read, tbar
+// written): W/2, W/4 and W/2 flops per byte, so at the flagship's W = 64
+// and the H100's fp32 ridge (20 flops per byte) the primal forward and the
+// backward are bound by operations, the residual forward by bytes; and
+// every pass takes a sincosf per row, column and block.  At the training batch
+// (N = 100) no bound is near: a pass is nb = 60 dependent block steps of a
+// few rows each, so what bounds it is one block step's latency on one SM —
+// the product's shared-memory reads and FMA chains, the instructions that
+// ask for the next panel's copies, the phase step's sincosf, the barrier —
+// and at W = 128 and 256 the stream of E_b (64 and 256 KB a block) from L2
+// into each SM.
 //
 // Design.  Forward and sweep: one CTA owns a tile of R batch rows for the
-// whole chain, so the state (forward) and sbar (backward) never leave the
-// SM between blocks.  A thread owns the columns j and j + d of P rows (CJ
-// such pairs when d > 32), so both operands of the phase step, which
-// crosses the halves of the row, are in its registers and the step needs
-// no exchange.  One E_b can be larger than an SM's shared memory (256 KB at
-// d = 128), so the product runs over panels of at most 64 rows of E_b
-// (forward) or 64 columns (sweep, transposed on the way in with a padded
-// row so that neither the staging writes nor the product's reads conflict),
-// staged one after the other; the same code serves every width from W = 2
-// to 256, and all of E stays in L2 between CTAs.  The product reads the
-// row tile as warp broadcasts (float4 over four k) and the panel along
-// consecutive columns.  The phase step's operands (the next t, and in the
-// sweep u) are asked for before the product and used after it, so their
-// trip to device memory hides behind the product.  Ebar is a sum over the
-// batch, which the TPU kernel
-// got by running the whole batch in one program; here it is a cross-CTA
-// sum, made deterministic without atomics: the sweep writes ubar
-// (nb, N, W) to a scratch buffer, and the Ebar kernel gives each (block,
-// 32x32 output tile, slice of rows) one CTA that sums its rows in a fixed
-// order; when there is more than one slice, a third kernel adds the slices
-// in slice order.  So two calls on equal inputs give equal bits.  The
-// phases are taken with the accurate sincosf: |t| reaches tens of radians
-// over up to 60 blocks, so neither __sincosf nor --use_fast_math is used.
-// Ragged batch tiles are masked: rows >= N carry zeros and are never read
-// or written.  No tensor cores (full fp32, no TF32), no TMA: simple.
+// whole chain, so the state (forward) and ubar (backward) never leave the
+// SM between blocks.  A thread owns P rows and CJ column pairs (j, j + d),
+// so both operands of the phase step, which crosses the halves of the row,
+// are at hand; with KS > 1 the KS lanes of one (rows, pairs) each take a
+// slice of every product's depth, add their partial sums by warp
+// shuffles, and each finishes CJ / KS of the pairs (its phase step and
+// stores), so that a row of the training batch has a warp of its own and
+// each lane reads E_b as float4 (CJ = 4).  The launch geometry (threads,
+// CJ, P, KS, hence R) is one of three tiles a width (EMBED_TILES below,
+// mirrored by cuda_embed.TILES; cuda_embed.embed_geometry picks the
+// largest tile that still gives half as many CTAs as SMs, else the
+// smallest).  E streams through a ring of NS = 4 panels in shared memory,
+// asked for with cp.async (16 B) NS - 1 panels ahead and kept in flight
+// across block boundaries, so no block step waits on L2: a panel is E_b
+// whole up to W = 64, and 64 (W = 128) or 32 (W = 256) of its rows
+// (forward, the product's depth) or columns (sweep) above, at most 32 KB.
+// The forward asks for the next panel before its product; the sweep
+// spreads those instructions over its product's k steps.  The row tile is
+// double-buffered by block parity, so a block step has one barrier a panel
+// and no other.  The forward reads E_b along its rows, a thread's CJ
+// columns contiguous; the sweep reads E_b in place, sbar[r, k] = sum_j
+// ubar[r, j] E_b[k, j], along the rows k of a column panel stored with
+// rows padded by four floats, so that lanes on consecutive k (a thread's
+// outputs interleaved at stride JT) hit distinct banks.  The phase step's
+// operands (the next t; in the sweep t_b and u_{b-1}) are asked for before
+// the product and used after it.  Ebar is a sum over the batch, which the
+// TPU kernel got by running the whole batch in one program; here the sweep
+// writes ubar (nb, N, W) to scratch, and the Ebar kernel gives each (block,
+// output tile of at most 64 x 64, slice of rows) one CTA that stages
+// chunks of t_b, u_{b-1} (at the tile's columns and at their swap
+// partners) and ubar_b rows through a ring of four chunks in shared
+// memory (cp.async, three chunks in flight), rebuilds s_b from them in
+// shared memory one chunk ahead of the product that reads it (one barrier
+// a chunk), and accumulates a register tile of outputs over the rows in a
+// fixed order; a batch of up to 1,024 rows is one slice, so the
+// training batch's backward is two launches; above, a third kernel adds
+// the slices in slice order.  No atomics: two calls on equal inputs give
+// equal bits (the shuffle sums too: each step adds two values, the same
+// float in either order).  The primal and residual forward share one
+// geometry and one summation order for a given (N, d), so their outputs
+// are equal bit for bit.  The phases are taken with the accurate sincosf:
+// |t| reaches tens of radians over up to 60 blocks, so neither __sincosf
+// nor --use_fast_math is used.  Ragged batch tiles are masked: rows >= N
+// carry zeros and are never read or written.  No tensor cores, no TF32:
+// plain fp32 FMAs.
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cmath>
+
+// The launch geometries, X(d, tile, threads, CJ, P, KS), tiles in order of
+// growing row tile R = threads / (d / CJ * KS) * P.  quanonet_torch/ops/
+// cuda_embed.py holds the same table (its tests read this one).
+#define EMBED_TILES(X)                                                      \
+  X(1, 0, 32, 1, 1, 1) X(1, 1, 128, 1, 2, 1) X(1, 2, 256, 1, 2, 1)          \
+  X(2, 0, 32, 1, 1, 1) X(2, 1, 128, 1, 2, 1) X(2, 2, 256, 2, 2, 1)          \
+  X(4, 0, 32, 1, 1, 1) X(4, 1, 128, 2, 2, 1) X(4, 2, 256, 4, 2, 1)          \
+  X(8, 0, 64, 1, 1, 1) X(8, 1, 128, 2, 2, 1) X(8, 2, 256, 4, 2, 1)          \
+  X(16, 0, 32, 4, 1, 4) X(16, 1, 128, 4, 1, 4) X(16, 2, 256, 4, 4, 1)       \
+  X(32, 0, 32, 4, 1, 4) X(32, 1, 256, 4, 1, 4) X(32, 2, 256, 2, 2, 1)       \
+  X(64, 0, 64, 4, 1, 2) X(64, 1, 256, 4, 1, 2) X(64, 2, 256, 4, 4, 2)       \
+  X(128, 0, 256, 1, 2, 1) X(128, 1, 256, 2, 4, 1) X(128, 2, 256, 4, 4, 1)
 
 namespace {
 
-constexpr int kThreads = 256;
-
-// rows per thread for each half-width d: keeps the register tile at
-// P x 2 CJ <= 16 accumulators and the CTA's row tile R at 16..256
-template <int D> struct RowsPerThread { static constexpr int value = 1; };
-template <> struct RowsPerThread<16> { static constexpr int value = 2; };
-template <> struct RowsPerThread<32> { static constexpr int value = 4; };
-template <> struct RowsPerThread<64> { static constexpr int value = 4; };
-template <> struct RowsPerThread<128> { static constexpr int value = 2; };
-
-template <int D> struct Geometry {
-  static constexpr int W = 2 * D;                // row width
-  static constexpr int JT = D < 32 ? D : 32;     // threads along one half
-  static constexpr int CJ = D / JT;              // column pairs per thread
-  static constexpr int NC = 2 * CJ;              // columns per thread
-  static constexpr int RG = kThreads / JT;       // row groups per CTA
-  static constexpr int P = RowsPerThread<D>::value;
-  static constexpr int R = RG * P;               // batch rows per CTA
-  static constexpr int KV = W < 4 ? W : 4;       // k values per row-tile read
-  static constexpr int LDS = W < 4 ? W : W + 4;  // padded row of the row tile
-  static constexpr int KP = W < 64 ? W : 64;     // panel depth
-  static constexpr int LDT = W + 1;              // padded row, transposed panel
-  static constexpr size_t fwd_smem_bytes = sizeof(float) * (R * LDS + KP * W);
-  static constexpr size_t bwd_smem_bytes = sizeof(float) * (R * LDS + KP * LDT);
+// A thread owns P rows and CJ column pairs (j, j + d) and, when KS > 1, the
+// kg-th of KS slices of each product's depth: the KS threads of one (rows,
+// columns) are lanes of one warp, and add their partial sums by shuffles.
+template <int D, int NT, int CJ, int P, int KS_> struct Tile {
+  static constexpr int W = 2 * D;                 // row width
+  static constexpr int JT = D / CJ;               // threads along a half row
+  static constexpr int KS = KS_;                  // slices of the depth
+  static constexpr int LANES = JT * KS;           // threads of a row group
+  static constexpr int RG = NT / LANES;           // row groups per CTA
+  static constexpr int R = RG * P;                // batch rows per CTA
+  static constexpr int CO = CJ / KS;              // pairs a thread finishes
+  static constexpr int KV = W < 4 ? W : 4;        // k values per row-tile read
+  static constexpr int LD = W < 4 ? W : W + 4;    // padded row of the row tile
+  static constexpr int KP = W * W <= 8192 ? W : 8192 / W;  // panel depth
+  static constexpr int KQ = KP / KS;              // a thread's depth a panel
+  static constexpr int LDP = KP < 4 ? KP : KP + 4;  // padded row, sweep panel
+  static constexpr int PPB = W / KP;              // panels a block
+  static constexpr int NS = 4;                    // panels in the ring
+  // k steps of a product unrolled: all of them for a small register tile
+  // (latency-bound: every load in flight at once), else four
+  static constexpr int UNROLL = P * CJ <= 4 ? KQ / KV : 4;
+  static constexpr int FWD_SLOT = KP * W;         // floats of a forward panel
+  static constexpr int BWD_SLOT = W * LDP;        // floats of a sweep panel
+  static constexpr size_t fwd_smem_bytes =
+      sizeof(float) * (2 * R * LD + NS * FWD_SLOT);
+  static constexpr size_t bwd_smem_bytes =
+      sizeof(float) * (2 * R * LD + NS * BWD_SLOT);
+  static_assert(JT >= 1 && NT % LANES == 0, "a tile's threads cover its rows");
+  static_assert(KS == 1 || (32 % LANES == 0 && CJ % KS == 0),
+                "a depth split lies within a warp, each lane finishing pairs");
+  static_assert(KQ % KV == 0 && W % KP == 0, "panels hold whole k steps");
 };
 
-// column of this thread's c-th accumulator: c < CJ in the low half, the
-// rest the same columns of the high half
-template <int D>
-__device__ __forceinline__ int column(int tj, int c) {
-  using G = Geometry<D>;
-  return c < G::CJ ? tj + c * G::JT : D + tj + (c - G::CJ) * G::JT;
+// ── asynchronous copies and vector accesses ──────────────────────────────
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem) : "memory");
 }
 
-// rows k0 .. k0+KP of E_b (row-major) -> the panel, as they are
-template <int D>
-__device__ __forceinline__ void stage_panel(const float* __restrict__ e,
-                                            int k0, float* panel) {
-  using G = Geometry<D>;
-  const float* src = e + static_cast<size_t>(k0) * G::W;
-  if constexpr (G::KP * G::W % 4 == 0) {
-    const float4* g4 = reinterpret_cast<const float4*>(src);
-    float4* s4 = reinterpret_cast<float4*>(panel);
-    for (int i = threadIdx.x; i < G::KP * G::W / 4; i += kThreads) s4[i] = g4[i];
+// BYTES (4, 8 or 16) bytes, zeros when !valid (src-size 0)
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(float* smem, const float* gmem,
+                                               bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int size = valid ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(gmem), "r"(size) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(gmem), "n"(BYTES), "r"(size) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `pending` of this thread's groups are in flight
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+  }
+}
+
+// CNT consecutive floats at p (aligned to 4 * CNT bytes)
+template <int CNT>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[CNT]) {
+  if constexpr (CNT == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (CNT == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
   } else {
-    for (int i = threadIdx.x; i < G::KP * G::W; i += kThreads) panel[i] = src[i];
+#pragma unroll
+    for (int i = 0; i < CNT; ++i) v[i] = p[i];
   }
 }
 
-// columns j0 .. j0+KP of E_b -> the panel transposed: panel[jj][k] =
-// E_b[k][j0 + jj], rows of LDT
-template <int D>
-__device__ __forceinline__ void stage_panel_transposed(
-    const float* __restrict__ e, int j0, float* panel) {
-  using G = Geometry<D>;
-  for (int i = threadIdx.x; i < G::KP * G::W; i += kThreads) {
-    const int jj = i % G::KP, k = i / G::KP;
-    panel[jj * G::LDT + k] = e[static_cast<size_t>(k) * G::W + j0 + jj];
+template <int CNT>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[CNT]) {
+  if constexpr (CNT == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (CNT == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < CNT; ++i) p[i] = v[i];
   }
 }
 
-// acc (P x NC) += x[:, k0 .. k0+KP] . panel for this thread's rows and
-// columns; the row tile x (R, LDS) and the panel (KP, ld) in shared memory
-template <int D, int ld>
-__device__ __forceinline__ void panel_product(
-    const float* x, int k0, const float* panel,
-    float (&acc)[Geometry<D>::P][Geometry<D>::NC], int tj, int rg) {
-  using G = Geometry<D>;
-  constexpr int NC = G::NC, RG = G::RG, P = G::P, KV = G::KV, LDS = G::LDS;
-#pragma unroll 4
-  for (int k = 0; k < G::KP; k += KV) {
+// ── the ring of E panels ─────────────────────────────────────────────────
+
+// This thread's share of the copy of one panel into its slot, as NT-strided
+// 16-byte pieces, so that the sweep's product can spread the copy over its
+// k steps.
+// Forward panel q: block q / PPB, rows k0 = (q % PPB) * KP .. k0 + KP of
+// E_b, whole rows, as they lie (KP * W contiguous floats).
+template <class T, int NT> struct FwdPanel {
+  static constexpr int PIECES = T::FWD_SLOT / 4;
+  static constexpr int PER_THREAD = (PIECES + NT - 1) / NT;
+  const float* src;
+  float* slot;
+  __device__ FwdPanel(const float* e, int q, float* dst)
+      : src(e + static_cast<size_t>(q / T::PPB) * T::W * T::W +
+            (q % T::PPB) * T::KP * T::W),
+        slot(dst) {}
+  __device__ void piece(int i) const {
+    const int pc = threadIdx.x + i * NT;
+    if (PIECES % NT == 0 || pc < PIECES)
+      cp_async16(slot + 4 * pc, src + 4 * pc);
+  }
+  __device__ void all() const {
+#pragma unroll
+    for (int i = 0; i < PER_THREAD; ++i) piece(i);
+  }
+};
+
+// Sweep panel q: block nb-1 - q / PPB, columns j0 = (q % PPB) * KP .. j0 +
+// KP of E_b, every row k, into rows of LDP floats (at W = 2 the whole 2 x 2
+// matrix in one piece)
+template <class T, int NT> struct BwdPanel {
+  static constexpr int PER_ROW = T::KP / 4;
+  static constexpr int PIECES = T::W < 4 ? 1 : T::W * PER_ROW;
+  static constexpr int PER_THREAD = (PIECES + NT - 1) / NT;
+  const float* src;
+  float* slot;
+  __device__ BwdPanel(const float* e, int nb, int q, float* dst)
+      : src(e + static_cast<size_t>(nb - 1 - q / T::PPB) * T::W * T::W +
+            (q % T::PPB) * T::KP),
+        slot(dst) {}
+  __device__ void piece(int i) const {
+    const int pc = threadIdx.x + i * NT;
+    if constexpr (T::W < 4) {
+      if (pc == 0) cp_async16(slot, src);
+    } else if (PIECES % NT == 0 || pc < PIECES) {
+      const int k = pc / PER_ROW, v = pc % PER_ROW;
+      cp_async16(slot + k * T::LDP + 4 * v, src + k * T::W + 4 * v);
+    }
+  }
+  __device__ void all() const {
+#pragma unroll
+    for (int i = 0; i < PER_THREAD; ++i) piece(i);
+  }
+};
+
+// the pieces of ``copy`` due at k step s of a product of STEPS steps (none
+// when ``on`` is false): spread evenly, all of them by the last step
+template <int STEPS, class C>
+__device__ __forceinline__ void copy_share(const C& copy, bool on, int s) {
+  constexpr int PS = (C::PER_THREAD + STEPS - 1) / STEPS;
+#pragma unroll
+  for (int i = 0; i < PS; ++i)
+    if (on && s * PS + i < C::PER_THREAD) copy.piece(s * PS + i);
+}
+
+// ── the two products of a block step ─────────────────────────────────────
+
+// (al, ah) += x[:, k0 .. k0+KQ] . panel rows for this thread's rows p * RG +
+// rg and columns c0 + c (al) and D + c0 + c (ah): the row tile x (R, LD) and
+// the panel's rows (KQ of them, W wide) in shared memory, read along rows
+template <class T, int D, int CJ, int P>
+__device__ __forceinline__ void fwd_product(
+    const float* x, int k0, const float* panel, float (&al)[P][CJ],
+    float (&ah)[P][CJ], int c0, int rg) {
+  constexpr int KV = T::KV, LD = T::LD, RG = T::RG, W = T::W;
+#pragma unroll (T::UNROLL)
+  for (int k = 0; k < T::KQ; k += KV) {
     float xv[P][KV];
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int off = (p * RG + rg) * LDS + k0 + k;
-      if constexpr (KV == 4) {
-        const float4 v = *reinterpret_cast<const float4*>(x + off);
-        xv[p][0] = v.x; xv[p][1] = v.y; xv[p][2] = v.z; xv[p][3] = v.w;
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < KV; ++kk) xv[p][kk] = x[off + kk];
-      }
-    }
+    for (int p = 0; p < P; ++p)
+      load_vec<KV>(x + (p * RG + rg) * LD + k0 + k, xv[p]);
 #pragma unroll
     for (int kk = 0; kk < KV; ++kk) {
+      float ml[CJ], mh[CJ];
+      load_vec<CJ>(panel + (k + kk) * W + c0, ml);
+      load_vec<CJ>(panel + (k + kk) * W + D + c0, mh);
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float m = panel[(k + kk) * ld + column<D>(tj, c)];
+      for (int c = 0; c < CJ; ++c)
 #pragma unroll
-        for (int p = 0; p < P; ++p) acc[p][c] = fmaf(xv[p][kk], m, acc[p][c]);
-      }
+        for (int p = 0; p < P; ++p) {
+          al[p][c] = fmaf(xv[p][kk], ml[c], al[p][c]);
+          ah[p][c] = fmaf(xv[p][kk], mh[c], ah[p][c]);
+        }
     }
   }
 }
 
-// ── B3f: forward, primal output and (SAVE) the residuals s and u ─────────
+// (sl, sh) += ubar[:, j0 .. j0+KQ] . panel^T for this thread's rows and
+// outputs k = tk + c * JT (sl) and D + tk + c * JT (sh): sbar[r, k] =
+// sum_j ubar[r, j] E_b[k, j], the tile ubar (R, LD) and the column panel
+// (W, LDP; its columns j0 - jp .. from jp) in shared memory, both read
+// along j; the next panel's copy is asked for on the way
+template <class T, int D, int CJ, int P, class C>
+__device__ __forceinline__ void bwd_product(
+    const float* x, int j0, const float* panel, int jp, float (&sl)[P][CJ],
+    float (&sh)[P][CJ], int tk, int rg, const C& copy, bool copy_on) {
+  constexpr int KV = T::KV, LD = T::LD, LDP = T::LDP, RG = T::RG,
+                JT = T::JT;
+#pragma unroll (T::UNROLL)
+  for (int j = 0; j < T::KQ; j += KV) {
+    copy_share<T::KQ / KV>(copy, copy_on, j / KV);
+    float uv[P][KV];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      load_vec<KV>(x + (p * RG + rg) * LD + j0 + j, uv[p]);
+#pragma unroll
+    for (int c = 0; c < CJ; ++c) {
+      float ml[KV], mh[KV];
+      load_vec<KV>(panel + (tk + c * JT) * LDP + jp + j, ml);
+      load_vec<KV>(panel + (D + tk + c * JT) * LDP + jp + j, mh);
+#pragma unroll
+      for (int jj = 0; jj < KV; ++jj)
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          sl[p][c] = fmaf(uv[p][jj], ml[jj], sl[p][c]);
+          sh[p][c] = fmaf(uv[p][jj], mh[jj], sh[p][c]);
+        }
+    }
+  }
+}
 
-template <int D, bool SAVE>
-__global__ void __launch_bounds__(kThreads)
+// The KS partial sums of each of a thread's values, added across the lanes
+// of its depth split (lanes JT apart); every lane ends with the same bits
+// (each step adds two values, in either order the same float)
+template <class T, int P, int CJ>
+__device__ __forceinline__ void add_depth_slices(float (&a)[P][CJ]) {
+  if constexpr (T::KS > 1) {
+#pragma unroll
+    for (int m = T::JT; m < T::LANES; m <<= 1)
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int c = 0; c < CJ; ++c)
+          a[p][c] += __shfl_xor_sync(0xffffffffu, a[p][c], m);
+  }
+}
+
+// v[o * KS + kg]: the pair this lane finishes among the CJ it summed
+template <int KS, int CJ>
+__device__ __forceinline__ float pick(const float (&v)[CJ], int o, int kg) {
+  float r = v[o * KS];
+#pragma unroll
+  for (int g = 1; g < KS; ++g)
+    if (kg == g) r = v[o * KS + g];
+  return r;
+}
+
+// ── B3f: forward, primal output and (SAVE) the residual u ───────────────
+
+template <int D, int NT, int CJ, int P, int KS, bool SAVE>
+__global__ void __launch_bounds__(NT)
 embed_chain_fwd_kernel(const float* __restrict__ e,
                        const float* __restrict__ t, float* __restrict__ out,
-                       float* __restrict__ s_out, float* __restrict__ u_out,
-                       int nb, int n, float inv_sqrt) {
-  using G = Geometry<D>;
-  constexpr int W = G::W, CJ = G::CJ, NC = G::NC, RG = G::RG, P = G::P,
-                R = G::R, LDS = G::LDS, KP = G::KP;
+                       float* __restrict__ u_out, int nb, int n,
+                       float inv_sqrt) {
+  using T = Tile<D, NT, CJ, P, KS>;
+  constexpr int W = T::W, JT = T::JT, RG = T::RG, R = T::R, LD = T::LD,
+                KP = T::KP, KQ = T::KQ, PPB = T::PPB, NS = T::NS,
+                CO = T::CO, SLOT = T::FWD_SLOT;
 
   extern __shared__ __align__(16) float smem[];
-  float* x = smem;                // (R, LDS) the state tile
-  float* panel = smem + R * LDS;  // (KP, W) rows of E_b
+  float* xs = smem;                 // 2 x (R, LD): the state tile by parity
+  float* ring = smem + 2 * R * LD;  // NS x (KP, W): rows of E
 
-  const int tj = threadIdx.x % G::JT;
-  const int rg = threadIdx.x / G::JT;
+  const int tj = threadIdx.x % JT;
+  const int kg = threadIdx.x / JT % KS;  // depth slice
+  const int rg = threadIdx.x / T::LANES;
+  const int c0 = tj * CJ;           // columns c0 .. c0+CJ and D + c0 ..
   const long long row0 = static_cast<long long>(blockIdx.x) * R;
   const size_t nw = static_cast<size_t>(n) * W;
+  const int panels = nb * PPB;
+
+  // the first NS - 1 panels asked for first: one cp.async group a panel
+  for (int q = 0; q < NS - 1; ++q) {
+    if (q < panels) FwdPanel<T, NT>(e, q, ring + q * SLOT).all();
+    cp_async_commit();
+  }
+
+  // the columns this lane finishes: pairs o * KS + kg, o < CO
+  auto col = [&](int o) { return c0 + o * KS + kg; };
 
   // s_0 = inv_sqrt [cos t_0 | sin t_0]
 #pragma unroll
@@ -199,46 +410,63 @@ embed_chain_fwd_kernel(const float* __restrict__ e,
     const int lr = p * RG + rg;
     const long long row = row0 + lr;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int j = column<D>(tj, c);
-      float v = 0.f;
+    for (int o = 0; o < CO; ++o) {
+      const int j = col(o);
+      float vl = 0.f, vh = 0.f;
       if (row < n) {
         float sn, cs;
         sincosf(t[row * W + j], &sn, &cs);
-        v = inv_sqrt * (c < CJ ? cs : sn);
-        if constexpr (SAVE) s_out[row * W + j] = v;
+        vl = inv_sqrt * cs;
+        sincosf(t[row * W + D + j], &sn, &cs);
+        vh = inv_sqrt * sn;
       }
-      x[lr * LDS + j] = v;
+      xs[lr * LD + j] = vl;
+      xs[lr * LD + D + j] = vh;
     }
   }
 
   for (int b = 0;; ++b) {
-    // u = s . E_b for this thread's P x NC tile, panel by panel
-    float acc[P][NC];
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[p][c] = 0.f;
+    const float* x = xs + (b & 1) * R * LD;
     // the next phase step's angles, asked for before the product so that
     // their latency hides behind it
-    float tv[P][NC];
-    if (b < nb - 1) {
+    float tl[P][CO], th[P][CO];
+    if (b + 1 < nb) {
       const float* tb = t + static_cast<size_t>(b + 1) * nw;
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         const long long row = row0 + p * RG + rg;
 #pragma unroll
-        for (int c = 0; c < NC; ++c)
-          tv[p][c] = row < n ? tb[row * W + column<D>(tj, c)] : 0.f;
+        for (int o = 0; o < CO; ++o) {
+          tl[p][o] = row < n ? tb[row * W + col(o)] : 0.f;
+          th[p][o] = row < n ? tb[row * W + D + col(o)] : 0.f;
+        }
       }
     }
-    const float* eb = e + static_cast<size_t>(b) * W * W;
-    for (int k0 = 0; k0 < W; k0 += KP) {
-      stage_panel<D>(eb, k0, panel);
-      __syncthreads();  // the panel and the state tile are written
-      panel_product<D, W>(x, k0, panel, acc, tj, rg);
-      __syncthreads();  // every thread is done reading them
+
+    // u = s . E_b for this thread's P x 2CJ tile and depth slice, panel by
+    // panel, then the slices added
+    float al[P][CJ], ah[P][CJ];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int c = 0; c < CJ; ++c) al[p][c] = ah[p][c] = 0.f;
+    for (int pp = 0; pp < PPB; ++pp) {
+      const int q = b * PPB + pp;
+      cp_async_wait(NS - 2);  // panel q has landed (later ones may not)
+      __syncthreads();        // ... for every thread; the state tile is
+                              // written, and panel q-1's slot is free
+      // the next panel is asked for before the product (spread over the
+      // product's k steps measured slower here)
+      const int ahead = q + NS - 1;
+      if (ahead < panels)
+        FwdPanel<T, NT>(e, ahead, ring + (ahead % NS) * SLOT).all();
+      cp_async_commit();
+      fwd_product<T, D, CJ, P>(x, pp * KP + kg * KQ,
+                               ring + (q % NS) * SLOT + kg * KQ * W, al, ah,
+                               c0, rg);
     }
+    add_depth_slices<T>(al);
+    add_depth_slices<T>(ah);
 
     if (b == nb - 1) {
 #pragma unroll
@@ -246,38 +474,41 @@ embed_chain_fwd_kernel(const float* __restrict__ e,
         const long long row = row0 + p * RG + rg;
         if (row < n) {
 #pragma unroll
-          for (int c = 0; c < NC; ++c)
-            out[row * W + column<D>(tj, c)] = acc[p][c];
+          for (int o = 0; o < CO; ++o) {
+            out[row * W + col(o)] = pick<KS>(al[p], o, kg);
+            out[row * W + D + col(o)] = pick<KS>(ah[p], o, kg);
+          }
         }
       }
       return;
     }
 
-    // s <- cos t (.) u + sin t (.) swap(u), t = t_{b+1}
+    // s <- cos t (.) u + sin t (.) swap(u), t = t_{b+1}, into the other
+    // state tile
+    float* xn = xs + ((b + 1) & 1) * R * LD;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int lr = p * RG + rg;
       const long long row = row0 + lr;
 #pragma unroll
-      for (int c = 0; c < CJ; ++c) {
-        const int jl = column<D>(tj, c), jh = jl + D;
+      for (int o = 0; o < CO; ++o) {
+        const int j = col(o);
+        const float ul = pick<KS>(al[p], o, kg), uh = pick<KS>(ah[p], o, kg);
         float vl = 0.f, vh = 0.f;
         if (row < n) {
-          const float ul = acc[p][c], uh = acc[p][CJ + c];
           float snl, csl, snh, csh;
-          sincosf(tv[p][c], &snl, &csl);
-          sincosf(tv[p][CJ + c], &snh, &csh);
+          sincosf(tl[p][o], &snl, &csl);
+          sincosf(th[p][o], &snh, &csh);
           vl = csl * ul + snl * uh;
           vh = csh * uh + snh * ul;
           if constexpr (SAVE) {
-            u_out[static_cast<size_t>(b) * nw + row * W + jl] = ul;
-            u_out[static_cast<size_t>(b) * nw + row * W + jh] = uh;
-            s_out[static_cast<size_t>(b + 1) * nw + row * W + jl] = vl;
-            s_out[static_cast<size_t>(b + 1) * nw + row * W + jh] = vh;
+            float* ub = u_out + static_cast<size_t>(b) * nw + row * W;
+            ub[j] = ul;
+            ub[D + j] = uh;
           }
         }
-        x[lr * LDS + jl] = vl;
-        x[lr * LDS + jh] = vh;
+        xn[lr * LD + j] = vl;
+        xn[lr * LD + D + j] = vh;
       }
     }
   }
@@ -285,78 +516,116 @@ embed_chain_fwd_kernel(const float* __restrict__ e,
 
 // ── B3b: the reverse sweep, tbar and ubar per block ──────────────────────
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+template <int D, int NT, int CJ, int P, int KS>
+__global__ void __launch_bounds__(NT)
 embed_chain_bwd_kernel(const float* __restrict__ e,
                        const float* __restrict__ t,
                        const float* __restrict__ u,
                        const float* __restrict__ g, float* __restrict__ ub,
                        float* __restrict__ tbar, int nb, int n,
                        float inv_sqrt) {
-  using G = Geometry<D>;
-  constexpr int W = G::W, CJ = G::CJ, NC = G::NC, RG = G::RG, P = G::P,
-                R = G::R, LDS = G::LDS, KP = G::KP, LDT = G::LDT;
+  using T = Tile<D, NT, CJ, P, KS>;
+  constexpr int W = T::W, JT = T::JT, RG = T::RG, R = T::R, LD = T::LD,
+                KP = T::KP, KQ = T::KQ, PPB = T::PPB, NS = T::NS,
+                CO = T::CO, SLOT = T::BWD_SLOT;
 
   extern __shared__ __align__(16) float smem[];
-  float* x = smem;                // (R, LDS) the ubar tile
-  float* panel = smem + R * LDS;  // (KP, LDT) columns of E_b, transposed
+  float* xs = smem;                 // 2 x (R, LD): the ubar tile by parity
+  float* ring = smem + 2 * R * LD;  // NS x (W, LDP): columns of E
 
-  const int tj = threadIdx.x % G::JT;
-  const int rg = threadIdx.x / G::JT;
+  const int tk = threadIdx.x % JT;  // outputs k = tk + c * JT and D + k
+  const int kg = threadIdx.x / JT % KS;  // depth slice
+  const int rg = threadIdx.x / T::LANES;
   const long long row0 = static_cast<long long>(blockIdx.x) * R;
   const size_t nw = static_cast<size_t>(n) * W;
+  const int panels = nb * PPB;
 
-  // ubar of the current block for this thread's tile; ubar_{nb-1} = g
-  float ubr[P][NC];
+  for (int q = 0; q < NS - 1; ++q) {
+    if (q < panels) BwdPanel<T, NT>(e, nb, q, ring + q * SLOT).all();
+    cp_async_commit();
+  }
+
+  // the columns this lane finishes: outputs of pairs o * KS + kg, o < CO
+  auto col = [&](int o) { return tk + (o * KS + kg) * JT; };
+
+  // ubar of the current block for this lane's pairs; ubar_{nb-1} = g
+  float al[P][CO], ah[P][CO];
+  const size_t last = static_cast<size_t>(nb - 1) * nw;
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const long long row = row0 + p * RG + rg;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      ubr[p][c] = 0.f;
+    for (int o = 0; o < CO; ++o) {
+      const long long il = row * W + col(o), ih = il + D;
+      al[p][o] = ah[p][o] = 0.f;
       if (row < n) {
-        const long long idx = row * W + column<D>(tj, c);
-        ubr[p][c] = g[idx];
-        ub[static_cast<size_t>(nb - 1) * nw + idx] = ubr[p][c];
+        al[p][o] = g[il];
+        ah[p][o] = g[ih];
+        ub[last + il] = al[p][o];
+        ub[last + ih] = ah[p][o];
       }
     }
   }
 
-  for (int b = nb - 1;; --b) {
+  for (int i = 0;; ++i) {
+    const int b = nb - 1 - i;
+    float* x = xs + (i & 1) * R * LD;
 #pragma unroll
-    for (int p = 0; p < P; ++p)
+    for (int p = 0; p < P; ++p) {
+      const int lr = p * RG + rg;
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
-        x[(p * RG + rg) * LDS + column<D>(tj, c)] = ubr[p][c];
+      for (int o = 0; o < CO; ++o) {
+        x[lr * LD + col(o)] = al[p][o];
+        x[lr * LD + D + col(o)] = ah[p][o];
+      }
+    }
 
-    // sbar_b = ubar_b . E_b^T: sbar[r, k] = sum_j ubar[r, j] E_b[k, j]
-    float sb[P][NC];
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) sb[p][c] = 0.f;
     // this block's angles and the product before its phase step, asked
     // for before the product so that their latency hides behind it
     const float* tb = t + static_cast<size_t>(b) * nw;
-    float tv[P][NC], uv[P][NC];
+    const float* ubm = u + static_cast<size_t>(b > 0 ? b - 1 : 0) * nw;
+    float tl[P][CO], th[P][CO], ul[P][CO], uh[P][CO];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const long long row = row0 + p * RG + rg;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const long long idx = row * W + column<D>(tj, c);
-        tv[p][c] = row < n ? tb[idx] : 0.f;
-        uv[p][c] = row < n && b > 0
-                       ? u[static_cast<size_t>(b - 1) * nw + idx] : 0.f;
+      for (int o = 0; o < CO; ++o) {
+        const long long il = row * W + col(o), ih = il + D;
+        tl[p][o] = th[p][o] = ul[p][o] = uh[p][o] = 0.f;
+        if (row < n) {
+          tl[p][o] = tb[il];
+          th[p][o] = tb[ih];
+          if (b > 0) {
+            ul[p][o] = ubm[il];
+            uh[p][o] = ubm[ih];
+          }
+        }
       }
     }
-    const float* eb = e + static_cast<size_t>(b) * W * W;
-    for (int j0 = 0; j0 < W; j0 += KP) {
-      stage_panel_transposed<D>(eb, j0, panel);
-      __syncthreads();  // the panel and the ubar tile are written
-      panel_product<D, LDT>(x, j0, panel, sb, tj, rg);
-      __syncthreads();  // every thread is done reading them
+
+    // sbar_b = ubar_b . E_b^T for this thread's depth slice, panel by panel
+    // of E_b's columns, then the slices added
+    float sl[P][CJ], sh[P][CJ];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int c = 0; c < CJ; ++c) sl[p][c] = sh[p][c] = 0.f;
+    for (int pp = 0; pp < PPB; ++pp) {
+      const int q = i * PPB + pp;
+      cp_async_wait(NS - 2);  // panel q has landed (later ones may not)
+      __syncthreads();        // ... for every thread; the ubar tile is
+                              // written, and panel q-1's slot is free
+      // the next panel's copy asked for on the way through the product, in
+      // the instruction slots its shared-memory reads leave free
+      const int ahead = q + NS - 1;
+      const BwdPanel<T, NT> next(e, nb, ahead < panels ? ahead : q,
+                                 ring + (ahead % NS) * SLOT);
+      bwd_product<T, D, CJ, P>(x, pp * KP + kg * KQ, ring + (q % NS) * SLOT,
+                               kg * KQ, sl, sh, tk, rg, next, ahead < panels);
+      cp_async_commit();
     }
+    add_depth_slices<T>(sl);
+    add_depth_slices<T>(sh);
 
     float* tbb = tbar + static_cast<size_t>(b) * nw;
     if (b == 0) {
@@ -366,11 +635,13 @@ embed_chain_bwd_kernel(const float* __restrict__ e,
         const long long row = row0 + p * RG + rg;
         if (row < n) {
 #pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            const long long idx = row * W + column<D>(tj, c);
+          for (int o = 0; o < CO; ++o) {
+            const long long il = row * W + col(o);
             float sn, cs;
-            sincosf(tv[p][c], &sn, &cs);
-            tbb[idx] = sb[p][c] * inv_sqrt * (c < CJ ? -sn : cs);
+            sincosf(tl[p][o], &sn, &cs);
+            tbb[il] = pick<KS>(sl[p], o, kg) * inv_sqrt * -sn;
+            sincosf(th[p][o], &sn, &cs);
+            tbb[il + D] = pick<KS>(sh[p], o, kg) * inv_sqrt * cs;
           }
         }
       }
@@ -385,21 +656,21 @@ embed_chain_bwd_kernel(const float* __restrict__ e,
     for (int p = 0; p < P; ++p) {
       const long long row = row0 + p * RG + rg;
 #pragma unroll
-      for (int c = 0; c < CJ; ++c) {
-        ubr[p][c] = ubr[p][CJ + c] = 0.f;
+      for (int o = 0; o < CO; ++o) {
+        al[p][o] = ah[p][o] = 0.f;
         if (row < n) {
-          const long long il = row * W + column<D>(tj, c), ih = il + D;
+          const long long il = row * W + col(o), ih = il + D;
           float snl, csl, snh, csh;
-          sincosf(tv[p][c], &snl, &csl);
-          sincosf(tv[p][CJ + c], &snh, &csh);
-          const float ul = uv[p][c], uh = uv[p][CJ + c];
-          const float sl = sb[p][c], sh = sb[p][CJ + c];
-          tbb[il] = sl * (csl * uh - snl * ul);
-          tbb[ih] = sh * (csh * ul - snh * uh);
-          ubr[p][c] = csl * sl + snh * sh;
-          ubr[p][CJ + c] = csh * sh + snl * sl;
-          ubp[il] = ubr[p][c];
-          ubp[ih] = ubr[p][CJ + c];
+          sincosf(tl[p][o], &snl, &csl);
+          sincosf(th[p][o], &snh, &csh);
+          const float s_l = pick<KS>(sl[p], o, kg);
+          const float s_h = pick<KS>(sh[p], o, kg);
+          tbb[il] = s_l * (csl * uh[p][o] - snl * ul[p][o]);
+          tbb[ih] = s_h * (csh * ul[p][o] - snh * uh[p][o]);
+          al[p][o] = csl * s_l + snh * s_h;
+          ah[p][o] = csh * s_h + snl * s_l;
+          ubp[il] = al[p][o];
+          ubp[ih] = ah[p][o];
         }
       }
     }
@@ -408,126 +679,245 @@ embed_chain_bwd_kernel(const float* __restrict__ e,
 
 // ── B3b: Ebar_b = s_b^T . ubar_b over one slice of batch rows ────────────
 
-template <int D> struct EbarGeometry {
+constexpr int kEbarThreads = 256;
+
+template <int D> struct EbarTile {
   static constexpr int W = 2 * D;
-  static constexpr int TJ = W < 32 ? W : 32;     // output tile side
-  static constexpr int TILES = W / TJ;           // tiles along each side
-  static constexpr int G = kThreads / TJ;        // thread groups along k
-  static constexpr int KG = G < TJ ? G : TJ;     // distinct k per group pass
-  static constexpr int KQ = TJ / KG;             // k values per thread
-  static constexpr int RS = G / KG;              // threads sharing one entry
+  static constexpr int TS = W < 64 ? W : 64;     // output tile side
+  static constexpr int TILES = W / TS;           // tiles along each side
+  static constexpr int TM = TS >= 64 ? 4 : (TS >= 32 ? 2 : 1);  // per thread
+  static constexpr int TT = TS / TM;             // threads along each side
+  static constexpr int TH = TT * TT;             // threads with own outputs
+  static constexpr int RS = kEbarThreads / TH;   // threads sharing an output
+  static constexpr int RC = 1024 / TS < 64 ? 1024 / TS : 64;  // chunk rows
+  static constexpr int VEC = TS < 4 ? TS : 4;    // floats per copy
+  // a tile's columns k are their own swap partners k ^ D when it spans the
+  // row; else the partners are another contiguous range, staged apart
+  static constexpr bool FULL = TS == W;
+  // arrays of a chunk, each (RC, TS): t_b and u_{b-1} at the columns k,
+  // ubar_b at the columns j, and (not FULL) u_{b-1} at the partners
+  static constexpr int ARRAYS = FULL ? 3 : 4;
+  static constexpr int STAGE = ARRAYS * RC * TS;  // floats of one chunk
+  static constexpr int NST = 4;                   // chunks in the ring
+  // the ring of chunks and two buffers of the rebuilt s_b (RC, TS)
+  static constexpr size_t smem_bytes =
+      sizeof(float) * (NST * STAGE + 2 * RC * TS);
+  static_assert(TH <= kEbarThreads && kEbarThreads % TH == 0, "");
+  static_assert(STAGE >= kEbarThreads, "the partial sums fit a stage");
+  static_assert(FULL || TS <= D, "a tile's partners lie in the other half");
 };
 
+// rows [r, r + RC) of t_b (columns k0..), ubar_b (columns j0..), and past
+// the first block of u_{b-1} (columns k0.. and their partners (k0..) ^ D)
+// -> one stage; rows past the slice are zeros (a copy of 0 source bytes)
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-embed_chain_ebar_kernel(const float* __restrict__ s,
+__device__ __forceinline__ void stage_rows(const float* __restrict__ t,
+                                           const float* __restrict__ u,
+                                           const float* __restrict__ ub,
+                                           int b, int n, long long r,
+                                           long long r_end, int k0, int j0,
+                                           float* stage) {
+  using M = EbarTile<D>;
+  constexpr int PER_ROW = M::TS / M::VEC;
+  const size_t nw = static_cast<size_t>(n) * M::W;
+  const int arrays = b > 0 ? M::ARRAYS : 2;
+  for (int i = threadIdx.x; i < arrays * M::RC * PER_ROW; i += kEbarThreads) {
+    const int arr = i / (M::RC * PER_ROW);
+    const int rr = (i / PER_ROW) % M::RC, v = i % PER_ROW;
+    const long long row = r + rr;
+    const bool ok = row < r_end;
+    const float* base = arr == 0   ? t + b * nw + k0
+                        : arr == 1 ? ub + b * nw + j0
+                        : arr == 2 ? u + (b - 1) * nw + k0
+                                   : u + (b - 1) * nw + (k0 ^ D);
+    cp_async_zfill<4 * M::VEC>(stage + (arr * M::RC + rr) * M::TS + v * M::VEC,
+                               base + (ok ? row : 0) * M::W + v * M::VEC, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kEbarThreads)
+embed_chain_ebar_kernel(const float* __restrict__ t,
+                        const float* __restrict__ u,
                         const float* __restrict__ ub, float* __restrict__ dst,
-                        int nb, int n, int rows_per_split) {
-  using G = EbarGeometry<D>;
-  constexpr int W = G::W, TJ = G::TJ, TILES = G::TILES, KG = G::KG,
-                KQ = G::KQ, RS = G::RS;
-  __shared__ float red[kThreads];
+                        int nb, int n, int rows_per_split, float inv_sqrt) {
+  using M = EbarTile<D>;
+  constexpr int W = M::W, TS = M::TS, TM = M::TM, TT = M::TT, TH = M::TH,
+                RS = M::RS, RC = M::RC;
+  extern __shared__ __align__(16) float smem[];  // NST chunks, 2 x s_b
+  float* sbs = smem + M::NST * M::STAGE;
 
-  const int b = blockIdx.x / (TILES * TILES);
-  const int tile = blockIdx.x % (TILES * TILES);
-  const int k0 = (tile / TILES) * TJ, j0 = (tile % TILES) * TJ;
-  const int split = blockIdx.y;
-  const long long r_begin = static_cast<long long>(split) * rows_per_split;
-  const long long r_end = r_begin + rows_per_split < n
-                              ? r_begin + rows_per_split : n;
-  const int lane = threadIdx.x % TJ, grp = threadIdx.x / TJ;
-  const int kq = grp % KG, rs = grp / KG;
-  const int j = j0 + lane;
-  const size_t blk = static_cast<size_t>(b) * n * W;
+  const int b = blockIdx.x / (M::TILES * M::TILES);
+  const int tile = blockIdx.x % (M::TILES * M::TILES);
+  const int k0 = (tile / M::TILES) * TS, j0 = (tile % M::TILES) * TS;
+  const long long r_begin = static_cast<long long>(blockIdx.y) * rows_per_split;
+  const long long r_end =
+      r_begin + rows_per_split < n ? r_begin + rows_per_split : n;
+  const int og = threadIdx.x % TH, rs = threadIdx.x / TH;
+  const int tk = og / TT, tj = og % TT;
 
-  float acc[KQ];
+  const int chunks =
+      r_end > r_begin ? static_cast<int>((r_end - r_begin + RC - 1) / RC) : 0;
+  auto stage = [&](int ch) {
+    if (ch < chunks)
+      stage_rows<D>(t, u, ub, b, n, r_begin + static_cast<long long>(ch) * RC,
+                    r_end, k0, j0, smem + (ch % M::NST) * M::STAGE);
+    cp_async_commit();
+  };
+  // s_b of chunk ch at the tile's columns, into its buffer:
+  // s_0 = inv_sqrt [cos t_0 | sin t_0],
+  // s_b = cos t_b (.) u_{b-1} + sin t_b (.) swap(u_{b-1})
+  auto rebuild = [&](int ch) {
+    const float* ts = smem + (ch % M::NST) * M::STAGE;  // t_b
+    const float* us = ts + 2 * RC * TS;                  // u_{b-1}
+    float* sb = sbs + (ch & 1) * RC * TS;
+    for (int i = threadIdx.x; i < RC * TS; i += kEbarThreads) {
+      const int kk = i % TS;
+      float sn, cs;
+      sincosf(ts[i], &sn, &cs);
+      float v;
+      if (b == 0) {
+        v = inv_sqrt * (k0 + kk < D ? cs : sn);
+      } else {
+        const float partner =
+            M::FULL ? us[i - kk + (kk ^ D)] : us[RC * TS + i];
+        v = cs * us[i] + sn * partner;
+      }
+      sb[i] = v;
+    }
+  };
+
+  float acc[TM][TM];
 #pragma unroll
-  for (int q = 0; q < KQ; ++q) acc[q] = 0.f;
-  for (long long r = r_begin + rs; r < r_end; r += RS) {
-    const float uv = ub[blk + r * W + j];
+  for (int a = 0; a < TM; ++a)
 #pragma unroll
-    for (int q = 0; q < KQ; ++q)
-      acc[q] = fmaf(s[blk + r * W + k0 + kq + KG * q], uv, acc[q]);
+    for (int c = 0; c < TM; ++c) acc[a][c] = 0.f;
+
+  // the first NST - 1 chunks asked for first, one cp.async group each; s_b
+  // is rebuilt one chunk ahead of the product that reads it, so that a
+  // chunk needs one barrier
+  for (int ch = 0; ch < M::NST - 1; ++ch) stage(ch);
+  cp_async_wait(M::NST - 2);
+  __syncthreads();  // chunk 0 has landed for every thread
+  if (chunks > 0) rebuild(0);
+  for (int ch = 0; ch < chunks; ++ch) {
+    cp_async_wait(M::NST - 3);  // chunk ch+1 has landed (later ones may not)
+    __syncthreads();  // ... for every thread; s_b of chunk ch is written,
+                      // and every thread is done with chunk ch-1
+    stage(ch + M::NST - 1);  // into chunk ch-1's slot
+    if (ch + 1 < chunks) rebuild(ch + 1);
+    const float* sb = sbs + (ch & 1) * RC * TS;
+    const float* ys = smem + (ch % M::NST) * M::STAGE + RC * TS;  // ubar_b
+    for (int rr = rs; rr < RC; rr += RS) {
+      float xv[TM], yv[TM];
+      load_vec<TM>(sb + rr * TS + tk * TM, xv);
+      load_vec<TM>(ys + rr * TS + tj * TM, yv);
+#pragma unroll
+      for (int a = 0; a < TM; ++a)
+#pragma unroll
+        for (int c = 0; c < TM; ++c) acc[a][c] = fmaf(xv[a], yv[c], acc[a][c]);
+    }
   }
 
-  const size_t out0 = (static_cast<size_t>(split) * nb + b) * W * W;
+  const size_t out0 = (static_cast<size_t>(blockIdx.y) * nb + b) * W * W;
   if constexpr (RS == 1) {
 #pragma unroll
-    for (int q = 0; q < KQ; ++q)
-      dst[out0 + static_cast<size_t>(k0 + kq + KG * q) * W + j] = acc[q];
+    for (int a = 0; a < TM; ++a)
+      store_vec<TM>(dst + out0 + static_cast<size_t>(k0 + tk * TM + a) * W +
+                        j0 + tj * TM,
+                    acc[a]);
   } else {
-    // KQ == 1: RS threads hold partial sums of one entry; add them in order
-    red[threadIdx.x] = acc[0];
+    // TM == 1: RS threads hold partial sums of one entry; add them in order
+    __syncthreads();  // every thread is done reading the last chunk
+    smem[threadIdx.x] = acc[0][0];
     __syncthreads();
     if (rs == 0) {
       float sum = 0.f;
-      for (int i = 0; i < RS; ++i) sum += red[(i * KG + kq) * TJ + lane];
-      dst[out0 + static_cast<size_t>(k0 + kq) * W + j] = sum;
+      for (int i = 0; i < RS; ++i) sum += smem[i * TH + og];
+      dst[out0 + static_cast<size_t>(k0 + tk) * W + j0 + tj] = sum;
     }
   }
 }
 
 // out[i] = sum over splits s, in order, of part[s][i]
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(256)
 sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out,
                   int splits, size_t count) {
-  for (size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < count; i += static_cast<size_t>(gridDim.x) * kThreads) {
+  for (size_t i = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
+       i < count; i += static_cast<size_t>(gridDim.x) * 256) {
     float sum = 0.f;
     for (int s = 0; s < splits; ++s) sum += part[s * count + i];
     out[i] = sum;
   }
 }
 
-template <int D>
-cudaError_t launch_forward(const float* e, const float* t, float* out,
-                           float* s_out, float* u_out, int nb, int n,
-                           cudaStream_t stream) {
-  using G = Geometry<D>;
-  const int smem = static_cast<int>(G::fwd_smem_bytes);
-  const auto kernel = s_out != nullptr ? embed_chain_fwd_kernel<D, true>
-                                       : embed_chain_fwd_kernel<D, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// ── launches ─────────────────────────────────────────────────────────────
+
+// A kernel's dynamic shared-memory limit is raised once per device, not on
+// every launch: ``done`` holds a bit per device already set.
+template <class K>
+cudaError_t allow_smem(K kernel, size_t bytes, std::atomic<unsigned>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const unsigned grid = static_cast<unsigned>((n + G::R - 1) / G::R);
+  const unsigned bit = 1u << (dev & 31);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <int D, int NT, int CJ, int P, int KS, bool SAVE>
+cudaError_t launch_forward(const float* e, const float* t, float* out,
+                           float* u_out, int nb, int n, cudaStream_t stream) {
+  using T = Tile<D, NT, CJ, P, KS>;
+  static std::atomic<unsigned> done{0};
+  const auto kernel = embed_chain_fwd_kernel<D, NT, CJ, P, KS, SAVE>;
+  cudaError_t err = allow_smem(kernel, T::fwd_smem_bytes, done);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>((n + T::R - 1) / T::R);
   const float inv_sqrt = static_cast<float>(1.0 / std::sqrt(double(D)));
-  kernel<<<grid, kThreads, smem, stream>>>(e, t, out, s_out, u_out, nb, n,
-                                           inv_sqrt);
+  kernel<<<grid, NT, T::fwd_smem_bytes, stream>>>(e, t, out, u_out, nb, n,
+                                                   inv_sqrt);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_backward(const float* e, const float* t, const float* s,
-                            const float* u, const float* g, float* ub,
-                            float* part, float* ebar, float* tbar, int nb,
-                            int n, int splits, cudaStream_t stream) {
-  using G = Geometry<D>;
-  using EG = EbarGeometry<D>;
-  const int smem = static_cast<int>(G::bwd_smem_bytes);
-  cudaError_t err = cudaFuncSetAttribute(
-      embed_chain_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+template <int D, int NT, int CJ, int P, int KS>
+cudaError_t launch_backward(const float* e, const float* t, const float* u,
+                            const float* g, float* ub, float* part,
+                            float* ebar, float* tbar, int nb, int n,
+                            int splits, cudaStream_t stream) {
+  using T = Tile<D, NT, CJ, P, KS>;
+  using M = EbarTile<D>;
+  static std::atomic<unsigned> done{0};
+  const auto kernel = embed_chain_bwd_kernel<D, NT, CJ, P, KS>;
+  cudaError_t err = allow_smem(kernel, T::bwd_smem_bytes, done);
   if (err != cudaSuccess) return err;
-  const unsigned grid = static_cast<unsigned>((n + G::R - 1) / G::R);
+  const unsigned grid = static_cast<unsigned>((n + T::R - 1) / T::R);
   const float inv_sqrt = static_cast<float>(1.0 / std::sqrt(double(D)));
-  embed_chain_bwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      e, t, u, g, ub, tbar, nb, n, inv_sqrt);
+  kernel<<<grid, NT, T::bwd_smem_bytes, stream>>>(e, t, u, g, ub, tbar, nb,
+                                                   n, inv_sqrt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const int rows_per_split = (n + splits - 1) / splits;
-  const dim3 egrid(static_cast<unsigned>(nb * EG::TILES * EG::TILES),
+  const dim3 egrid(static_cast<unsigned>(nb * M::TILES * M::TILES),
                    static_cast<unsigned>(splits));
-  embed_chain_ebar_kernel<D><<<egrid, kThreads, 0, stream>>>(
-      s, ub, splits > 1 ? part : ebar, nb, n, rows_per_split);
+  static std::atomic<unsigned> ebar_done{0};
+  const auto ebar_kernel = embed_chain_ebar_kernel<D>;
+  err = allow_smem(ebar_kernel, M::smem_bytes, ebar_done);
+  if (err != cudaSuccess) return err;
+  ebar_kernel<<<egrid, kEbarThreads, M::smem_bytes, stream>>>(
+      t, u, ub, splits > 1 ? part : ebar, nb, n, rows_per_split, inv_sqrt);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
 
-  const size_t count = static_cast<size_t>(nb) * G::W * G::W;
-  const size_t blocks = (count + kThreads - 1) / kThreads;
+  const size_t count = static_cast<size_t>(nb) * T::W * T::W;
+  const size_t blocks = (count + 255) / 256;
   sum_splits_kernel<<<static_cast<unsigned>(blocks < 1024 ? blocks : 1024),
-                      kThreads, 0, stream>>>(part, ebar, splits, count);
+                      256, 0, stream>>>(part, ebar, splits, count);
   return cudaGetLastError();
 }
 
@@ -535,51 +925,63 @@ cudaError_t launch_backward(const float* e, const float* t, const float* s,
 
 // C interface, built by quanonet_torch/ops/_build.py and called through
 // ctypes (quanonet_torch/ops/cuda_embed.py).  Each takes device pointers of
-// contiguous fp32 tensors and the stream to launch on, and returns the
-// cudaError_t of its launches (0 on success).  d, half the row's width,
-// must be a power of two in [1, 128]; nb >= 1, n >= 1.
+// contiguous fp32 tensors (16-byte aligned) and the stream to launch on,
+// and returns the cudaError_t of its launches (0 on success).  d, half the
+// row's width, must be a power of two in [1, 128]; nb >= 1, n >= 1; tile
+// one of the geometries of EMBED_TILES for d (cuda_embed.embed_geometry
+// picks it).
 
-// B3f.  s_out (nb, n, 2d) and u_out (nb-1, n, 2d): the residuals of the
-// backward, written when not null (both or neither).
-extern "C" int embed_chain_forward(const float* e, const float* t, float* out,
-                                   float* s_out, float* u_out, int nb, int n,
-                                   int d, void* stream) {
-  if (nb < 1 || n < 1 || (s_out == nullptr) != (u_out == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define EMBED_FWD(D)                                                     \
-  case D:                                                                \
-    return launch_forward<D>(e, t, out, s_out, u_out, nb, n, st);
-  switch (d) {
-    EMBED_FWD(1) EMBED_FWD(2) EMBED_FWD(4) EMBED_FWD(8) EMBED_FWD(16)
-    EMBED_FWD(32) EMBED_FWD(64) EMBED_FWD(128)
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef EMBED_FWD
+// Rows R of the row tile ``tile`` at half-width d, or 0 for no such tile:
+// the wrapper checks its own table against this one when it loads the
+// library.
+extern "C" int embed_chain_tile_rows(int d, int tile) {
+#define EMBED_ROWS(D_, T_, NT_, CJ_, P_, KS_)                               \
+  if (d == D_ && tile == T_) return Tile<D_, NT_, CJ_, P_, KS_>::R;
+  EMBED_TILES(EMBED_ROWS)
+#undef EMBED_ROWS
+  return 0;
 }
 
-// B3b.  g (n, 2d): the output's cotangent.  ub (nb, n, 2d): scratch for
+// B3f.  u_out (nb-1, n, 2d): the residual of the backward, each block's
+// product before its phase step, written when not null.  The primal and
+// residual variants of one (n, d, tile) give equal outputs, bit for bit.
+extern "C" int embed_chain_forward(const float* e, const float* t, float* out,
+                                   float* u_out, int nb, int n, int d,
+                                   int tile, void* stream) {
+  if (nb < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define EMBED_FWD(D_, T_, NT_, CJ_, P_, KS_)                                \
+  if (d == D_ && tile == T_)                                                \
+    return u_out != nullptr                                                 \
+               ? launch_forward<D_, NT_, CJ_, P_, KS_, true>(               \
+                     e, t, out, u_out, nb, n, st)                           \
+               : launch_forward<D_, NT_, CJ_, P_, KS_, false>(              \
+                     e, t, out, u_out, nb, n, st);
+  EMBED_TILES(EMBED_FWD)
+#undef EMBED_FWD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// B3b.  u (max(nb-1, 1), n, 2d): the forward's residual (not read when
+// nb = 1).  g (n, 2d): the output's cotangent.  ub (nb, n, 2d): scratch for
 // ubar.  part (splits, nb, 2d, 2d): scratch for the slices of Ebar, used
 // when splits > 1.  Writes ebar (nb, 2d, 2d) and tbar (nb, n, 2d).
 extern "C" int embed_chain_backward(const float* e, const float* t,
-                                    const float* s, const float* u,
-                                    const float* g, float* ub, float* part,
-                                    float* ebar, float* tbar, int nb, int n,
-                                    int d, int splits, void* stream) {
+                                    const float* u, const float* g, float* ub,
+                                    float* part, float* ebar, float* tbar,
+                                    int nb, int n, int d, int tile,
+                                    int splits, void* stream) {
   if (nb < 1 || n < 1 || splits < 1 || splits > n ||
       (splits > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define EMBED_BWD(D)                                                     \
-  case D:                                                                \
-    return launch_backward<D>(e, t, s, u, g, ub, part, ebar, tbar, nb,   \
-                              n, splits, st);
-  switch (d) {
-    EMBED_BWD(1) EMBED_BWD(2) EMBED_BWD(4) EMBED_BWD(8) EMBED_BWD(16)
-    EMBED_BWD(32) EMBED_BWD(64) EMBED_BWD(128)
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define EMBED_BWD(D_, T_, NT_, CJ_, P_, KS_)                                \
+  if (d == D_ && tile == T_)                                                \
+    return launch_backward<D_, NT_, CJ_, P_, KS_>(                          \
+        e, t, u, g, ub, part, ebar, tbar, nb, n, splits, st);
+  EMBED_TILES(EMBED_BWD)
 #undef EMBED_BWD
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* embed_chain_error_string(int code) {

@@ -7,11 +7,16 @@ trace (``chip_smoke.kernel_device_ms``), beside the bounds of
 flagship's shapes (Q5 Net40-2-20-2: nb 60, D 32) and several batch sizes.
 ``--kernel fused``: the fused-group chain kernels (B2f primal and residual,
 B2b with each of its launches) at Q8, Q10 and Q12 for N = 1, 100 and 1000,
-Q10 at N = 8192, Q14 at N = 32 and the Q16 forward at N = 8.  Weights and
-inputs are seeded and random.  It imports ``chip_smoke`` and
-``quanonet_torch`` from ``--root``, so two checkouts (a parent commit
-unpacked with ``git archive`` and the working tree) are timed by the same
-code.  Run it as a file, from any directory:
+Q10 at N = 8192, Q14 at N = 32 and the Q16 forward at N = 8.
+``--kernel embed``: the real-embedding chain kernels (B3f primal and
+residual, B3b with each of its launches) at Q5 Net40-2-20-2 (nb 60, d 32)
+for N = 1, 100, 1000 and 8192, Q7 Net40-2-20-2 (d 128) at N = 100 and Q7
+Net2-1-2-1 (nb 4) at N = 1000, on chip_smoke's seeded general operands,
+and their card time inside the flagship's training step through engine
+'embed'.  Weights and inputs are seeded and random.  It imports
+``chip_smoke`` and ``quanonet_torch`` from ``--root``, so two checkouts (a
+parent commit unpacked with ``git archive`` and the working tree) are
+timed by the same code.  Run it as a file, from any directory:
 
     python quanonet_torch/time_chain.py --root . --label change \
         --out outputs/b1/change_1.json
@@ -38,6 +43,9 @@ FUSED_CASES = (
     (14, (5, 2, 5, 2), 32, True),
     (16, (5, 2, 5, 2), 8, False),
 )
+# (qubits, net_size, N) of the real-embedding chain
+EMBED_CASES = (*[(5, FLAGSHIP[1], n) for n in (1, 100, 1000, 8192)],
+               (7, FLAGSHIP[1], 100), (7, (2, 1, 2, 1), 1000))
 
 
 def _use_root(root):
@@ -176,6 +184,98 @@ def time_fused(root, reps, cases=FUSED_CASES):
     return rows
 
 
+def time_embed(root, reps, tile=None, cases=EMBED_CASES):
+    """Rows of times of the real-embedding chain kernels of the checkout
+    at ``root``, one per case of ``cases``; with ``tile``, that row of the
+    checkout's tile table in place of ``embed_geometry``'s choice.  The
+    backward takes the residuals the checkout's forward returns, whatever
+    its contract ((s, u) before the u-only residuals, u since)."""
+    _use_root(root)
+    import torch
+    import chip_smoke
+    from quanonet_torch.ops import cuda_embed
+    if not torch.cuda.is_available():
+        raise SystemExit("time_chain: no CUDA device")
+    if tile is not None:
+        cuda_embed.embed_geometry = (
+            lambda n, d, sms: cuda_embed.tile_geometry(d, tile, n))
+    dev = torch.device('cuda')
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for nq, net, n in cases:
+        spec, e, t, g = chip_smoke._embed_case(nq, net, n,
+                                               6000 + 10 * nq + n, dev)
+        nb, d = spec.n_blocks, spec.dim
+        res = cuda_embed.embed_forward(e, t, save_residuals=True)[1:]
+        r = 5 if n * d >= 2 ** 17 else reps
+
+        def fwd():
+            cuda_embed.embed_forward(e, t)
+
+        def fwd_saved():
+            cuda_embed.embed_forward(e, t, save_residuals=True)
+
+        def bwd():
+            cuda_embed.embed_backward(e, t, *res, g)
+        row = {"nq": nq, "net": list(net), "N": n, "nb": nb, "d": d,
+               "residuals": len(res),
+               "fwd_ms": chip_smoke.time_ms(fwd, r),
+               "fwd_device_ms": chip_smoke.kernel_device_ms(
+                   fwd, 'embed_chain_fwd', r),
+               "fwd_saved_ms": chip_smoke.time_ms(fwd_saved, r),
+               "fwd_saved_device_ms": chip_smoke.kernel_device_ms(
+                   fwd_saved, 'embed_chain_fwd', r),
+               "bwd_ms": chip_smoke.time_ms(bwd, r),
+               # every launch of the backward, each also on its own
+               "bwd_device_ms": chip_smoke.kernel_device_ms(bwd, None, r),
+               "bwd_device_ms_by_kernel": chip_smoke._profiled(
+                   bwd, r).get("top_device_ms_per_step"),
+               "fwd_bound_ms": chip_smoke.embed_bound(nb, n, d)[0],
+               "bwd_bound_ms": chip_smoke.embed_bwd_bound(nb, n, d)[0],
+               "ebar_splits": cuda_embed.ebar_splits(nb, n, 2 * d, sms)}
+        if hasattr(cuda_embed, 'embed_geometry'):
+            row["geometry"] = cuda_embed.embed_geometry(n, d, sms)._asdict()
+        rows.append(row)
+        print(json.dumps({"case": f"Q{nq} N={n}", **row}), flush=True)
+        del res
+        torch.cuda.empty_cache()
+    return rows
+
+
+def embed_step_kernels(root, steps=20):
+    """Card ms a step of each real-embedding chain kernel inside the
+    flagship's training step at batch 100 through engine 'embed' (the step
+    of chip_smoke.embed_vs_pallas), from a profiler window of ``steps``
+    steps."""
+    _use_root(root)
+    import numpy as np
+    import torch
+    import chip_smoke
+    dev = torch.device('cuda')
+    rng = np.random.RandomState(0)
+    b, t, y = (torch.as_tensor(a.astype(np.float32), device=dev) for a in (
+        rng.randn(100, 100), rng.rand(100, 2), rng.randn(100, 1)))
+    model = chip_smoke._flagship_model(dev, engine='embed')
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+
+    def step():
+        loss = ((model(b, t) - y) ** 2).mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+    for _ in range(3):
+        step()
+    prof = chip_smoke._profiled(step, steps)
+    top = prof.get("top_device_ms_per_step") or {}
+    return {"device_busy_ms_per_step": (
+                prof["device_busy_ms"] / steps if "device_busy_ms" in prof
+                else None),
+            "device_rows_per_step": prof.get("device_kernels_per_step"),
+            "embed_chain_ms_per_step": {k: v for k, v in top.items()
+                                        if 'embed_chain' in k
+                                        or 'sum_splits' in k}}
+
+
 def summarize(paths):
     """Median over the runs of each label, one line per (label, N)."""
     import numpy as np
@@ -199,27 +299,38 @@ def summarize(paths):
                 med["bwd_device_ms_by_kernel"] = {
                     name: float(np.median([d.get(name, 0.0) for d in split]))
                     for name in split[0]}
-            where = (f"Q{row['nq']} " if "nq" in row else "") + f"N={row['N']}"
+            where = (f"Q{row['nq']} " if "nq" in row else "") + (
+                f"Net{'-'.join(map(str, row['net']))} " if "net" in row
+                else "") + f"N={row['N']}"
             out[f"{label} {where}"] = {
                 "runs": len(mine), **med,
                 "fwd_bound_ms": row["fwd_bound_ms"],
                 "bwd_bound_ms": row.get("bwd_bound_ms")}
+        steps = [m["step"]["embed_chain_ms_per_step"] for m in mine
+                 if m.get("step")]
+        if steps:
+            out[f"{label} step"] = {
+                name: float(np.median([d.get(name, 0.0) for d in steps]))
+                for name in steps[0]}
     return out
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('--root', default='.', help='checkout whose kernels to time')
-    p.add_argument('--kernel', choices=('block', 'fused'), default='block',
-                   help='the block-chain kernels (B1) or the fused-group '
-                        'chain kernels (B2)')
+    p.add_argument('--kernel', choices=('block', 'fused', 'embed'),
+                   default='block',
+                   help='the block-chain kernels (B1), the fused-group '
+                        'chain kernels (B2) or the real-embedding chain '
+                        'kernels (B3)')
     p.add_argument('--label', default='tree')
     p.add_argument('--out', default=None, help='JSON file to write')
     p.add_argument('--ns', type=int, nargs='+', default=list(NS))
     p.add_argument('--reps', type=int, default=30)
     p.add_argument('--tile', type=int, default=None,
-                   help="time this row of cuda_hea.TILES instead of "
-                        "chain_geometry's choice")
+                   help="time this row of cuda_hea.TILES (cuda_embed.TILES "
+                        "with --kernel embed) instead of the geometry "
+                        "function's choice")
     p.add_argument('--summarize', nargs='+', default=None, metavar='JSON',
                    help='print the medians of earlier runs and exit')
     args = p.parse_args(argv)
@@ -231,10 +342,16 @@ def main(argv=None):
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    rows = (time_fused(root, args.reps) if args.kernel == 'fused'
-            else time_checkout(root, args.ns, args.reps, args.tile))
+    if args.kernel == 'fused':
+        rows = time_fused(root, args.reps)
+    elif args.kernel == 'embed':
+        rows = time_embed(root, args.reps, args.tile)
+    else:
+        rows = time_checkout(root, args.ns, args.reps, args.tile)
     result = {"label": args.label, "root": args.root, "nvidia_smi": smi,
               "kernel": args.kernel, "tile": args.tile, "rows": rows}
+    if args.kernel == 'embed':
+        result["step"] = embed_step_kernels(root)
     print(json.dumps(result))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

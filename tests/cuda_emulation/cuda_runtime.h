@@ -1,6 +1,7 @@
 // A CPU stand-in for the parts of the CUDA runtime and device code that
-// quanonet_torch/csrc/fused_chain.cu uses, so that its kernels can run on
-// the CPU in tests (tests/test_torch_port_fused_emulated.py): each CUDA
+// quanonet_torch/csrc/fused_chain.cu and embed_chain.cu use, so that their
+// kernels can run on the CPU in tests (tests/test_torch_port_fused_emulated
+// .py, tests/test_torch_port_embed_emulated.py): each CUDA
 // thread a user-level context (ucontext) on one OS thread, switched at
 // __syncthreads and at the warp shuffles and MMAs, the blocks of a grid one
 // after another, one shared-memory array per launch.  The test replaces the source's inline-PTX helpers
@@ -43,6 +44,10 @@ enum {
 };
 template <class T>
 cudaError_t cudaFuncSetAttribute(T, int, int) { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 using std::min;
@@ -51,10 +56,16 @@ struct float2 {
   float x, y;
 };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
 
 // a launch's shared memory (the dynamic arrays the kernels name)
-inline float smem[232448 / 4 + 64];
-inline float gsm[232448 / 4 + 64];
+alignas(16) inline float smem[232448 / 4 + 64];
+alignas(16) inline float gsm[232448 / 4 + 64];
 
 // The CUDA threads of a block run as user-level contexts on one OS thread,
 // switched at barriers: __syncthreads waits for the whole block, a warp's
@@ -120,11 +131,15 @@ inline float __uint_as_float(uint32_t u) {
 template <class T>
 T __ldg(const T* p) { return *p; }
 
-// cp.async of 16 bytes, zeros when !ok
+// cp.async of 16 (or `bytes`) bytes, zeros when !ok
 inline void emu_cp16(float* d, const float* s) { std::memcpy(d, s, 16); }
 inline void emu_cp16z(float* d, const float* s, bool ok) {
   if (ok) std::memcpy(d, s, 16);
   else std::memset(d, 0, 16);
+}
+inline void emu_cpz(float* d, const float* s, int bytes, bool ok) {
+  if (ok) std::memcpy(d, s, bytes);
+  else std::memset(d, 0, bytes);
 }
 
 // cvt.rna.tf32.f32: to nearest at a 10-bit mantissa, ties away from zero

@@ -509,30 +509,62 @@ EMBED_CASES = [(1, 3, 37), (2, 5, 1000), (8, 5, 37), (16, 7, 100),
 
 @pytest.mark.parametrize("d,nb,n", EMBED_CASES)
 def test_embed_kernels_match_plain(card, d, nb, n):
-    """B3f (primal and residual) within 2e-5 of chain_embed_saved, B3b
-    within 1e-4 x max(1, max|plain|) of chain_embed_backward, two backward
-    calls bit-equal, each wrapper counting its launch."""
+    """B3f (primal and residual) within 2e-5 of chain_embed_saved (the
+    output and the residual u), B3b within 1e-4 x max(1, max|plain|) of
+    chain_embed_backward, two backward calls bit-equal, each wrapper
+    counting its launch."""
     from quanonet_torch.ops import cuda_embed
     e, t, g = _embed_operands(d, nb, n, 7000 + d + nb + n, card)
     before = (cuda_embed.launches, cuda_embed.bwd_launches)
     out = cuda_embed.embed_chain(e, t)
-    saved, s, u = cuda_embed.embed_forward(e, t, save_residuals=True)
-    got = cuda_embed.embed_backward(e, t, s, u, g)
-    again = cuda_embed.embed_backward(e, t, s, u, g)
+    saved, u = cuda_embed.embed_forward(e, t, save_residuals=True)
+    got = cuda_embed.embed_backward(e, t, u, g)
+    again = cuda_embed.embed_backward(e, t, u, g)
     torch.cuda.synchronize()
     assert (cuda_embed.launches, cuda_embed.bwd_launches) == (
         before[0] + 2, before[1] + 2)
-    want, ws, wu = cuda_embed.chain_embed_saved(e, t)
+    want, wu = cuda_embed.chain_embed_saved(e, t)
     assert torch.equal(out, saved)
     assert (out - want).abs().max().item() <= 2e-5
-    assert (s - ws).abs().max().item() <= 2e-5
-    if nb > 1:
-        assert (u - wu).abs().max().item() <= 2e-5
+    assert (u - wu).abs().max().item() <= 2e-5
     for a, b, c in zip(got, again,
-                       cuda_embed.chain_embed_backward(e, t, ws, wu, g)):
+                       cuda_embed.chain_embed_backward(e, t, wu, g)):
         assert torch.equal(a, b)
         scale = max(1.0, c.abs().max().item())
         assert (a - c).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("tile", [0, 1, 2])
+@pytest.mark.parametrize("d", (1, 2, 4, 8, 16, 32, 64, 128))
+def test_embed_every_tile_ragged_and_at_its_boundaries(card, monkeypatch, d,
+                                                       tile):
+    """Each launch geometry of the embed-chain kernels (forced in turn) at
+    N = 1, one row either side of its row tile and a ragged multiple, with
+    one block and with several: the output and the residual u within 2e-5
+    of the plain version, the primal equal to the residual variant bit for
+    bit, the backward within 1e-4 x max(1, max|plain|), two backward calls
+    equal; and Ebar in two slices at 1,025 rows."""
+    from quanonet_torch.ops import cuda_embed
+    rows = cuda_embed.tile_geometry(d, tile, 1).rows
+    monkeypatch.setattr(
+        cuda_embed, 'embed_geometry',
+        lambda n, dd, sms: cuda_embed.tile_geometry(dd, tile, n))
+    ns = sorted({1, max(1, rows - 1), rows + 1, 2 * rows + 3})
+    for nb, n in [(nb, n) for nb in (1, 4) for n in ns] + [(3, 1025)]:
+        e, t, g = _embed_operands(d, nb, n, 100 * d + 10 * tile + nb, card)
+        where = f"d={d} tile={tile} nb={nb} N={n}"
+        out, u = cuda_embed.embed_forward(e, t, save_residuals=True)
+        primal = cuda_embed.embed_forward(e, t)
+        got = cuda_embed.embed_backward(e, t, u, g)
+        again = cuda_embed.embed_backward(e, t, u, g)
+        torch.cuda.synchronize()
+        want, wu = cuda_embed.chain_embed_saved(e, t)
+        assert (out - want).abs().max().item() <= 2e-5, where
+        assert (u - wu).abs().max().item() <= 2e-5, where
+        assert torch.equal(primal, out), where
+        for a, b in zip(got, cuda_embed.chain_embed_backward(e, t, wu, g)):
+            assert (a - b).abs().max().item() <= _bwd_tol(b), where
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), where
 
 
 def test_embed_kernel_rejects_bad_inputs_and_trains(card):

@@ -3,9 +3,10 @@ The real-embedding chain in the port (quanonet_torch/ops/cuda_embed.py:
 chain_embed, chain_embed_saved, chain_embed_backward, EmbedChain,
 pack_operands, forward_embed) on the CPU, held against the JAX package:
 pallas_embed._make_chain and its VJP (the Pallas kernels in interpret
-mode) on random general E and t, forward_embed, the Q5 model's values and
-gradients with engine='embed', one optimizer step, a CLI epoch, and the
-served Advection anchor.
+mode) on random general E and t, the backward rebuilding each block's
+input row from the saved products u alone, forward_embed, the Q5 model's
+values and gradients with engine='embed', one optimizer step, a CLI epoch,
+and the served Advection anchor.
 
 Tolerances: 2e-5 absolute on the chain's output (fp32, up to 5 blocks,
 another summation order than XLA's) and 1e-4 x max(1, max|JAX|) on its
@@ -74,14 +75,12 @@ def test_chain_matches_jax_pallas(d, nb, n):
     want_e, want_t = (np.asarray(a) for a in vjp(jnp.asarray(g)))
 
     te, tt = torch.tensor(e), torch.tensor(t)
-    got, s, u = cuda_embed.chain_embed_saved(te, tt)
-    assert tuple(s.shape) == (nb, n, 2 * d)
+    got, u = cuda_embed.chain_embed_saved(te, tt)
     assert tuple(u.shape) == (max(nb - 1, 1), n, 2 * d)
     np.testing.assert_allclose(got.numpy(), np.asarray(out), atol=CHAIN_TOL)
     np.testing.assert_allclose(cuda_embed.chain_embed(te, tt).numpy(),
                                np.asarray(out), atol=CHAIN_TOL)
-    ebar, tbar = cuda_embed.chain_embed_backward(te, tt, s, u,
-                                                 torch.tensor(g))
+    ebar, tbar = cuda_embed.chain_embed_backward(te, tt, u, torch.tensor(g))
     for name, a, b in (('ebar', ebar, want_e), ('tbar', tbar, want_t)):
         assert tuple(a.shape) == b.shape, name
         np.testing.assert_allclose(

@@ -20,19 +20,16 @@ variant's output equals the primal kernel's bit for bit.
 """
 import ctypes
 import os
-import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
+import emulated_cuda
 from quanonet_torch.ops import cuda_fused, fused_gates, hea
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(REPO, 'quanonet_torch', 'csrc', 'fused_chain.cu')
-HEADERS = os.path.join(REPO, 'tests', 'cuda_emulation')
 AMP_TOL = 2e-5
 BWD_REL_TOL = 1e-4
 
@@ -50,44 +47,10 @@ _BODIES = (
 )
 
 
-def _replace_body(src, head, body):
-    i = src.index(head)
-    j = src.index('{', i)
-    depth = 0
-    for k in range(j, len(src)):
-        depth += {'{': 1, '}': -1}.get(src[k], 0)
-        if depth == 0:
-            return src[:j] + '{ ' + body + ' }' + src[k + 1:]
-    raise ValueError(head)
-
-
-def emulation_source(src):
-    """fused_chain.cu -> a C++ translation unit for the emulation."""
-    for head, body in _BODIES:
-        src = _replace_body(src, head, body)
-    src = re.sub(r'(\w+(?:<[^<>]*>)?)<<<(.*?),(.*?),(.*?),(.*?)>>>\(',
-                 lambda m: f'Launch{{dim3({m.group(2)}), dim3({m.group(3)})}}'
-                           f'({m.group(1)})(', src, flags=re.S)
-    for name in ('smem', 'gsm'):
-        src = src.replace(f'extern __shared__ __align__(16) float {name}[];',
-                          f'float* {name} = ::{name};')
-    return src
-
-
 @pytest.fixture(scope='module')
 def lib(tmp_path_factory):
-    cxx = shutil.which('g++') or shutil.which('c++')
-    if cxx is None:
-        pytest.skip("needs a C++20 compiler for the emulation")
-    out = tmp_path_factory.mktemp('fused_emulation')
-    cpp = out / 'fused_chain_emulated.cpp'
-    with open(SOURCE) as f:
-        cpp.write_text(emulation_source(f.read()))
-    so = out / 'libfused_chain_emulated.so'
-    subprocess.run([cxx, '-std=c++20', '-O2', '-shared', '-fPIC', '-pthread',
-                    '-I', HEADERS, '-o', str(so), str(cpp)], check=True,
-                   capture_output=True, timeout=300)
-    lib = ctypes.CDLL(str(so))
+    lib = emulated_cuda.build(SOURCE, _BODIES,
+                              tmp_path_factory.mktemp('fused_emulation'))
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_chain_forward.argtypes = [vp] * 12 + [i] * 4 + [vp]
     lib.fused_chain_backward.argtypes = [vp] * 24 + [i] * 6 + [vp]

@@ -91,7 +91,7 @@ def test_new_kernel_wrappers_raise_on_cpu_tensors():
     with pytest.raises(ValueError, match='CUDA tensors'):
         cuda_embed.embed_forward(e, t)
     with pytest.raises(ValueError, match='CUDA tensors'):
-        cuda_embed.embed_backward(e, t, t, t[:1], t[0])
+        cuda_embed.embed_backward(e, t, t[:1], t[0])
     assert torch.equal(cuda_embed.embed_chain(e, t),
                        cuda_embed.chain_embed(e, t))
     assert (cuda_embed.launches, cuda_embed.bwd_launches) == counts
