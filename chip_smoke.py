@@ -81,14 +81,18 @@ Phases, each printed as one JSON line:
              'fused' engine, the fixture's 64 rows against the JAX
              package's predictions (atol 1e-4).
 
-13. kernel_ucomp — the block-matrix compile kernels (csrc/ucomp.cu)
-             against ucomp_dense / ucomp_backward_dense at the flagship
-             (nb 60, ld 2, D 32), Q2 ld 1, Q3 ld 3, HEAQNN Q4, Q6 and Q7
-             Net40-2-20-2 (D = 128) and a single block: forward to 2e-5,
-             backward to 1e-4 x max(1, max|plain|), two backward calls
-             bit-equal, median times, the bound (ucomp_counts), what the
-             smallest launch costs, and at the flagship the autograd fold
-             they replace (hea.fold_block_mats) with its device rows.
+13. kernel_ucomp — the block-matrix compile kernels (csrc/ucomp.cu,
+             from the weights) against ucomp_weights_dense /
+             ucomp_weights_backward_dense at the flagship (nb 60, ld 2,
+             D 32), Q2 ld 1, Q3 ld 3, HEAQNN Q4, Q6 and Q7 Net40-2-20-2
+             (D = 128) and a single block: forward to 2e-5 (and to the
+             autograd fold), w̄ to 1e-4 x max(1, max|plain|), two backward
+             calls bit-equal, median times, time on the card alone, the
+             bound of the gate form and the matrix form's flops
+             (ucomp_counts), the launch geometry, what the smallest launch
+             costs, and at the flagship the compile path against the
+             autograd fold it replaces (hea.fold_block_mats): host ms and
+             device rows of each (compile_path).
 14. kernel_adam — the one-launch Adam (csrc/adam.cu) against
              adam_step_dense on the flagship's six leaves over 25 steps
              (atol 2e-6, rtol 1e-5), two runs bit-equal, its time and
@@ -161,7 +165,7 @@ import numpy as np
 import torch
 from torch.utils import cpp_extension
 
-from quanonet_torch import bench, cli, profile_step
+from quanonet_torch import bench, cli, profile_step, time_chain
 from quanonet_torch.data.manager import DataManager
 from quanonet_torch.infer import load_model, predict
 from quanonet_torch.models import QuanONet
@@ -1315,26 +1319,38 @@ ARM_ROUNDS, ARM_STEPS = 5, 20
 
 
 def ucomp_counts(nb, ld, d, n):
-    """Least work of the block-matrix compile, counted as chain_bound and
-    fused_bwd_bound count: (flops forward, flops backward, bytes forward,
-    bytes backward).  A real D x D product is 2 D^3 flops.  A real-by-complex
-    product is two of them; a complex-by-complex product three (the
-    three-product form) plus that form's 5 D^2 additions.  H and R are n
-    butterfly stages, 2 n D^2 additions on a complex matrix.  Forward, per
-    block: ld products U1t . B' (real by complex), ld - 1 fold products
-    (complex), H . acc and . R (butterflies; no R on the last block).
-    Backward, the VJP's own products and not the recompute of the forward:
-    H g R (butterflies), per fold step Sbar and the next accbar (complex
-    each), per sublayer U1bar and B'bar (two real products each).  Bytes:
-    every input read once, every output written once."""
+    """Least work of the block-matrix compile from the weights, in the gate
+    form the kernels compute (csrc/ucomp.cu), as a dict: flops and bytes
+    forward and backward.  Per row of H (D rows a block) and sublayer: two
+    RY passes, n D / 2 pairs of two complex rotations each (12 flops a
+    pair), the phase (a complex product an amplitude, 6 flops), the gather
+    (no flops); then, unless the block is the last, a Hadamard pass (4
+    flops a pair) and its 1 / sqrt(D) scale (2 an amplitude).  The backward
+    counts the cotangent through the same passes and each angle's
+    cotangent (8 flops a pair of an RY, 3 + n an amplitude of the phase),
+    not the recompute of the forward state.  Bytes: the weights (and g)
+    read once, mt (or w̄) written once.  Beside them, as ``*_matmul_flops``,
+    the D^3 count of the matrix form the TPU kernel and the plain version
+    compute (a real D x D product 2 D^3 flops, a complex one three of them
+    plus 5 D^2 additions; forward: ld products U1t . B' and ld - 1 fold
+    products a block, H . acc and . R as butterflies; backward: the VJP's
+    own products)."""
+    rows = nb * d
+    sub_fwd = (12 * n + 6) * d
+    h = (2 * n + 2) * d
+    fwd = rows * ld * sub_fwd + (nb - 1) * d * h
+    bwd = rows * ld * (sub_fwd + 8 * n * d + (3 + n) * d) + (nb - 1) * d * h
+    w_bytes = 4.0 * nb * ld * 3 * n
+    mt_bytes = 4.0 * 2 * nb * d * d
     real = 2.0 * d ** 3
     cplx = 3 * real + 5.0 * d * d
     hr = (2 * nb - 1) * 2.0 * n * d * d
-    fwd = nb * (2 * ld * real + (ld - 1) * cplx) + hr
-    bwd = nb * (2 * (ld - 1) * cplx + 4 * ld * real) + hr
-    ops_bytes = 4.0 * 3 * nb * ld * d * d
-    mt_bytes = 4.0 * 2 * nb * d * d
-    return fwd, bwd, ops_bytes + mt_bytes, 2 * ops_bytes + mt_bytes
+    return {"fwd_flops": float(fwd), "bwd_flops": float(bwd),
+            "fwd_bytes": w_bytes + mt_bytes,
+            "bwd_bytes": 2 * w_bytes + mt_bytes,
+            "fwd_matmul_flops": nb * (2 * ld * real + (ld - 1) * cplx) + hr,
+            "bwd_matmul_flops": nb * (2 * (ld - 1) * cplx + 4 * ld * real)
+            + hr}
 
 
 def smallest_launch():
@@ -1374,6 +1390,7 @@ def phase_kernel_ucomp(launch):
     """B4f and B4b against their plain versions at every case, beside what
     the smallest launch costs (``launch``); returns the per-case records."""
     dev = torch.device('cuda')
+    sms = cuda_ucomp.sm_count(dev.index)
     records = []
     for label, spec in UCOMP_CASES:
         nb, d, ld = spec.n_blocks, spec.dim, spec.block_configs[0][1]
@@ -1381,101 +1398,76 @@ def phase_kernel_ucomp(launch):
         rng = np.random.RandomState(5000 + 10 * spec.n_qubits + nb)
         w = torch.tensor(rng.uniform(-np.pi, np.pi, spec.weight_shape())
                          .astype(np.float32), device=dev)
-        ops = cuda_ucomp.compile_operands(spec, w)
         g = [torch.tensor(rng.randn(nb, d, d).astype(np.float32), device=dev)
              for _ in range(2)]
-        fwd = cuda_ucomp.ucomp_forward(*ops, ld, last)
-        bwd = cuda_ucomp.ucomp_backward(*ops, ld, last, *g)
-        again = cuda_ucomp.ucomp_backward(*ops, ld, last, *g)
-        fwd_plain = cuda_ucomp.ucomp_dense(*ops, ld, last)
-        bwd_plain = cuda_ucomp.ucomp_backward_dense(*ops, ld, last, *g)
+        fwd = cuda_ucomp.ucomp_forward(w, ld, last)
+        bwd = cuda_ucomp.ucomp_backward(w, ld, last, *g)
+        again = cuda_ucomp.ucomp_backward(w, ld, last, *g)
+        fwd_plain = cuda_ucomp.ucomp_weights_dense(w, ld, last)
+        bwd_plain = cuda_ucomp.ucomp_weights_backward_dense(w, ld, last, *g)
         fold = hea.fold_block_mats(spec, w)
         torch.cuda.synchronize()
-        names = ('u1bar', 'bbar_r', 'bbar_i')
-        errs = {k: (a - b).abs().max().item()
-                for k, a, b in zip(names, bwd, bwd_plain)}
-        scales = {k: max(1.0, b.abs().max().item())
-                  for k, b in zip(names, bwd_plain)}
-        f_flops, b_flops, f_bytes, b_bytes = ucomp_counts(nb, ld, d, spec.n_qubits)
-        fwd_bound, fwd_by = _bound(f_flops, f_bytes)
-        bwd_bound, bwd_by = _bound(b_flops, b_bytes)
+        counts = ucomp_counts(nb, ld, d, spec.n_qubits)
+        fwd_bound, fwd_by = _bound(counts["fwd_flops"], counts["fwd_bytes"])
+        bwd_bound, bwd_by = _bound(counts["bwd_flops"], counts["bwd_bytes"])
         rec = {"phase": "kernel_ucomp", "case": label, "nq": spec.n_qubits,
                "nb": nb, "ld": ld, "D": d,
-               "panel_rows": cuda_ucomp.panel_rows(d),
+               "geometry": {
+                   "fwd": cuda_ucomp.ucomp_geometry(d, nb, sms)._asdict(),
+                   "bwd": cuda_ucomp.ucomp_geometry(
+                       d, nb, sms, backward=True)._asdict()},
                "max_abs_err_fwd": _max_err(fwd, fwd_plain),
                "max_abs_err_vs_fold": _max_err(fwd, fold),
-               "max_abs_err_bwd": errs, "bwd_scale": scales,
-               "bwd_bit_equal": all(torch.equal(a, b)
-                                    for a, b in zip(bwd, again)),
+               "max_abs_err_bwd": (bwd - bwd_plain).abs().max().item(),
+               "bwd_scale": max(1.0, bwd_plain.abs().max().item()),
+               "bwd_bit_equal": torch.equal(bwd, again),
                "fwd_ms": time_ms(lambda: cuda_ucomp.ucomp_forward(
-                   *ops, ld, last), 30),
-               "fwd_plain_ms": time_ms(lambda: cuda_ucomp.ucomp_dense(
-                   *ops, ld, last), 5),
+                   w, ld, last), 30),
+               "fwd_plain_ms": time_ms(lambda: cuda_ucomp.ucomp_weights_dense(
+                   w, ld, last), 5),
                "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by,
-               "fwd_flops": f_flops, "fwd_bytes": f_bytes,
                "bwd_ms": time_ms(lambda: cuda_ucomp.ucomp_backward(
-                   *ops, ld, last, *g), 30),
+                   w, ld, last, *g), 30),
                "bwd_plain_ms": time_ms(
-                   lambda: cuda_ucomp.ucomp_backward_dense(
-                       *ops, ld, last, *g), 5),
+                   lambda: cuda_ucomp.ucomp_weights_backward_dense(
+                       w, ld, last, *g), 5),
                "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by,
-               "bwd_flops": b_flops, "bwd_bytes": b_bytes,
+               **counts,
                "fwd_device_ms": kernel_device_ms(
-                   lambda: cuda_ucomp.ucomp_forward(*ops, ld, last),
+                   lambda: cuda_ucomp.ucomp_forward(w, ld, last),
                    'ucomp_fwd'),
                "bwd_device_ms": kernel_device_ms(
-                   lambda: cuda_ucomp.ucomp_backward(*ops, ld, last, *g),
+                   lambda: cuda_ucomp.ucomp_backward(w, ld, last, *g),
                    'ucomp_bwd'),
                "smallest_launch": launch,
                "launch_bound": max(fwd_bound, bwd_bound)
                < launch["back_to_back_ms"]}
         if (spec.n_qubits, nb) == (5, 60):
-            rec["replaces"] = _fold_against_compile(spec, w)
+            rec["replaces"] = _fold_against_compile(spec, w, g)
         emit(rec)
-        finite = all(bool(torch.isfinite(t).all()) for t in (*fwd, *bwd))
+        finite = all(bool(torch.isfinite(t).all()) for t in (*fwd, bwd))
         check(finite, f"ucomp {label}: output not finite")
         check(rec["max_abs_err_fwd"] <= AMP_TOL,
               f"ucomp {label}: forward error {rec['max_abs_err_fwd']}")
         check(rec["max_abs_err_vs_fold"] <= AMP_TOL,
               f"ucomp {label}: differs from the fold by "
               f"{rec['max_abs_err_vs_fold']}")
-        for k in names:
-            check(errs[k] <= BWD_REL_TOL * scales[k],
-                  f"ucomp {label}: {k} error {errs[k]} > {BWD_REL_TOL} x "
-                  f"{scales[k]}")
+        check(rec["max_abs_err_bwd"] <= BWD_REL_TOL * rec["bwd_scale"],
+              f"ucomp {label}: wbar error {rec['max_abs_err_bwd']} > "
+              f"{BWD_REL_TOL} x {rec['bwd_scale']}")
         check(rec["bwd_bit_equal"], f"ucomp {label}: two backward calls differ")
         records.append(rec)
     return records
 
 
-def _fold_against_compile(spec, w):
+def _fold_against_compile(spec, w, g):
     """At the flagship: the autograd fold that the compile kernels replace
-    and the compile path as the engine takes it (elementwise build under
-    autograd + the kernels), forward and forward + backward, from the
-    weights: host clock with a synchronise, and the device rows of one
-    forward + backward."""
-    wg = w.clone().requires_grad_()
-
-    def fwd_bwd(mats):
-        def run():
-            mr, mi = mats(spec, wg)
-            torch.autograd.grad((mr * mr).sum() + (mi * mi).sum(), wg)
-        return run
-
+    and the compile path, each as time_chain.compile_path measures it."""
     out = {}
     for name, mats in (('fold', hea.fold_block_mats),
                        ('compile', cuda_ucomp.compile_block_mats)):
-        with torch.no_grad():
-            out[f"{name}_forward_ms"] = host_ms(lambda: mats(spec, w))
-        out[f"{name}_forward_backward_ms"] = host_ms(fwd_bwd(mats))
-        prof = _profiled(fwd_bwd(mats))
-        out[f"{name}_device_rows"] = prof.get("device_kernels_per_step")
-        out[f"{name}_device_busy_ms"] = (
-            prof["device_busy_ms"] / prof["profiled_steps"]
-            if "device_busy_ms" in prof else None)
-    with torch.no_grad():
-        out["compile_operands_forward_ms"] = host_ms(
-            lambda: cuda_ucomp.compile_operands(spec, w))
+        path = time_chain.compile_path(mats, spec, w, g, host_ms, _profiled)
+        out.update({f"{name}_{k}": v for k, v in path.items()})
     return out
 
 
@@ -2377,7 +2369,7 @@ def main():
         "name": "ucomp_fwd", "route": "cuda",
         "source": "quanonet_torch/csrc/ucomp.cu",
         "replaces": "quanonet_tpu/ops/pallas_ucomp.py:118",
-        "twin": "quanonet_torch/ops/cuda_ucomp.py:ucomp_dense",
+        "twin": "quanonet_torch/ops/cuda_ucomp.py:ucomp_weights_dense",
         "launches": ps_counts["ucomp_fwd"] + serve_ucomp["ucomp_fwd"],
         "launches_by_path": {"profile_step": ps_counts["ucomp_fwd"],
                              "serve_ucomp": serve_ucomp["ucomp_fwd"]},
@@ -2386,6 +2378,8 @@ def main():
         "bound_ms": ustep['fwd_bound_ms'], "bound_by": ustep['fwd_bound_by'],
         "library_ms": None, "timed_shape": ucomp_shape,
         "device_ms": ustep['fwd_device_ms'],
+        "matmul_flops": ustep['fwd_matmul_flops'],
+        "geometry": ustep['geometry']['fwd'],
         "smallest_launch_ms": ustep['smallest_launch']['back_to_back_ms'],
         "fold_forward_ms": ustep['replaces']['fold_forward_ms'],
         "compile_forward_ms": ustep['replaces']['compile_forward_ms'],
@@ -2393,17 +2387,20 @@ def main():
         "name": "ucomp_bwd", "route": "cuda",
         "source": "quanonet_torch/csrc/ucomp.cu",
         "replaces": "quanonet_tpu/ops/pallas_ucomp.py:142",
-        "twin": "quanonet_torch/ops/cuda_ucomp.py:ucomp_backward_dense",
+        "twin": "quanonet_torch/ops/cuda_ucomp.py:"
+                "ucomp_weights_backward_dense",
         "launches": ps_counts["ucomp_bwd"],
         "launches_by_path": {"profile_step": ps_counts["ucomp_bwd"],
                              "serve_ucomp": 0},
-        "max_abs_err": max(max(r['max_abs_err_bwd'].values())
-                           for r in ucomp_records),
+        "max_abs_err": max(r['max_abs_err_bwd'] for r in ucomp_records),
         "ms": ustep['bwd_ms'], "plain_ms": ustep['bwd_plain_ms'],
         "bound_ms": ustep['bwd_bound_ms'], "bound_by": ustep['bwd_bound_by'],
         "library_ms": None, "timed_shape": ucomp_shape,
         "device_ms": ustep['bwd_device_ms'],
+        "matmul_flops": ustep['bwd_matmul_flops'],
+        "geometry": ustep['geometry']['bwd'],
         "smallest_launch_ms": ustep['smallest_launch']['back_to_back_ms'],
+        "compile_device_rows": ustep['replaces']['compile_device_rows'],
         "fold_forward_backward_ms":
             ustep['replaces']['fold_forward_backward_ms'],
         "compile_forward_backward_ms":

@@ -18,20 +18,27 @@ with P the ring permutation, folded into B′ as a column gather.  Per
 block: the fold of its ``ld`` sublayers acc = S_0ᵀ · … · S_{ld-1}ᵀ, then
 mt_b = H · acc · R_b with R_b = H, and I for the final block.
 
-Split of labour, as the JAX module has it: everything elementwise
-(cos/sin of the half angles, the RY factor products, the RZ diagonal as an
-explicit fp32 sum, the gather) is PyTorch under autograd; the kernels do
-only the matrix chains, and their VJP is a kernel too (:class:`UComp`).
-The operands are unpacked (S, D, D) tensors and the index of the block
-whose right factor is I: the JAX module's block-diagonal packing served
-its matrix unit's tile and has no counterpart here.
+The kernels take the weights (S, 3, n) and nothing else: B4f applies the
+compile as gate passes on the rows of H (RY, the RZ phase, RY′, the ring
+gather per sublayer, then H), B4b walks each row back and writes the
+weights' cotangent w̄ (S, 3, n) directly; :class:`UComp` joins them as one
+autograd function over the weights.  The plain version of the same function
+keeps the matrix form on purpose, an oracle independent of the kernels'
+gate form: the forward is :func:`ucomp_dense` of :func:`compile_operands`
+(elementwise PyTorch: cos/sin of the half angles, the RY factor products,
+the RZ diagonal as an explicit fp32 sum, the gather), the backward
+:func:`ucomp_backward_dense`'s operand cotangents carried through
+:func:`compile_operands`' VJP.
 
 Applicability: one uniform linear_depth >= 1 across blocks and at most 7
-qubits (:func:`ucomp_applicable`).  CPU tensors take the plain versions
-:func:`ucomp_dense` and :func:`ucomp_backward_dense`; CUDA tensors launch
-the kernels or raise.
+qubits (:func:`ucomp_applicable`).  CPU tensors take the plain versions;
+CUDA tensors launch the kernels or raise.  The launch geometry (warps a
+CTA, CTAs a block) comes from D, nb and the card's SM count
+(:func:`ucomp_geometry`); the library handle and the SM count are read
+once.
 """
 import ctypes
+from collections import namedtuple
 from functools import lru_cache
 
 import numpy as np
@@ -44,15 +51,17 @@ from quanonet_torch.ops.gates import (
 
 KERNEL = 'ucomp'
 MAX_QUBITS = 7
-THREADS = 256     # of a CTA, as in csrc/ucomp.cu
-MAX_ROWS = 4      # rows of a panel one thread owns, as there
+FWD_WARPS = 4     # warps of a forward CTA
+BWD_WARPS = 8     # warps of a backward CTA
 
 # Launches since import: ``launches`` counts the forward kernel,
-# ``bwd_launches`` the backward (its two kernels count as one).
+# ``bwd_launches`` the backward (with the CTAs' sum, when it runs, as one).
 launches = 0
 bwd_launches = 0
 
-_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+Geometry = namedtuple('Geometry', 'warps ctas')
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def ucomp_applicable(spec) -> bool:
@@ -63,16 +72,52 @@ def ucomp_applicable(spec) -> bool:
             and spec.n_blocks >= 1)
 
 
+def row_groups(dim):
+    """Row groups of a block: a warp carries min(32 / D, D) rows at once
+    below D = 32 and one row from there (``Row::G`` in csrc/ucomp.cu)."""
+    return dim // (1 if dim >= 32 else min(32 // dim, dim))
+
+
+def ucomp_geometry(dim, nb, sms, backward=False):
+    """(warps a CTA, CTAs a block) of the kernels at width D for nb
+    blocks on a card of ``sms`` SMs.  The forward gives every warp one row
+    group.  The backward doubles its CTAs a block from one until the grid
+    covers the SMs or every warp has one row group: each CTA past the
+    first costs a partial to sum, in a second launch."""
+    groups = row_groups(dim)
+    warps = min(BWD_WARPS if backward else FWD_WARPS, groups)
+    most = -(-groups // warps)
+    if not backward:
+        return Geometry(warps, most)
+    ctas = 1
+    while ctas < most and nb * ctas < sms:
+        ctas *= 2
+    return Geometry(warps, min(ctas, most))
+
+
 @lru_cache(maxsize=None)
 def _lib():
     lib = _build.load(KERNEL)
-    lib.ucomp_forward.argtypes = [_VP] * 5 + [_I] * 5 + [_F, _VP]
+    lib.ucomp_forward.argtypes = [_VP] * 3 + [_I] * 6 + [_VP]
     lib.ucomp_forward.restype = _I
-    lib.ucomp_backward.argtypes = [_VP] * 12 + [_I] * 5 + [_F, _VP]
+    lib.ucomp_backward.argtypes = [_VP] * 5 + [_I] * 6 + [_VP]
     lib.ucomp_backward.restype = _I
     lib.ucomp_error_string.argtypes = [_I]
     lib.ucomp_error_string.restype = ctypes.c_char_p
+    lib.ucomp_row_groups.argtypes = [_I]
+    lib.ucomp_row_groups.restype = _I
+    for n in range(1, MAX_QUBITS + 1):
+        if lib.ucomp_row_groups(n) != row_groups(2 ** n):
+            raise RuntimeError(
+                f"csrc/ucomp.cu has {lib.ucomp_row_groups(n)} row groups at "
+                f"{n} qubits, cuda_ucomp.row_groups {row_groups(2 ** n)}")
     return lib
+
+
+@lru_cache(maxsize=None)
+def sm_count(index):
+    """SMs of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # ── the plain versions ───────────────────────────────────────────────────────
@@ -103,10 +148,10 @@ def _sublayer_products(u1t, br, bi, ld):
 
 
 def ucomp_dense(u1t, br, bi, ld, last):
-    """Plain PyTorch block-matrix compile: u1t, br, bi (nb·ld, D, D) ->
-    (mt_r, mt_i), each (nb, D, D).  Per block the fold of its ``ld``
-    products U1ᵀ·B′, then H · acc · R with R = H, and I for block ``last``
-    (-1: none).  The plain version of the CUDA forward kernel."""
+    """Plain PyTorch block-matrix compile from the operands: u1t, br, bi
+    (nb·ld, D, D) -> (mt_r, mt_i), each (nb, D, D).  Per block the fold of
+    its ``ld`` products U1ᵀ·B′, then H · acc · R with R = H, and I for block
+    ``last`` (-1: none)."""
     dim = u1t.shape[-1]
     sr, si = _sublayer_products(u1t, br, bi, ld)
     ar, ai = sr[:, 0], si[:, 0]
@@ -120,10 +165,9 @@ def ucomp_dense(u1t, br, bi, ld, last):
 def ucomp_backward_dense(u1t, br, bi, ld, last, gr, gi):
     """The VJP of :func:`ucomp_dense`, written out (no autograd): the
     cotangent (gr, gi) of (mt_r, mt_i) -> (u1bar, bbar_r, bbar_i), each
-    (nb·ld, D, D).  The plain version of the CUDA backward kernel, with the
-    algebra of pallas_ucomp._bwd_kernel: the sublayer products and fold
-    prefixes are recomputed, accbar = H ḡ R (H, R symmetric and real), and
-    for d = ld-1 .. 0
+    (nb·ld, D, D), with the algebra of pallas_ucomp._bwd_kernel: the
+    sublayer products and fold prefixes are recomputed, accbar = H ḡ R
+    (H, R symmetric and real), and for d = ld-1 .. 0
 
         S̄_d = acc_{d-1}ᴴ · accbar,   accbar <- accbar · S_dᴴ     (d > 0)
         Ū1ᵀ = S̄r · B′rᵀ + S̄i · B′iᵀ,   B̄′ = (U1ᵀ)ᵀ · S̄.
@@ -153,142 +197,6 @@ def ucomp_backward_dense(u1t, br, bi, ld, last, gr, gi):
             t(u1t) @ sbar_i)
 
 
-# ── the kernels ──────────────────────────────────────────────────────────────
-
-def panel_rows(dim):
-    """Rows of H one CTA carries through a block: a thread owns one column
-    and up to MAX_ROWS rows; from D = 64 it owns all four, so that each
-    operator element it reads is used four times."""
-    row_groups = max(1, THREADS // dim)
-    return min(dim, row_groups * (MAX_ROWS if dim >= 64 else 1))
-
-
-def _check(named, device):
-    for name, t, shape in named:
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, u1t on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
-def _check_operands(u1t, br, bi, ld, last):
-    if u1t.dim() != 3 or u1t.shape[1] != u1t.shape[2]:
-        raise ValueError(f"u1t must be (S, D, D), got {tuple(u1t.shape)}")
-    s, dim, _ = u1t.shape
-    if dim < 2 or dim > 2 ** MAX_QUBITS or dim & (dim - 1):
-        raise ValueError(f"the compile kernel takes D = 2..128, a power of "
-                         f"two, got {dim}")
-    if ld < 1 or s < ld or s % ld:
-        raise ValueError(f"{s} sublayers do not make blocks of {ld}")
-    nb = s // ld
-    if nb > 65535:
-        raise ValueError(f"{nb} blocks are too many for one launch")
-    if not -1 <= last < nb:
-        raise ValueError(f"last must be -1 or a block index < {nb}, got "
-                         f"{last}")
-    _check((('u1t', u1t, (s, dim, dim)), ('br', br, (s, dim, dim)),
-            ('bi', bi, (s, dim, dim))), u1t.device)
-    if u1t.device.type != 'cuda':
-        raise ValueError(f"the compile kernels take CUDA tensors, got "
-                         f"{u1t.device}; ucomp_dense is the plain version")
-    return nb, dim
-
-
-def _raise_on(lib, err, what):
-    if err:
-        raise RuntimeError(
-            f"{what} launch failed: "
-            f"{lib.ucomp_error_string(err).decode()} (cudaError {err})")
-
-
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def ucomp_forward(u1t, br, bi, ld, last):
-    """The forward kernel on CUDA tensors: (mt_r, mt_i), each (nb, D, D)."""
-    global launches
-    nb, dim = _check_operands(u1t, br, bi, ld, last)
-    dev = u1t.device
-    mt_r = torch.empty((nb, dim, dim), dtype=torch.float32, device=dev)
-    mt_i = torch.empty((nb, dim, dim), dtype=torch.float32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.ucomp_forward(
-            u1t.data_ptr(), br.data_ptr(), bi.data_ptr(), mt_r.data_ptr(),
-            mt_i.data_ptr(), nb, ld, dim, panel_rows(dim), last,
-            float(1.0 / np.sqrt(dim)), _stream(dev))
-    _raise_on(lib, err, 'ucomp_forward')
-    launches += 1
-    return mt_r, mt_i
-
-
-def ucomp_backward(u1t, br, bi, ld, last, gr, gi):
-    """The backward kernels on CUDA tensors: the cotangent (gr, gi) of
-    (mt_r, mt_i) -> (u1bar, bbar_r, bbar_i).  Deterministic: two calls on
-    equal inputs give equal bits."""
-    global bwd_launches
-    nb, dim = _check_operands(u1t, br, bi, ld, last)
-    dev = u1t.device
-    _check((('gr', gr, (nb, dim, dim)), ('gi', gi, (nb, dim, dim))), dev)
-    out = [torch.empty_like(u1t) for _ in range(3)]
-    # the panels before each operator and the cotangents after it
-    scratch = [torch.empty((nb, 2 * ld, dim, dim), dtype=torch.float32,
-                           device=dev) for _ in range(4)]
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.ucomp_backward(
-            u1t.data_ptr(), br.data_ptr(), bi.data_ptr(), gr.data_ptr(),
-            gi.data_ptr(), *(t.data_ptr() for t in scratch),
-            *(t.data_ptr() for t in out), nb, ld, dim, panel_rows(dim), last,
-            float(1.0 / np.sqrt(dim)), _stream(dev))
-    _raise_on(lib, err, 'ucomp_backward')
-    bwd_launches += 1
-    return tuple(out)
-
-
-class UComp(torch.autograd.Function):
-    """(u1t, br, bi) -> (mt_r, mt_i) with the backward kernel as its
-    gradient (the counterpart of pallas_ucomp._make_ucomp).  On CPU tensors
-    both passes are the plain versions."""
-
-    @staticmethod
-    def forward(ctx, u1t, br, bi, ld, last):
-        ctx.save_for_backward(u1t, br, bi)
-        ctx.ld, ctx.last = ld, last
-        if u1t.device.type == 'cpu':
-            return ucomp_dense(u1t, br, bi, ld, last)
-        return ucomp_forward(u1t, br, bi, ld, last)
-
-    @staticmethod
-    def backward(ctx, gr, gi):
-        u1t, br, bi = ctx.saved_tensors
-        if u1t.device.type == 'cpu':
-            grads = ucomp_backward_dense(u1t, br, bi, ctx.ld, ctx.last,
-                                         gr, gi)
-        else:
-            grads = ucomp_backward(u1t, br, bi, ctx.ld, ctx.last,
-                                   gr.contiguous(), gi.contiguous())
-        return (*grads, None, None)
-
-
-def ucomp(u1t, br, bi, ld, last):
-    """(u1t, br, bi) -> (mt_r, mt_i): :func:`ucomp_dense`, through the CUDA
-    kernels for CUDA tensors.  Operands (nb·ld, D, D) float32, contiguous."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (u1t, br, bi)):
-        return UComp.apply(u1t, br, bi, ld, last)
-    if u1t.device.type == 'cpu':
-        return ucomp_dense(u1t, br, bi, ld, last)
-    return ucomp_forward(u1t, br, bi, ld, last)
-
-
-# ── from the weights to the operands ─────────────────────────────────────────
-
 @lru_cache(maxsize=None)
 def _static_tables(n_qubits, device):
     """Per (n, device): eq, diff_t (n, D, D) with eq[q, i, j] = [bit q of i
@@ -302,11 +210,11 @@ def _static_tables(n_qubits, device):
             torch.as_tensor(z_signs(n_qubits), device=device))
 
 
-def compile_operands(spec, weights):
-    """weights (S, 3, n) -> (u1t, br, bi), each (S, D, D): the transposed
-    RY layer and B′ = (z ⊙row U2ᵀ)·Pᵀ of every sublayer.  Elementwise
-    PyTorch, differentiated by autograd."""
-    n = spec.n_qubits
+def compile_operands(weights):
+    """weights (S, 3, n) -> (u1t, br, bi), each (S, D, D), D = 2^n: the
+    transposed RY layer and B′ = (z ⊙row U2ᵀ)·Pᵀ of every sublayer.
+    Elementwise PyTorch, differentiated by autograd."""
+    n = weights.shape[-1]
     n_sub = weights.shape[0]
     eq, diff_t, zsgn = _static_tables(n, weights.device)
     half = weights * 0.5                                 # (S, 3, n)
@@ -330,6 +238,154 @@ def compile_operands(spec, weights):
     return u1t, br, bi
 
 
+def ucomp_weights_dense(w, ld, last):
+    """The plain version of B4f: w (nb·ld, 3, n) -> (mt_r, mt_i), each
+    (nb, D, D), as :func:`ucomp_dense` of :func:`compile_operands`."""
+    return ucomp_dense(*compile_operands(w), ld, last)
+
+
+def ucomp_weights_backward_dense(w, ld, last, gr, gi):
+    """The plain version of B4b: the cotangent (gr, gi) of (mt_r, mt_i) ->
+    w̄ (nb·ld, 3, n), :func:`ucomp_backward_dense`'s operand cotangents
+    carried through :func:`compile_operands`' VJP."""
+    with torch.enable_grad():
+        wd = w.detach().requires_grad_()
+        ops = compile_operands(wd)
+    cot = ucomp_backward_dense(*(o.detach() for o in ops), ld, last, gr, gi)
+    (wbar,) = torch.autograd.grad(ops, wd, cot)
+    return wbar
+
+
+# ── the kernels ──────────────────────────────────────────────────────────────
+
+def _check(named, device):
+    for name, t, shape in named:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, w on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_weights(w, ld, last):
+    """(nb, n) of weights w (nb·ld, 3, n) on the card; raises on anything
+    the kernels do not take."""
+    if w.dim() != 3 or w.shape[1] != 3:
+        raise ValueError(f"w must be (S, 3, n), got {tuple(w.shape)}")
+    s, _, n = w.shape
+    if not 1 <= n <= MAX_QUBITS:
+        raise ValueError(f"the compile kernels take 1..{MAX_QUBITS} qubits, "
+                         f"got {n}")
+    if ld < 1 or s < ld or s % ld:
+        raise ValueError(f"{s} sublayers do not make blocks of {ld}")
+    nb = s // ld
+    if nb > 65535:
+        raise ValueError(f"{nb} blocks are too many for one launch")
+    if not -1 <= last < nb:
+        raise ValueError(f"last must be -1 or a block index < {nb}, got "
+                         f"{last}")
+    _check((('w', w, (s, 3, n)),), w.device)
+    if w.device.type != 'cuda':
+        raise ValueError(f"the compile kernels take CUDA tensors, got "
+                         f"{w.device}; ucomp_weights_dense is the plain "
+                         f"version")
+    return nb, n
+
+
+def _raise_on(lib, err, what):
+    if err:
+        raise RuntimeError(
+            f"{what} launch failed: "
+            f"{lib.ucomp_error_string(err).decode()} (cudaError {err})")
+
+
+def _launch(device, fn):
+    """fn() with ``device`` current, entering its context only when it is
+    not."""
+    if torch.cuda.current_device() == device.index:
+        return fn()
+    with torch.cuda.device(device):
+        return fn()
+
+
+def ucomp_forward(w, ld, last):
+    """B4f on CUDA tensors: w (nb·ld, 3, n) -> (mt_r, mt_i), each
+    (nb, D, D)."""
+    global launches
+    nb, n = _check_weights(w, ld, last)
+    dim, dev = 2 ** n, w.device
+    mt_r = torch.empty((nb, dim, dim), dtype=torch.float32, device=dev)
+    mt_i = torch.empty((nb, dim, dim), dtype=torch.float32, device=dev)
+    geo = ucomp_geometry(dim, nb, sm_count(dev.index))
+    lib = _lib()
+    err = _launch(dev, lambda: lib.ucomp_forward(
+        w.data_ptr(), mt_r.data_ptr(), mt_i.data_ptr(), n, nb, ld, last,
+        geo.warps, geo.ctas, torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(lib, err, 'ucomp_forward')
+    launches += 1
+    return mt_r, mt_i
+
+
+def ucomp_backward(w, ld, last, gr, gi):
+    """B4b on CUDA tensors: the cotangent (gr, gi) of (mt_r, mt_i) -> w̄
+    (nb·ld, 3, n).  Deterministic: two calls on equal inputs give equal
+    bits."""
+    global bwd_launches
+    nb, n = _check_weights(w, ld, last)
+    dim, dev = 2 ** n, w.device
+    _check((('gr', gr, (nb, dim, dim)), ('gi', gi, (nb, dim, dim))), dev)
+    geo = ucomp_geometry(dim, nb, sm_count(dev.index), backward=True)
+    wbar = torch.empty_like(w)
+    part = (torch.empty((nb, geo.ctas, ld * 3 * n), dtype=torch.float32,
+                        device=dev) if geo.ctas > 1 else None)
+    lib = _lib()
+    err = _launch(dev, lambda: lib.ucomp_backward(
+        w.data_ptr(), gr.data_ptr(), gi.data_ptr(),
+        None if part is None else part.data_ptr(), wbar.data_ptr(), n, nb,
+        ld, last, geo.warps, geo.ctas,
+        torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(lib, err, 'ucomp_backward')
+    bwd_launches += 1
+    return wbar
+
+
+class UComp(torch.autograd.Function):
+    """w -> (mt_r, mt_i) with B4b as its gradient (the counterpart of
+    pallas_ucomp._make_ucomp with the elementwise build inside).  On CPU
+    tensors both passes are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, w, ld, last):
+        ctx.save_for_backward(w)
+        ctx.ld, ctx.last = ld, last
+        if w.device.type == 'cpu':
+            return ucomp_weights_dense(w, ld, last)
+        return ucomp_forward(w, ld, last)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        (w,) = ctx.saved_tensors
+        if w.device.type == 'cpu':
+            wbar = ucomp_weights_backward_dense(w, ctx.ld, ctx.last, gr, gi)
+        else:
+            wbar = ucomp_backward(w, ctx.ld, ctx.last, gr.contiguous(),
+                                  gi.contiguous())
+        return wbar, None, None
+
+
+def ucomp(w, ld, last):
+    """w (nb·ld, 3, n) -> (mt_r, mt_i): :func:`ucomp_weights_dense`,
+    through the CUDA kernels for CUDA tensors.  w float32, contiguous."""
+    if torch.is_grad_enabled() and w.requires_grad:
+        return UComp.apply(w, ld, last)
+    if w.device.type == 'cpu':
+        return ucomp_weights_dense(w, ld, last)
+    return ucomp_forward(w, ld, last)
+
+
 def compile_block_mats(spec, weights):
     """weights (S, 3, n) -> (mt_r, mt_i), each (n_blocks, D, D) float32
     contiguous: the Hadamard-folded block matrices, transposed for
@@ -340,4 +396,4 @@ def compile_block_mats(spec, weights):
             "the compile kernel needs one uniform linear_depth >= 1 and at "
             f"most {MAX_QUBITS} qubits, got {spec}")
     ld = spec.block_configs[0][1]
-    return ucomp(*compile_operands(spec, weights), ld, spec.n_blocks - 1)
+    return ucomp(weights.contiguous(), ld, spec.n_blocks - 1)

@@ -13,7 +13,13 @@ residual, B3b with each of its launches) at Q5 Net40-2-20-2 (nb 60, d 32)
 for N = 1, 100, 1000 and 8192, Q7 Net40-2-20-2 (d 128) at N = 100 and Q7
 Net2-1-2-1 (nb 4) at N = 1000, on chip_smoke's seeded general operands,
 and their card time inside the flagship's training step through engine
-'embed'.  Weights and inputs are seeded and random.  It imports
+'embed'.  ``--kernel ucomp``: the block-matrix compile kernels (B4f, B4b
+with each of its launches) at Q5, Q6 and Q7 Net40-2-20-2 and Q3
+Net2-3-2-3, the whole compile path from the weights (host ms forward and
+forward + backward, device rows, card time; a checkout whose kernels take
+the operands runs ``compile_operands`` first), and the flagship's training
+step at batch 100 with ``USE_UCOMP`` off and on, in turns.  Weights and
+inputs are seeded and random.  It imports
 ``chip_smoke`` and ``quanonet_torch`` from ``--root``, so two checkouts (a
 parent commit unpacked with ``git archive`` and the working tree) are
 timed by the same code.  Run it as a file, from any directory:
@@ -46,6 +52,14 @@ FUSED_CASES = (
 # (qubits, net_size, N) of the real-embedding chain
 EMBED_CASES = (*[(5, FLAGSHIP[1], n) for n in (1, 100, 1000, 8192)],
                (7, FLAGSHIP[1], 100), (7, (2, 1, 2, 1), 1000))
+# (qubits, net_size) of the block-matrix compile
+UCOMP_CASES = ((5, FLAGSHIP[1]), (6, FLAGSHIP[1]), (7, FLAGSHIP[1]),
+               (3, (2, 3, 2, 3)))
+# launch geometries of the compile kernels that --tile picks: (forward warps
+# a CTA, backward warps a CTA, backward CTAs a block); the forward gives
+# every warp one row group, the CTAs a block are capped at what the rows fill
+UCOMP_GEOMETRIES = ((1, 8, 4), (2, 8, 4), (4, 8, 4), (8, 16, 2),
+                    (16, 16, 1), (4, 8, 1), (4, 4, 8), (4, 8, 2))
 
 
 def _use_root(root):
@@ -276,6 +290,145 @@ def embed_step_kernels(root, steps=20):
                                         or 'sum_splits' in k}}
 
 
+def compile_path(mats, spec, w, g, host_ms, profiled):
+    """The compile path ``mats(spec, w) -> (mt_r, mt_i)`` from the weights
+    as the engine takes it, forward and forward + backward under the
+    cotangent g (no loss of its own): host clock with a synchronise
+    (``host_ms``), and under the profiler (``profiled``) the device rows of
+    one forward + backward, the card's busy time and its top rows."""
+    import torch
+    wg = w.clone().requires_grad_()
+
+    def fwd_bwd():
+        torch.autograd.grad(mats(spec, wg), wg, g)
+
+    with torch.no_grad():
+        out = {"forward_ms": host_ms(lambda: mats(spec, w))}
+    out["forward_backward_ms"] = host_ms(fwd_bwd)
+    prof = profiled(fwd_bwd)
+    out["device_rows"] = prof.get("device_kernels_per_step")
+    out["device_busy_ms"] = (prof["device_busy_ms"] / prof["profiled_steps"]
+                             if "device_busy_ms" in prof else None)
+    out["top_device_ms"] = prof.get("top_device_ms_per_step")
+    return out
+
+
+def _ucomp_kernels(cu, spec, w, ld, last, g):
+    """fwd(), bwd() of the checkout's compile kernels: from the weights
+    where it has that contract, else from the operands of its
+    ``compile_operands(spec, w)``, built once outside the timed calls."""
+    if hasattr(cu, 'ucomp_weights_dense'):
+        return (lambda: cu.ucomp_forward(w, ld, last),
+                lambda: cu.ucomp_backward(w, ld, last, *g))
+    ops = cu.compile_operands(spec, w)
+    return (lambda: cu.ucomp_forward(*ops, ld, last),
+            lambda: cu.ucomp_backward(*ops, ld, last, *g))
+
+
+def time_ucomp(root, reps, tile=None, cases=UCOMP_CASES):
+    """Rows of times of the block-matrix compile kernels of the checkout
+    at ``root`` and of its whole compile path, one per case of ``cases``;
+    bounds where the checkout's ``chip_smoke.ucomp_counts`` counts the gate
+    form.  With ``tile``, row ``tile`` of UCOMP_GEOMETRIES in place of
+    ``ucomp_geometry``'s choice, and the kernels alone."""
+    _use_root(root)
+    import numpy as np
+    import torch
+    import chip_smoke
+    from quanonet_torch.ops import cuda_ucomp, hea
+    if not torch.cuda.is_available():
+        raise SystemExit("time_chain: no CUDA device")
+    if tile is not None:
+        fw, bw, bc = UCOMP_GEOMETRIES[tile]
+
+        def forced(dim, nb, sms, backward=False):
+            groups = cuda_ucomp.row_groups(dim)
+            warps = min(bw if backward else fw, groups)
+            most = -(-groups // warps)
+            return cuda_ucomp.Geometry(warps, min(bc, most) if backward
+                                       else most)
+        cuda_ucomp.ucomp_geometry = forced
+    dev = torch.device('cuda')
+    rows = []
+    for nq, net in cases:
+        spec = hea.quanonet_spec(nq, net)
+        nb, d, ld = spec.n_blocks, spec.dim, spec.block_configs[0][1]
+        rng = np.random.RandomState(7000 + 10 * nq + nb)
+        w = torch.tensor(rng.uniform(-np.pi, np.pi, spec.weight_shape())
+                         .astype(np.float32), device=dev)
+        g = [torch.tensor(rng.randn(nb, d, d).astype(np.float32), device=dev)
+             for _ in range(2)]
+        fwd, bwd = _ucomp_kernels(cuda_ucomp, spec, w, ld, nb - 1, g)
+        row = {"nq": nq, "net": list(net), "nb": nb, "ld": ld, "D": d,
+               "fwd_ms": chip_smoke.time_ms(fwd, reps),
+               "fwd_device_ms": chip_smoke.kernel_device_ms(fwd, 'ucomp_fwd'),
+               "bwd_ms": chip_smoke.time_ms(bwd, reps),
+               # every launch of the backward, each also on its own
+               "bwd_device_ms": chip_smoke.kernel_device_ms(bwd, 'ucomp_bwd'),
+               "bwd_device_ms_by_kernel": chip_smoke._profiled(
+                   bwd, 20, 'ucomp_bwd').get("top_device_ms_per_step"),
+               "fwd_bound_ms": None, "bwd_bound_ms": None}
+        if tile is None:
+            row["path"] = compile_path(cuda_ucomp.compile_block_mats, spec, w,
+                                       g, chip_smoke.host_ms,
+                                       chip_smoke._profiled)
+        counts = chip_smoke.ucomp_counts(nb, ld, d, nq)
+        if isinstance(counts, dict):
+            row["fwd_bound_ms"] = chip_smoke._bound(
+                counts["fwd_flops"], counts["fwd_bytes"])[0]
+            row["bwd_bound_ms"] = chip_smoke._bound(
+                counts["bwd_flops"], counts["bwd_bytes"])[0]
+        if hasattr(cuda_ucomp, 'ucomp_geometry'):
+            sms = cuda_ucomp.sm_count(dev.index)
+            row["geometry"] = {
+                "fwd": cuda_ucomp.ucomp_geometry(d, nb, sms)._asdict(),
+                "bwd": cuda_ucomp.ucomp_geometry(
+                    d, nb, sms, backward=True)._asdict()}
+        rows.append(row)
+        print(json.dumps({"case": f"Q{nq} nb={nb}", **row}), flush=True)
+    return rows
+
+
+def ucomp_step(root):
+    """The flagship's training step at batch 100 with ``USE_UCOMP`` off
+    and on, in turns (``chip_smoke._arms_in_turns`` of the checkout at
+    ``root``): step ms, device rows a step, the card's busy time."""
+    _use_root(root)
+    import numpy as np
+    import torch
+    import chip_smoke
+    from quanonet_torch.ops import cuda_hea
+    dev = torch.device('cuda')
+    rng = np.random.RandomState(0)
+    b, t, y = (torch.as_tensor(a.astype(np.float32), device=dev) for a in (
+        rng.randn(100, 100), rng.rand(100, 2), rng.randn(100, 1)))
+    arms = {}
+    for name, on in (('default', False), ('ucomp', True)):
+        model = chip_smoke._flagship_model(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+
+        def step(model=model, opt=opt, on=on):
+            cuda_hea.USE_UCOMP = on
+            try:
+                loss = ((model(b, t) - y) ** 2).mean()
+                opt.zero_grad()
+                loss.backward()
+                opt.step()
+            finally:
+                cuda_hea.USE_UCOMP = False
+        arms[name] = step
+    out = chip_smoke._arms_in_turns(arms)
+    for arm in out.values():
+        arm.pop("top_device_ms_per_step", None)
+    return out
+
+
+def _median(vals):
+    import numpy as np
+    vals = [v for v in vals if v is not None]
+    return float(np.median(vals)) if vals else None
+
+
 def summarize(paths):
     """Median over the runs of each label, one line per (label, N)."""
     import numpy as np
@@ -299,38 +452,52 @@ def summarize(paths):
                 med["bwd_device_ms_by_kernel"] = {
                     name: float(np.median([d.get(name, 0.0) for d in split]))
                     for name in split[0]}
-            where = (f"Q{row['nq']} " if "nq" in row else "") + (
-                f"Net{'-'.join(map(str, row['net']))} " if "net" in row
-                else "") + f"N={row['N']}"
+            if "path" in row:
+                med["path"] = {k: _median([m["rows"][i]["path"].get(k)
+                                           for m in mine])
+                               for k in ("forward_ms", "forward_backward_ms",
+                                         "device_rows", "device_busy_ms")}
+            where = " ".join(
+                ([f"Q{row['nq']}"] if "nq" in row else [])
+                + ([f"Net{'-'.join(map(str, row['net']))}"] if "net" in row
+                   else [])
+                + ([f"N={row['N']}"] if "N" in row else []))
             out[f"{label} {where}"] = {
                 "runs": len(mine), **med,
                 "fwd_bound_ms": row["fwd_bound_ms"],
                 "bwd_bound_ms": row.get("bwd_bound_ms")}
-        steps = [m["step"]["embed_chain_ms_per_step"] for m in mine
-                 if m.get("step")]
-        if steps:
+        steps = [m["step"] for m in mine if m.get("step")]
+        if steps and "embed_chain_ms_per_step" in steps[0]:
+            steps = [st["embed_chain_ms_per_step"] for st in steps]
             out[f"{label} step"] = {
                 name: float(np.median([d.get(name, 0.0) for d in steps]))
                 for name in steps[0]}
+        elif steps:
+            out[f"{label} step"] = {
+                arm: {k: _median([st[arm][k] for st in steps])
+                      for k in ("step_ms", "device_rows_per_step",
+                                "device_busy_ms_per_step")}
+                for arm in steps[0]}
     return out
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('--root', default='.', help='checkout whose kernels to time')
-    p.add_argument('--kernel', choices=('block', 'fused', 'embed'),
+    p.add_argument('--kernel', choices=('block', 'fused', 'embed', 'ucomp'),
                    default='block',
                    help='the block-chain kernels (B1), the fused-group '
-                        'chain kernels (B2) or the real-embedding chain '
-                        'kernels (B3)')
+                        'chain kernels (B2), the real-embedding chain '
+                        'kernels (B3) or the block-matrix compile kernels '
+                        '(B4)')
     p.add_argument('--label', default='tree')
     p.add_argument('--out', default=None, help='JSON file to write')
     p.add_argument('--ns', type=int, nargs='+', default=list(NS))
     p.add_argument('--reps', type=int, default=30)
     p.add_argument('--tile', type=int, default=None,
                    help="time this row of cuda_hea.TILES (cuda_embed.TILES "
-                        "with --kernel embed) instead of the geometry "
-                        "function's choice")
+                        "with --kernel embed, UCOMP_GEOMETRIES with --kernel "
+                        "ucomp) instead of the geometry function's choice")
     p.add_argument('--summarize', nargs='+', default=None, metavar='JSON',
                    help='print the medians of earlier runs and exit')
     args = p.parse_args(argv)
@@ -346,12 +513,16 @@ def main(argv=None):
         rows = time_fused(root, args.reps)
     elif args.kernel == 'embed':
         rows = time_embed(root, args.reps, args.tile)
+    elif args.kernel == 'ucomp':
+        rows = time_ucomp(root, args.reps, args.tile)
     else:
         rows = time_checkout(root, args.ns, args.reps, args.tile)
     result = {"label": args.label, "root": args.root, "nvidia_smi": smi,
               "kernel": args.kernel, "tile": args.tile, "rows": rows}
     if args.kernel == 'embed':
         result["step"] = embed_step_kernels(root)
+    elif args.kernel == 'ucomp' and args.tile is None:
+        result["step"] = ucomp_step(root)
     print(json.dumps(result))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,7 +1,7 @@
 // A CPU stand-in for the parts of the CUDA runtime and device code that
-// quanonet_torch/csrc/fused_chain.cu and embed_chain.cu use, so that their
-// kernels can run on the CPU in tests (tests/test_torch_port_fused_emulated
-// .py, tests/test_torch_port_embed_emulated.py): each CUDA
+// quanonet_torch/csrc/fused_chain.cu, embed_chain.cu and ucomp.cu use, so
+// that their kernels can run on the CPU in tests (tests/test_torch_port_
+// fused_emulated.py, _embed_emulated.py, _ucomp_emulated.py): each CUDA
 // thread a user-level context (ucontext) on one OS thread, switched at
 // __syncthreads and at the warp shuffles and MMAs, the blocks of a grid one
 // after another, one shared-memory array per launch.  The test replaces the source's inline-PTX helpers
@@ -73,6 +73,7 @@ alignas(16) inline float gsm[232448 / 4 + 64];
 struct Fiber {
   ucontext_t ctx;
   int wait = 0;      // 0 runnable, 1 at the block barrier, 2 at its warp's
+  int shfl = 0;      // which of the two shuffle buffers the next shuffle uses
   bool done = false;
 };
 inline std::vector<Fiber> g_fibers;
@@ -81,6 +82,7 @@ inline ucontext_t g_sched;
 inline int g_cur = 0, g_block_arrived = 0;
 inline int g_warp_arrived[64];
 inline float g_warp_buf[64][32][8];
+inline float g_shfl_buf[2][64][32];
 
 inline void yield_to_scheduler() {
   swapcontext(&g_fibers[g_cur].ctx, &g_sched);
@@ -107,17 +109,27 @@ inline void warp_sync() {
   yield_to_scheduler();
 }
 
+// A shuffle: each lane posts its value, the warp meets, each lane reads
+// its source's.  Shuffles alternate between two buffers, so one meeting
+// each will do: a lane posts into a buffer again only two shuffles later,
+// past a meeting that every lane reaches after its read of this one.
 inline float shfl_from(float v, int src, bool keep) {
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  g_warp_buf[w][l][0] = v;
+  int& b = g_fibers[g_cur].shfl;
+  g_shfl_buf[b][w][l] = v;
   warp_sync();
-  const float r = keep ? v : g_warp_buf[w][src][0];
-  warp_sync();
+  const float r = keep ? v : g_shfl_buf[b][w][src];
+  b ^= 1;
   return r;
 }
 inline float __shfl_xor_sync(unsigned, float v, int s) {
   return shfl_from(v, (threadIdx.x & 31) ^ s, false);
 }
+inline float __shfl_sync(unsigned, float v, int src) {
+  return shfl_from(v, src & 31, false);
+}
+inline void __syncwarp() { warp_sync(); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline float __shfl_down_sync(unsigned, float v, int s) {
   const int src = (threadIdx.x & 31) + s;
   return shfl_from(v, src, src >= 32);

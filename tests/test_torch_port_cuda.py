@@ -351,61 +351,60 @@ UCOMP_CASES = [      # (qubits, block configs or net_size)
 ]
 
 
-def _ucomp_operands(nq, net, seed, device):
-    from quanonet_torch.ops import cuda_ucomp
+def _ucomp_weights(nq, net, seed, device):
     spec = (hea.HEASpec(nq, net) if isinstance(net[0], tuple)
             else hea.quanonet_spec(nq, net))
     rng = np.random.RandomState(seed)
     w = torch.tensor(rng.uniform(-np.pi, np.pi, spec.weight_shape())
                      .astype(np.float32), device=device)
-    ops = cuda_ucomp.compile_operands(spec, w)
-    return spec, w, ops, spec.block_configs[0][1], rng
+    return spec, w, spec.block_configs[0][1], rng
 
 
 @pytest.mark.parametrize("nq,net", UCOMP_CASES)
 def test_ucomp_kernels_match_plain(card, nq, net):
-    """B4f against ucomp_dense (2e-5) and B4b against ucomp_backward_dense
-    (1e-4 x max(1, max|plain|): another order of products); two backward
-    calls give equal bits; the forward equals the autograd fold."""
+    """B4f against the plain forward from the weights (2e-5) and B4b's w̄
+    against the plain weight backward (1e-4 x max(1, max|plain|): gate
+    passes against products, another order); two backward calls give equal
+    bits; the forward equals the autograd fold."""
     from quanonet_torch.ops import cuda_ucomp
-    spec, w, ops, ld, rng = _ucomp_operands(nq, net, 20 + nq, card)
+    spec, w, ld, rng = _ucomp_weights(nq, net, 20 + nq, card)
     last = spec.n_blocks - 1
     before = (cuda_ucomp.launches, cuda_ucomp.bwd_launches)
-    got = cuda_ucomp.ucomp_forward(*ops, ld, last)
+    got = cuda_ucomp.ucomp_forward(w, ld, last)
     g = [torch.tensor(rng.randn(spec.n_blocks, spec.dim, spec.dim)
                       .astype(np.float32), device=card) for _ in range(2)]
-    bwd = cuda_ucomp.ucomp_backward(*ops, ld, last, *g)
-    again = cuda_ucomp.ucomp_backward(*ops, ld, last, *g)
+    bwd = cuda_ucomp.ucomp_backward(w, ld, last, *g)
+    again = cuda_ucomp.ucomp_backward(w, ld, last, *g)
     torch.cuda.synchronize()
     assert (cuda_ucomp.launches, cuda_ucomp.bwd_launches) == (
         before[0] + 1, before[1] + 2)
-    for a, b in zip(got, cuda_ucomp.ucomp_dense(*ops, ld, last)):
+    for a, b in zip(got, cuda_ucomp.ucomp_weights_dense(w, ld, last)):
         assert a.shape == b.shape and a.is_contiguous()
         assert (a - b).abs().max().item() <= 2e-5
     for a, b in zip(got, hea.fold_block_mats(spec, w)):
         assert (a - b).abs().max().item() <= 2e-5
-    want = cuda_ucomp.ucomp_backward_dense(*ops, ld, last, *g)
-    for a, b in zip(bwd, want):
-        assert a.shape == b.shape
-        assert (a - b).abs().max().item() <= _bwd_tol(b)
-    assert all(torch.equal(a, b) for a, b in zip(bwd, again))
+    want = cuda_ucomp.ucomp_weights_backward_dense(w, ld, last, *g)
+    assert bwd.shape == want.shape == w.shape
+    assert (bwd - want).abs().max().item() <= _bwd_tol(want)
+    assert torch.equal(bwd, again)
     # a block that is not the last takes H on the right
-    mid = cuda_ucomp.ucomp_forward(*ops, ld, -1)
-    for a, b in zip(mid, cuda_ucomp.ucomp_dense(*ops, ld, -1)):
+    mid = cuda_ucomp.ucomp_forward(w, ld, -1)
+    for a, b in zip(mid, cuda_ucomp.ucomp_weights_dense(w, ld, -1)):
         assert (a - b).abs().max().item() <= 2e-5
 
 
 def test_ucomp_rejects_bad_inputs_and_trains(card, monkeypatch):
     from quanonet_torch.ops import cuda_ucomp
-    spec, w, (u1t, br, bi), ld, _ = _ucomp_operands(3, (2, 2, 2, 2), 0, card)
+    spec, w, ld, _ = _ucomp_weights(3, (2, 2, 2, 2), 0, card)
     with pytest.raises(TypeError, match='float32'):
-        cuda_ucomp.ucomp(u1t.double(), br, bi, ld, 3)
+        cuda_ucomp.ucomp(w.double(), ld, 3)
     with pytest.raises(ValueError, match='contiguous'):
-        cuda_ucomp.ucomp(u1t, br.transpose(1, 2), bi, ld, 3)
+        cuda_ucomp.ucomp(w.permute(2, 1, 0).contiguous().permute(2, 1, 0),
+                         ld, 3)
     with pytest.raises(ValueError, match='blocks of'):
-        cuda_ucomp.ucomp(u1t[:3], br[:3], bi[:3], ld, 0)
+        cuda_ucomp.ucomp(w[:3], ld, 0)
     with pytest.raises(ValueError, match='last'):
-        cuda_ucomp.ucomp(u1t, br, bi, ld, 4)
+        cuda_ucomp.ucomp(w, ld, 4)
     # with USE_UCOMP on, the 'pallas' engine's gradient goes through both
     # compile kernels and equals the default path's
     monkeypatch.setattr(cuda_hea, 'USE_UCOMP', True)

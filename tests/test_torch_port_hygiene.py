@@ -95,18 +95,18 @@ def test_new_kernel_wrappers_raise_on_cpu_tensors():
     assert torch.equal(cuda_embed.embed_chain(e, t),
                        cuda_embed.chain_embed(e, t))
     assert (cuda_embed.launches, cuda_embed.bwd_launches) == counts
-    ops = [torch.eye(4).repeat(2, 1, 1) for _ in range(3)]
+    w, g = torch.ones(2, 3, 2), torch.zeros(2, 4, 4)
     before = (cuda_ucomp.launches, cuda_ucomp.bwd_launches, cuda_adam.launches)
     with pytest.raises(ValueError, match='CUDA tensors'):
-        cuda_ucomp.ucomp_forward(*ops, 1, 1)
+        cuda_ucomp.ucomp_forward(w, 1, 1)
     with pytest.raises(ValueError, match='CUDA tensors'):
-        cuda_ucomp.ucomp_backward(*ops, 1, 1, ops[0], ops[0])
+        cuda_ucomp.ucomp_backward(w, 1, 1, g, g)
     leaf = [torch.ones(3)]
     with pytest.raises(ValueError, match='CUDA leaves'):
         cuda_adam.adam_step(leaf, leaf, [torch.zeros(3)], [torch.zeros(3)],
                             0.1, 1)
-    got = cuda_ucomp.ucomp(*ops, 1, 1)
-    want = cuda_ucomp.ucomp_dense(*ops, 1, 1)
+    got = cuda_ucomp.ucomp(w, 1, 1)
+    want = cuda_ucomp.ucomp_weights_dense(w, 1, 1)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert (cuda_ucomp.launches, cuda_ucomp.bwd_launches,
             cuda_adam.launches) == before

@@ -105,13 +105,42 @@ def test_backward_dense_matches_autograd(nq, ld, nb, last):
     for a, b in zip(got, want):
         tol = 1e-5 * max(1.0, b.abs().max().item())
         assert (a - b).abs().max().item() <= tol
-    # the wrapper on CPU tensors: the plain versions, and no launch
+    # the wrapper on CPU weights: the plain versions, and no launch
+    w = torch.tensor(np.random.RandomState(nq).uniform(
+        -np.pi, np.pi, (nb * ld, 3, nq)).astype(np.float32),
+        requires_grad=True)
     before = (cuda_ucomp.launches, cuda_ucomp.bwd_launches)
-    out = cuda_ucomp.ucomp(*ops, ld, last)
-    via = torch.autograd.grad((out[0] * ct[0]).sum() + (out[1] * ct[1]).sum(),
-                              ops)
-    assert all(torch.equal(a, b) for a, b in zip(via, got))
+    out = cuda_ucomp.ucomp(w, ld, last)
+    (via,) = torch.autograd.grad(
+        (out[0] * ct[0]).sum() + (out[1] * ct[1]).sum(), w)
+    with torch.no_grad():
+        assert all(torch.equal(a, b) for a, b in zip(
+            out, cuda_ucomp.ucomp_weights_dense(w, ld, last)))
+        assert torch.equal(via, cuda_ucomp.ucomp_weights_backward_dense(
+            w, ld, last, *ct))
     assert (cuda_ucomp.launches, cuda_ucomp.bwd_launches) == before
+
+
+@pytest.mark.parametrize("nq,ld,nb,last", [(2, 1, 3, 2), (3, 3, 2, 1),
+                                           (4, 2, 4, -1), (3, 2, 1, 0),
+                                           (7, 2, 2, 1)])
+def test_weight_backward_dense_matches_autograd(nq, ld, nb, last):
+    """The plain weight backward (ucomp_backward_dense's operand
+    cotangents carried through compile_operands' VJP) against autograd of
+    the plain forward (ucomp_dense of compile_operands), D = 128 included
+    (1e-5 x max(1, max|.|): two fp32 orders of the same products)."""
+    rng = np.random.RandomState(10 + nq)
+    w = torch.tensor(rng.uniform(-np.pi, np.pi, (nb * ld, 3, nq))
+                     .astype(np.float32), requires_grad=True)
+    dim = 2 ** nq
+    ct = [torch.tensor(rng.randn(nb, dim, dim).astype(np.float32))
+          for _ in range(2)]
+    mr, mi = cuda_ucomp.ucomp_dense(*cuda_ucomp.compile_operands(w), ld, last)
+    (want,) = torch.autograd.grad((mr * ct[0]).sum() + (mi * ct[1]).sum(), w)
+    got = cuda_ucomp.ucomp_weights_backward_dense(w.detach(), ld, last, *ct)
+    assert got.shape == w.shape and got.dtype == torch.float32
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
 
 
 def test_applicability():
