@@ -28,7 +28,8 @@ Phases, each printed as one JSON line:
              one POST /predict over loopback; checks against the JAX
              package's predictions (tests/fixtures/
              torch_port_advection_anchor.npz, atol 1e-4) and the plain
-             engine, and that the kernel's launch count went up.  Then,
+             engine, and that the chain kernel and the compile kernel B4f
+             (the default route on `cuda`) were launched.  Then,
              outside that counted window, where the time of the smallest
              and largest bucket goes (request, forward, chain operands,
              kernel).
@@ -42,16 +43,19 @@ Phases, each printed as one JSON line:
              8192 the time on the card alone of all the backward's launches
              and of the residual forward.
 6. train_parity — 20 Adam steps of the flagship on `cuda` from one
-             initial state, engine 'pallas' (the kernels) against 'dense'
-             (autograd of the plain chain), on the same batches: per-step
-             losses to 1e-4 relative, parameters to PARITY_PARAM_TOL.
+             initial state on the default path (the compile kernels),
+             engine 'pallas' (the kernels) against
+             'dense' (autograd of the plain chain), on the same batches:
+             per-step losses to 1e-4 relative, parameters to
+             PARITY_PARAM_TOL; B4f and B4b launched once a step.
 7. train   — the training path: the quick regime of the port's bench
              (python -m quanonet_torch.bench --quick) for seeds 0, 1, 2,
              each seed's rel-L2 held to the band fixed from the JAX
              package's CPU run (QUICK_BAND_REL_L2), then one epoch of the
              training CLI at flagship width into a temporary --prefix,
              whose best_model.ckpt infer.load_model must reproduce; both
-             kernels must have been launched.  Then, outside that counted
+             chain kernels, B4f and B4b must have been launched (B5, the
+             opt-in Adam, not).  Then, outside that counted
              window, where one training step's time goes at batch 100
              (train_breakdown: host clock, CUDA events, a torch.profiler
              window for the device's busy share).
@@ -93,24 +97,34 @@ Phases, each printed as one JSON line:
              costs, and at the flagship the compile path against the
              autograd fold it replaces (hea.fold_block_mats): host ms and
              device rows of each (compile_path).
-14. kernel_adam — the one-launch Adam (csrc/adam.cu) against
-             adam_step_dense on the flagship's six leaves over 25 steps
-             (atol 2e-6, rtol 1e-5), two runs bit-equal, its time and
-             bound, and torch.optim.Adam(fused=True) as the yardstick.
-15. train_parity_ucomp — 20 Adam steps of the flagship with USE_UCOMP on
-             and FusedAdam against train_parity's default run (the fold
-             and torch.optim.Adam) on the same batches.
+14. kernel_adam — the one-launch Adam (csrc/adam.cu) through FusedAdam,
+             its rates from the card's table, against adam_step_dense on
+             the flagship's six leaves over 25 steps (atol 2e-6, rtol
+             1e-5), two runs bit-equal, the device count 25 after; one
+             step's events, host and card ms and bound, and
+             torch.optim.Adam(fused=True) as the yardstick.
+15. train_parity_ucomp — 20 Adam steps of the flagship with the compile
+             kernels and FusedAdam (its rate table from the schedule)
+             against train_parity's default run on the same batches; the
+             compile kernels and B5 launched once a step.  Then
+             train_parity_fold: the same on the fold with torch.optim.Adam
+             (the route before the compile kernels), no compile or Adam
+             kernel launched.
 16. profile_step — quanonet_torch.profile_step.main at full width on
-             `cuda`, twice: the default path (the compile and Adam kernels
-             must stay unlaunched), then USE_UCOMP on with --fused_adam
-             (B1f, B1b, B4f, B4b and B5 all launched).  Then, outside the
-             counted windows, the step at batch 100 in four arms (default,
-             +ucomp, +fused Adam, both), interleaved in one process:
-             step_ms, device rows a step and the card's busy share.
+             `cuda`, twice: the fold (USE_UCOMP off; the compile and Adam
+             kernels must stay unlaunched), then USE_UCOMP on with
+             --fused_adam (B1f, B1b, B4f, B4b and B5 all launched).  Then,
+             outside the counted windows, step_arms: the step at batch 100
+             in five arms interleaved in one process (fold, +ucomp, +fused
+             Adam, both, and the default: USE_UCOMP unset with the
+             solver's optimizer, at most half the fold's step; both must
+             beat ucomp in every round before FusedAdam may become the
+             solver's adam): step_ms, device rows a step and the card's
+             busy share.
 17. serve_ucomp — the Advection anchor through load_model -> Predictor ->
              HTTP with USE_UCOMP on: the JAX fixture within 1e-4, the
              compile kernel's count up; then buckets 1 and 8192 with the
-             toggle on and off, in turns.
+             compile kernels and with the fold, in turns.
 
 18. kernel_embed — the real-embedding chain kernels (csrc/embed_chain.cu):
              the forward, primal and residual, against chain_embed /
@@ -145,7 +159,11 @@ Phases, each printed as one JSON line:
              products.
 
 Each path (serve, train, train_q10, serve_q10, profile_step, serve_ucomp,
-train_embed, serve_embed) starts with every launch count at 0 and reads them when it ends.  Then the {"kernels": [...]} line,
+train_embed, serve_embed) starts with every launch count at 0 and reads
+them when it ends.  A card time ("device_ms") comes from a warmed profiler
+window (each kernel's mean over the rows it kept), else from the launches
+queued back to back behind a sleep (kernel_device_ms); the run's count of
+each source is the device_time_sources line.  Then the {"kernels": [...]} line,
 the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failed
 check exits non-zero before the last line.  Needs one card; exits 1
 without CUDA.
@@ -153,6 +171,7 @@ without CUDA.
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 import shutil
 import subprocess
 import sys
@@ -179,6 +198,7 @@ from quanonet_torch.ops.hamiltonian import simple_ham_diag
 from quanonet_torch.serve import Predictor, make_server
 from quanonet_torch.solver import (
     ScheduledOptimizer, _decay_tuple_schedule, epoch_permutation,
+    build_optimizer,
 )
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -440,7 +460,8 @@ def phase_serve():
     code, resp, stopped = _http_predict(pred, fb, ft)
     http_err = float(np.abs(np.asarray(resp['pred']) - fpred).max())
     torch.cuda.synchronize()
-    launches = cuda_hea.launches     # ... and ends here
+    counts = _counts()               # ... and ends here
+    launches = counts["hea_chain_fwd"]
     emit({"phase": "serve", "ckpt": os.path.relpath(ANCHOR, REPO),
           "engine": pred.cfg['engine'], "load_and_warmup_s": load_s,
           "warmup_s": warm_s, "bucket_latency_ms": bucket_ms,
@@ -448,7 +469,7 @@ def phase_serve():
           "request_max_abs_err_vs_plain": req_err,
           "fixture_max_abs_err": fix_err, "http_status": code,
           "http_buckets": resp['buckets'], "http_max_abs_err": http_err,
-          "kernel_launches": launches})
+          "kernel_launches": launches, "launches": counts})
     check(max(req_err) <= SERVE_TOL,
           f"served requests differ from the plain engine by {req_err}")
     check(fix_err <= SERVE_TOL,
@@ -456,11 +477,13 @@ def phase_serve():
     check(code == 200 and http_err <= SERVE_TOL,
           f"HTTP /predict: status {code}, error {http_err}")
     check(launches > 0, "the served path launched no kernel")
+    check(counts["ucomp_fwd"] > 0 and counts["ucomp_bwd"] == 0,
+          f"serve: the default path on cuda takes B4f alone: {counts}")
     check(stopped, "server thread did not stop")
     for rows in (1, 8192):
         emit({"phase": "serve_breakdown", "rows": rows,
               **serve_breakdown(pred, rows)})
-    return launches
+    return counts
 
 
 def host_ms(fn, reps=20):
@@ -633,11 +656,12 @@ def _parity_steps(model, opt, inputs, target, idx):
 
 
 def phase_train_parity():
-    """20 Adam steps, kernels against autograd of the plain chain; returns
-    the kernels' run (losses, parameters)."""
+    """20 Adam steps of the default path on `cuda` (the compile kernels),
+    kernels against autograd of the plain chain; returns the kernels' run
+    (losses, parameters)."""
     dev = torch.device('cuda')
     inputs, target, idx, schedule = _parity_batches(dev)
-    runs = {}
+    runs, counts = {}, {}
     for engine in ('pallas', 'dense'):
         model = QuanONet(5, 100, 2, (40, 2, 20, 2), scale_coeff=0.1,
                          engine=engine, device=dev,
@@ -645,7 +669,9 @@ def phase_train_parity():
         init = {k: v.detach().clone() for k, v in model.state_dict().items()}
         opt = ScheduledOptimizer(torch.optim.Adam(model.parameters()),
                                  schedule)
+        _zero_counts()
         runs[engine] = _parity_steps(model, opt, inputs, target, idx)
+        counts[engine] = _counts()
     (lk, pk), (ld, pd) = runs['pallas'], runs['dense']
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, ld))
     param_err = max((pk[k] - pd[k]).abs().max().item() for k in pk)
@@ -653,11 +679,15 @@ def phase_train_parity():
     emit({"phase": "train_parity", "steps": PARITY_STEPS,
           "losses_pallas": lk, "losses_dense": ld,
           "max_loss_rel_diff": loss_rel, "max_param_abs_diff": param_err,
-          "max_param_moved": moved})
+          "max_param_moved": moved, "launches": counts})
     check(loss_rel <= PARITY_LOSS_RTOL,
           f"train_parity: step losses differ by {loss_rel} relative")
     check(param_err <= PARITY_PARAM_TOL,
           f"train_parity: parameters differ by {param_err}")
+    on = counts['pallas']
+    check(on["ucomp_fwd"] == on["ucomp_bwd"] == on["hea_chain_bwd"]
+          == PARITY_STEPS and on["adam_step"] == 0,
+          f"train_parity: the default path's launches {on}")
     return runs['pallas']
 
 
@@ -681,7 +711,8 @@ def phase_train():
         finally:
             sys.stdout = stdout       # the Solver logs stdout to its file
         torch.cuda.synchronize()
-        launches = (cuda_hea.launches, cuda_hea.bwd_launches)  # ... ends here
+        counts = _counts()                                     # ... ends here
+        launches = (counts["hea_chain_fwd"], counts["hea_chain_bwd"])
         exp_dir = solver.exp_logger.exp_dir
         with open(os.path.join(exp_dir, 'metric.json')) as f:
             metrics = json.load(f)['metrics']
@@ -697,7 +728,8 @@ def phase_train():
           "jax_quick_rel_l2": list(JAX_QUICK_REL_L2),
           "cli_run_id": solver.run_id, "cli_metrics": metrics,
           "cli_ckpt_written": written, "cli_reload_max_abs_err": cli_err,
-          "fwd_launches": launches[0], "bwd_launches": launches[1]})
+          "fwd_launches": launches[0], "bwd_launches": launches[1],
+          "launches": counts})
     for seed, rel in enumerate(result['rel_l2_runs']):
         check(np.isfinite(rel) and rel <= QUICK_BAND_REL_L2,
               f"train: seed {seed} rel-L2 {rel} outside the band "
@@ -709,7 +741,11 @@ def phase_train():
           f"train: reloaded checkpoint predicts {cli_err} off the Solver's")
     check(launches[0] > 0 and launches[1] > 0,
           f"train: kernel launches {launches}")
-    return launches, result
+    check(counts["ucomp_fwd"] > 0 and counts["ucomp_bwd"] > 0,
+          f"train: the default path on cuda takes B4f and B4b: {counts}")
+    check(counts["adam_step"] == 0,
+          f"train: the solver's adam launched B5 (opt-in): {counts}")
+    return counts, result
 
 
 def _device_us(event):
@@ -763,7 +799,8 @@ def train_breakdown(steps=20):
         "kernel_bwd_ms": time_ms(lambda: cuda_hea.chain_backward(
             *ops, fwd[2], fwd[3], g, g), steps),
     }
-    out.update(profile_steps(step, steps, profile, ProfilerActivity))
+    out.update(profile_steps(step, steps, profile, ProfilerActivity,
+                             warm=3))
     return out
 
 
@@ -1097,7 +1134,7 @@ def _counts():
 
 def phase_train_q10():
     """The training path at Q10: one epoch of the CLI (engine 'auto' ->
-    'pfused'); returns the fused kernels' launches in it."""
+    'pfused'); returns the launches in it."""
     with tempfile.TemporaryDirectory() as tmp:
         stdout = sys.stdout
         _zero_counts()                # the path starts here
@@ -1113,8 +1150,9 @@ def phase_train_q10():
         finally:
             sys.stdout = stdout
         torch.cuda.synchronize()
-        launches = (cuda_fused.launches, cuda_fused.bwd_launches)
-        other = (cuda_hea.launches, cuda_hea.bwd_launches)  # ... ends here
+        counts = _counts()            # ... and ends here
+        launches = (counts["fused_chain_fwd"], counts["fused_chain_bwd"])
+        other = (counts["hea_chain_fwd"], counts["hea_chain_bwd"])
         exp_dir = solver.exp_logger.exp_dir
         with open(os.path.join(exp_dir, 'metric.json')) as f:
             metrics = json.load(f)['metrics']
@@ -1129,7 +1167,8 @@ def phase_train_q10():
           "engine": solver.model.engine, "reload_engine": cfg['engine'],
           "cli_metrics": metrics, "cli_ckpt_written": written,
           "cli_reload_max_abs_err": cli_err, "fwd_launches": launches[0],
-          "bwd_launches": launches[1], "hea_chain_launches": list(other)})
+          "bwd_launches": launches[1], "hea_chain_launches": list(other),
+          "launches": counts})
     check(all(np.isfinite(v) for v in metrics.values()),
           f"train_q10: CLI metric.json not finite: {metrics}")
     check(all(written), "train_q10: CLI did not write best_model.ckpt/.npz")
@@ -1140,7 +1179,7 @@ def phase_train_q10():
           f"Solver's")
     check(launches[0] > 0 and launches[1] > 0,
           f"train_q10: fused kernel launches {launches}")
-    return launches
+    return counts
 
 
 def train_breakdown_q10(steps=10):
@@ -1187,26 +1226,43 @@ def train_breakdown_q10(steps=10):
         "kernel_bwd_ms": time_ms(lambda: cuda_fused.chain_backward(
             *ops, lds, fwd[2], fwd[3], g, g), steps),
     }
-    out.update(profile_steps(step, steps, profile, ProfilerActivity))
+    out.update(profile_steps(step, steps, profile, ProfilerActivity,
+                             warm=3))
     return out
 
 
-def profile_steps(step, steps, profile, activity, match=None):
+def profile_steps(step, steps, profile, activity, match=None, warm=0):
     """The card's busy share over ``steps`` calls of step() under
     torch.profiler, and the kernels that take it; with ``match``, only the
-    kernels whose name holds it."""
+    kernels whose name holds it.  With ``warm``, the window starts after
+    ``warm`` calls made under the profiler (its schedule's warm-up step):
+    a fresh window can miss the rows of its first kernels.  The device
+    rows are the card's own (kernels, copies), not the spans that
+    ``record_function`` annotations (such as ``Optimizer.step``) also get
+    on the card's timeline."""
     try:
         torch.cuda.synchronize()
-        with profile(activities=[activity.CPU, activity.CUDA]) as prof:
+        sched = ({"schedule": torch.profiler.schedule(
+            wait=0, warmup=1, active=1, repeat=1)} if warm else {})
+        with profile(activities=[activity.CPU, activity.CUDA],
+                     **sched) as prof:
+            if warm:
+                for _ in range(warm):
+                    step()
+                torch.cuda.synchronize()
+                prof.step()
             t0 = time.perf_counter()
             for _ in range(steps):
                 step()
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
+            if warm:
+                prof.step()
         # the card's own rows (kernels, copies): a CPU op's device time is
         # that of the kernels it launched, which have rows of their own
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, 'is_user_annotation', False)
                    and (match is None or match in e.key)]
         busy_us = sum(_device_us(e) for e in kernels)
         if not busy_us:
@@ -1216,7 +1272,10 @@ def profile_steps(step, steps, profile, activity, match=None):
             "profiled_steps": steps, "profiled_wall_ms": wall_us / 1e3,
             "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us,
+            "device_kernels": sum(e.count for e in kernels),
             "device_kernels_per_step": sum(e.count for e in kernels) / steps,
+            # each row's launches and card time, by kernel
+            "device_rows": [(e.count, _device_us(e) / 1e3) for e in kernels],
             "top_device_ms_per_step": {
                 e.key[:60]: _device_us(e) / 1e3 / steps for e in top}}
     except RuntimeError as e:     # the profiler is a measurement, no check
@@ -1316,6 +1375,9 @@ ADAM_ATOL, ADAM_RTOL = 2e-6, 1e-5   # the kernel contracts multiply-adds
 ADAM_STEPS = 25
 PROFILE_ITERS = 40
 ARM_ROUNDS, ARM_STEPS = 5, 20
+# step_arms' rounds are longer: its rule compares two arms ~0.3 ms apart
+# round by round, where rounds of 20 steps spread by more
+STEP_ARMS_STEPS = 100
 
 
 def ucomp_counts(nb, ld, d, n):
@@ -1355,35 +1417,59 @@ def ucomp_counts(nb, ld, d, n):
 
 def smallest_launch():
     """What one launch costs on this card when the kernel does next to
-    nothing: the Adam kernel on a single one-element leaf, per launch in a
-    back-to-back run of 200 (CUDA events) and alone with a synchronise
-    (host clock)."""
-    leaf = [torch.zeros(1, device='cuda') for _ in range(4)]
-
-    def launch():
-        cuda_adam.adam_step(leaf[:1], leaf[1:2], leaf[2:3], leaf[3:], 0.0, 1)
+    nothing: the Adam kernel bound to a single one-element leaf, per launch
+    in a back-to-back run of 200 (CUDA events) and alone with a
+    synchronise (host clock)."""
+    leaf = torch.nn.Parameter(torch.zeros(1, device='cuda'))
+    leaf.grad = torch.zeros(1, device='cuda')
+    opt = cuda_adam.fused_adam(0.0).init([leaf])
 
     def burst():
         for _ in range(200):
-            launch()
+            opt.step()
     return {"back_to_back_ms": time_ms(burst, 10) / 200,
-            "alone_with_sync_ms": host_ms(launch, 50)}
+            "alone_with_sync_ms": host_ms(opt.step, 50)}
 
 
-def _profiled(step, steps=10, match=None):
+def _profiled(step, steps=10, match=None, warm=3):
     from torch.profiler import ProfilerActivity, profile
-    return profile_steps(step, steps, profile, ProfilerActivity, match)
+    return profile_steps(step, steps, profile, ProfilerActivity, match, warm)
+
+
+# where each card time of kernel_device_ms came from, for the run's record
+DEVICE_MS_SOURCES = {"profiler": 0, "queued": 0}
 
 
 def kernel_device_ms(fn, match, reps=20):
     """Time on the card alone (ms a call) of the kernels whose name holds
-    ``match``, from a torch.profiler window over ``reps`` calls of fn():
-    the CUDA-event times around a wrapper also hold the host's part of a
-    call, which for a kernel of microseconds is most of it.  None when the
-    trace has no such row."""
+    ``match``: the CUDA-event times around a wrapper also hold the host's
+    part of a call, which for a kernel of microseconds is most of it.
+    From a torch.profiler window of ``reps`` calls after a warm-up of as
+    many: each kernel's mean time over the launches the window kept, times
+    its launches a call (a window can lose the rows of a few launches,
+    never a whole call's worth).  Without a row, from
+    time_chain.queued_device_ms (the calls queued behind a sleep, back to
+    back, between two CUDA events), which also holds the card's gap
+    between launches.  Never None."""
     fn()
-    prof = _profiled(fn, reps, match)
-    return prof["device_busy_ms"] / reps if "device_busy_ms" in prof else None
+    prof = _profiled(fn, reps, match, warm=reps)
+    if prof.get("device_rows"):
+        DEVICE_MS_SOURCES["profiler"] += 1
+        return sum(ms / count * -(-count // reps)
+                   for count, ms in prof["device_rows"])
+    DEVICE_MS_SOURCES["queued"] += 1
+    return time_chain.queued_device_ms(fn, reps)
+
+
+def profiler_rows(fn, match, reps=20, windows=5):
+    """How many of the ``reps`` launches of ``match`` each of ``windows``
+    profiler windows kept, fresh and after a warm-up of ``reps`` calls
+    (kernel_device_ms reads warmed windows: fresh ones lose their first
+    rows)."""
+    fn()
+    return {name: [_profiled(fn, reps, match, warm).get("device_kernels", 0)
+                   for _ in range(windows)]
+            for name, warm in (("fresh", 0), ("warmed", reps))}
 
 
 def phase_kernel_ucomp(launch):
@@ -1478,8 +1564,14 @@ def _flagship_model(dev, engine='pallas'):
 
 
 def phase_kernel_adam(launch):
-    """B5 against adam_step_dense on the flagship's leaves, beside what the
-    smallest launch costs (``launch``); returns the record."""
+    """B5 through FusedAdam against adam_step_dense on the flagship's
+    leaves: ADAM_STEPS steps at the rates 1e-2 * 0.95^t (update t) from the
+    card's rate table, fresh gradients every step; two runs bit-equal, the
+    device count ADAM_STEPS after.  Then one step at a constant rate by
+    CUDA events, by the host clock and on the card, beside its bound, the
+    plain version, torch.optim.Adam(fused=True) (the yardstick) and the
+    default torch.optim.Adam, and the rows the profiler keeps of it
+    (profiler_rows).  Returns the record."""
     dev = torch.device('cuda')
     shapes = [tuple(p.shape) for p in _flagship_model(dev).parameters()]
     n_params = sum(int(np.prod(s)) for s in shapes)
@@ -1489,17 +1581,39 @@ def phase_kernel_adam(launch):
         return [torch.tensor(np.asarray(rng.randn(*s), np.float32),
                              device=dev) for s in shapes]
 
-    def run(step):
+    def schedule(count):
+        return 1e-2 * 0.95 ** (count + 1)
+
+    def run_fused():
+        params = [torch.nn.Parameter(a) for a in leaves(0)]
+        opt = cuda_adam.fused_adam(schedule, total_steps=ADAM_STEPS).init(
+            params)
+        for t in range(1, ADAM_STEPS + 1):
+            for q, g in zip(params, leaves(100 + t)):
+                q.grad = g
+            opt.step()
+        torch.cuda.synchronize()
+        check(opt.state_dict()['count'] == ADAM_STEPS,
+              "adam: the host's count")
+        return ([q.detach() for q in params] + opt.mu + opt.nu,
+                int(opt.device_count[0]))
+
+    def run_plain():
+        # update t at the schedule's rate before the count's increment,
+        # in fp32 as the kernel reads it: from the schedule, not the table
         p = leaves(0)
         m = [torch.zeros_like(a) for a in p]
         v = [torch.zeros_like(a) for a in p]
         for t in range(1, ADAM_STEPS + 1):
-            step(p, leaves(100 + t), m, v, 1e-2 * 0.95 ** t, t)
+            cuda_adam.adam_step_dense(p, leaves(100 + t), m, v,
+                                      float(np.float32(schedule(t - 1))), t)
         torch.cuda.synchronize()
         return p + m + v
 
-    got, again = run(cuda_adam.adam_step), run(cuda_adam.adam_step)
-    want = run(cuda_adam.adam_step_dense)
+    before = cuda_adam.launches
+    (got, count), (again, _) = run_fused(), run_fused()
+    fused_launches = cuda_adam.launches - before
+    want = run_plain()
     err = _max_err(got, want)
     close = all(torch.allclose(a, b, atol=ADAM_ATOL, rtol=ADAM_RTOL)
                 for a, b in zip(got, want))
@@ -1510,30 +1624,32 @@ def phase_kernel_adam(launch):
     params = [torch.nn.Parameter(a.clone()) for a in p]
     for q, gq in zip(params, g):
         q.grad = gq
-    library = torch.optim.Adam(params, lr=1e-3, fused=True)
+    opt = cuda_adam.fused_adam(1e-3).init(params)
+    library = torch.optim.Adam([torch.nn.Parameter(a.clone()) for a in p],
+                               lr=1e-3, fused=True)
     default = torch.optim.Adam([torch.nn.Parameter(a.clone()) for a in p],
                                lr=1e-3)
-    for q, gq in zip(default.param_groups[0]['params'], g):
-        q.grad = gq
-    nbytes = 7.0 * n_params * 4
-    bound_ms, bound_by = _bound(12.0 * n_params, nbytes)
+    for other in (library, default):
+        for q, gq in zip(other.param_groups[0]['params'], g):
+            q.grad = gq
+    bound_ms, nbytes = time_chain.adam_bound_ms(n_params)
     rec = {"phase": "kernel_adam", "leaves": [list(s) for s in shapes],
            "parameters": n_params, "steps": ADAM_STEPS,
            "max_abs_err": err, "close": close, "bit_equal": bit_equal,
-           "ms": time_ms(lambda: cuda_adam.adam_step(p, g, m, v, 1e-3, 3),
-                         100),
-           "host_ms": host_ms(lambda: cuda_adam.adam_step(p, g, m, v, 1e-3,
-                                                          3), 50),
-           "device_ms": kernel_device_ms(
-               lambda: cuda_adam.adam_step(p, g, m, v, 1e-3, 3),
-               'adam_kernel'),
+           "device_count": count, "launches": fused_launches,
+           "ctas": opt._bindings[0].grid(),
+           "ms": time_ms(opt.step, 100),
+           "host_ms": host_ms(opt.step, 50),
+           "device_ms": kernel_device_ms(opt.step, 'adam_kernel'),
+           "queued_device_ms": time_chain.queued_device_ms(opt.step),
+           "profiler_rows": profiler_rows(opt.step, 'adam_kernel'),
            "plain_ms": time_ms(lambda: cuda_adam.adam_step_dense(
                p, g, m, v, 1e-3, 3), 20),
            "library_ms": time_ms(library.step, 100),
            "library_host_ms": host_ms(library.step, 50),
            "torch_adam_default_ms": time_ms(default.step, 50),
            "torch_adam_default_host_ms": host_ms(default.step, 50),
-           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
            "smallest_launch": launch}
     emit(rec)
     check(all(bool(torch.isfinite(t).all()) for t in got),
@@ -1541,23 +1657,24 @@ def phase_kernel_adam(launch):
     check(close, f"adam: kernel differs from the plain version by {err} "
                  f"(atol {ADAM_ATOL}, rtol {ADAM_RTOL})")
     check(bit_equal, "adam: two runs of 25 steps differ")
+    check(count == ADAM_STEPS and fused_launches == 2 * ADAM_STEPS,
+          f"adam: device count {count}, launches {fused_launches}")
     return rec
 
 
 def phase_train_parity_ucomp(default_run):
-    """20 Adam steps of the flagship with USE_UCOMP on and FusedAdam
-    against the default path's run (train_parity's 'pallas': the fold and
-    torch.optim.Adam), same initial state, batches and schedule."""
+    """20 Adam steps of the flagship with the compile kernels (USE_UCOMP
+    on) and FusedAdam against train_parity's default run (the compile
+    kernels and torch.optim.Adam), same initial state, batches and
+    schedule."""
     dev = torch.device('cuda')
     inputs, target, idx, schedule = _parity_batches(dev)
     model = _flagship_model(dev)
-    opt = cuda_adam.fused_adam(schedule).init(model.parameters())
+    opt = cuda_adam.fused_adam(schedule, total_steps=PARITY_STEPS).init(
+        model.parameters())
     _zero_counts()
-    cuda_hea.USE_UCOMP = True
-    try:
+    with use_ucomp(True):
         lu, pu = _parity_steps(model, opt, inputs, target, idx)
-    finally:
-        cuda_hea.USE_UCOMP = False
     counts = _counts()
     ld, pd = default_run
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lu, ld))
@@ -1575,25 +1692,66 @@ def phase_train_parity_ucomp(default_run):
           == PARITY_STEPS, f"train_parity_ucomp: launches {counts}")
 
 
+def phase_train_parity_fold(default_run):
+    """20 Adam steps of the flagship on the route that was the default on
+    `cuda` before the compile kernels (USE_UCOMP off: the autograd fold; a
+    ScheduledOptimizer over torch.optim.Adam) against train_parity's
+    default run, same initial state, batches and schedule."""
+    dev = torch.device('cuda')
+    inputs, target, idx, schedule = _parity_batches(dev)
+    model = _flagship_model(dev)
+    opt = ScheduledOptimizer(torch.optim.Adam(model.parameters()), schedule)
+    _zero_counts()
+    with use_ucomp(False):
+        lf, pf = _parity_steps(model, opt, inputs, target, idx)
+    counts = _counts()
+    ld, pd = default_run
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lf, ld))
+    param_err = max((pf[k] - pd[k]).abs().max().item() for k in pf)
+    emit({"phase": "train_parity_fold", "steps": PARITY_STEPS,
+          "losses_fold_torch_adam": lf, "losses_default": ld,
+          "max_loss_rel_diff": loss_rel, "max_param_abs_diff": param_err,
+          "launches": counts})
+    check(all(np.isfinite(lf)), "train_parity_fold: losses not finite")
+    check(loss_rel <= PARITY_LOSS_RTOL,
+          f"train_parity_fold: step losses differ by {loss_rel} relative")
+    check(param_err <= PARITY_PARAM_TOL,
+          f"train_parity_fold: parameters differ by {param_err}")
+    check(counts["ucomp_fwd"] == counts["ucomp_bwd"] == counts["adam_step"]
+          == 0 and counts["hea_chain_bwd"] == PARITY_STEPS,
+          f"train_parity_fold: the fold's launches {counts}")
+
+
+@contextmanager
+def use_ucomp(flag):
+    """cuda_hea.USE_UCOMP set to ``flag`` inside, and back to the value it
+    had after."""
+    found, cuda_hea.USE_UCOMP = cuda_hea.USE_UCOMP, flag
+    try:
+        yield
+    finally:
+        cuda_hea.USE_UCOMP = found
+
+
 def phase_profile_step():
-    """profile_step.main at full width on the card: the default path, then
-    USE_UCOMP on with --fused_adam; returns the second run's launches."""
+    """profile_step.main at full width on the card: the fold (USE_UCOMP
+    off, torch.optim.Adam), then USE_UCOMP on with --fused_adam; returns the
+    second run's launches."""
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, ucomp, extra in (('default', False, []),
+        for name, ucomp, extra in (('fold', False, []),
                                    ('ucomp_fused_adam', True,
                                     ['--fused_adam'])):
             out = os.path.join(tmp, f'{name}.json')
             _zero_counts()             # the path starts here
-            cuda_hea.USE_UCOMP = ucomp
             stdout = sys.stdout
             sys.stdout = sys.stderr    # its results line is not this script's
             try:
-                res = profile_step.main(['--iters', str(PROFILE_ITERS),
-                                         '--out', out] + extra)
+                with use_ucomp(ucomp):
+                    res = profile_step.main(['--iters', str(PROFILE_ITERS),
+                                             '--out', out] + extra)
             finally:
                 sys.stdout = stdout
-                cuda_hea.USE_UCOMP = False
             torch.cuda.synchronize()
             counts = _counts()         # ... and ends here
             with open(out) as f:
@@ -1619,17 +1777,18 @@ def phase_profile_step():
               and counts["embed_chain_fwd"] > 0
               and counts["embed_chain_bwd"] > 0,
               f"profile_step {name}: chain launches {counts}")
-    off, on = runs['default'][1], runs['ucomp_fused_adam'][1]
+    off, on = runs['fold'][1], runs['ucomp_fused_adam'][1]
     check(off["ucomp_fwd"] == off["ucomp_bwd"] == off["adam_step"] == 0,
-          f"profile_step: the default path launched an opt-in kernel: {off}")
+          f"profile_step: the fold arm launched a compile or Adam kernel: "
+          f"{off}")
     check(on["ucomp_fwd"] > 0 and on["ucomp_bwd"] > 0 and on["adam_step"] > 0,
           f"profile_step: toggles on, yet launches {on}")
     return on
 
 
-def _arms_in_turns(arms):
+def _arms_in_turns(arms, steps=ARM_STEPS):
     """{name: step} -> per arm the median step time over ARM_ROUNDS rounds
-    of ARM_STEPS steps, the arms taking turns (host clock with a
+    of ``steps`` steps, the arms taking turns (host clock with a
     synchronise), then its device rows a step, the card's busy share and
     its top kernels under torch.profiler."""
     times = {name: [] for name in arms}
@@ -1640,10 +1799,10 @@ def _arms_in_turns(arms):
         for name, step in arms.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(ARM_STEPS):
+            for _ in range(steps):
                 step()
             torch.cuda.synchronize()
-            times[name].append(1e3 * (time.perf_counter() - t0) / ARM_STEPS)
+            times[name].append(1e3 * (time.perf_counter() - t0) / steps)
     out = {}
     for name, step in arms.items():
         prof = _profiled(step)
@@ -1661,38 +1820,62 @@ def _arms_in_turns(arms):
     return out
 
 
-def four_arm_step():
-    """The flagship's step at batch 100 in four arms (default, +ucomp,
-    +fused Adam, both), in turns within this process so that all see the
-    same host: median step time over ARM_ROUNDS rounds of ARM_STEPS steps
-    (host clock with a synchronise), then each arm's device rows a step and
-    the card's busy share under torch.profiler.  Outside the counted
-    windows."""
+def step_arms():
+    """The flagship's step at batch 100 in five arms, in turns within this
+    process so that all see the same host: ``fold`` (USE_UCOMP off, a
+    ScheduledOptimizer over torch.optim.Adam: the route before the compile
+    kernels), ``ucomp`` (USE_UCOMP on, the same optimizer), ``fused_adam``
+    (the fold with FusedAdam), ``both`` (the compile kernels with
+    FusedAdam) and ``default`` (USE_UCOMP unset, the solver's
+    build_optimizer for adam).  Per arm the step ms of each of ARM_ROUNDS
+    rounds of STEP_ARMS_STEPS steps, device rows a step and the card's
+    busy share (_arms_in_turns).  The default arm must take at most half
+    the fold's median; ``both`` must beat ``ucomp`` in every round before
+    FusedAdam may become the solver's adam (ROADMAP §B.2).  Outside the
+    counted windows."""
     dev = torch.device('cuda')
     rng = np.random.RandomState(0)
     b = torch.as_tensor(rng.randn(100, 100).astype(np.float32), device=dev)
     t = torch.as_tensor(rng.rand(100, 2).astype(np.float32), device=dev)
     y = torch.as_tensor(rng.randn(100, 1).astype(np.float32), device=dev)
-    arms = {}
-    for name, ucomp, fused in (('default', False, False),
-                               ('ucomp', True, False),
-                               ('fused_adam', False, True),
-                               ('both', True, True)):
+    arms, optimizers = {}, {}
+    for name, flag in (('fold', False), ('ucomp', True),
+                       ('fused_adam', False), ('both', True),
+                       ('default', None)):
         model = _flagship_model(dev)
-        opt = (cuda_adam.fused_adam(1e-4).init(model.parameters()) if fused
-               else torch.optim.Adam(model.parameters(), lr=1e-4))
+        if name == 'default':
+            opt = build_optimizer(dict(optimizer='adam', learning_rate=1e-4),
+                                  ARM_ROUNDS * STEP_ARMS_STEPS,
+                                  model.parameters())
+        elif name in ('fused_adam', 'both'):
+            opt = cuda_adam.fused_adam(1e-4).init(model.parameters())
+        else:
+            opt = ScheduledOptimizer(torch.optim.Adam(model.parameters()),
+                                     lambda s: 1e-4)
+        optimizers[name] = type(opt).__name__
 
-        def step(model=model, opt=opt, ucomp=ucomp):
-            cuda_hea.USE_UCOMP = ucomp
-            try:
+        def step(model=model, opt=opt, flag=flag):
+            with use_ucomp(flag):
                 loss = ((model(b, t) - y) ** 2).mean()
                 opt.zero_grad()
                 loss.backward()
                 opt.step()
-            finally:
-                cuda_hea.USE_UCOMP = False
         arms[name] = step
-    return _arms_in_turns(arms)
+    out = _arms_in_turns(arms, STEP_ARMS_STEPS)
+    for name, arm in out.items():
+        arm["optimizer"] = optimizers[name]
+    rounds = zip(out['both']['step_ms_rounds'],
+                 out['ucomp']['step_ms_rounds'])
+    out["fused_adam_beats_compile_every_round"] = all(
+        f < c for f, c in rounds)
+    out["default_over_fold"] = (out['default']['step_ms']
+                                / out['fold']['step_ms'])
+    emit({"phase": "step_arms", "batch": 100, "rounds": ARM_ROUNDS,
+          "steps_per_round": STEP_ARMS_STEPS, **out})
+    check(out["default_over_fold"] <= 0.5,
+          f"step_arms: the default arm takes {out['default_over_fold']} "
+          f"of the fold's step")
+    return out
 
 
 def phase_serve_ucomp():
@@ -1702,8 +1885,7 @@ def phase_serve_ucomp():
     fixture = np.load(FIXTURE)
     fb, ft, fpred = fixture['branch'], fixture['trunk'], fixture['pred']
     _zero_counts()                     # the served path starts here
-    cuda_hea.USE_UCOMP = True
-    try:
+    with use_ucomp(True):
         model, cfg = load_model(ANCHOR, 100, 2, device='cuda')
         load_err = float(np.abs(predict(model, fb, ft, cfg=cfg)
                                 - fpred).max())
@@ -1716,8 +1898,6 @@ def phase_serve_ucomp():
         http_err = float(np.abs(np.asarray(resp['pred']) - fpred).max())
         torch.cuda.synchronize()
         counts = _counts()             # ... and ends here
-    finally:
-        cuda_hea.USE_UCOMP = False
     # outside the counted window: each bucket with the toggle on and off,
     # in turns
     bucket_ms = {}
@@ -1727,15 +1907,12 @@ def phase_serve_ucomp():
         times = {True: [], False: []}
         for _ in range(3):
             for on in (True, False):
-                cuda_hea.USE_UCOMP = on
-                try:
+                with use_ucomp(on):
                     times[on].append(host_ms(lambda: pred.predict(bn, tn), 10))
-                finally:
-                    cuda_hea.USE_UCOMP = False
         bucket_ms[rows] = {"ucomp_ms": float(np.median(times[True])),
-                           "default_ms": float(np.median(times[False])),
+                           "fold_ms": float(np.median(times[False])),
                            "ucomp_rounds": times[True],
-                           "default_rounds": times[False]}
+                           "fold_rounds": times[False]}
     emit({"phase": "serve_ucomp", "ckpt": os.path.relpath(ANCHOR, REPO),
           "engine": pred.cfg['engine'], "warmup_s": warm_s,
           "load_model_fixture_max_abs_err": load_err,
@@ -2155,8 +2332,9 @@ def embed_vs_pallas():
 
 def phase_classical():
     """FNN, DeepONet and FNO through the training CLI on the card, and the
-    DeepONet checkpoint through Predictor.  These models are plain matrix
-    products (nn.Linear, einsum): no hand-written kernel runs here."""
+    DeepONet checkpoint through Predictor; returns the launches.  These
+    models are plain matrix products (nn.Linear, einsum): no hand-written
+    kernel runs here."""
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         _zero_counts()
@@ -2219,6 +2397,7 @@ def phase_classical():
           f"{d['served_max_abs_err_vs_solver']}")
     check(not any(counts.values()),
           f"classical: a quantum kernel was launched: {counts}")
+    return counts
 
 
 def main():
@@ -2228,15 +2407,19 @@ def main():
     smi_line = phase_device()
     phase_build()
     records = phase_kernel()
-    launches = phase_serve()
+    serve = phase_serve()
+    launches = serve["hea_chain_fwd"]
     bwd_records = phase_kernel_bwd()
     default_run = phase_train_parity()
-    (train_fwd, train_bwd), _ = phase_train()
+    train, _ = phase_train()
+    train_fwd, train_bwd = train["hea_chain_fwd"], train["hea_chain_bwd"]
     emit({"phase": "train_breakdown", "batch": 100, **train_breakdown()})
     fused_records = phase_kernel_fused()
     fused_bwd_records = phase_kernel_fused_bwd()
     phase_train_parity_q10()
-    q10_train_fwd, q10_train_bwd = phase_train_q10()
+    q10_train = phase_train_q10()
+    q10_train_fwd = q10_train["fused_chain_fwd"]
+    q10_train_bwd = q10_train["fused_chain_bwd"]
     emit({"phase": "train_breakdown_q10", "batch": 100,
           **train_breakdown_q10()})
     q10_serve = phase_serve_q10()
@@ -2244,9 +2427,9 @@ def main():
     ucomp_records = phase_kernel_ucomp(launch)
     adam = phase_kernel_adam(launch)
     phase_train_parity_ucomp(default_run)
+    phase_train_parity_fold(default_run)
     ps_counts = phase_profile_step()
-    emit({"phase": "four_arm_step", "batch": 100, "rounds": ARM_ROUNDS,
-          "steps_per_round": ARM_STEPS, **four_arm_step()})
+    step_arms()
     serve_ucomp = phase_serve_ucomp()
     embed_records = phase_kernel_embed()
     embed_bwd_records = phase_kernel_embed_bwd()
@@ -2255,7 +2438,8 @@ def main():
     serve_embed = phase_serve_embed()
     emit({"phase": "embed_vs_pallas", "batch": 100, "rounds": ARM_ROUNDS,
           "steps_per_round": ARM_STEPS, **embed_vs_pallas()})
-    phase_classical()
+    classical = phase_classical()
+    emit({"phase": "device_time_sources", **DEVICE_MS_SOURCES})
     ehead = next(r for r in embed_records
                  if r['nq'] == 5 and r['N'] == 8192)
     estep = next(r for r in embed_records if r['nq'] == 5 and r['N'] == 100)
@@ -2263,6 +2447,14 @@ def main():
                 if r['nq'] == 5 and r['N'] == 100)
     ebwd_big = next(r for r in embed_bwd_records
                     if r['nq'] == 5 and r['N'] == 8192)
+    # the paths that launch the compile and Adam kernels, each read with
+    # every count zeroed just before it
+    paths = {"serve": serve, "train": train, "train_q10": q10_train,
+             "profile_step": ps_counts, "serve_ucomp": serve_ucomp,
+             "train_embed": train_embed, "serve_embed": serve_embed,
+             "classical": classical}
+    by_path = {k: {path: c[k] for path, c in paths.items()}
+               for k in ("ucomp_fwd", "ucomp_bwd", "adam_step")}
     ustep = next(r for r in ucomp_records if (r['nq'], r['nb']) == (5, 60))
     ucomp_shape = {"nb": ustep['nb'], "ld": ustep['ld'], "D": ustep['D']}
     head = next(r for r in records
@@ -2370,9 +2562,8 @@ def main():
         "source": "quanonet_torch/csrc/ucomp.cu",
         "replaces": "quanonet_tpu/ops/pallas_ucomp.py:118",
         "twin": "quanonet_torch/ops/cuda_ucomp.py:ucomp_weights_dense",
-        "launches": ps_counts["ucomp_fwd"] + serve_ucomp["ucomp_fwd"],
-        "launches_by_path": {"profile_step": ps_counts["ucomp_fwd"],
-                             "serve_ucomp": serve_ucomp["ucomp_fwd"]},
+        "launches": sum(by_path["ucomp_fwd"].values()),
+        "launches_by_path": by_path["ucomp_fwd"],
         "max_abs_err": max(r['max_abs_err_fwd'] for r in ucomp_records),
         "ms": ustep['fwd_ms'], "plain_ms": ustep['fwd_plain_ms'],
         "bound_ms": ustep['fwd_bound_ms'], "bound_by": ustep['fwd_bound_by'],
@@ -2389,9 +2580,8 @@ def main():
         "replaces": "quanonet_tpu/ops/pallas_ucomp.py:142",
         "twin": "quanonet_torch/ops/cuda_ucomp.py:"
                 "ucomp_weights_backward_dense",
-        "launches": ps_counts["ucomp_bwd"],
-        "launches_by_path": {"profile_step": ps_counts["ucomp_bwd"],
-                             "serve_ucomp": 0},
+        "launches": sum(by_path["ucomp_bwd"].values()),
+        "launches_by_path": by_path["ucomp_bwd"],
         "max_abs_err": max(r['max_abs_err_bwd'] for r in ucomp_records),
         "ms": ustep['bwd_ms'], "plain_ms": ustep['bwd_plain_ms'],
         "bound_ms": ustep['bwd_bound_ms'], "bound_by": ustep['bwd_bound_by'],
@@ -2410,16 +2600,16 @@ def main():
         "source": "quanonet_torch/csrc/adam.cu",
         "replaces": "quanonet_tpu/ops/pallas_adam.py:51",
         "twin": "quanonet_torch/ops/cuda_adam.py:adam_step_dense",
-        "launches": ps_counts["adam_step"],
-        "launches_by_path": {"profile_step": ps_counts["adam_step"],
-                             "serve_ucomp": 0},
+        "launches": sum(by_path["adam_step"].values()),
+        "launches_by_path": by_path["adam_step"],
         "max_abs_err": adam['max_abs_err'],
         "ms": adam['ms'], "plain_ms": adam['plain_ms'],
         "bound_ms": adam['bound_ms'], "bound_by": adam['bound_by'],
         "library_ms": adam['library_ms'],
         "timed_shape": {"leaves": len(adam['leaves']),
                         "parameters": adam['parameters']},
-        "device_ms": adam['device_ms'],
+        "device_ms": adam['device_ms'], "host_ms": adam['host_ms'],
+        "queued_device_ms": adam['queued_device_ms'], "ctas": adam['ctas'],
         "smallest_launch_ms": adam['smallest_launch']['back_to_back_ms'],
         "torch_adam_default_ms": adam['torch_adam_default_ms']}, {
         "name": "embed_chain_fwd", "route": "cuda",

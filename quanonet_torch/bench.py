@@ -20,8 +20,9 @@ CUDA synchronise.  fp32 throughout; TF32 stays off.
 
 Prints ONE JSON line with the JAX bench's keys (metric, value, unit,
 vs_baseline, rel_l2_runs, beats_anchor_all_runs, ...) and the card it ran
-on, the kernel launches of the run, the model-FLOP rate against the
-card's fp32 peak (:func:`flops_per_sample`), and the seconds it took.
+on, the kernel launches of the run (the chain's and the compile's), the
+model-FLOP rate against the card's fp32 peak (:func:`flops_per_sample`),
+and the seconds it took.
 """
 import argparse
 import copy
@@ -37,7 +38,7 @@ from quanonet_torch import resolve_device
 from quanonet_torch.data.manager import DataManager
 from quanonet_torch.infer import load_model
 from quanonet_torch.models import QuanONet
-from quanonet_torch.ops import cuda_embed, cuda_fused, cuda_hea
+from quanonet_torch.ops import cuda_embed, cuda_fused, cuda_hea, cuda_ucomp
 from quanonet_torch.ops.hea import resolve_engine
 from quanonet_torch.solver import (
     ScheduledOptimizer, _decay_tuple_schedule, epoch_permutation,
@@ -178,6 +179,7 @@ def run(args):
     resolved = resolve_engine(args.engine, 5, device)
     kernels = KERNEL_MODULES.get(resolved)
     launches0 = (kernels.launches, kernels.bwd_launches) if kernels else None
+    compile0 = (cuda_ucomp.launches, cuda_ucomp.bwd_launches)
     sps = None
     rels = []
     seeds = [args.first_seed + r for r in range(runs)]
@@ -272,6 +274,8 @@ def run(args):
         "fwd_launches": kernels.launches - launches0[0] if kernels else 0,
         "bwd_launches": (kernels.bwd_launches - launches0[1]
                          if kernels else 0),
+        "compile_launches": [cuda_ucomp.launches - compile0[0],
+                             cuda_ucomp.bwd_launches - compile0[1]],
         "seconds": time.time() - t_start,
     }
 

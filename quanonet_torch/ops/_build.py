@@ -11,6 +11,9 @@ source and the flags, so a changed source is rebuilt and nothing prebuilt
 is ever committed.  A failed build raises; no caller falls back to a plain
 version.
 
+:func:`on_device` runs a wrapper's launch with its tensors' device current,
+entering that device's context only when another one is current.
+
 The build directories live in ``.kernels_build/`` at the root of a source
 checkout (listed in ``.gitignore``), or, for an installed package, in
 ``$XDG_CACHE_HOME/quanonet_torch/kernels`` (``~/.cache`` by default).
@@ -63,3 +66,13 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _loaded[name] = lib
         return lib
+
+
+def on_device(device, fn):
+    """fn() with CUDA ``device`` current, entering its context only when it
+    is not (the context manager costs host time on every launch)."""
+    import torch
+    if torch.cuda.current_device() == device.index:
+        return fn()
+    with torch.cuda.device(device):
+        return fn()

@@ -14,8 +14,9 @@ Mbar_i = Ebar_12 - Ebar_21) and tbar -> phibar outside the kernels.  The
 kernels take any E and t: they assume neither E's block structure nor t's
 antisymmetry.
 
-The operands come from :func:`cuda_hea._prepare`, so ``USE_UCOMP=1`` feeds
-this engine too.  The kernels run the whole chain of one batch tile per
+The operands come from :func:`cuda_hea._prepare`, so this engine takes
+the block matrices by the same route (``cuda_hea.compile_route``: the
+compile kernels for CUDA weights unless ``USE_UCOMP=0``).  The kernels run the whole chain of one batch tile per
 CTA, whatever the batch and the width (d = 1 .. 128): no padding, no
 chunking, no fallback, and a single block (nb = 1) runs in the kernel.
 The tile's size is chosen per call from N, d and the card's SM count
@@ -282,11 +283,10 @@ def embed_forward(e, t, save_residuals=False):
     if n:
         lib = _lib()
         geo = embed_geometry(n, w // 2, _cuda_hea.sm_count(dev.index))
-        with torch.cuda.device(dev):
-            err = lib.embed_chain_forward(
-                e.data_ptr(), t.data_ptr(), out.data_ptr(),
-                u.data_ptr() if u is not None else None, nb, n, w // 2,
-                geo.tile, _stream(dev))
+        err = _build.on_device(dev, lambda: lib.embed_chain_forward(
+            e.data_ptr(), t.data_ptr(), out.data_ptr(),
+            u.data_ptr() if u is not None else None, nb, n, w // 2,
+            geo.tile, _stream(dev)))
         _raise_on(lib, err, 'embed_chain_forward')
         launches += 1
     return (out, u) if save_residuals else out
@@ -340,13 +340,12 @@ def embed_backward(e, t, u, g):
     part = (torch.empty((splits, nb, w, w), dtype=torch.float32, device=dev)
             if splits > 1 else None)
     lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.embed_chain_backward(
-            e.data_ptr(), t.data_ptr(), u.data_ptr(), g.data_ptr(),
-            ub.data_ptr(),
-            part.data_ptr() if part is not None else None,
-            ebar.data_ptr(), tbar.data_ptr(), nb, n, w // 2,
-            embed_geometry(n, w // 2, sms).tile, splits, _stream(dev))
+    err = _build.on_device(dev, lambda: lib.embed_chain_backward(
+        e.data_ptr(), t.data_ptr(), u.data_ptr(), g.data_ptr(),
+        ub.data_ptr(),
+        part.data_ptr() if part is not None else None,
+        ebar.data_ptr(), tbar.data_ptr(), nb, n, w // 2,
+        embed_geometry(n, w // 2, sms).tile, splits, _stream(dev)))
     _raise_on(lib, err, 'embed_chain_backward')
     bwd_launches += 1
     return ebar, tbar

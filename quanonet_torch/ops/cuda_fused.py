@@ -232,15 +232,14 @@ def chain_forward(u7t_r, u7t_i, u2_r, u2_i, x, lds, save_residuals=False):
         rows, grid = _geometry(nq, n, dev)
         scratch = _scratch(nq, rows, grid, False, dev)
         lib = _lib()
-        with torch.cuda.device(dev):
-            err = lib.fused_chain_forward(
-                u7t_r.data_ptr(), u7t_i.data_ptr(), u2_r.data_ptr(),
-                u2_i.data_ptr(), x.data_ptr(),
-                _sub_off(lds, dev).data_ptr(),
-                _sched(lds, False, dev).data_ptr(), out_r.data_ptr(),
-                out_i.data_ptr(), *_ptrs(st),
-                None if scratch is None else scratch.data_ptr(), nb, n, nq,
-                rows, torch.cuda.current_stream(dev).cuda_stream)
+        err = _build.on_device(dev, lambda: lib.fused_chain_forward(
+            u7t_r.data_ptr(), u7t_i.data_ptr(), u2_r.data_ptr(),
+            u2_i.data_ptr(), x.data_ptr(),
+            _sub_off(lds, dev).data_ptr(),
+            _sched(lds, False, dev).data_ptr(), out_r.data_ptr(),
+            out_i.data_ptr(), *_ptrs(st),
+            None if scratch is None else scratch.data_ptr(), nb, n, nq,
+            rows, torch.cuda.current_stream(dev).cuda_stream))
         _raise_on(lib, err, 'fused_chain_forward')
         launches += 1
     return (out_r, out_i, *st)
@@ -282,16 +281,15 @@ def chain_backward(u7t_r, u7t_i, u2_r, u2_i, x, lds, states_r, states_i,
             if splits > 1 else [])
     scratch = _scratch(nq, rows, grid, True, dev)
     lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.fused_chain_backward(
-            u7t_r.data_ptr(), u7t_i.data_ptr(), u2_r.data_ptr(),
-            u2_i.data_ptr(), x.data_ptr(), _sub_off(lds, dev).data_ptr(),
-            _sched(lds, True, dev).data_ptr(), states_r.data_ptr(),
-            states_i.data_ptr(), gr.data_ptr(), gi.data_ptr(),
-            *[t.data_ptr() for t in pre], u2part.data_ptr(),
-            *_ptrs(part), None if scratch is None else scratch.data_ptr(),
-            *[t.data_ptr() for t in u7bar + u2bar], xbar.data_ptr(), nb, s,
-            n, nq, rows, splits, torch.cuda.current_stream(dev).cuda_stream)
+    err = _build.on_device(dev, lambda: lib.fused_chain_backward(
+        u7t_r.data_ptr(), u7t_i.data_ptr(), u2_r.data_ptr(),
+        u2_i.data_ptr(), x.data_ptr(), _sub_off(lds, dev).data_ptr(),
+        _sched(lds, True, dev).data_ptr(), states_r.data_ptr(),
+        states_i.data_ptr(), gr.data_ptr(), gi.data_ptr(),
+        *[t.data_ptr() for t in pre], u2part.data_ptr(),
+        *_ptrs(part), None if scratch is None else scratch.data_ptr(),
+        *[t.data_ptr() for t in u7bar + u2bar], xbar.data_ptr(), nb, s,
+        n, nq, rows, splits, torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(lib, err, 'fused_chain_backward')
     bwd_launches += 1
     return (*u7bar, *u2bar, xbar)

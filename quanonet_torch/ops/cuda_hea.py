@@ -5,12 +5,12 @@ whose ``_fwd_kernel`` and ``_bwd_kernel`` they replace; engine name
 ``'pallas'``).
 
 The operands come from :func:`_prepare`: the raw phases, and the block
-matrices with the Hadamards folded in, by default from
+matrices with the Hadamards folded in, from the compile kernels
+(ops/cuda_ucomp.py) for CUDA weights where they apply, else from
 :func:`quanonet_torch.ops.hea.fold_block_mats` (batched products under
-autograd) and with ``USE_UCOMP=1`` from the compile kernels
-(ops/cuda_ucomp.py), where they apply.  The kernels run the whole chain of
-one batch tile per CTA, whatever the batch: no padding, no chunking, no
-fallback.  The tile's size is chosen per call from N, D and the card's SM
+autograd); ``USE_UCOMP`` forces either (:func:`compile_route`).  The
+kernels run the whole chain of one batch tile per CTA, whatever the
+batch: no padding, no chunking, no fallback.  The tile's size is chosen per call from N, D and the card's SM
 count (:func:`chain_geometry`): small at the training batch, so that it
 spreads over many SMs, large at large N, so that each thread's register
 tile keeps the FMA units busy.  The library handle and the SM count are
@@ -69,9 +69,12 @@ Geometry = namedtuple('Geometry', 'tile threads cj p rows grid fwd_smem '
 launches = 0
 bwd_launches = 0
 
-# Block matrices from the compile kernels instead of the autograd fold
-# (the JAX package's toggle of the same name; off by default, as there).
-USE_UCOMP = os.environ.get('USE_UCOMP', '0') == '1'
+# Where the block matrices come from (the JAX package's toggle of the same
+# name, whose default there is off): True ('1') the compile kernels, False
+# ('0') the autograd fold, None (unset, or any other value) the compile
+# kernels for CUDA weights and the fold for CPU weights
+# (:func:`compile_route`).
+USE_UCOMP = {'1': True, '0': False}.get(os.environ.get('USE_UCOMP'))
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -187,11 +190,10 @@ def chain_forward(mt_r, mt_i, phi, save_residuals=False):
         lib = _lib()
         st_ptrs = [t.data_ptr() for t in st] or [None, None]
         geo = chain_geometry(n, d, sm_count(dev.index))
-        with torch.cuda.device(dev):
-            err = lib.hea_chain_forward(
-                mt_r.data_ptr(), mt_i.data_ptr(), phi.data_ptr(),
-                out_r.data_ptr(), out_i.data_ptr(), *st_ptrs, nb, n, d,
-                geo.tile, _stream(dev))
+        err = _build.on_device(dev, lambda: lib.hea_chain_forward(
+            mt_r.data_ptr(), mt_i.data_ptr(), phi.data_ptr(),
+            out_r.data_ptr(), out_i.data_ptr(), *st_ptrs, nb, n, d,
+            geo.tile, _stream(dev)))
         _raise_on(lib, err, 'hea_chain_forward')
         launches += 1
     return (out_r, out_i, *st)
@@ -241,13 +243,12 @@ def chain_backward(mt_r, mt_i, phi, states_r, states_i, gr, gi):
             if splits > 1 else ())
     part_ptrs = [t.data_ptr() for t in part] or [None, None]
     lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.hea_chain_backward(
-            mt_r.data_ptr(), mt_i.data_ptr(), phi.data_ptr(),
-            states_r.data_ptr(), states_i.data_ptr(), gr.data_ptr(),
-            gi.data_ptr(), ub_r.data_ptr(), ub_i.data_ptr(), *part_ptrs,
-            mbar_r.data_ptr(), mbar_i.data_ptr(), phibar.data_ptr(),
-            nb, n, d, chain_geometry(n, d, sms).tile, splits, _stream(dev))
+    err = _build.on_device(dev, lambda: lib.hea_chain_backward(
+        mt_r.data_ptr(), mt_i.data_ptr(), phi.data_ptr(),
+        states_r.data_ptr(), states_i.data_ptr(), gr.data_ptr(),
+        gi.data_ptr(), ub_r.data_ptr(), ub_i.data_ptr(), *part_ptrs,
+        mbar_r.data_ptr(), mbar_i.data_ptr(), phibar.data_ptr(),
+        nb, n, d, chain_geometry(n, d, sms).tile, splits, _stream(dev)))
     _raise_on(lib, err, 'hea_chain_backward')
     bwd_launches += 1
     return mbar_r, mbar_i, phibar
@@ -291,10 +292,19 @@ def block_chain(mt_r, mt_i, phi):
     return chain_forward(mt_r, mt_i, phi)
 
 
+def compile_route(flag, spec, device_type):
+    """Whether the block matrices come from the compile kernels: where
+    they apply to ``spec`` (``cuda_ucomp.ucomp_applicable``), when ``flag``
+    (``USE_UCOMP``) is True, or is None and the weights lie on ``cuda``."""
+    if flag is None:
+        flag = device_type == 'cuda'
+    return flag and _ucomp.ucomp_applicable(spec)
+
+
 def block_mats(spec, weights):
-    """(mt_r, mt_i) of the chain: the compile kernels when ``USE_UCOMP``
-    is on and they apply, else the autograd fold."""
-    if USE_UCOMP and _ucomp.ucomp_applicable(spec):
+    """(mt_r, mt_i) of the chain: the compile kernels where
+    :func:`compile_route` takes them, else the autograd fold."""
+    if compile_route(USE_UCOMP, spec, weights.device.type):
         return _ucomp.compile_block_mats(spec, weights)
     return _hea.fold_block_mats(spec, weights)
 

@@ -5,10 +5,12 @@ The block-matrix compile through the hand-written CUDA kernels
 half of a step, from the ansatz weights to the Hadamard-folded,
 transposed block matrices that the block chain consumes.
 
-Off by default, as in the JAX package: ``ops/cuda_hea`` takes this path
-only with ``USE_UCOMP=1``; otherwise the matrices come from
-:func:`quanonet_torch.ops.hea.fold_block_mats` (batched products under
-autograd), which is also the oracle here.
+The default on ``cuda`` (the JAX package's default is off):
+``ops/cuda_hea.block_mats`` takes this path for CUDA weights where it
+applies, unless ``USE_UCOMP=0`` forces the fold
+(:func:`quanonet_torch.ops.hea.fold_block_mats`, batched products under
+autograd, also the oracle here); CPU weights take the fold unless
+``USE_UCOMP=1``.
 
 Structure, per sublayer s (transposed from the start):
 
@@ -302,15 +304,6 @@ def _raise_on(lib, err, what):
             f"{lib.ucomp_error_string(err).decode()} (cudaError {err})")
 
 
-def _launch(device, fn):
-    """fn() with ``device`` current, entering its context only when it is
-    not."""
-    if torch.cuda.current_device() == device.index:
-        return fn()
-    with torch.cuda.device(device):
-        return fn()
-
-
 def ucomp_forward(w, ld, last):
     """B4f on CUDA tensors: w (nb·ld, 3, n) -> (mt_r, mt_i), each
     (nb, D, D)."""
@@ -321,7 +314,7 @@ def ucomp_forward(w, ld, last):
     mt_i = torch.empty((nb, dim, dim), dtype=torch.float32, device=dev)
     geo = ucomp_geometry(dim, nb, sm_count(dev.index))
     lib = _lib()
-    err = _launch(dev, lambda: lib.ucomp_forward(
+    err = _build.on_device(dev, lambda: lib.ucomp_forward(
         w.data_ptr(), mt_r.data_ptr(), mt_i.data_ptr(), n, nb, ld, last,
         geo.warps, geo.ctas, torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(lib, err, 'ucomp_forward')
@@ -342,7 +335,7 @@ def ucomp_backward(w, ld, last, gr, gi):
     part = (torch.empty((nb, geo.ctas, ld * 3 * n), dtype=torch.float32,
                         device=dev) if geo.ctas > 1 else None)
     lib = _lib()
-    err = _launch(dev, lambda: lib.ucomp_backward(
+    err = _build.on_device(dev, lambda: lib.ucomp_backward(
         w.data_ptr(), gr.data_ptr(), gi.data_ptr(),
         None if part is None else part.data_ptr(), wbar.data_ptr(), n, nb,
         ld, last, geo.warps, geo.ctas,

@@ -14,9 +14,10 @@ Components (microseconds per iteration):
   full_step[engine]   loss, backward and the Adam update (the real step)
   fwd_only[engine]    model forward + mean under no_grad (inference path)
   compile_path        forward + backward of a scalar reduction of the
-                      block matrices (batch-independent work): the
-                      autograd fold, or with USE_UCOMP=1 the compile
-                      kernels (ops/cuda_ucomp.py), as the engine takes them
+                      block matrices (batch-independent work), by the
+                      engine's route (cuda_hea.compile_route): the compile
+                      kernels (ops/cuda_ucomp.py) on the card, the autograd
+                      fold on the CPU or with USE_UCOMP=0
   adam_only           the optimizer's update on frozen gradients
   batch sweep         full_step[first engine] at bs in {400, 1600}: the
                       fixed-vs-variable cost split
@@ -28,9 +29,11 @@ Usage:
 
 Runs on the card and raises without one; ``--device cpu`` times the plain
 versions on the CPU.  ``--fused_adam`` takes the one-launch Adam
-(ops/cuda_adam.py) in full_step and adam_only; ``USE_UCOMP=1`` in the
-environment takes the compile kernels in every 'pallas' and 'embed' step and in
-compile_path.  Both are off by default.  Writes the results, with the
+(ops/cuda_adam.py) in full_step and adam_only, where torch.optim.Adam is
+the default here; ``USE_UCOMP`` picks the block matrices' route in every
+'pallas' and 'embed' step and in compile_path (unset: the compile kernels
+on the card; ``USE_UCOMP=0`` forces the fold, ``1`` the compile kernels
+on the CPU too).  Writes the results, with the
 card's name and power limit, to ``--out`` (relative to the current
 directory) and prints them as the last line of stdout; a table goes to
 stderr.

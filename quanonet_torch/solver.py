@@ -13,7 +13,8 @@ engine the real-embedding chain kernels (ops/cuda_embed.EmbedChain), the
 ``pfused`` engine (8..14 qubits) the fused-group chain kernels
 (ops/cuda_fused.FusedChain);
 evaluation runs under ``torch.inference_mode`` and takes the primal-only
-forward kernels.
+forward kernels.  On ``cuda`` the block matrices come from the compile
+kernels (ops/cuda_ucomp.py).
 
 Contract kept from the JAX package: resume-skip on metric.json, best and
 final checkpoints in both reference formats (.npz + MindSpore .ckpt),
@@ -207,8 +208,18 @@ class ScheduledOptimizer:
                 'state': self.optimizer.state_dict()['state']}
 
     def load_state_dict(self, sd):
+        """The torch optimizer's per-parameter state; into
+        ``torch.optim.Adam``, also the one-launch Adam's ('mu', 'nu' a
+        parameter), carried over to its layout with every parameter at
+        step ``sd['count']``."""
+        state = sd['state']
+        if isinstance(self.optimizer, torch.optim.Adam) and any(
+                'mu' in st and 'exp_avg' not in st for st in state.values()):
+            step = torch.tensor(float(sd['count']), dtype=torch.float32)
+            state = {i: {'step': step.clone(), 'exp_avg': st['mu'],
+                         'exp_avg_sq': st['nu']} for i, st in state.items()}
         inner = self.optimizer.state_dict()
-        inner['state'] = sd['state']
+        inner['state'] = state
         self.optimizer.load_state_dict(inner)
         self.count = int(sd['count'])
 
@@ -391,7 +402,8 @@ def save_train_state(path, done, model, optimizer, best_loss, best_params,
     """Atomic elastic-resume snapshot at a segment boundary, in plain .npz
     (no pickling): parameters and best parameters in state_dict order,
     the optimizer's per-parameter state, and its update count (from its
-    ``state_dict()``: a :class:`ScheduledOptimizer` or a ``FusedAdam``)."""
+    ``state_dict()``: a :class:`ScheduledOptimizer` or a ``FusedAdam``;
+    either loads the other's Adam moments)."""
     opt_state = optimizer.state_dict()
     arrs = {'done': np.asarray(done, np.int64),
             'count': np.asarray(opt_state['count'], np.int64),

@@ -18,7 +18,12 @@ with each of its launches) at Q5, Q6 and Q7 Net40-2-20-2 and Q3
 Net2-3-2-3, the whole compile path from the weights (host ms forward and
 forward + backward, device rows, card time; a checkout whose kernels take
 the operands runs ``compile_operands`` first), and the flagship's training
-step at batch 100 with ``USE_UCOMP`` off and on, in turns.  Weights and
+step at batch 100 with ``USE_UCOMP`` off and on, in turns.  ``--kernel
+adam``: the one-launch Adam (B5) on the flagship's six leaves (2,401
+parameters): one ``FusedAdam.step`` by CUDA events, by the host clock and
+on the card (:func:`queued_device_ms`, and the profiler's rows), beside
+its bound; then the flagship's step with the compile kernels and
+``FusedAdam`` (the 'both' arm of ``chip_smoke.step_arms``).  Weights and
 inputs are seeded and random.  It imports
 ``chip_smoke`` and ``quanonet_torch`` from ``--root``, so two checkouts (a
 parent commit unpacked with ``git archive`` and the working tree) are
@@ -36,6 +41,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 NS = (1, 100, 1000, 8192)
 FLAGSHIP = (5, (40, 2, 20, 2))
@@ -389,6 +395,128 @@ def time_ucomp(root, reps, tile=None, cases=UCOMP_CASES):
     return rows
 
 
+_SLEEP_CYCLES_PER_MS = []
+
+
+def queued_device_ms(fn, reps=100, attempts=4):
+    """Time on the card of one fn() (ms) without the profiler: the card
+    first sleeps (``torch.cuda._sleep``) three times as long as the host
+    took to issue ``reps`` calls, so that the calls wait in the stream and
+    run back to back, and a CUDA-event pair around them is divided by
+    ``reps``.  It holds the card's own gap between two launches, not the
+    host's.  When the host took longer to issue them than the card slept,
+    the calls did not all wait: it tries again with twice the sleep, up to
+    ``attempts`` times, and then gives the last reading (an upper bound)."""
+    import torch
+    if not _SLEEP_CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(1e7 / start.elapsed_time(end))
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sleep_ms = 3e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_ms * _SLEEP_CYCLES_PER_MS[0]))
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        issued_ms = 1e3 * (time.perf_counter() - t0)
+        end.record()
+        end.synchronize()
+        if issued_ms < sleep_ms:
+            break
+        sleep_ms *= 2
+    return start.elapsed_time(end) / reps
+
+
+ADAM_BYTES_PER_PARAM = 7 * 4   # p, g, m, v read; p, m, v written (fp32)
+
+
+def adam_bound_ms(n_params):
+    """B5's bound (ms) on n_params parameters: the bytes (seven fp32 words
+    a parameter, the rate table's entry and the count read and written
+    once) at the HBM rate, against its 12 flops a parameter at the fp32
+    peak."""
+    nbytes = ADAM_BYTES_PER_PARAM * n_params + 4 + 8
+    return 1e3 * max(nbytes / 3.35e12, 12.0 * n_params / 67e12), nbytes
+
+
+def time_adam(root, reps):
+    """Rows of times of one ``FusedAdam.step`` of the checkout at ``root``
+    on the flagship's leaves, at a constant rate."""
+    _use_root(root)
+    import numpy as np
+    import torch
+    import chip_smoke
+    from quanonet_torch.ops import cuda_adam
+    dev = torch.device('cuda')
+    shapes = [tuple(p.shape) for p in chip_smoke._flagship_model(
+        dev).parameters()]
+    n_params = int(sum(np.prod(s) for s in shapes))
+    rng = np.random.RandomState(11)
+    params = [torch.nn.Parameter(torch.tensor(
+        np.asarray(rng.randn(*s), np.float32), device=dev)) for s in shapes]
+    opt = cuda_adam.fused_adam(1e-3).init(params)
+    for p in params:
+        p.grad = torch.tensor(np.asarray(rng.randn(*p.shape), np.float32),
+                              device=dev)
+    bindings = getattr(opt, '_bindings', None)
+    row = {"case": "Q5 Net40-2-20-2 leaves",
+           "parameters": n_params, "leaves": len(shapes),
+           "ctas": bindings[0].grid() if bindings else None,
+           "adam_ms": chip_smoke.time_ms(opt.step, reps),
+           "adam_host_ms": chip_smoke.host_ms(opt.step, reps),
+           "adam_queued_device_ms": queued_device_ms(opt.step),
+           "adam_device_ms": chip_smoke.kernel_device_ms(
+               opt.step, 'adam_kernel'),
+           "adam_bound_ms": adam_bound_ms(n_params)[0]}
+    print(json.dumps(row), flush=True)
+    return [row]
+
+
+def adam_train_step(root):
+    """The flagship's training step at batch 100 with the compile kernels
+    and ``FusedAdam`` (``chip_smoke._arms_in_turns`` of the checkout at
+    ``root``, one arm): step ms, device rows a step, the card's busy
+    time."""
+    _use_root(root)
+    import numpy as np
+    import torch
+    import chip_smoke
+    from quanonet_torch.ops import cuda_adam, cuda_hea
+    dev = torch.device('cuda')
+    rng = np.random.RandomState(0)
+    b, t, y = (torch.as_tensor(a.astype(np.float32), device=dev) for a in (
+        rng.randn(100, 100), rng.rand(100, 2), rng.randn(100, 1)))
+    model = chip_smoke._flagship_model(dev)
+    opt = cuda_adam.fused_adam(1e-4).init(model.parameters())
+
+    def step():
+        found, cuda_hea.USE_UCOMP = cuda_hea.USE_UCOMP, True
+        try:
+            loss = ((model(b, t) - y) ** 2).mean()
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+        finally:
+            cuda_hea.USE_UCOMP = found
+    out = chip_smoke._arms_in_turns({'both': step})
+    for arm in out.values():
+        arm.pop("top_device_ms_per_step", None)
+    return out
+
+
 def ucomp_step(root):
     """The flagship's training step at batch 100 with ``USE_UCOMP`` off
     and on, in turns (``chip_smoke._arms_in_turns`` of the checkout at
@@ -408,14 +536,14 @@ def ucomp_step(root):
         opt = torch.optim.Adam(model.parameters(), lr=1e-4)
 
         def step(model=model, opt=opt, on=on):
-            cuda_hea.USE_UCOMP = on
+            found, cuda_hea.USE_UCOMP = cuda_hea.USE_UCOMP, on
             try:
                 loss = ((model(b, t) - y) ** 2).mean()
                 opt.zero_grad()
                 loss.backward()
                 opt.step()
             finally:
-                cuda_hea.USE_UCOMP = False
+                cuda_hea.USE_UCOMP = found
         arms[name] = step
     out = chip_smoke._arms_in_turns(arms)
     for arm in out.values():
@@ -434,7 +562,8 @@ def summarize(paths):
     import numpy as np
     runs = [json.load(open(p)) for p in paths]
     keys = ("fwd_ms", "fwd_device_ms", "fwd_saved_ms", "fwd_saved_device_ms",
-            "bwd_ms", "bwd_device_ms")
+            "bwd_ms", "bwd_device_ms", "adam_ms", "adam_host_ms",
+            "adam_queued_device_ms", "adam_device_ms")
     out = {}
     for label in sorted({r["label"] for r in runs}):
         mine = [r for r in runs if r["label"] == label]
@@ -458,14 +587,15 @@ def summarize(paths):
                                for k in ("forward_ms", "forward_backward_ms",
                                          "device_rows", "device_busy_ms")}
             where = " ".join(
-                ([f"Q{row['nq']}"] if "nq" in row else [])
+                ([row['case']] if "case" in row else [])
+                + ([f"Q{row['nq']}"] if "nq" in row else [])
                 + ([f"Net{'-'.join(map(str, row['net']))}"] if "net" in row
                    else [])
                 + ([f"N={row['N']}"] if "N" in row else []))
             out[f"{label} {where}"] = {
                 "runs": len(mine), **med,
-                "fwd_bound_ms": row["fwd_bound_ms"],
-                "bwd_bound_ms": row.get("bwd_bound_ms")}
+                **{k: row[k] for k in ("fwd_bound_ms", "bwd_bound_ms",
+                                       "adam_bound_ms") if k in row}}
         steps = [m["step"] for m in mine if m.get("step")]
         if steps and "embed_chain_ms_per_step" in steps[0]:
             steps = [st["embed_chain_ms_per_step"] for st in steps]
@@ -484,12 +614,13 @@ def summarize(paths):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('--root', default='.', help='checkout whose kernels to time')
-    p.add_argument('--kernel', choices=('block', 'fused', 'embed', 'ucomp'),
+    p.add_argument('--kernel',
+                   choices=('block', 'fused', 'embed', 'ucomp', 'adam'),
                    default='block',
                    help='the block-chain kernels (B1), the fused-group '
                         'chain kernels (B2), the real-embedding chain '
-                        'kernels (B3) or the block-matrix compile kernels '
-                        '(B4)')
+                        'kernels (B3), the block-matrix compile kernels '
+                        '(B4) or the one-launch Adam (B5)')
     p.add_argument('--label', default='tree')
     p.add_argument('--out', default=None, help='JSON file to write')
     p.add_argument('--ns', type=int, nargs='+', default=list(NS))
@@ -515,6 +646,8 @@ def main(argv=None):
         rows = time_embed(root, args.reps, args.tile)
     elif args.kernel == 'ucomp':
         rows = time_ucomp(root, args.reps, args.tile)
+    elif args.kernel == 'adam':
+        rows = time_adam(root, max(args.reps, 100))
     else:
         rows = time_checkout(root, args.ns, args.reps, args.tile)
     result = {"label": args.label, "root": args.root, "nvidia_smi": smi,
@@ -523,6 +656,8 @@ def main(argv=None):
         result["step"] = embed_step_kernels(root)
     elif args.kernel == 'ucomp' and args.tile is None:
         result["step"] = ucomp_step(root)
+    elif args.kernel == 'adam':
+        result["step"] = adam_train_step(root)
     print(json.dumps(result))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,7 +1,8 @@
 // A CPU stand-in for the parts of the CUDA runtime and device code that
-// quanonet_torch/csrc/fused_chain.cu, embed_chain.cu and ucomp.cu use, so
-// that their kernels can run on the CPU in tests (tests/test_torch_port_
-// fused_emulated.py, _embed_emulated.py, _ucomp_emulated.py): each CUDA
+// quanonet_torch/csrc/fused_chain.cu, embed_chain.cu, ucomp.cu and adam.cu
+// use, so that their kernels can run on the CPU in tests (tests/
+// test_torch_port_fused_emulated.py, _embed_emulated.py,
+// _ucomp_emulated.py, _adam_emulated.py): each CUDA
 // thread a user-level context (ucontext) on one OS thread, switched at
 // __syncthreads and at the warp shuffles and MMAs, the blocks of a grid one
 // after another, one shared-memory array per launch.  The test replaces the source's inline-PTX helpers
@@ -27,6 +28,7 @@
 #define __align__(x)
 #define __restrict__
 #define __shared__
+#define __grid_constant__
 
 struct dim3 {
   unsigned x, y, z;
@@ -129,6 +131,14 @@ inline float __shfl_sync(unsigned, float v, int src) {
   return shfl_from(v, src & 31, false);
 }
 inline void __syncwarp() { warp_sync(); }
+// one OS thread runs the whole grid, so a fence has nothing to order and an
+// atomic nothing to race with
+inline void __threadfence() {}
+inline unsigned atomicAdd(unsigned* addr, unsigned v) {
+  const unsigned old = *addr;
+  *addr = old + v;
+  return old;
+}
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline float __shfl_down_sync(unsigned, float v, int s) {
   const int src = (threadIdx.x & 31) + s;

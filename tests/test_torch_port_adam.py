@@ -97,7 +97,8 @@ def test_matches_pallas_adam_and_optax(steps, lr, j_lr):
     count before the increment as optax evaluates it."""
     tree = _tree(0 if steps == 25 else 1)
     grads = _grad_trees(tree, steps)
-    got, opt = _run_torch(lambda ps: fused_adam(lr).init(ps), tree, grads)
+    got, opt = _run_torch(
+        lambda ps: fused_adam(lr, total_steps=steps).init(ps), tree, grads)
     assert opt.count == steps
     _assert_close(got, _run_jax(j_fused_adam(j_lr), tree, grads, True)[0])
     _assert_close(got, _run_jax(optax.adam(j_lr), tree, grads, False)[0])
@@ -107,7 +108,8 @@ def test_matches_torch_adam_under_scheduled_optimizer():
     schedule = t_solver._decay_tuple_schedule(3e-3, ('cosine', 30, 0.1), 30)
     tree = _tree(2)
     grads = _grad_trees(tree, 25, seed=7)
-    got, _ = _run_torch(lambda ps: fused_adam(schedule).init(ps), tree, grads)
+    got, _ = _run_torch(
+        lambda ps: fused_adam(schedule, total_steps=30).init(ps), tree, grads)
     want, _ = _run_torch(lambda ps: t_solver.ScheduledOptimizer(
         torch.optim.Adam(ps), schedule), tree, grads)
     assert got['bias'].dim() == 0
@@ -211,7 +213,8 @@ def test_train_state_round_trip_is_bit_identical(tmp_path):
 
     def start():
         model = _model()
-        opt = fused_adam(lambda t: 0.01 * 0.9 ** t).init(model.parameters())
+        opt = fused_adam(lambda t: 0.01 * 0.9 ** t,
+                         total_steps=12).init(model.parameters())
         return model, opt, t_solver.make_train_epoch(model, opt, 20, 8, 1)
 
     model_a, opt_a, epoch_a = start()

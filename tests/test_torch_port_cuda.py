@@ -459,7 +459,8 @@ def test_fused_adam_on_card(card):
     """FusedAdam's step on CUDA parameters: one launch, parameters moved as
     torch.optim.Adam moves them (1e-6: beta**t in double on the host
     against expf in fp32 on the card); more than 64 leaves take two
-    launches; a non-contiguous gradient raises."""
+    launches, and the device count one step; a non-contiguous gradient
+    raises."""
     from quanonet_torch.ops import cuda_adam
     leaves = _adam_leaves(card, 1)
     a = [torch.nn.Parameter(x.clone()) for x in leaves]
@@ -485,6 +486,7 @@ def test_fused_adam_on_card(card):
     torch.cuda.synchronize()
     assert cuda_adam.launches == before + 2
     assert all(torch.allclose(q, torch.full_like(q, 0.9)) for q in many)
+    assert opt.state_dict()['count'] == 1 and fused.state_dict()['count'] == 5
     many[0].grad = torch.ones(3, 2, device=card)[:, 0]
     with pytest.raises(ValueError, match='contiguous'):
         opt.step()

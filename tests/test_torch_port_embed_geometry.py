@@ -199,6 +199,7 @@ def test_library_loaded_and_configured_once(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'get_device_properties', fake_props)
     monkeypatch.setattr(torch.cuda, 'device',
                         lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, 'current_device', lambda: 0)
     monkeypatch.setattr(cuda_embed, '_stream', lambda dev: 0)
     monkeypatch.setattr(cuda_embed, '_check_operands', lambda e, t: None)
     monkeypatch.setattr(cuda_embed, '_check', lambda named, device: None)

@@ -174,6 +174,7 @@ def test_library_loaded_and_configured_once(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'get_device_properties', fake_props)
     monkeypatch.setattr(torch.cuda, 'device',
                         lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, 'current_device', lambda: 0)
     monkeypatch.setattr(cuda_hea, '_stream', lambda dev: 0)
     cuda_hea._lib.cache_clear()
     cuda_hea.sm_count.cache_clear()

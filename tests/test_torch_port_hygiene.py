@@ -53,7 +53,7 @@ from quanonet_torch.ops import (
     _build, cuda_adam, cuda_embed, cuda_hea, cuda_ucomp,
 )
 assert _build._loaded == {}, _build._loaded
-assert cuda_hea.USE_UCOMP is False
+assert cuda_hea.USE_UCOMP is None
 assert 'triton' not in sys.modules
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
@@ -67,8 +67,8 @@ for mod in (cuda_ucomp, cuda_adam, cuda_embed):
 def test_new_kernel_modules_import_clean():
     """Importing the compile, Adam and embed-chain wrappers, the classical
     models and profile_step imports
-    no JAX, loads no library and builds nothing; USE_UCOMP is off unless
-    the environment sets it."""
+    no JAX, loads no library and builds nothing; USE_UCOMP is None (auto:
+    the compile kernels for CUDA weights) unless the environment sets it."""
     env = {k: v for k, v in os.environ.items()
            if k not in ('PYTHONPATH', 'USE_UCOMP')}
     out = subprocess.run([sys.executable, '-c', _IMPORT_KERNEL_MODULES],

@@ -156,8 +156,9 @@ def test_applicability():
 def test_engine_route_with_toggle(monkeypatch):
     """With USE_UCOMP on, the 'pallas' engine takes the compile path and
     still equals 'dense' end to end; a spec it does not apply to falls
-    through to the fold; the default is off."""
-    assert cuda_hea.USE_UCOMP is False
+    through to the fold; the default is None (auto), which takes the fold
+    for these CPU weights."""
+    assert cuda_hea.USE_UCOMP is None
     spec = hea.quanonet_spec(3, (4, 2, 3, 2))
     rng, w = _weights(spec, 2)
     x = torch.tensor(rng.uniform(-2, 2, (6, spec.total_encode))
