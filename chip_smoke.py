@@ -96,7 +96,13 @@ Phases, each printed as one JSON line:
              (ucomp_counts), the launch geometry, what the smallest launch
              costs, and at the flagship the compile path against the
              autograd fold it replaces (hea.fold_block_mats): host ms and
-             device rows of each (compile_path).
+             device rows of each (compile_path).  Then kernel_ucomp_shift:
+             B4f at the stacks the shift rule compiles
+             (param_shift.shifted_block_weights; every inner shifted set
+             of a step in one launch with last = -1, unchunked at the
+             flagship and at Q7, and one --ps_chunk 64 chunk) against
+             ucomp_weights_dense to 2e-5, and single sets, inner and
+             final, against the autograd fold of the shifted weights.
 14. kernel_adam — the one-launch Adam (csrc/adam.cu) through FusedAdam,
              its rates from the card's table, against adam_step_dense on
              the flagship's six leaves over 25 steps (atol 2e-6, rtol
@@ -158,9 +164,42 @@ Phases, each printed as one JSON line:
              hand-written kernel runs here: these models are plain matrix
              products.
 
+25. train_shift, train_spsa — QPU emulation: three steps each of the
+             training CLI at the flagship's width, --grad_method shift, and
+             --grad_method spsa --train_shots 1000: loss finite, the run ID's
+             suffix, the checkpoint predicting in infer; B1b, B4b and B2b
+             launched 0 times, B1f and B4f the counted number
+             (shift_launches).  Then qpu_steps: ms a step by CUDA events,
+             evaluations a step and the card's busy share of autograd, the
+             shift rule exact and with shots, and SPSA with shots.
+26. serve_shots, serve_shots_q10 — the anchor (B4f, B1f) and the seeded
+             Q10 checkpoint (B2f) through Predictor at 10,000 shots, bucket
+             100, 64 replays with distinct seeds: each row's |mean − exact|
+             / (shot_noise_std / 8) <= 5, one shot_seed replays bit-equal,
+             the bucket's latency against the exact path in turns.
+27. shift_grad — the flagship's shift-rule gradient of every parameter on
+             the card, batch 100, against autograd's through B4b/B1b on the
+             same batch: within 1e-3 x max(1, max|g|), and each leaf within
+             1e-3 x its own max|g| (max and median |g| a leaf reported);
+             the launches counted.  A negative control plants the wrong
+             compile of the final block's shifted sets (the Hadamard as if
+             inner) and must fail the leaf check.  The same at Q7
+             Net40-2-20-2 (B1f at 84,000 rows); the peak memory of each
+             backward, shift and autograd.
+28. multiseed — --multi_seed 0 1 in the quick regime through the CLI:
+             each seed's metric.json equals its single run's (but the
+             wall-clock rate), and the rerun skips both.
+29. infer_from_name — the Advection anchor scored by the infer CLI with
+             no --data: the test set generated from its directory's name;
+             its rel-L2 within INFER_NAME_BAND.
+The kernel phase (3) also holds B1f at N = 60,000 and, at Q7, 84,000: the
+rows of the shift rule's encode-shift batch at the flagship and at Q7.
+
 Each path (serve, train, train_q10, serve_q10, profile_step, serve_ucomp,
-train_embed, serve_embed) starts with every launch count at 0 and reads
-them when it ends.  A card time ("device_ms") comes from a warmed profiler
+train_embed, serve_embed, train_shift, train_spsa, serve_shots,
+serve_shots_q10, shift_grad, multiseed, infer_from_name) starts with
+every launch count at 0 and reads them when it ends.  A card time
+("device_ms") comes from a warmed profiler
 window (each kernel's mean over the rows it kept), else from the launches
 queued back to back behind a sleep (kernel_device_ms); the run's count of
 each source is the device_time_sources line.  Then the {"kernels": [...]} line,
@@ -187,12 +226,13 @@ from torch.utils import cpp_extension
 from quanonet_torch import bench, cli, profile_step, time_chain
 from quanonet_torch.data.manager import DataManager
 from quanonet_torch.infer import load_model, predict
+from quanonet_torch.infer import main as infer_main
 from quanonet_torch.models import QuanONet
 from quanonet_torch import checkpoint as ckpt_io
 from quanonet_torch.convert import raw_from_state_dict
 from quanonet_torch.ops import (
     _build, cuda_adam, cuda_embed, cuda_fused, cuda_hea, cuda_ucomp,
-    fused_gates, hea,
+    fused_gates, hea, param_shift,
 )
 from quanonet_torch.ops.hamiltonian import simple_ham_diag
 from quanonet_torch.serve import Predictor, make_server
@@ -221,8 +261,11 @@ SERVE_TOL = 1e-4
 KERNEL_CASES = [     # (label, qubits, net_size, batch rows N)
     *[('Q5 Net40-2-20-2', 5, (40, 2, 20, 2), n)
       for n in (1, 7, 100, 1000, 8192)],
+    # the shift rule's encode-shift batch at the flagship: 2·n_x·N rows
+    ('Q5 Net40-2-20-2', 5, (40, 2, 20, 2), 60000),
     ('Q2 Net5-1-5-1', 2, (5, 1, 5, 1), 1000),
     ('Q7 Net40-2-20-2', 7, (40, 2, 20, 2), 1000),
+    ('Q7 Net40-2-20-2', 7, (40, 2, 20, 2), 84000),
     ('Q1 Net2-1-2-1', 1, (2, 1, 2, 1), 37),
     ('Q3 Net4-2-3-1', 3, (4, 2, 3, 1), 37),
     ('Q4 Net10-2-5-2', 4, (10, 2, 5, 2), 37),
@@ -1557,6 +1600,84 @@ def _fold_against_compile(spec, w, g):
     return out
 
 
+# B4f at the stacks the shift rule compiles: (label, spec, --ps_chunk)
+SHIFT_STACK_CASES = (
+    ('Q5 Net40-2-20-2', hea.quanonet_spec(*FLAGSHIP), None),
+    ('Q5 Net40-2-20-2', hea.quanonet_spec(*FLAGSHIP), 64),
+    ('Q7 Net40-2-20-2', hea.quanonet_spec(7, (40, 2, 20, 2)), None),
+)
+
+
+def _shifted_fold(spec, w, p, sign, b):
+    """Block b of the autograd fold of w with weight p shifted."""
+    w = w.clone()
+    w.view(-1)[p] += sign * param_shift.SHIFT
+    fr, fi = hea.fold_block_mats(spec, w)
+    return fr[b], fi[b]
+
+
+def phase_kernel_ucomp_shift():
+    """B4f at the shift rule's stacks, built as its backward builds them
+    (ops/param_shift.py): the first chunk's weight sets (p, ±1), each its
+    block's shifted (ld, 3, n) slice, the inner blocks' slices
+    concatenated and compiled with last = -1 (the Hadamard on every
+    block), against ucomp_weights_dense; the first and last inner set,
+    and a final-block set compiled alone with last = 0, against the
+    autograd fold of the shifted weights.  Returns the records."""
+    dev = torch.device('cuda')
+    records = []
+    for label, spec, chunk in SHIFT_STACK_CASES:
+        nb, d, ld = spec.n_blocks, spec.dim, spec.block_configs[0][1]
+        rng = np.random.RandomState(6000 + spec.n_qubits)
+        w = torch.tensor(rng.uniform(-np.pi, np.pi, spec.weight_shape())
+                         .astype(np.float32), device=dev)
+        n_w = w.numel()
+        ps = range(min(chunk or n_w, n_w))
+        sets = [(p, 1.0) for p in ps] + [(p, -1.0) for p in ps]
+        blocks, wb = param_shift.shifted_block_weights(spec, w, sets)
+        inner = [k for k, b in enumerate(blocks) if b != nb - 1]
+        stack = torch.cat([wb[k] for k in inner])
+        mr, mi = cuda_ucomp.ucomp_forward(stack, ld, -1)
+        plain = cuda_ucomp.ucomp_weights_dense(stack, ld, -1)
+        vs_fold = 0.0
+        for j in (0, len(inner) - 1):
+            k = inner[j]
+            vs_fold = max(vs_fold, _max_err(
+                (mr[j], mi[j]),
+                _shifted_fold(spec, w, *sets[k], blocks[k])))
+        # a final-block set, compiled on its own as the backward does
+        p_last = n_w - 1
+        (b_last,), (w_last,) = param_shift.shifted_block_weights(
+            spec, w, [(p_last, -1.0)])
+        fr, fi = cuda_ucomp.ucomp_forward(w_last, ld, 0)
+        final_vs_fold = _max_err(
+            (fr[0], fi[0]), _shifted_fold(spec, w, p_last, -1.0, b_last))
+        torch.cuda.synchronize()
+        counts = ucomp_counts(len(inner), ld, d, spec.n_qubits)
+        bound, by = _bound(counts["fwd_flops"], counts["fwd_bytes"])
+        rec = {"phase": "kernel_ucomp_shift", "case": label,
+               "ps_chunk": chunk, "sets": len(sets),
+               "stacked_blocks": len(inner), "ld": ld, "D": d,
+               "last": -1, "max_abs_err_fwd": _max_err((mr, mi), plain),
+               "max_abs_err_vs_fold": vs_fold,
+               "final_block_max_abs_err_vs_fold": final_vs_fold,
+               "fwd_ms": time_ms(lambda: cuda_ucomp.ucomp_forward(
+                   stack, ld, -1), 10),
+               "fwd_plain_ms": time_ms(
+                   lambda: cuda_ucomp.ucomp_weights_dense(stack, ld, -1), 3),
+               "fwd_bound_ms": bound, "fwd_bound_by": by}
+        emit(rec)
+        check(bool(torch.isfinite(mr).all() and torch.isfinite(mi).all()),
+              f"ucomp shift stack {label}: output not finite")
+        for key in ("max_abs_err_fwd", "max_abs_err_vs_fold",
+                    "final_block_max_abs_err_vs_fold"):
+            check(rec[key] <= AMP_TOL,
+                  f"ucomp shift stack {label} chunk {chunk}: {key} "
+                  f"{rec[key]} > {AMP_TOL}")
+        records.append(rec)
+    return records
+
+
 def _flagship_model(dev, engine='pallas'):
     return QuanONet(FLAGSHIP[0], 100, 2, FLAGSHIP[1], scale_coeff=0.1,
                     engine=engine, device=dev,
@@ -2400,6 +2521,470 @@ def phase_classical():
     return counts
 
 
+# ── QPU emulation: finite shots, the shift rule, SPSA ───────────────────────
+
+# The shift-rule gradient against autograd's through B4b/B1b on the same
+# batch: both are exact, so they differ by fp32 rounding only; a
+# relative limit on the largest gradient (at least 1), fixed before the
+# phase first ran
+SHIFT_GRAD_REL_TOL = 1e-3
+# ... and each leaf's largest error within this share of its own largest
+# |g| (fixed before that check first ran): the limit above is 1e-3
+# absolute whenever max|g| <= 1, loose for a leaf of small gradients
+SHIFT_GRAD_LEAF_TOL = 1e-3
+QPU_SHOTS = 1000             # --train_shots of the SPSA run
+SERVE_SHOTS = 10000          # shots a served prediction
+SERVE_SHOT_BUCKET = 100
+SERVE_SHOT_REPLAYS = 64
+SERVE_SHOT_Z = 5.0           # |mean − exact| / (σ / √replays), each row
+INFER_NAME_BAND = 0.25       # the anchor's in-run 0.161 (PERF.md §5) + margin
+
+
+def shift_launches(spec, chunk=None, steps=1):
+    """B4f and B1f launches of ``steps`` shift-rule steps (the forward and
+    the backward's fan-out, ops/param_shift.py) at ``chunk``: the forward
+    compiles and runs the chain once; the backward compiles the base
+    matrices once, the shifted inner blocks once a chunk that has one,
+    each of the final block's 2·ld·3·n shifted sets on its own, and runs a
+    chain a weight set and one a chunk of input columns."""
+    n = spec.n_qubits
+    ld = spec.block_configs[0][1]
+    n_w, n_x = spec.total_sublayers * 3 * n, spec.n_blocks * n
+    step = n_w if not chunk else min(chunk, n_w)
+    final = range((spec.n_blocks - 1) * ld * 3 * n, n_w)
+    inner_chunks = sum(1 for p0 in range(0, n_w, step)
+                       if p0 < final.start)
+    xstep = n_x if not chunk else min(chunk, n_x)
+    return {"ucomp_fwd": steps * (2 + inner_chunks + 2 * len(final)),
+            "hea_chain_fwd": steps * (1 + 2 * n_w + -(-n_x // xstep))}
+
+
+def _flagship_batch(dev, n=100):
+    data = quick_data()
+    idx = epoch_permutation(0, 0, data['train_output'].shape[0])[:n].numpy()
+    return tuple(torch.as_tensor(data[k][idx], device=dev)
+                 for k in ('train_branch_input', 'train_trunk_input',
+                           'train_output'))
+
+
+def _shift_and_autograd(nq, b, t, y):
+    """The loss's gradients of a fresh Q``nq`` Net40-2-20-2 (seed 0) on
+    one batch, autograd's and the shift rule's: -> {grad_method: (grads,
+    launches, backward ms by events, backward peak bytes above what the
+    forward left allocated)}."""
+    out = {}
+    for gm in ('autodiff', 'shift'):
+        model = QuanONet(nq, 100, 2, (40, 2, 20, 2), scale_coeff=0.1,
+                         grad_method=gm, device='cuda',
+                         generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        _zero_counts()
+        loss = ((model(b, t) - y) ** 2).mean()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        loss.backward()
+        stop.record()
+        torch.cuda.synchronize()
+        out[gm] = ({k: p.grad for k, p in model.named_parameters()},
+                   _counts(), start.elapsed_time(stop),
+                   torch.cuda.max_memory_allocated() - base)
+    return out
+
+
+def _leaf_errors(grads, ref):
+    """Per leaf: the largest error against ``ref``, the reference's largest
+    and median |g| (unclamped)."""
+    return {k: {"max_abs_err": (g - ref[k]).abs().max().item(),
+                "max_abs_grad": ref[k].abs().max().item(),
+                "median_abs_grad": ref[k].abs().median().item()}
+            for k, g in grads.items()}
+
+
+def _shift_grad_checks(label, leaves):
+    """The limit on the largest error, SHIFT_GRAD_REL_TOL x max(1,
+    max|g|): -> that scale, max(1, max|g|)."""
+    scale = max(1.0, max(v["max_abs_grad"] for v in leaves.values()))
+    worst = max(v["max_abs_err"] for v in leaves.values())
+    check(worst <= SHIFT_GRAD_REL_TOL * scale,
+          f"shift_grad {label}: gradients differ from autograd's by {leaves}")
+    return scale
+
+
+def _leaf_passes(leaves):
+    """Whether each leaf's error is within SHIFT_GRAD_LEAF_TOL x its own
+    max|g|."""
+    return {k: v["max_abs_err"] <= SHIFT_GRAD_LEAF_TOL * v["max_abs_grad"]
+            for k, v in leaves.items()}
+
+
+@contextmanager
+def _final_block_as_inner():
+    """The negative control: the shift rule's final-block sets compiled
+    with the Hadamard on, as an inner block would be (last = 0 taken as
+    -1), in param_shift alone."""
+    real = param_shift._ucomp
+
+    class Planted:
+        @staticmethod
+        def ucomp(w, ld, last):
+            return real.ucomp(w, ld, -1 if last == 0 else last)
+    param_shift._ucomp = Planted
+    try:
+        yield
+    finally:
+        param_shift._ucomp = real
+
+
+def phase_shift_grad():
+    """The flagship's shift-rule gradient on the card against autograd's
+    (B4b, B1b) on the same batch of 100, each leaf also against its own
+    size; the planted wrong final-block compile must fail that; the same
+    at Q7; the backward's time and peak memory.  Returns the launches of
+    the flagship's shift step's forward and backward."""
+    b, t, y = _flagship_batch(torch.device('cuda'))
+    rec = {"phase": "shift_grad", "batch": 100,
+           "limit_rel": SHIFT_GRAD_REL_TOL,
+           "leaf_limit_rel": SHIFT_GRAD_LEAF_TOL}
+    got = None
+    for nq in (5, 7):
+        label = f"Q{nq} Net40-2-20-2"
+        runs = _shift_and_autograd(nq, b, t, y)
+        ref = runs['autodiff'][0]
+        leaves = _leaf_errors(runs['shift'][0], ref)
+        scale = _shift_grad_checks(label, leaves)
+        passes = _leaf_passes(leaves)
+        spec = hea.quanonet_spec(nq, (40, 2, 20, 2))
+        want = shift_launches(spec)
+        counts = runs['shift'][1]
+        case = {"evaluations": 1 + 2 * spec.total_sublayers * 3 * nq
+                + 2 * spec.total_encode,
+                "leaves": leaves, "max_abs_grad_clamped": scale,
+                "limit": SHIFT_GRAD_REL_TOL * scale,
+                "leaf_passes": passes, "launches": counts,
+                "expected_launches": want,
+                "autodiff_launches": runs['autodiff'][1],
+                "backward_ms": {gm: r[2] for gm, r in runs.items()},
+                "backward_peak_bytes": {gm: r[3] for gm, r in runs.items()}}
+        check(all(passes.values()),
+              f"shift_grad {label}: a leaf's error exceeds "
+              f"{SHIFT_GRAD_LEAF_TOL} x its max|g|: {leaves}")
+        check(counts["hea_chain_bwd"] == counts["ucomp_bwd"] == 0
+              and counts["hea_chain_fwd"] == want["hea_chain_fwd"]
+              and counts["ucomp_fwd"] == want["ucomp_fwd"],
+              f"shift_grad {label}: launches {counts}, expected {want}")
+        if nq == 5:
+            got = counts
+            with _final_block_as_inner():
+                planted = _shift_and_autograd(5, b, t, y)['shift'][0]
+            bad = _leaf_errors(planted, ref)
+            case["planted_final_block"] = {
+                "leaves": bad, "leaf_passes": _leaf_passes(bad),
+                "fails_limit": max(v["max_abs_err"] for v in bad.values())
+                > SHIFT_GRAD_REL_TOL * scale}
+            check(not _leaf_passes(bad)["ansatz"],
+                  f"shift_grad: the planted final-block compile passes the "
+                  f"leaf check: {bad['ansatz']}")
+        rec[label] = case
+    emit(rec)
+    return got
+
+
+def _qpu_step(model, spsa_c=None):
+    """One step of the solver's own epoch (make_train_epoch) on one batch
+    of 100 of the flagship's data: -> step()."""
+    from quanonet_torch.solver import make_train_epoch
+    b, t, y = _flagship_batch(torch.device('cuda'))
+    opt = ScheduledOptimizer(torch.optim.Adam(model.parameters()),
+                             lambda s: 1e-3)
+    epoch = make_train_epoch(model, opt, 100, 100, 1, seed=0, spsa_c=spsa_c)
+    perm = torch.arange(100)
+    count = iter(range(10 ** 6))
+    return lambda: epoch(perm, (b, t), y, next(count))
+
+
+def qpu_steps():
+    """ms a training step by CUDA events, evaluations a step and the
+    card's busy share: autograd (the default), the shift rule exact and
+    with QPU_SHOTS shots, SPSA with QPU_SHOTS shots.  The shift rule with
+    shots launches ~320,000 kernels a step (a generator and a binomial
+    chain an evaluation): it is timed over one step and not profiled, a
+    trace of that size takes minutes to read.  Outside the counted
+    windows."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device('cuda')
+    spec = hea.quanonet_spec(*FLAGSHIP)
+    evals = 1 + 2 * spec.total_sublayers * 3 * spec.n_qubits \
+        + 2 * spec.total_encode
+    arms = {"autodiff": (dict(), None, 1, 10),
+            "shift": (dict(grad_method='shift'), None, evals, 2),
+            "shift_shots": (dict(grad_method='shift', shots=QPU_SHOTS),
+                            None, evals, 1),
+            "spsa_shots": (dict(shots=QPU_SHOTS), 0.05, 2, 10)}
+    out = {}
+    for name, (kw, spsa_c, n_evals, reps) in arms.items():
+        model = QuanONet(5, 100, 2, (40, 2, 20, 2), scale_coeff=0.1,
+                         device=dev, **kw,
+                         generator=torch.Generator().manual_seed(0))
+        step = _qpu_step(model, spsa_c)
+        t0 = time.time()
+        rec = {"ms": time_ms(step, reps), "evaluations": n_evals,
+               "reps": reps}
+        if name != "shift_shots":
+            rec["host_ms"] = host_ms(step, reps)
+            prof = profile_steps(step, reps, profile, ProfilerActivity,
+                                 warm=1)
+            rec.update({k: prof.get(k) for k in (
+                "device_busy_share", "device_busy_ms",
+                "device_kernels_per_step", "profiler_error")})
+        rec["seconds"] = time.time() - t0
+        out[name] = rec
+    return out
+
+
+def _cli_qpu(tmp, extra):
+    """Three steps (300 samples, batch 100) of the training CLI at the
+    flagship's width with the flags ``extra``; -> (solver, launches)."""
+    stdout = sys.stdout
+    _zero_counts()                    # the path starts here
+    try:
+        solver = cli.main([
+            '--operator', 'Advection', '--model_type', 'QuanONet',
+            '--net_size', '40', '2', '20', '2', '--num_qubits', '5',
+            '--scale_coeff', '0.1', '--num_epochs', '1', '--num_train', '3',
+            '--num_test', '5', '--train_sample_num', '100',
+            '--test_sample_num', '100', '--batch_size', '100',
+            '--learning_rate', '0.003', '--prefix',
+            os.path.join(tmp, 'outputs'), '--device', 'cuda', *extra])
+    finally:
+        sys.stdout = stdout
+    torch.cuda.synchronize()
+    return solver, _counts()          # ... and ends here
+
+
+def phase_train_qpu():
+    """train_shift and train_spsa: three steps each through the CLI at
+    full width; the checkpoint loads in infer.  Returns the launches of
+    each path."""
+    spec = hea.quanonet_spec(*FLAGSHIP)
+    paths = {"train_shift": (['--grad_method', 'shift'], '_Shift_'),
+             "train_spsa": (['--grad_method', 'spsa', '--train_shots',
+                             str(QPU_SHOTS)], f'_SpsaSh{QPU_SHOTS}_')}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for path, (extra, tag) in paths.items():
+            solver, counts = _cli_qpu(tmp, extra)
+            exp_dir = solver.exp_logger.exp_dir
+            with open(os.path.join(exp_dir, 'metric.json')) as f:
+                saved = json.load(f)
+            model, cfg = load_model(os.path.join(exp_dir, 'best_model.ckpt'),
+                                    100, 2, device='cuda')
+            b, t = solver.test_inputs
+            reloaded = predict(model, b, t, cfg=cfg)
+            # evaluation: one chunk of the 500 test rows, compiled and run
+            if path == 'train_shift':
+                want = shift_launches(spec, steps=3)
+                want = {k: v + 1 for k, v in want.items()}
+                exact = solver.predict_test()
+            else:
+                want = {"ucomp_fwd": 2 * 3 + 1, "hea_chain_fwd": 2 * 3 + 1}
+                exact = None
+            rec = {"run_id": solver.run_id,
+                   "loss_train": saved['history']['loss_train'],
+                   "metrics": saved['metrics'], "launches": counts,
+                   "expected_launches": want,
+                   "reload_max_abs_err": (
+                       float(np.abs(reloaded - exact).max())
+                       if exact is not None else None)}
+            emit({"phase": path, **rec})
+            check(tag in solver.run_id, f"{path}: run ID {solver.run_id}")
+            check(len(rec["loss_train"]) == 1
+                  and all(np.isfinite(rec["loss_train"]))
+                  and np.isfinite(saved['metrics']['rel_l2']),
+                  f"{path}: loss or metrics not finite: {rec}")
+            check(reloaded.shape == (b.shape[0], 1)
+                  and np.isfinite(reloaded).all(),
+                  f"{path}: the checkpoint does not predict in infer")
+            check(exact is None or rec["reload_max_abs_err"] <= CLI_PRED_TOL,
+                  f"{path}: reloaded checkpoint off by "
+                  f"{rec['reload_max_abs_err']}")
+            check(counts["hea_chain_bwd"] == counts["ucomp_bwd"]
+                  == counts["fused_chain_bwd"] == counts["adam_step"] == 0
+                  and all(counts[k] == v for k, v in want.items()),
+                  f"{path}: launches {counts}, expected {want}")
+            out[path] = counts
+    emit({"phase": "qpu_steps", "batch": 100, **qpu_steps()})
+    return out
+
+
+def _serve_shots(label, ckpt, engine, rows):
+    """A bucket of SERVE_SHOT_BUCKET rows at SERVE_SHOTS shots, replayed
+    SERVE_SHOT_REPLAYS times with distinct seeds, against the exact
+    prediction and shot_noise_std; -> (record, launches)."""
+    from quanonet_torch.ops import sampling
+    b, t = rows
+    exact_pred = Predictor(ckpt, branch_in=100, trunk_in=2,
+                           max_batch=SERVE_SHOT_BUCKET, device='cuda')
+    exact = exact_pred.predict(b, t)
+    torch.cuda.synchronize()
+    _zero_counts()                    # the served path starts here
+    pred = Predictor(ckpt, branch_in=100, trunk_in=2,
+                     max_batch=SERVE_SHOT_BUCKET, device='cuda',
+                     shots=SERVE_SHOTS, shot_seed=7)
+    outs = np.stack([pred.predict(b, t)
+                     for _ in range(SERVE_SHOT_REPLAYS)])
+    torch.cuda.synchronize()
+    counts = _counts()                # ... and ends here
+    replay = Predictor(ckpt, branch_in=100, trunk_in=2,
+                       max_batch=SERVE_SHOT_BUCKET, device='cuda',
+                       shots=SERVE_SHOTS, shot_seed=7).predict(b, t)
+    model = pred.model
+    with torch.inference_mode():
+        bt, tt = (torch.as_tensor(a, device='cuda') for a in (b, t))
+        x = torch.cat([model.trunk_freq(tt), model.branch_freq(bt)], dim=1)
+        sr, si = hea.hea_forward_pair(model.spec, model.ansatz, x,
+                                      engine=model.engine)
+        std = sampling.shot_noise_std(sr, si, model.measure.diag,
+                                      SERVE_SHOTS).cpu().numpy()
+    diff = np.abs(outs.mean(0) - exact)
+    se = std / np.sqrt(SERVE_SHOT_REPLAYS)
+    z = np.where(se > 0, diff / np.where(se > 0, se, 1.0),
+                 np.where(diff > 0, np.inf, 0.0))
+    # bucket latency, the exact and the sampled path in turns
+    lat = {"exact": [], "shots": []}
+    for _ in range(5):
+        for name, p in (("exact", exact_pred), ("shots", pred)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p.predict(b, t)
+            torch.cuda.synchronize()
+            lat[name].append(1e3 * (time.perf_counter() - t0))
+    rec = {"case": label, "engine": pred.cfg['engine'],
+           "bucket": SERVE_SHOT_BUCKET, "shots": SERVE_SHOTS,
+           "replays": SERVE_SHOT_REPLAYS, "max_z": float(z.max()),
+           "mean_z": float(z.mean()), "limit_z": SERVE_SHOT_Z,
+           "max_abs_mean_err": float(diff.max()),
+           "max_shot_noise_std": float(std.max()),
+           "replay_bit_equal": bool(np.array_equal(replay, outs[0])),
+           "replays_distinct": bool(not np.array_equal(outs[0], outs[1])),
+           "bucket_latency_ms": {k: float(np.median(v))
+                                 for k, v in lat.items()},
+           "bucket_latency_ms_rounds": lat, "launches": counts}
+    check(pred.cfg['engine'] == engine, f"{label}: engine {rec['engine']}")
+    check(rec["max_z"] <= SERVE_SHOT_Z,
+          f"{label}: shot means off by z = {rec['max_z']}")
+    check(rec["replay_bit_equal"] and rec["replays_distinct"],
+          f"{label}: replay {rec['replay_bit_equal']}, distinct "
+          f"{rec['replays_distinct']}")
+    return rec, counts
+
+
+def phase_serve_shots():
+    """serve_shots (Q5, the anchor: B4f, B1f) and serve_shots_q10 (the
+    seeded Q10 checkpoint: B2f); returns the launches of each path."""
+    rng = np.random.RandomState(31)
+    rows = (rng.randn(SERVE_SHOT_BUCKET, 100).astype(np.float32),
+            rng.rand(SERVE_SHOT_BUCKET, 2).astype(np.float32))
+    rec, q5 = _serve_shots('Q5 anchor', ANCHOR, 'pallas', rows)
+    emit({"phase": "serve_shots", **rec})
+    check(q5["hea_chain_fwd"] > 0 and q5["ucomp_fwd"] > 0
+          and q5["hea_chain_bwd"] == q5["ucomp_bwd"] == 0,
+          f"serve_shots: launches {q5}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = _q10_checkpoint(tmp)[0]
+        rec, q10 = _serve_shots('Q10 seeded', ckpt, 'pfused', rows)
+    emit({"phase": "serve_shots_q10", **rec})
+    check(q10["fused_chain_fwd"] > 0 and q10["fused_chain_bwd"] == 0
+          and q10["hea_chain_fwd"] == 0,
+          f"serve_shots_q10: launches {q10}")
+    return q5, q10
+
+
+def phase_multiseed():
+    """--multi_seed 0 1 in the quick regime through the CLI against two
+    single runs: each seed's metric.json equal (but the wall-clock rate);
+    the rerun skips.  Returns the launches of the multi-seed run."""
+    argv = ['--operator', 'Advection', '--model_type', 'QuanONet',
+            '--net_size', '40', '2', '20', '2', '--num_qubits', '5',
+            '--scale_coeff', '0.1', '--num_epochs', '10',
+            '--num_train', '200', '--num_test', '100',
+            '--train_sample_num', '100', '--test_sample_num', '100',
+            '--learning_rate', '0.003', '--device', 'cuda']
+
+    def run(args):
+        stdout = sys.stdout
+        try:
+            return cli.main(argv + args)
+        finally:
+            sys.stdout = stdout
+
+    def saved(prefix, seed):
+        base = os.path.join(prefix, 'Advection')
+        (d,) = [r for r in os.listdir(base) if r.endswith(f'_Seed{seed}')]
+        with open(os.path.join(base, d, 'metric.json')) as f:
+            m = json.load(f)
+        m['metrics'].pop('train_samples_per_sec', None)
+        return m
+    with tempfile.TemporaryDirectory() as tmp:
+        single, multi = (os.path.join(tmp, 'single'),
+                         os.path.join(tmp, 'multi'))
+        for seed in (0, 1):
+            run(['--seed', str(seed), '--prefix', single])
+        torch.cuda.synchronize()
+        _zero_counts()                # the multi-seed path starts here
+        t0 = time.time()
+        result = run(['--multi_seed', '0', '1', '--prefix', multi])
+        torch.cuda.synchronize()
+        counts = _counts()            # ... and ends here
+        seconds = time.time() - t0
+        equal = {s: saved(single, s) == saved(multi, s) for s in (0, 1)}
+        rerun = run(['--multi_seed', '0', '1', '--prefix', multi])
+    emit({"phase": "multiseed", "seeds": [0, 1], "seconds": seconds,
+          "rel_l2": {s: result[s]['rel_l2'] for s in (0, 1)},
+          "equal_to_single_runs": equal, "rerun": rerun,
+          "launches": counts})
+    check(all(equal.values()),
+          f"multiseed: a seed differs from its single run: {equal}")
+    check(rerun == {0: None, 1: None}, f"multiseed: rerun trained {rerun}")
+    check(counts["hea_chain_fwd"] > 0 and counts["ucomp_fwd"] > 0,
+          f"multiseed: launches {counts}")
+    return counts
+
+
+def phase_infer_from_name():
+    """The Advection anchor scored by the infer CLI without --data: the
+    test set generated from its directory's name (NumPy seed 0) into the
+    repository's data cache.  Returns the launches."""
+    here = os.getcwd()
+    os.chdir(REPO)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            np.random.seed(0)
+            torch.cuda.synchronize()
+            _zero_counts()            # the path starts here
+            t0 = time.time()
+            preds = infer_main(['--ckpt', ANCHOR, '--device', 'cuda',
+                                '--output', os.path.join(tmp, 'o.npz')])
+            torch.cuda.synchronize()
+            counts = _counts()        # ... and ends here
+            seconds = time.time() - t0
+            with np.load(os.path.join(tmp, 'o.npz')) as z:
+                rel = float(z['rel_l2'])
+    finally:
+        os.chdir(here)
+    emit({"phase": "infer_from_name", "rows": int(preds.shape[0]),
+          "rel_l2": rel, "band": INFER_NAME_BAND, "seconds": seconds,
+          "launches": counts})
+    check(np.isfinite(preds).all() and rel <= INFER_NAME_BAND,
+          f"infer_from_name: rel-L2 {rel}")
+    check(counts["hea_chain_fwd"] > 0 and counts["ucomp_fwd"] > 0,
+          f"infer_from_name: launches {counts}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2425,6 +3010,7 @@ def main():
     q10_serve = phase_serve_q10()
     launch = smallest_launch()
     ucomp_records = phase_kernel_ucomp(launch)
+    shift_stacks = phase_kernel_ucomp_shift()
     adam = phase_kernel_adam(launch)
     phase_train_parity_ucomp(default_run)
     phase_train_parity_fold(default_run)
@@ -2439,6 +3025,19 @@ def main():
     emit({"phase": "embed_vs_pallas", "batch": 100, "rounds": ARM_ROUNDS,
           "steps_per_round": ARM_STEPS, **embed_vs_pallas()})
     classical = phase_classical()
+    # QPU emulation, multi-seed and the infer CLI's own data: each path read
+    # with every count zeroed just before it
+    qpu = phase_train_qpu()
+    shots_q5, shots_q10 = phase_serve_shots()
+    new_paths = {"shift_grad": phase_shift_grad(),
+                 "train_shift": qpu["train_shift"],
+                 "train_spsa": qpu["train_spsa"], "serve_shots": shots_q5,
+                 "serve_shots_q10": shots_q10,
+                 "multiseed": phase_multiseed(),
+                 "infer_from_name": phase_infer_from_name()}
+
+    def new(kernel):
+        return {path: c[kernel] for path, c in new_paths.items()}
     emit({"phase": "device_time_sources", **DEVICE_MS_SOURCES})
     ehead = next(r for r in embed_records
                  if r['nq'] == 5 and r['N'] == 8192)
@@ -2452,7 +3051,7 @@ def main():
     paths = {"serve": serve, "train": train, "train_q10": q10_train,
              "profile_step": ps_counts, "serve_ucomp": serve_ucomp,
              "train_embed": train_embed, "serve_embed": serve_embed,
-             "classical": classical}
+             "classical": classical, **new_paths}
     by_path = {k: {path: c[k] for path, c in paths.items()}
                for k in ("ucomp_fwd", "ucomp_bwd", "adam_step")}
     ustep = next(r for r in ucomp_records if (r['nq'], r['nb']) == (5, 60))
@@ -2475,10 +3074,12 @@ def main():
         "replaces": "quanonet_tpu/ops/pallas_hea.py:153",
         "twin": "quanonet_torch/ops/hea.py:chain_dense, chain_dense_saved",
         "launches": (launches + train_fwd + ps_counts["hea_chain_fwd"]
-                     + serve_ucomp["hea_chain_fwd"]),
+                     + serve_ucomp["hea_chain_fwd"]
+                     + sum(new("hea_chain_fwd").values())),
         "launches_by_path": {"serve": launches, "train": train_fwd,
                              "profile_step": ps_counts["hea_chain_fwd"],
-                             "serve_ucomp": serve_ucomp["hea_chain_fwd"]},
+                             "serve_ucomp": serve_ucomp["hea_chain_fwd"],
+                             **new("hea_chain_fwd")},
         "max_abs_err": max(r['max_abs_err_amp']
                            for r in records + bwd_records),
         "max_abs_err_expect": max(r['max_abs_err_expect'] for r in records),
@@ -2501,10 +3102,11 @@ def main():
         "source": "quanonet_torch/csrc/hea_chain.cu",
         "replaces": "quanonet_tpu/ops/pallas_hea.py:178",
         "twin": "quanonet_torch/ops/hea.py:chain_backward_dense",
-        "launches": train_bwd + ps_counts["hea_chain_bwd"],
+        "launches": (train_bwd + ps_counts["hea_chain_bwd"]
+                     + sum(new("hea_chain_bwd").values())),
         "launches_by_path": {"serve": 0, "train": train_bwd,
                              "profile_step": ps_counts["hea_chain_bwd"],
-                             "serve_ucomp": 0},
+                             "serve_ucomp": 0, **new("hea_chain_bwd")},
         "max_abs_err": max(max(r['max_abs_err_mbar'], r['max_abs_err_phibar'])
                            for r in bwd_records),
         "ms": step['ms'], "plain_ms": step['plain_ms'],
@@ -2522,9 +3124,11 @@ def main():
         "replaces": "quanonet_tpu/ops/pallas_fused.py:492",
         "twin": "quanonet_torch/ops/fused_gates.py:chain_fused, "
                 "chain_fused_saved",
-        "launches": q10_serve + q10_train_fwd,
+        "launches": (q10_serve + q10_train_fwd
+                     + sum(new("fused_chain_fwd").values())),
         "launches_by_path": {"serve_q10": q10_serve,
-                             "train_q10": q10_train_fwd},
+                             "train_q10": q10_train_fwd,
+                             **new("fused_chain_fwd")},
         "max_abs_err": max(max(r['max_abs_err_amp'],
                                r.get('max_abs_err_states', 0.0))
                            for r in fused_records),
@@ -2545,8 +3149,9 @@ def main():
         "source": "quanonet_torch/csrc/fused_chain.cu",
         "replaces": "quanonet_tpu/ops/pallas_fused.py:570",
         "twin": "quanonet_torch/ops/fused_gates.py:chain_fused_backward",
-        "launches": q10_train_bwd,
-        "launches_by_path": {"serve_q10": 0, "train_q10": q10_train_bwd},
+        "launches": q10_train_bwd + sum(new("fused_chain_bwd").values()),
+        "launches_by_path": {"serve_q10": 0, "train_q10": q10_train_bwd,
+                             **new("fused_chain_bwd")},
         "max_abs_err": max(max(r['max_abs_err'].values())
                            for r in fused_bwd_records),
         "ms": fstep['ms'], "plain_ms": fstep['plain_ms'],
@@ -2564,7 +3169,8 @@ def main():
         "twin": "quanonet_torch/ops/cuda_ucomp.py:ucomp_weights_dense",
         "launches": sum(by_path["ucomp_fwd"].values()),
         "launches_by_path": by_path["ucomp_fwd"],
-        "max_abs_err": max(r['max_abs_err_fwd'] for r in ucomp_records),
+        "max_abs_err": max(r['max_abs_err_fwd']
+                           for r in ucomp_records + shift_stacks),
         "ms": ustep['fwd_ms'], "plain_ms": ustep['fwd_plain_ms'],
         "bound_ms": ustep['fwd_bound_ms'], "bound_by": ustep['fwd_bound_by'],
         "library_ms": None, "timed_shape": ucomp_shape,
@@ -2574,7 +3180,8 @@ def main():
         "smallest_launch_ms": ustep['smallest_launch']['back_to_back_ms'],
         "fold_forward_ms": ustep['replaces']['fold_forward_ms'],
         "compile_forward_ms": ustep['replaces']['compile_forward_ms'],
-        "shapes": [[r['nb'], r['ld'], r['D']] for r in ucomp_records]}, {
+        "shapes": [[r['nb'], r['ld'], r['D']] for r in ucomp_records]
+        + [[r['stacked_blocks'], r['ld'], r['D']] for r in shift_stacks]}, {
         "name": "ucomp_bwd", "route": "cuda",
         "source": "quanonet_torch/csrc/ucomp.cu",
         "replaces": "quanonet_tpu/ops/pallas_ucomp.py:142",

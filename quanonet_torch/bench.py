@@ -199,7 +199,7 @@ def run(args):
 
         def segment(i, state):
             return run_segment(*state, perms[i * seg:(i + 1) * seg],
-                               inputs, target)[:2]
+                               inputs, target, i * seg)[:2]
 
         t0 = time.time()
         best_loss, best_params = segment(0, (best_loss, best_params))

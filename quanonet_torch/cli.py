@@ -8,7 +8,8 @@ quanonet_tpu/cli.py; reference main.py:16-125, CLI-compatible):
 Runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
 card.  The reference's --quantum_backend / --classical_backend flags are
 accepted so its reproduce scripts run unchanged; every value resolves to
-the one engine.  Flags of later slices raise naming their ROADMAP item.
+the one engine.  ``--multi_seed`` trains its seeds one after another
+(multiseed.py).  Flags of later slices raise naming their ROADMAP item.
 """
 import sys
 import traceback
@@ -21,7 +22,7 @@ from quanonet_torch.config import (
 
 def main(argv=None):
     """Train and evaluate as the flags say; returns the Solver (its model
-    holds the evaluated parameters)."""
+    holds the evaluated parameters), or with --multi_seed {seed: metrics}."""
     parser = get_base_parser()
     args = parser.parse_args(argv)
     config = load_config(args)
@@ -39,6 +40,17 @@ def main(argv=None):
     print("===========================================================")
 
     set_random_seed(config.get('seed', 0))
+
+    if config.get('multi_seed'):
+        from quanonet_torch.multiseed import train_multi_seed
+        try:
+            result = train_multi_seed(config)
+            print("\nExecution Finished Successfully.")
+        except Exception as e:   # report and exit non-zero, as the reference
+            print(f"\nExecution Failed: {e}")
+            traceback.print_exc()
+            sys.exit(1)
+        return result
 
     from quanonet_torch.solver import Solver
     try:

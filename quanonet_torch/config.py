@@ -114,34 +114,45 @@ def get_base_parser():
                              'does')
     parser.add_argument('--num_devices', type=int, default=None,
                         help='Devices for data parallelism: not ported yet '
-                             '(ROADMAP §A12)')
+                             '(ROADMAP §A item 8)')
     parser.add_argument('--shard', type=str, default=None,
                         choices=['none', 'data', 'amp', 'pipe'],
                         help='Mesh-sharded training: not ported yet '
-                             '(ROADMAP §A12)')
+                             '(ROADMAP §A item 8)')
     parser.add_argument('--n_microbatches', type=int, default=None,
-                        help='--shard pipe microbatches (ROADMAP §A12)')
+                        help='--shard pipe microbatches (ROADMAP §A item 8)')
     parser.add_argument('--multi_seed', type=int, nargs='+', default=None,
-                        help='Train several seeds at once: not ported yet '
-                             '(ROADMAP §A6)')
+                        help='Train these seeds one after another, each in '
+                             'its own experiment directory; completed seeds '
+                             'are skipped')
     parser.add_argument('--multi_seed_fresh_data', type=str, default=None,
-                        help='--multi_seed option (ROADMAP §A6)')
+                        help="'true' => --multi_seed regenerates the "
+                             'dataset for each seed (from its NumPy seed) '
+                             'instead of sharing the cached one')
     parser.add_argument('--profile', type=str, default=None,
                         help='Write a torch.profiler trace of one training '
                              'segment to this directory')
-    for flag in ('--noise_p', '--readout_p', '--damp_gamma', '--dephase_p',
-                 '--spsa_c'):
+    for flag in ('--noise_p', '--readout_p', '--damp_gamma', '--dephase_p'):
         parser.add_argument(flag, type=float, default=None,
-                            help='QPU emulation: not ported yet '
-                                 '(ROADMAP §A9)')
-    for flag in ('--noise_traj', '--train_shots', '--ps_chunk'):
-        parser.add_argument(flag, type=int, default=None,
-                            help='QPU emulation: not ported yet '
-                                 '(ROADMAP §A9)')
+                            help='Noise emulation: not ported yet '
+                                 '(ROADMAP §A item 5)')
+    parser.add_argument('--noise_traj', type=int, default=None,
+                        help='Noise trajectories (ROADMAP §A item 5)')
     parser.add_argument('--grad_method', type=str, default=None,
                         choices=['autodiff', 'shift', 'spsa'],
-                        help='Gradient source; shift and spsa are not '
-                             'ported yet (ROADMAP §A9)')
+                        help='Gradient source: autodiff (default), shift '
+                             '(the parameter-shift rule from circuit '
+                             'evaluations alone) or spsa (two perturbed '
+                             'loss evaluations a step)')
+    parser.add_argument('--train_shots', type=int, default=None,
+                        help='Finite-shot measurement in the training loss '
+                             'and the evaluation; needs --grad_method shift '
+                             'or spsa')
+    parser.add_argument('--ps_chunk', type=int, default=None,
+                        help='Shift indices evaluated at once by '
+                             '--grad_method shift (bounds its memory)')
+    parser.add_argument('--spsa_c', type=float, default=None,
+                        help='SPSA perturbation size (default 0.05)')
     parser.add_argument('--save_state', type=str, default=None,
                         help="'true' => snapshot (epoch, params, optimizer "
                              'state, best) to train_state.npz at every '
@@ -152,7 +163,7 @@ def get_base_parser():
                         choices=['host', 'device', 'native'],
                         help='Raw data generator: host = reference '
                              'NumPy/SciPy (default); device and native are '
-                             'not ported yet (ROADMAP §A10)')
+                             'not ported yet (ROADMAP §A item 7)')
     return parser
 
 
@@ -189,19 +200,14 @@ def reject_unported(config):
     of a later slice."""
     unported = []
     if str(config.get('shard') or 'none') != 'none':
-        unported.append(('--shard', '§A12'))
+        unported.append(('--shard', '§A item 8'))
     if config.get('num_devices') and int(config['num_devices']) > 1:
-        unported.append(('--num_devices > 1', '§A12'))
-    if config.get('multi_seed'):
-        unported.append(('--multi_seed', '§A6'))
-    for k in ('noise_p', 'readout_p', 'damp_gamma', 'dephase_p',
-              'train_shots', 'spsa_c', 'ps_chunk'):
+        unported.append(('--num_devices > 1', '§A item 8'))
+    for k in ('noise_p', 'readout_p', 'damp_gamma', 'dephase_p'):
         if config.get(k):
-            unported.append((f'--{k}', '§A9'))
-    if str(config.get('grad_method') or 'autodiff') != 'autodiff':
-        unported.append((f"--grad_method {config['grad_method']}", '§A9'))
+            unported.append((f'--{k}', '§A item 5'))
     if str(config.get('datagen') or 'host') != 'host':
-        unported.append((f"--datagen {config['datagen']}", '§A10'))
+        unported.append((f"--datagen {config['datagen']}", '§A item 7'))
     if unported:
         raise NotImplementedError(
             'not ported yet: ' + ', '.join(f'{flag} (ROADMAP {item})'

@@ -13,7 +13,7 @@ Randomness uses the global NumPy RNG, matching the reference's seeding
 contract (utils/common.py:154-181: np.random.seed at launch).  The raw
 caches are guarded by an ``fcntl`` file lock (the ``filelock`` package is
 not needed).  The native C++ and on-device generators are not ported yet
-(ROADMAP §A10; data/manager.py raises for them).
+(ROADMAP §A item 7; data/manager.py raises for them).
 """
 import fcntl
 import os

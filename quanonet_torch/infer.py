@@ -5,15 +5,18 @@ port (counterpart of quanonet_tpu/infer.py).
 Hyper-parameters are parsed from the experiment-ID directory name of the
 checkpoint, with keyword/CLI overrides; both checkpoint formats (.npz and
 MindSpore .ckpt) load.  Runs on ``cuda`` unless ``device='cpu'`` is asked
-for.
+for.  Without --data or --branch the CLI generates the test set that the
+checkpoint's name describes (:func:`generate_test_data`).  With --shots
+each prediction is estimated from that many sampled shots
+(ops/sampling.py), replayable from --shot_seed.
 
-Not ported yet: the CLI's test-data generation from the checkpoint name
-(ROADMAP §A item 1), finite shots (item 4) and the noise, ZNE and T1/T2
-flags (item 5).  The CLI parses every flag of the JAX package's, and each
-of these raises NotImplementedError naming its item.
+Not ported yet: the noise, ZNE and T1/T2 flags (ROADMAP §A item 5).  The
+CLI parses every flag of the JAX package's, and each of these raises
+NotImplementedError naming its item.
 
 CLI:  python -m quanonet_torch.infer --ckpt <best_model.ckpt|.npz>
-          (--data <file.npz> | --branch <b.npy> [--trunk <t.npy>])
+          [--data <file.npz> | --branch <b.npy> [--trunk <t.npy>]]
+          [--num_points_0 P] [--shots N [--shot_seed S]]
           [--output preds.npy] [--device cuda|cpu]
 """
 import argparse
@@ -27,6 +30,7 @@ from quanonet_torch import checkpoint as ckpt_io
 from quanonet_torch import resolve_device
 from quanonet_torch.convert import state_dict_from_raw
 from quanonet_torch.metrics import compute_metrics, rel_l2
+from quanonet_torch.ops.sampling import key_generator
 
 _NET_RE = re.compile(r'Net(\d+)-(\d+)-(\d+)-(\d+)')
 _NET2_RE = re.compile(r'Net(\d+)-(\d+)(?:[^-]|$)')
@@ -36,6 +40,7 @@ _TF_RE = re.compile(r'_(TF|FF|NTF)_')
 _MODEL_RE = re.compile(r'_(QuanONet|HEAQNN|DeepONet|FNN|FNO)_')
 _QB_RE = re.compile(r'_(TQ|Qiskit|PL|torchquantum|qiskit|pennylane)_')
 _QB_MAP = {'TQ': 'torchquantum', 'Qiskit': 'qiskit', 'PL': 'pennylane'}
+_DATA_RE = re.compile(r'_(\d+)x(\d+)_Seed')
 # Hamiltonian-ablation suffixes of the experiment ID
 _PAULI_RE = re.compile(r'_Pauli([XYZ])')
 _DIAG_RE = re.compile(r'_Diag([^_]+)')
@@ -224,10 +229,14 @@ def load_model(ckpt_path: str, branch_in: int, trunk_in: int = 0,
 
 
 def predict(model, branch_input, trunk_input=None, cfg=None,
-            batch_size=None):
+            batch_size=None, shot_seed=0):
     """Batched inference: QuanONet and DeepONet take (branch, trunk), FNN
     their concatenation, HEAQNN branch only, FNO the grid tensor.  Returns
-    a NumPy array, (n, 1) for all but FNO's (n, points, 1)."""
+    a NumPy array, (n, 1) for all but FNO's (n, points, 1).
+
+    A model loaded with ``shots`` predicts from sampled shots: the batch at
+    row offset s draws from a generator seeded from (shot_seed, s), so the
+    predictions replay for equal arguments."""
     if batch_size is None:
         batch_size = 20000
     model_type = (cfg or {}).get('model_type', 'QuanONet')
@@ -235,10 +244,13 @@ def predict(model, branch_input, trunk_input=None, cfg=None,
         model_type in ('QuanONet', 'DeepONet')
     concat = trunk_input is not None and model_type == 'FNN'
     device = next(model.parameters()).device
+    sampled = bool(getattr(model, 'shots', None))
     n = branch_input.shape[0]
     preds = []
     with torch.inference_mode():
         for s in range(0, n, batch_size):
+            kw = ({'generator': key_generator(shot_seed, s, device=device)}
+                  if sampled else {})
             b = torch.as_tensor(
                 np.asarray(branch_input[s:s + batch_size], np.float32),
                 device=device)
@@ -247,9 +259,9 @@ def predict(model, branch_input, trunk_input=None, cfg=None,
                     np.asarray(trunk_input[s:s + batch_size], np.float32),
                     device=device)
                 out = model(torch.cat([b, t], dim=1)) if concat \
-                    else model(b, t)
+                    else model(b, t, **kw)
             else:
-                out = model(b)
+                out = model(b, **kw)
             preds.append(out.cpu().numpy())
     return np.concatenate(preds, axis=0)
 
@@ -263,20 +275,57 @@ def evaluate(y_pred, y_true):
 
 # ── CLI ───────────────────────────────────────────────────────────────────────
 
-# the reference CLI's QPU-emulation flags, each parsed here and refused
+def generate_test_data(ckpt_path, num_points_0=None):
+    """The test set that the checkpoint directory's name describes
+    (operator, model type, ``{num_train}x{num_points}``), from the host
+    DataManager under the global NumPy seed, as the JAX package's infer
+    CLI builds it: 1000 test functions, and for the quantum models
+    num_points_0 = min(points, qubits × branch depth) unless given.
+    Returns (branch, trunk or None, test_output)."""
+    from quanonet_torch.data.manager import DataManager
+
+    dir_name = os.path.basename(os.path.dirname(os.path.abspath(ckpt_path)))
+    m_op = _MODEL_RE.search(dir_name)
+    m_data = _DATA_RE.search(dir_name)
+    operator = dir_name.split('_')[0] if dir_name else None
+    if not operator or not m_op:
+        raise SystemExit("Provide --data <file.npz> or --branch <file.npy>.")
+    num_train = int(m_data.group(1)) if m_data else 1000
+    num_points = int(m_data.group(2)) if m_data else 100
+    model_type = m_op.group(1)
+    if model_type in QUANTUM_MODELS:
+        cfg = _resolve_config(ckpt_path, {})
+        inferred = min(num_points,
+                       int(cfg['num_qubits']) * int(cfg['net_size'][0]))
+    else:
+        inferred = num_points
+    data_cfg = {
+        'operator': operator, 'model_type': model_type,
+        'num_train': num_train, 'num_test': 1000, 'num_points': num_points,
+        'num_points_0': (num_points_0 if num_points_0 is not None
+                         else inferred),
+        'train_sample_num': 10, 'test_sample_num': 100,
+    }
+    print(f"[Auto] Generating test data for {operator} "
+          f"(num_points={num_points}, "
+          f"num_points_0={data_cfg['num_points_0']}) ...")
+    data = DataManager(data_cfg).get_data()
+    branch = (data['test_branch_input'] if 'test_branch_input' in data
+              else data['test_input'])
+    return branch, data.get('test_trunk_input'), data.get('test_output')
+
+
+# the reference CLI's noise-emulation flags, each parsed here and refused
 # naming the ROADMAP item that ports it
-_UNPORTED_ITEMS = {'shots': 'ROADMAP §A item 4', 'noise': 'ROADMAP §A item 5'}
-_UNPORTED_FLAGS = {
-    '--shots': 'shots', '--shot_seed': 'shots', '--noise_p': 'noise',
-    '--noise_traj': 'noise', '--readout_p': 'noise', '--t1_us': 'noise',
-    '--t2_us': 'noise', '--block_time_us': 'noise', '--damp_gamma': 'noise',
-    '--dephase_p': 'noise'}
-_INT_FLAGS = ('--shots', '--shot_seed', '--noise_traj')
+_UNPORTED_ITEM = 'ROADMAP §A item 5'
+_UNPORTED_FLAGS = ('--noise_p', '--noise_traj', '--readout_p', '--t1_us',
+                   '--t2_us', '--block_time_us', '--damp_gamma',
+                   '--dephase_p')
 
 
 def _reject_unported_flags(args):
-    """Raise for the QPU-emulation flags that were given.  ``--noise_p 0``
-    and ``--readout_p 0`` are the ideal model and pass, as in the JAX
+    """Raise for the noise-emulation flags that were given.  ``--noise_p
+    0`` and ``--readout_p 0`` are the ideal model and pass, as in the JAX
     package."""
     used = [flag for flag in _UNPORTED_FLAGS
             if getattr(args, flag[2:]) is not None
@@ -285,11 +334,9 @@ def _reject_unported_flags(args):
     if args.zne:
         used.append('--zne')
     if used:
-        items = sorted({_UNPORTED_ITEMS[_UNPORTED_FLAGS.get(f, 'noise')]
-                        for f in used})
         raise NotImplementedError(
-            f"{', '.join(used)}: QPU emulation is not ported yet "
-            f"({'; '.join(items)}); the port measures exactly")
+            f"{', '.join(used)}: noise emulation is not ported yet "
+            f"({_UNPORTED_ITEM}); the port measures exactly or with shots")
 
 
 def _parser():
@@ -306,7 +353,8 @@ def _parser():
     p.add_argument('--trunk', default=None, help='Trunk input .npy')
     p.add_argument('--num_points_0', type=int, default=None,
                    help='Branch points of the data generated from the '
-                        'checkpoint name: not ported yet (ROADMAP §A item 1)')
+                        'checkpoint name (default min(points, qubits x '
+                        'branch depth) for the quantum models)')
     p.add_argument('--output', default=None,
                    help='Save predictions to .npy or .npz')
     p.add_argument('--batch_size', type=int, default=None,
@@ -323,15 +371,21 @@ def _parser():
                    help='CLI-compat override; every backend maps onto the '
                         'one engine here, so this only annotates the config')
     p.add_argument('--ham_bound', type=float, nargs=2, default=None)
-    for flag, kind in _UNPORTED_FLAGS.items():
-        item = _UNPORTED_ITEMS[kind]
-        p.add_argument(flag, type=int if flag in _INT_FLAGS else float,
+    p.add_argument('--shots', type=int, default=None,
+                   help='Finite-shot measurement sampling (QPU emulation): '
+                        'estimate each prediction from N sampled shots '
+                        'instead of the exact expectation')
+    p.add_argument('--shot_seed', type=int, default=0,
+                   help='Seed of the --shots sampling (replayable)')
+    for flag in _UNPORTED_FLAGS:
+        p.add_argument(flag, type=int if flag == '--noise_traj' else float,
                        default=None,
-                       help=f'QPU emulation: not ported yet ({item})')
+                       help=f'Noise emulation: not ported yet '
+                            f'({_UNPORTED_ITEM})')
     p.add_argument('--zne', type=float, nargs='+', default=None,
                    metavar='SCALE',
                    help='Zero-noise extrapolation: not ported yet '
-                        f"({_UNPORTED_ITEMS['noise']})")
+                        f"({_UNPORTED_ITEM})")
     return p
 
 
@@ -351,10 +405,8 @@ def main(argv=None):
         branch = np.load(args.branch)
         trunk = np.load(args.trunk) if args.trunk else None
     else:
-        raise NotImplementedError(
-            "generating test data from the checkpoint name is not ported "
-            "yet (ROADMAP §A item 1); provide --data <file.npz> or "
-            "--branch <file.npy>")
+        branch, trunk, y_true = generate_test_data(args.ckpt,
+                                                   args.num_points_0)
 
     branch_in = branch.shape[-1] if branch.ndim == 3 else branch.shape[1]
     trunk_in = trunk.shape[1] if trunk is not None else 0
@@ -373,7 +425,11 @@ def main(argv=None):
           f"engine={cfg['engine']}  device={cfg['device']}")
     print(f"Config: net_size={cfg['net_size']}  "
           f"num_qubits={cfg.get('num_qubits', '-')}")
-    preds = predict(model, branch, trunk, cfg=cfg, batch_size=args.batch_size)
+    if cfg.get('shots'):
+        print(f"Shots : {cfg['shots']} per prediction "
+              f"(sampled measurement, seed={args.shot_seed})")
+    preds = predict(model, branch, trunk, cfg=cfg, batch_size=args.batch_size,
+                    shot_seed=args.shot_seed)
     print(f"Output: {preds.shape}")
 
     if y_true is not None:

@@ -190,6 +190,16 @@ class ExperimentLogger:
         """Resume-skip marker (reference utils/logger.py:182-185)."""
         return os.path.exists(os.path.join(self.exp_dir, "metric.json"))
 
+    @staticmethod
+    def completed(config, base_output_dir="outputs"):
+        """Side-effect-free resume-skip probe: True iff the run's
+        metric.json exists.  Unlike making an ExperimentLogger, this
+        creates no directory and no TensorBoard event file."""
+        exp_dir = os.path.join(base_output_dir,
+                               config.get('operator', 'Unknown'),
+                               get_experiment_id(config))
+        return os.path.exists(os.path.join(exp_dir, "metric.json"))
+
     def close(self):
         if self.writer:
             self.writer.close()

@@ -27,3 +27,19 @@ def rel_l2(y_true, y_pred, eps=1e-8):
     t = np.ravel(_to_numpy(y_true)).astype(np.float64)
     p = np.ravel(_to_numpy(y_pred)).astype(np.float64)
     return float(np.linalg.norm(p - t) / (np.linalg.norm(t) + eps))
+
+
+def count_parameters(params) -> int:
+    """Trainable real parameters of a module, a state_dict or an iterable
+    of tensors; complex tensors count twice (the counterpart of
+    quanonet_tpu/metrics.py count_parameters; reference utils/utils.py:11-45)."""
+    if hasattr(params, 'parameters'):
+        params = params.parameters()
+    elif hasattr(params, 'values'):
+        params = params.values()
+    total = 0
+    for t in params:
+        complex_ = (t.is_complex() if hasattr(t, 'is_complex')
+                    else np.iscomplexobj(t))
+        total += int(np.prod(np.shape(t))) * (2 if complex_ else 1)
+    return total

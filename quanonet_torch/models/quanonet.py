@@ -16,9 +16,12 @@ state_dict keys follow the JAX package's parameter tree
     trunk_freq.{weights,bias} (QuanONet); ansatz, freq.{weights,bias}
     (HEAQNN).
 
-This slice measures exactly: the Z-diagonal and the X/Y Pauli-sum
-observables.  The QPU-emulation flags (shots, noise, ZNE, T1/T2 channels,
-shift-rule gradients) raise until their slice lands (ROADMAP §A9).
+Measurement: exact, or with ``shots`` finite-shot sampled
+(ops/sampling.py) from a ``torch.Generator`` passed to ``forward``; with
+``grad_method='shift'`` the circuit's gradient is the parameter-shift rule
+(ops/param_shift.py) for the ansatz and the encode inputs, exact or
+sampled.  The noise, ZNE and T1/T2 flags raise until their slice lands
+(ROADMAP §A item 5).
 """
 import torch
 from torch import nn
@@ -29,34 +32,37 @@ from quanonet_torch.ops.hamiltonian import resolve_ham_diag, simple_ham_params
 from quanonet_torch.ops.hea import (
     hea_expectation, heaqnn_spec, init_ansatz_weights, quanonet_spec,
 )
+from quanonet_torch.ops.param_shift import make_ps_expectation
+from quanonet_torch.ops.sampling import shot_expectation
 
 
-def _reject_unported(shots=None, noise_p=None, readout_p=0.0,
-                     zne_scales=None, damp_gamma=None, dephase_p=None,
-                     grad_method='autodiff'):
-    """Flags of later slices raise instead of being ignored."""
-    flags = dict(shots=shots, noise_p=noise_p, readout_p=readout_p,
+def _reject_unported(noise_p=None, readout_p=0.0, zne_scales=None,
+                     damp_gamma=None, dephase_p=None):
+    """Flags of a later slice raise instead of being ignored."""
+    flags = dict(noise_p=noise_p, readout_p=readout_p,
                  zne_scales=zne_scales, damp_gamma=damp_gamma,
                  dephase_p=dephase_p)
     used = [k for k, v in flags.items() if v]
-    if grad_method == 'shift':
-        used.append("grad_method='shift'")
-    elif grad_method != 'autodiff':
-        raise ValueError(f"unknown grad_method {grad_method!r}")
     if used:
         raise NotImplementedError(
-            f"{', '.join(used)}: QPU emulation is not ported yet "
-            f"(ROADMAP §A9); the port measures exactly")
+            f"{', '.join(used)}: noise emulation is not ported yet "
+            f"(ROADMAP §A item 5); the port measures exactly or with shots")
 
 
 class _Measure(nn.Module):
-    """Exact measurement of the HEA circuit: Z-diagonal or X/Y Pauli sum."""
+    """Measurement of the HEA circuit: the Z-diagonal or an X/Y Pauli sum,
+    exact or from ``shots``; with grad_method 'shift' its gradient is the
+    shift rule (ps_chunk bounds the fan-out)."""
 
-    def __init__(self, spec, ham_bound, ham_diag, ham_pauli, engine, device):
+    def __init__(self, spec, ham_bound, ham_diag, ham_pauli, engine, device,
+                 shots=None, grad_method='autodiff', ps_chunk=None):
         super().__init__()
+        if grad_method not in ('autodiff', 'shift'):
+            raise ValueError(f"unknown grad_method {grad_method!r}")
         self.spec = spec
         self.engine = engine
         self.pauli = ham_pauli
+        self.shots = int(shots) if shots else None
         if ham_pauli == 'Z' or ham_diag is not None:
             self.pauli = 'Z'
             diag = resolve_ham_diag(
@@ -70,8 +76,25 @@ class _Measure(nn.Module):
             self.diag = None
             self.offset, self.coeff = simple_ham_params(
                 spec.n_qubits, ham_bound[0], ham_bound[1])
+        self.shift = None
+        if grad_method == 'shift':
+            self.shift = make_ps_expectation(
+                spec, diag=self.diag, pauli=self.pauli, offset=self.offset,
+                coeff=self.coeff, engine=engine, shots=self.shots,
+                chunk=ps_chunk)
 
-    def forward(self, ansatz, x):
+    def forward(self, ansatz, x, generator=None):
+        if self.shots and generator is None:
+            raise ValueError(f"a model measured with {self.shots} shots "
+                             f"needs a generator")
+        if self.shift is not None:
+            return (self.shift(ansatz, x, generator) if self.shots
+                    else self.shift(ansatz, x))
+        if self.shots:
+            return shot_expectation(generator, self.spec, ansatz, x,
+                                    self.shots, diag=self.diag,
+                                    pauli=self.pauli, offset=self.offset,
+                                    coeff=self.coeff, engine=self.engine)
         return hea_expectation(self.spec, ansatz, x, diag=self.diag,
                                pauli=self.pauli, offset=self.offset,
                                coeff=self.coeff, engine=self.engine)
@@ -85,10 +108,11 @@ class QuanONet(nn.Module):
                  ham_bound=(-5.0, 5.0), ham_diag=None, ham_pauli='Z',
                  engine='auto', shots=None, noise_p=None, readout_p=0.0,
                  zne_scales=None, damp_gamma=None, dephase_p=None,
-                 grad_method='autodiff', *, device=None, generator=None):
+                 grad_method='autodiff', ps_chunk=None, *, device=None,
+                 generator=None):
         super().__init__()
-        _reject_unported(shots, noise_p, readout_p, zne_scales, damp_gamma,
-                         dephase_p, grad_method)
+        _reject_unported(noise_p, readout_p, zne_scales, damp_gamma,
+                         dephase_p)
         device = resolve_device(device)
         self.num_qubits = int(num_qubits)
         self.branch_input_size = int(branch_input_size)
@@ -112,13 +136,16 @@ class QuanONet(nn.Module):
             init_ansatz_weights(self.spec, generator, device))
         self.bias = nn.Parameter(torch.zeros((), device=device))
         self.measure = _Measure(self.spec, ham_bound, ham_diag, ham_pauli,
-                                engine, device)
+                                engine, device, shots, grad_method, ps_chunk)
+        self.shots = self.measure.shots
+        self.grad_method = grad_method
 
-    def forward(self, branch_input, trunk_input):
+    def forward(self, branch_input, trunk_input, generator=None):
+        """``generator`` draws the shots of a sampled model."""
         # trunk encoding first: the circuit is trunk blocks then branch blocks
         x = torch.cat([self.trunk_freq(trunk_input),
                        self.branch_freq(branch_input)], dim=1)
-        return self.measure(self.ansatz, x) + self.bias
+        return self.measure(self.ansatz, x, generator) + self.bias
 
 
 class HEAQNN(nn.Module):
@@ -129,11 +156,11 @@ class HEAQNN(nn.Module):
                  if_trainable_freq=True, ham_bound=(-5.0, 5.0),
                  ham_diag=None, ham_pauli='Z', engine='auto', shots=None,
                  noise_p=None, readout_p=0.0, zne_scales=None,
-                 damp_gamma=None, dephase_p=None, grad_method='autodiff', *,
-                 device=None, generator=None):
+                 damp_gamma=None, dephase_p=None, grad_method='autodiff',
+                 ps_chunk=None, *, device=None, generator=None):
         super().__init__()
-        _reject_unported(shots, noise_p, readout_p, zne_scales, damp_gamma,
-                         dephase_p, grad_method)
+        _reject_unported(noise_p, readout_p, zne_scales, damp_gamma,
+                         dephase_p)
         device = resolve_device(device)
         self.num_qubits = int(num_qubits)
         self.input_size = int(input_size)
@@ -149,7 +176,10 @@ class HEAQNN(nn.Module):
         self.ansatz = nn.Parameter(
             init_ansatz_weights(self.spec, generator, device))
         self.measure = _Measure(self.spec, ham_bound, ham_diag, ham_pauli,
-                                engine, device)
+                                engine, device, shots, grad_method, ps_chunk)
+        self.shots = self.measure.shots
+        self.grad_method = grad_method
 
-    def forward(self, x):
-        return self.measure(self.ansatz, self.freq(x))
+    def forward(self, x, generator=None):
+        """``generator`` draws the shots of a sampled model."""
+        return self.measure(self.ansatz, self.freq(x), generator)

@@ -487,6 +487,14 @@ def hea_forward_pair(spec: HEASpec, weights, x, engine='auto'):
     return forward_pallas(spec, weights, x)
 
 
+def hea_forward_state(spec: HEASpec, weights, x, engine='auto'):
+    """Complex statevector (batch, 2^n) complex64 from
+    :func:`hea_forward_pair`: a test and analysis helper; the engines and
+    kernels work on the split-real pair."""
+    sr, si = hea_forward_pair(spec, weights, x, engine=engine)
+    return torch.complex(sr, si)
+
+
 def hea_expectation(spec: HEASpec, weights, x, diag=None, pauli='Z',
                     offset=0.0, coeff=0.0, engine='auto'):
     """Full circuit + measurement.  Returns (batch, 1) float32.

@@ -10,14 +10,21 @@ quanonet_tpu/serve.py), on ``cuda`` unless ``--device cpu`` is asked for.
 * **Parameters on the device once**; requests carry data only.  The
   threaded handler serialises device work under one lock, the right
   behaviour for a one-card server.
-* **Memory.**  A bucket's chain operands grow with the register: from 8
-  qubits the raw phases are (blocks, bucket, 2^n) fp32, 2.0 GB for a Q10
-  Net40-2-20-2 model at bucket 8192 (60 × 8192 × 1024 × 4 B), beside the
-  state's 2 × 8192 × 1024 × 4 B; lower --max_batch for wider registers.
+* **Memory.**  A bucket's chain operands grow with the register.  Up to
+  7 qubits the block chain takes the raw phases (blocks, bucket, 2^n)
+  fp32, 62.9 MB for the Q5 flagship at bucket 8192.  From 8 qubits the
+  fused-group chain takes the angles (blocks, bucket, n), 19.7 MB for a
+  Q10 Net40-2-20-2 model at bucket 8192, and builds the phases inside the
+  kernel; the state is 2 × 8192 × 1024 × 4 B = 67 MB.  Lower --max_batch
+  for wider registers.
+* **Shots.**  With --shots each prediction is estimated from sampled
+  shots (ops/sampling.py); each executed bucket draws from a generator
+  seeded from (--shot_seed, a counter of the buckets run), the JAX
+  server's rule, so one server's answers replay from its seed.
 
 CLI:  python -m quanonet_torch.serve --ckpt <best_model.ckpt|.npz>
           --branch_in 100 [--trunk_in 2] [--port 8777] [--max_batch 8192]
-          [--device cuda|cpu]
+          [--shots N [--shot_seed S]] [--device cuda|cpu]
 API:  POST /predict   {"branch": [[...], ...], "trunk": [[...], ...]}
                       -> {"pred": [[...], ...], "n": N, "buckets": [B, ...]}
                       (one bucket per executed chunk; bodies over the
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from quanonet_torch.infer import load_model
+from quanonet_torch.ops.sampling import key_generator
 
 
 def _buckets(max_batch):
@@ -51,9 +59,12 @@ class Predictor:
     """Bucketed predictions over a loaded checkpoint."""
 
     def __init__(self, ckpt_path, branch_in, trunk_in=0, max_batch=8192,
-                 device=None, **overrides):
+                 device=None, shot_seed=0, **overrides):
         self.model, self.cfg = load_model(ckpt_path, branch_in, trunk_in,
                                           device=device, **overrides)
+        self.shot_seed = int(shot_seed)
+        self._sampled = bool(getattr(self.model, 'shots', None))
+        self._req_counter = 0
         self.device = next(self.model.parameters()).device
         self.branch_in = branch_in
         self.trunk_in = trunk_in
@@ -122,8 +133,13 @@ class Predictor:
             inp = [np.concatenate([bp, tp], axis=1)] if self._concat \
                 else [bp, tp]
         with self._lock, torch.inference_mode():
+            kw = {}
+            if self._sampled:
+                self._req_counter += 1
+                kw['generator'] = key_generator(
+                    self.shot_seed, self._req_counter, device=self.device)
             out = self.model(*(torch.as_tensor(a, device=self.device)
-                               for a in inp))
+                               for a in inp), **kw)
             out = out.cpu().numpy()
         return out[:nb]
 
@@ -226,11 +242,16 @@ def main(argv=None):
     ap.add_argument('--port', type=int, default=8777)
     ap.add_argument('--max_batch', type=int, default=8192)
     ap.add_argument('--device', default=None, help='cuda (default) or cpu')
+    ap.add_argument('--shots', type=int, default=None,
+                    help='Finite-shot sampled predictions (QPU emulation)')
+    ap.add_argument('--shot_seed', type=int, default=0,
+                    help='Seed of the --shots sampling')
     ap.add_argument('--no_warmup', action='store_true')
     args = ap.parse_args(argv)
 
     pred = Predictor(args.ckpt, args.branch_in, args.trunk_in,
-                     max_batch=args.max_batch, device=args.device)
+                     max_batch=args.max_batch, device=args.device,
+                     shot_seed=args.shot_seed, shots=args.shots)
     if not args.no_warmup:
         print(f"[serve] warming {len(pred.buckets)} buckets "
               f"(max {args.max_batch})...", flush=True)

@@ -22,11 +22,18 @@ warm start via init_checkpoint, if_train / if_save / ckpt_path config
 keys, per-epoch Loss/train and Error/rel_l2 TensorBoard scalars, and the
 elastic mid-run resume (--save_state) that continues bit-identically.
 
+QPU-trainable gradients (ops/param_shift.py): ``--grad_method shift``
+makes the circuit's gradient the parameter-shift rule, ``spsa`` replaces
+``loss.backward()`` with the two-evaluation SPSA estimate (``--spsa_c``),
+and ``--train_shots`` measures the loss, and the evaluation, with finite
+shots; ``--ps_chunk`` bounds the shift rule's fan-out.
+
 The random streams are torch's, not JAX's: parameters are drawn from a
-``torch.Generator`` seeded with the run seed, and epoch e's permutation
-from one seeded with (seed, e), so a resumed run replays them.  Training
-is held to the JAX package by outcome and, step by step, in the tests
-(which hand both the same parameters and permutations).
+``torch.Generator`` seeded with the run seed, epoch e's permutation from
+one seeded with (seed, e), and a sampled or SPSA step t from generators
+seeded from (seed, t), so a resumed run replays them.  Training is held
+to the JAX package by outcome and, step by step, in the tests (which hand
+both the same parameters and permutations).
 """
 import math
 import os
@@ -42,7 +49,9 @@ from quanonet_torch.config import parse_bool, reject_unported
 from quanonet_torch.convert import raw_from_state_dict, state_dict_from_raw
 from quanonet_torch.data.manager import DataManager
 from quanonet_torch.logger import ExperimentLogger, StreamToLogger, setup_logger
-from quanonet_torch.metrics import compute_metrics, rel_l2
+from quanonet_torch.metrics import compute_metrics, count_parameters, rel_l2
+from quanonet_torch.ops.param_shift import make_spsa_step
+from quanonet_torch.ops.sampling import derive_seed, key_generator
 
 QUANTUM_MODELS = ('QuanONet', 'HEAQNN')
 CLASSICAL_MODELS = ('DeepONet', 'FNN', 'FNO')
@@ -99,10 +108,24 @@ def build_model(config, data, device=None, generator=None):
     from quanonet_torch.models import HEAQNN, QuanONet
     model_type = config['model_type']
     _check_model_type(model_type)
+    gm = str(config.get('grad_method') or 'autodiff')
+    if gm not in ('autodiff', 'shift', 'spsa'):
+        raise ValueError(f"unknown grad_method {gm!r}")
+    train_shots = config.get('train_shots')
+    if train_shots and gm == 'autodiff':
+        raise ValueError("--train_shots needs --grad_method shift or spsa "
+                         "(autodiff cannot differentiate sampling)")
     if model_type in CLASSICAL_MODELS:
         return _build_classical(config, data, device, generator)
     net_size = config.get('net_size')
     ham_diag = config.get('ham_diag')
+    # QPU-trainable gradients (ops/param_shift.py): the shift rule as the
+    # circuit's gradient, and finite shots in the training loss
+    qpu = dict(shots=int(train_shots) if train_shots else None,
+               grad_method='shift' if gm == 'shift' else 'autodiff',
+               ps_chunk=(int(config['ps_chunk'])
+                         if gm == 'shift' and config.get('ps_chunk')
+                         else None))
     kw = dict(num_qubits=config['num_qubits'],
               scale_coeff=config.get('scale_coeff', 0.01),
               if_trainable_freq=parse_bool(
@@ -111,7 +134,7 @@ def build_model(config, data, device=None, generator=None):
               ham_diag=tuple(ham_diag) if ham_diag is not None else None,
               ham_pauli=config.get('ham_pauli', 'Z'),
               engine=config.get('engine', 'auto'), device=device,
-              generator=generator)
+              generator=generator, **qpu)
     if model_type == 'QuanONet':
         return QuanONet(branch_input_size=data['train_branch_input'].shape[1],
                         trunk_input_size=data['train_trunk_input'].shape[1],
@@ -324,8 +347,9 @@ def build_optimizer(config, total_steps, params):
     return ScheduledOptimizer(opt, build_schedule(config, total_steps))
 
 
-def make_train_epoch(model, optimizer, num_samples, batch_size, per_sample):
-    """One training epoch: ``train_epoch(perm, inputs, outputs) ->
+def make_train_epoch(model, optimizer, num_samples, batch_size, per_sample,
+                     seed=0, spsa_c=None):
+    """One training epoch: ``train_epoch(perm, inputs, outputs, epoch=0) ->
     (avg_loss, sse)``, both 0-d float32 tensors on the outputs' device.
     ``optimizer`` is a :class:`ScheduledOptimizer` or anything else with
     its ``zero_grad``/``step`` pair over the model's parameters, such as
@@ -335,17 +359,26 @@ def make_train_epoch(model, optimizer, num_samples, batch_size, per_sample):
     ``perm`` (num_samples,) orders the samples; the last batch wraps
     around and its extra rows are masked out, reproducing the reference's
     per-epoch averaging (solver_ms.py:219-245): each step's loss is
-    sum(sq · mask) / max(sum(mask) · per_sample, 1)."""
+    sum(sq · mask) / max(sum(mask) · per_sample, 1).
+
+    A model measured with shots (``model.shots``), or ``spsa_c`` (the SPSA
+    estimator at that perturbation size in place of ``loss.backward()``),
+    makes the step stochastic: step t = epoch · batches + b draws from
+    generators seeded from (``seed``, t), the counterpart of the JAX
+    package's per-step rngs, so a resumed run draws what the unbroken run
+    drew: (seed, t, 0) the SPSA direction, (seed, t, 1) the model's shots,
+    the same shots for both SPSA evaluations (common random numbers)."""
     num_batches = max(1, int(np.ceil(num_samples / batch_size)))
     padded = num_batches * batch_size
+    sampled = bool(getattr(model, 'shots', None))
+    params = dict(model.named_parameters())
 
-    def batch_loss(batch_in, batch_out, mask):
-        pred = model(*batch_in)
+    def batch_loss(pred, batch_out, mask):
         m = mask.reshape(mask.shape + (1,) * (pred.dim() - 1))
         sq = (pred - batch_out) ** 2 * m
         return sq.sum() / torch.clamp(mask.sum() * per_sample, min=1.0)
 
-    def train_epoch(perm, inputs, outputs):
+    def train_epoch(perm, inputs, outputs, epoch=0):
         dev = outputs.device
         perm = torch.as_tensor(perm, dtype=torch.long, device=dev)
         pad_idx = torch.cat([perm, perm[:padded - num_samples]])
@@ -355,11 +388,29 @@ def make_train_epoch(model, optimizer, num_samples, batch_size, per_sample):
         losses = []
         for b in range(num_batches):
             bi = idx[b]
-            loss = batch_loss(tuple(a[bi] for a in inputs), outputs[bi],
-                              masks[b])
-            optimizer.zero_grad()
-            loss.backward()
-            optimizer.step()
+            batch_in, batch_out = tuple(a[bi] for a in inputs), outputs[bi]
+            step = derive_seed(seed, epoch * num_batches + b)
+
+            def predict(ps=None):
+                """The batch's predictions, with the tensors ``ps`` in place
+                of the model's parameters; a sampled model draws the step's
+                shots."""
+                kw = ({'generator': key_generator(step, 1, device=dev)}
+                      if sampled else {})
+                if ps is None:
+                    return model(*batch_in, **kw)
+                return torch.func.functional_call(model, ps, batch_in, kw)
+
+            if spsa_c is not None:
+                loss = make_spsa_step(
+                    lambda ps: batch_loss(predict(ps), batch_out, masks[b]),
+                    optimizer, params, spsa_c)(
+                        key_generator(step, 0, device=dev))
+            else:
+                loss = batch_loss(predict(), batch_out, masks[b])
+                optimizer.zero_grad()
+                loss.backward()
+                optimizer.step()
             losses.append(loss.detach())
         losses = torch.stack(losses)
         # running rel-L2 from the accumulated SSE (solver_ms.py:240-245)
@@ -374,14 +425,17 @@ def _clone(model):
 
 def make_run_segment(train_epoch, model):
     """A multi-epoch segment with best-epoch parameter tracking:
-    ``run_segment(best_loss, best_params, perms, inputs, outputs) ->
-    (best_loss, best_params, [(avg_loss, sse) per epoch])``, one epoch per
-    permutation.  best_params is a state_dict copy, replaced when an
-    epoch's average loss is below best_loss."""
-    def run_segment(best_loss, best_params, perms, inputs, outputs):
+    ``run_segment(best_loss, best_params, perms, inputs, outputs,
+    first_epoch=0) -> (best_loss, best_params, [(avg_loss, sse) per
+    epoch])``, one epoch per permutation; the epochs' indices in the run
+    (first_epoch, first_epoch + 1, ...) are passed on to ``train_epoch``.
+    best_params is a state_dict copy, replaced when an epoch's average
+    loss is below best_loss."""
+    def run_segment(best_loss, best_params, perms, inputs, outputs,
+                    first_epoch=0):
         hist = []
-        for perm in perms:
-            avg, sse = train_epoch(perm, inputs, outputs)
+        for e, perm in enumerate(perms):
+            avg, sse = train_epoch(perm, inputs, outputs, first_epoch + e)
             avg, sse = avg.item(), sse.item()   # one host read per epoch
             if avg < best_loss:
                 best_loss, best_params = avg, _clone(model)
@@ -449,7 +503,9 @@ class Solver:
     """__init__(config) / train() -> history / evaluate(history) -> metrics
     (uniform interface, reference main.py:114-115)."""
 
-    def __init__(self, config, input_sampler=None):
+    def __init__(self, config, input_sampler=None, data=None):
+        """``data``: the processed dataset to train on, in place of the
+        DataManager's (multi-seed training with fresh data per seed)."""
         reject_unported(config)
         _check_model_type(config['model_type'])
         self.config = config
@@ -471,7 +527,7 @@ class Solver:
                               data_dir=os.path.join(prefix, "..", "data"),
                               logger=self.logger,
                               input_sampler=input_sampler)
-        self.data = self.dm.get_data()
+        self.data = self.dm.get_data() if data is None else data
         self._route_data()
 
         self.seed = int(config.get('seed') or 0)
@@ -479,8 +535,7 @@ class Solver:
             config, self.data, device=self.device,
             generator=torch.Generator().manual_seed(self.seed))
         self.params = _clone(self.model)
-        self.logger.info(f"Model Parameters: "
-                         f"{sum(p.numel() for p in self.model.parameters())}")
+        self.logger.info(f"Model Parameters: {count_parameters(self.model)}")
         self.best_loss = float('inf')
         self.best_params = None
         self.best_model_path = None
@@ -542,9 +597,13 @@ class Solver:
         outputs = torch.as_tensor(self.train_output, device=dev)
         out_norm_sq = float(np.sum(self.train_output.astype(np.float64) ** 2))
         per_sample = int(np.prod(self.train_output.shape[1:]))
+        gm = str(config.get('grad_method') or 'autodiff')
+        spsa_c = (float(config.get('spsa_c') or 0.05) if gm == 'spsa'
+                  else None)
         run_segment = make_run_segment(
             make_train_epoch(self.model, optimizer, num_samples, batch_size,
-                             per_sample), self.model)
+                             per_sample, seed=self.seed, spsa_c=spsa_c),
+            self.model)
 
         seg = int(config.get('epochs_per_sync') or _segment_size(epochs))
         best_loss = float('inf')
@@ -582,7 +641,7 @@ class Solver:
                     [ProfilerActivity.CUDA] if dev.type == 'cuda' else [])
                 with profile(activities=acts) as prof:
                     best_loss, best_params, hist = run_segment(
-                        best_loss, best_params, perms, inputs, outputs)
+                        best_loss, best_params, perms, inputs, outputs, done)
                     self._sync()
                 os.makedirs(profile_dir, exist_ok=True)
                 prof.export_chrome_trace(os.path.join(profile_dir,
@@ -590,7 +649,7 @@ class Solver:
                 self.logger.info(f"Profiler trace written to {profile_dir}")
             else:
                 best_loss, best_params, hist = run_segment(
-                    best_loss, best_params, perms, inputs, outputs)
+                    best_loss, best_params, perms, inputs, outputs, done)
             for e, (avg_loss, sse) in enumerate(hist):
                 epoch = done + e
                 rel_err = float(np.sqrt(max(sse, 0.0))
@@ -657,16 +716,22 @@ class Solver:
     def predict_test(self):
         """The model's predictions on the test inputs, (n, 1) NumPy, in
         chunks of max(batch_size, 4096) rows under inference mode (so the
-        chain takes the primal-only kernel)."""
+        chain takes the primal-only kernel).  A model trained with shots is
+        evaluated with them, chunk s drawing from a generator seeded from
+        (run seed, s), as the JAX package keys it."""
         batch_size = max(self.config.get('batch_size', 100), 4096)
         n = self.test_output.shape[0]
+        sampled = bool(getattr(self.model, 'shots', None))
         preds = []
         with torch.inference_mode():
             for s in range(0, n, batch_size):
                 batch = tuple(torch.as_tensor(a[s:s + batch_size],
                                               device=self.device)
                               for a in self.test_inputs)
-                preds.append(self.model(*batch).cpu().numpy())
+                kw = ({'generator': key_generator(self.seed, s,
+                                                  device=self.device)}
+                      if sampled else {})
+                preds.append(self.model(*batch, **kw).cpu().numpy())
         return np.concatenate(preds, axis=0)
 
     def evaluate(self, history=None):

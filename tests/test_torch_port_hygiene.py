@@ -42,7 +42,7 @@ def test_port_imports_no_jax():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 31
+    assert n_modules >= 35
 
 
 _IMPORT_KERNEL_MODULES = r"""
@@ -79,6 +79,32 @@ def test_new_kernel_modules_import_clean():
     assert len(dirs) == 3
     if not torch.cuda.is_available():
         assert not any(os.path.exists(d) for d in dirs)
+
+
+_IMPORT_QPU_MODULES = r"""
+import sys
+from quanonet_torch import backend, multiseed
+from quanonet_torch.ops import _build, param_shift, sampling
+assert _build._loaded == {}, _build._loaded
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
+                                    'quanonet_tpu', 'qiskit', 'pennylane',
+                                    'mindspore', 'deepxde', 'triton'))
+assert not bad, bad
+print(backend.backend.check_compatibility('QuanONet'))
+"""
+
+
+def test_qpu_modules_import_clean():
+    """The QPU-emulation modules (sampling, param_shift), multiseed and
+    backend import no JAX and build no kernel; backend finds the
+    reference's frameworks without importing them."""
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    out = subprocess.run([sys.executable, '-c', _IMPORT_QPU_MODULES],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == 'torch'
 
 
 def test_new_kernel_wrappers_raise_on_cpu_tensors():

@@ -15,6 +15,7 @@ Regenerate the fixture only after re-validating the JAX reference:
 """
 import json
 import os
+import shutil
 import threading
 import urllib.error
 import urllib.request
@@ -96,8 +97,15 @@ def test_infer_cli_on_data_file(tmp_path):
     np.testing.assert_allclose(np.load(out), preds, atol=0)
     np.testing.assert_allclose(
         preds, t_infer.predict(model, branch, trunk, cfg=cfg), atol=1e-6)
-    with pytest.raises(NotImplementedError, match='§A item 1'):
-        t_infer.main(['--ckpt', ADVECTION, '--device', 'cpu'])
+    # without --data or --branch the test set comes from the checkpoint
+    # directory's name; a name that names no operator and model stops
+    # the CLI, as in the JAX package
+    unnamed = tmp_path / 'unnamed'
+    unnamed.mkdir()
+    shutil.copy(ADVECTION, unnamed / 'best_model.ckpt')
+    with pytest.raises(SystemExit, match='--data'):
+        t_infer.main(['--ckpt', str(unnamed / 'best_model.ckpt'),
+                      '--device', 'cpu'])
     # --num_points_0 is parsed (it shapes the data generated from the
     # checkpoint name; with --data it is not read, as in the JAX package)
     again = t_infer.main(['--ckpt', ADVECTION, '--data', str(data),
@@ -106,16 +114,17 @@ def test_infer_cli_on_data_file(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (['--shots', '100'], '§A item 4'), (['--shot_seed', '3'], '§A item 4'),
+    (['--shots', '100'], None), (['--shot_seed', '3'], None),
     (['--noise_traj', '8'], '§A item 5'), (['--t1_us', '50'], '§A item 5'),
     (['--t2_us', '70'], '§A item 5'), (['--block_time_us', '1.5'], '§A item 5'),
     (['--noise_p', '0.01'], '§A item 5'), (['--zne', '1', '2'], '§A item 5'),
-    (['--damp_gamma', '0.1', '--shots', '8'], 'item 4; ROADMAP §A item 5'),
+    (['--damp_gamma', '0.1', '--shots', '8'], '§A item 5'),
 ])
 def test_infer_cli_parses_every_reference_flag(tmp_path, flags, item):
-    """Every flag of the JAX package's infer CLI parses; a QPU-emulation
+    """Every flag of the JAX package's infer CLI parses; a noise-emulation
     flag that is not ported raises NotImplementedError naming its ROADMAP
-    item (not argparse's 'unrecognized arguments' exit)."""
+    item (not argparse's 'unrecognized arguments' exit), and the ported
+    --shots / --shot_seed predict (item None)."""
     from quanonet_tpu.infer import _parser as j_parser
     ref = {a.dest for a in j_parser()._actions}
     port = {a.dest for a in t_infer._parser()._actions}
@@ -123,9 +132,14 @@ def test_infer_cli_parses_every_reference_flag(tmp_path, flags, item):
     branch, trunk = anchor_inputs(2, seed=1)
     data = tmp_path / 'd.npz'
     np.savez(data, test_branch_input=branch, test_trunk_input=trunk)
+    argv = ['--ckpt', ADVECTION, '--data', str(data), '--device', 'cpu',
+            *flags]
+    if item is None:
+        preds = t_infer.main(argv)
+        assert preds.shape == (2, 1) and np.isfinite(preds).all()
+        return
     with pytest.raises(NotImplementedError, match=item):
-        t_infer.main(['--ckpt', ADVECTION, '--data', str(data),
-                      '--device', 'cpu', *flags])
+        t_infer.main(argv)
     # --noise_p 0 is the ideal model: it passes
     if flags == ['--noise_p', '0.01']:
         t_infer.main(['--ckpt', ADVECTION, '--data', str(data),

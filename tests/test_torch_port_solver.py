@@ -155,8 +155,10 @@ def test_epoch_with_jax_permutation_equals_make_train_epoch(name, lr):
 def test_run_segment_tracks_best_epoch():
     model = torch.nn.Linear(1, 1)
     scripted = [3.0, 1.0, 2.0, 0.5, 0.7]
+    seen = []
 
-    def epoch(perm, inputs, outputs):
+    def epoch(perm, inputs, outputs, index):
+        seen.append(index)                    # the epoch's index in the run
         with torch.no_grad():
             model.weight.fill_(float(perm))       # the epoch's parameters
         loss = torch.tensor(scripted[perm])
@@ -166,9 +168,10 @@ def test_run_segment_tracks_best_epoch():
     best, params, hist = run(float('inf'), None, [0, 1, 2], None, None)
     assert best == 1.0 and params['weight'].item() == 1.0
     assert hist == [(3.0, 6.0), (1.0, 2.0), (2.0, 4.0)]
-    best, params, hist = run(best, params, [3, 4], None, None)
+    best, params, hist = run(best, params, [3, 4], None, None, 3)
     assert best == 0.5 and params['weight'].item() == 3.0
     assert model.weight.item() == 4.0         # the live model moved on
+    assert seen == [0, 1, 2, 3, 4]
 
 
 def test_epoch_permutation_replays():
@@ -318,10 +321,10 @@ def test_cli_end_to_end_and_resume_skip(isolated):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (['--multi_seed', '0', '1'], 'A6'), (['--shard', 'amp'], 'A12'),
-    (['--num_devices', '2'], 'A12'), (['--noise_p', '0.01'], 'A9'),
-    (['--grad_method', 'shift'], 'A9'), (['--train_shots', '10'], 'A9'),
-    (['--datagen', 'device'], 'A10'), (['--datagen', 'native'], 'A10'),
+    (['--shard', 'amp'], '§A item 8'), (['--num_devices', '2'], '§A item 8'),
+    (['--noise_p', '0.01'], '§A item 5'),
+    (['--datagen', 'device'], '§A item 7'),
+    (['--datagen', 'native'], '§A item 7'),
 ])
 def test_cli_unported_flags_raise(isolated, flags, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -329,6 +332,28 @@ def test_cli_unported_flags_raise(isolated, flags, item):
                   '--device', 'cpu', '--prefix', str(isolated / 'o')]
                  + flags)
     assert not os.path.exists(isolated / 'o')
+
+
+@pytest.mark.parametrize("flags,run_ids", [
+    (['--multi_seed', '0', '1'], ['_Seed0', '_Seed1']),
+    (['--grad_method', 'shift'], ['_Shift_']),
+    (['--train_shots', '10', '--grad_method', 'spsa'], ['_SpsaSh10_']),
+])
+def test_cli_ported_flags_run(isolated, flags, run_ids):
+    """--multi_seed, --grad_method shift and --train_shots, which raised
+    until they were ported, now train and evaluate through the CLI."""
+    cli.main(['--operator', 'Antideriv', '--model_type', 'QuanONet',
+              '--net_size', '2', '1', '2', '1', '--num_qubits', '2',
+              '--num_epochs', '1', '--num_train', '10', '--num_test', '5',
+              '--num_points', '20', '--num_points_0', '5', '--num_cal', '50',
+              '--train_sample_num', '5', '--test_sample_num', '5',
+              '--device', 'cpu', '--prefix', str(isolated / 'o')] + flags)
+    runs = os.listdir(isolated / 'o' / 'Antideriv')
+    for tag in run_ids:
+        (run,) = [r for r in runs if tag in r]
+        with open(isolated / 'o' / 'Antideriv' / run / 'metric.json') as f:
+            metrics = json.load(f)['metrics']
+        assert np.isfinite(metrics['rel_l2'])
 
 
 def test_classical_models_raise(isolated):
