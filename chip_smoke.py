@@ -192,12 +192,41 @@ Phases, each printed as one JSON line:
 29. infer_from_name — the Advection anchor scored by the infer CLI with
              no --data: the test set generated from its directory's name;
              its rel-L2 within INFER_NAME_BAND.
+
+30. compare_engines — the port's cross-engine gate
+             (quanonet_torch/compare_engines.py) on `cuda`: every check
+             passes, Q14 included; each check's name and the count.
+31. kernel_noise — the noise trajectories' fold route at the flagship, N
+             = 100 and 20,000: X, Y and Z on every qubit of the first, an
+             inner and the last block and one random pattern, each
+             trajectory's folded matrices through B1f against the
+             physical-frame forward (noise.plain_states) and against the
+             plain chain (amplitudes 2e-5, expectation 1e-4), the
+             gradients through B1b/B4b against plain autograd at N = 100
+             (1e-4 x max(1, max|plain|)), two calls bit-equal; a Pauli
+             folded on the wrong side of U_b must fail the amplitude
+             limit; the 32 trajectories of a noisy forward on both routes.
+32. noise_paths — the anchor's noisy forward at bucket 100 (32
+             trajectories, B4f once, B1f a trajectory), its ZNE with
+             scales (1, 2), a damping case (the plain route, no kernel)
+             and 20 noise-aware training steps of the flagship at batch
+             100 with 8 trajectories at p = 0.001 (B1f and B1b a
+             trajectory, B4f and B4b a step, the loss falling): the route
+             counter and launches
+             of each, the noisy forward and ZNE replayed bit-equal, then
+             CUDA-event ms, device rows and the busy share.
+33. infer_noise — the anchor scored from its name three ways (exact,
+             --noise_p 0.01 --noise_traj 32, and --zne 1 2 on it): the
+             three rel-L2s, a record; then tests/test_mitigation.py's Q2
+             prediction case on the card (noise 0.1, 256 trajectories,
+             scales (1, 2)): ZNE must land nearer the ideal.
 The kernel phase (3) also holds B1f at N = 60,000 and, at Q7, 84,000: the
 rows of the shift rule's encode-shift batch at the flagship and at Q7.
 
 Each path (serve, train, train_q10, serve_q10, profile_step, serve_ucomp,
 train_embed, serve_embed, train_shift, train_spsa, serve_shots,
-serve_shots_q10, shift_grad, multiseed, infer_from_name) starts with
+serve_shots_q10, shift_grad, multiseed, infer_from_name, noise_forward,
+noise_zne, noise_damping, noise_train, infer_noise) starts with
 every launch count at 0 and reads them when it ends.  A card time
 ("device_ms") comes from a warmed profiler
 window (each kernel's mean over the rows it kept), else from the launches
@@ -232,7 +261,7 @@ from quanonet_torch import checkpoint as ckpt_io
 from quanonet_torch.convert import raw_from_state_dict
 from quanonet_torch.ops import (
     _build, cuda_adam, cuda_embed, cuda_fused, cuda_hea, cuda_ucomp,
-    fused_gates, hea, param_shift,
+    fused_gates, hea, noise, param_shift,
 )
 from quanonet_torch.ops.hamiltonian import simple_ham_diag
 from quanonet_torch.serve import Predictor, make_server
@@ -2985,6 +3014,359 @@ def phase_infer_from_name():
     return counts
 
 
+# ── QPU emulation part 2: noise trajectories, ZNE, T1/T2 ────────────────────
+NOISE_P = 0.01               # the depolarizing prob of the noise paths
+# ... and of the training path: at 0.01 the flagship's 300 error sites
+# swamp the signal (a first card run read a loss going 0.957 -> 0.821 over
+# 20 steps, swinging by 0.1 between steps); at 0.001 it falls clearly
+NOISE_TRAIN_P = 0.001
+NOISE_TRAJ = 32              # infer's default trajectories
+NOISE_TRAIN_TRAJ = 8         # the solver's default in training
+NOISE_TRAIN_STEPS = 20
+NOISE_KERNEL_ROWS = (100, 20000)   # the training batch, infer's batch
+ZNE_GATE_TRAJ = 256          # tests/test_mitigation.py's prediction case
+
+
+def _noise_patterns(nb, n, dev):
+    """kernel_noise's trajectories: X, Y and Z on every qubit of the first,
+    an inner and the last block, then one random pattern (an error on each
+    site with prob 0.3): a, b (10, nb, n)."""
+    a, b = [], []
+    for pauli in 'XYZ':
+        for blk in (0, nb // 2, nb - 1):
+            at = torch.zeros((nb, n), dtype=torch.bool)
+            bt = torch.zeros((nb, n), dtype=torch.bool)
+            at[blk], bt[blk] = pauli in 'XY', pauli in 'YZ'
+            a.append(at)
+            b.append(bt)
+    ra, rb = noise.sample_pauli_masks(torch.Generator().manual_seed(13), 0.3,
+                                      nb, n)
+    return (torch.stack(a + [ra]).to(dev), torch.stack(b + [rb]).to(dev))
+
+
+def _fold_rows(mt_r, mt_i, a, b):
+    """The negative control: the Paulis folded on the wrong side of U_b,
+    into the rows of the transposed block matrices (the Pauli before
+    U_b)."""
+    fr, fi = noise.fold_paulis(mt_r.transpose(1, 2), mt_i.transpose(1, 2),
+                               a, b)
+    return fr.transpose(2, 3).contiguous(), fi.transpose(2, 3).contiguous()
+
+
+def _err(got, want):
+    return (got - want).abs().max().item()
+
+
+def _expect(sr, si, diag):
+    return ((sr * sr + si * si) * diag).sum(-1)
+
+
+def _noise_grads(spec, w0, x0, a, b, diag, kernels):
+    """Gradients (w̄, x̄) of Σ E² over the trajectories: through B4f/B1f
+    with B1b/B4b (``kernels``), else autograd of the plain fold and chain;
+    -> (grads, launches)."""
+    w = w0.clone().requires_grad_()
+    x = x0.clone().requires_grad_()
+    torch.cuda.synchronize()
+    _zero_counts()
+    if kernels:
+        sr, si = noise.fold_states(*cuda_hea._prepare(spec, w, x), a, b)
+    else:
+        sr, si = noise.fold_states(*hea.prepare_chain(spec, w, x), a, b,
+                                   chain=hea.chain_dense)
+    (_expect(sr, si, diag) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    return (w.grad, x.grad), _counts()
+
+
+def phase_kernel_noise():
+    """The fold route at the flagship (Q5 Net40-2-20-2) at N = 100 and
+    20,000: each trajectory's folded matrices through B1f against the
+    physical-frame forward (noise.plain_states) for the same masks and
+    against the plain chain on them; the gradients through B1b/B4b against
+    plain autograd at N = 100; two calls bit-equal; the wrong-side fold
+    must fail the amplitude limit; the 32 trajectories of a noisy forward
+    timed on both routes."""
+    dev = torch.device('cuda')
+    spec = hea.quanonet_spec(*FLAGSHIP)
+    nq, nb, d = spec.n_qubits, spec.n_blocks, spec.dim
+    diag = torch.as_tensor(simple_ham_diag(nq, -5, 5), device=dev)
+    a, b = _noise_patterns(nb, nq, dev)
+    a32, b32 = (torch.stack(m) for m in zip(*[
+        noise.sample_pauli_masks(torch.Generator().manual_seed(100 + t),
+                                 NOISE_P, nb, nq) for t in range(NOISE_TRAJ)]))
+    a32, b32 = a32.to(dev), b32.to(dev)
+    rec = {"phase": "kernel_noise", "case": "Q5 Net40-2-20-2",
+           "trajectories": int(a.shape[0]), "amp_limit": AMP_TOL,
+           "expect_limit": EXPECT_TOL, "grad_limit_rel": BWD_REL_TOL}
+    for n in NOISE_KERNEL_ROWS:
+        rng = np.random.RandomState(7000 + n)
+        w = torch.tensor(rng.uniform(-np.pi, np.pi, spec.weight_shape())
+                         .astype(np.float32), device=dev)
+        x = torch.tensor(rng.uniform(-4, 4, (n, spec.total_encode))
+                         .astype(np.float32), device=dev)
+        with torch.no_grad():
+            ops = cuda_hea._prepare(spec, w, x)
+            torch.cuda.synchronize()
+            _zero_counts()
+            kr, ki = noise.fold_states(*ops, a, b)
+            torch.cuda.synchronize()
+            launches = _counts()["hea_chain_fwd"]
+            kr2, ki2 = noise.fold_states(*ops, a, b)
+            ur, ui = hea.compile_block_unitaries(spec, w)
+            utr, uti = ur.transpose(1, 2), ui.transpose(1, 2)
+            xb = x.reshape(n, nb, nq).transpose(0, 1)
+            pr, pi = noise.plain_states(spec, utr, uti, xb, a, b)
+            dr, di = noise.fold_states(*ops, a, b, chain=hea.chain_dense)
+            wr, wi = _fold_rows(ops[0], ops[1], a[-1:], b[-1:])
+            cr, ci = cuda_hea.block_chain(wr[0], wi[0], ops[2])
+            torch.cuda.synchronize()
+            case = {
+                "N": n, "B1f_launches": launches,
+                "max_abs_err_amp": max(_err(kr, pr), _err(ki, pi)),
+                "max_abs_err_amp_plain_chain": max(_err(kr, dr),
+                                                   _err(ki, di)),
+                "max_abs_err_expect": _err(_expect(kr, ki, diag),
+                                               _expect(pr, pi, diag)),
+                "bit_equal": bool(torch.equal(kr, kr2)
+                                  and torch.equal(ki, ki2)),
+                "wrong_side_max_abs_err": max(_err(cr, pr[-1]),
+                                              _err(ci, pi[-1]))}
+            ops_k = ops
+            case["trajectories_32"] = {
+                "ms": time_ms(lambda: noise.fold_states(*ops_k, a32, b32),
+                              10),
+                "plain_ms": time_ms(lambda: noise.plain_states(
+                    spec, utr, uti, xb, a32, b32), 3),
+                "bound_ms": NOISE_TRAJ * chain_bound(nb, n, d)[0]}
+        if n == NOISE_KERNEL_ROWS[0]:
+            gk, lk = _noise_grads(spec, w, x, a, b, diag, True)
+            gk2, _ = _noise_grads(spec, w, x, a, b, diag, True)
+            gp, _ = _noise_grads(spec, w, x, a, b, diag, False)
+            scale = max(1.0, max(g.abs().max().item() for g in gp))
+            case.update({
+                "grad_max_abs_err": max(_err(k, p)
+                                        for k, p in zip(gk, gp)),
+                "grad_scale": scale, "grad_launches": lk,
+                "grad_bit_equal": all(torch.equal(u, v)
+                                      for u, v in zip(gk, gk2))})
+            check(case["grad_max_abs_err"] <= BWD_REL_TOL * scale,
+                  f"kernel_noise: gradients off by {case['grad_max_abs_err']}")
+            check(case["grad_bit_equal"], "kernel_noise: gradients differ "
+                  "between two calls")
+            t = int(a.shape[0])
+            check(lk["hea_chain_fwd"] == lk["hea_chain_bwd"] == t
+                  and lk["ucomp_fwd"] == lk["ucomp_bwd"] == 1,
+                  f"kernel_noise: gradient launches {lk}")
+        rec[f"N={n}"] = case
+        check(launches == a.shape[0], f"kernel_noise: {launches} B1f "
+              f"launches for {a.shape[0]} trajectories")
+        check(case["max_abs_err_amp"] <= AMP_TOL
+              and case["max_abs_err_amp_plain_chain"] <= AMP_TOL,
+              f"kernel_noise N={n}: amplitudes off: {case}")
+        check(case["max_abs_err_expect"] <= EXPECT_TOL,
+              f"kernel_noise N={n}: expectation off: {case}")
+        check(case["bit_equal"], f"kernel_noise N={n}: two calls differ")
+        check(case["wrong_side_max_abs_err"] > AMP_TOL,
+              f"kernel_noise N={n}: the wrong-side fold passes: {case}")
+    emit(rec)
+
+
+def _path_timing(fn, reps):
+    """CUDA-event ms, device rows and the busy share of fn()."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile_steps(fn, reps, profile, ProfilerActivity, warm=1)
+    return {"ms": time_ms(fn, reps), "reps": reps,
+            **{k: prof.get(k) for k in ("device_busy_share",
+                                        "device_busy_ms",
+                                        "device_kernels_per_step",
+                                        "profiler_error")}}
+
+
+def _routes_since(before):
+    return {k: v - before[k] for k, v in noise.routes.items()}
+
+
+def _served(**kw):
+    return Predictor(ANCHOR, branch_in=100, trunk_in=2, max_batch=100,
+                     device='cuda', shot_seed=7, **kw)
+
+
+def phase_noise_paths():
+    """The anchor's noisy forward at bucket 100 (32 trajectories), its ZNE
+    with scales (1, 2), a damping case (the plain route), and 20
+    noise-aware training steps of the flagship at batch 100 with 8
+    trajectories (NOISE_TRAIN_P): each path's launches by kernel and
+    route counter, then (outside the counted window) its CUDA-event ms,
+    device rows and busy share.  Returns the launches of each path."""
+    from quanonet_torch.infer import zne_predict
+    from quanonet_torch.solver import make_train_epoch
+    rng = np.random.RandomState(41)
+    b = rng.randn(100, 100).astype(np.float32)
+    t = rng.rand(100, 2).astype(np.float32)
+    exact = _served().predict(b, t)
+    out, rec = {}, {"phase": "noise_paths", "bucket": 100,
+                    "noise_p": NOISE_P}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        r0 = dict(noise.routes)
+        _zero_counts()                # the path starts here
+        val = fn()
+        torch.cuda.synchronize()
+        return val, _counts(), _routes_since(r0)   # ... and ends here
+
+    pred = _served(noise_p=NOISE_P, noise_traj=NOISE_TRAJ)
+    noisy, c, r = counted(lambda: pred.predict(b, t))
+    replay = _served(noise_p=NOISE_P, noise_traj=NOISE_TRAJ).predict(b, t)
+    rec["forward"] = {"trajectories": NOISE_TRAJ, "launches": c, "routes": r,
+                      "replay_bit_equal": bool(np.array_equal(noisy, replay)),
+                      "max_abs_diff_from_exact": float(
+                          np.abs(noisy - exact).max()),
+                      **_path_timing(lambda: pred.predict(b, t), 10)}
+    out["noise_forward"] = c
+    check(rec["forward"]["replay_bit_equal"], "noise_paths: the noisy "
+          "forward does not replay")
+    check(r == {"fold": 1, "plain": 0} and c["hea_chain_fwd"] == NOISE_TRAJ
+          and c["ucomp_fwd"] == 1, f"noise_paths forward: {c}, {r}")
+
+    def zne():
+        return zne_predict(pred.model, b, t, cfg=pred.cfg,
+                           scales=(1.0, 2.0), shot_seed=7)
+    z, c, r = counted(zne)
+    rec["zne"] = {"scales": [1.0, 2.0], "trajectories": NOISE_TRAJ,
+                  "launches": c, "routes": r,
+                  "replay_bit_equal": bool(np.array_equal(z, zne())),
+                  "max_abs_diff_from_exact": float(np.abs(z - exact).max()),
+                  **_path_timing(zne, 5)}
+    out["noise_zne"] = c
+    check(rec["zne"]["replay_bit_equal"], "noise_paths: ZNE does not replay")
+    check(r == {"fold": 1, "plain": 0}
+          and c["hea_chain_fwd"] == 2 * NOISE_TRAJ and c["ucomp_fwd"] == 1,
+          f"noise_paths zne: {c}, {r}")
+
+    damp = _served(damp_gamma=0.01, noise_traj=NOISE_TRAIN_TRAJ)
+    dval, c, r = counted(lambda: damp.predict(b, t))
+    rec["damping"] = {"damp_gamma": 0.01, "trajectories": NOISE_TRAIN_TRAJ,
+                      "launches": c, "routes": r,
+                      "finite": bool(np.isfinite(dval).all()),
+                      **_path_timing(lambda: damp.predict(b, t), 1)}
+    out["noise_damping"] = c
+    check(r == {"fold": 0, "plain": 1} and rec["damping"]["finite"]
+          and not any(c.values()), f"noise_paths damping: {c}, {r}")
+
+    dev = torch.device('cuda')
+    bt, tt, yt = _flagship_batch(dev)
+    model = QuanONet(5, 100, 2, (40, 2, 20, 2), scale_coeff=0.1,
+                     noise_p=NOISE_TRAIN_P, noise_traj=NOISE_TRAIN_TRAJ,
+                     device=dev, generator=torch.Generator().manual_seed(0))
+    opt = ScheduledOptimizer(torch.optim.Adam(model.parameters()),
+                             lambda s: 3e-3)
+    epoch = make_train_epoch(model, opt, 100, 100, 1, seed=0)
+    perm = torch.arange(100)
+    count = iter(range(10 ** 6))
+
+    def step():
+        return epoch(perm, (bt, tt), yt, next(count))[0]
+    losses, c, r = counted(lambda: [step().item()
+                                    for _ in range(NOISE_TRAIN_STEPS)])
+    k = NOISE_TRAIN_STEPS * NOISE_TRAIN_TRAJ
+    rec["train"] = {"steps": NOISE_TRAIN_STEPS, "noise_p": NOISE_TRAIN_P,
+                    "trajectories": NOISE_TRAIN_TRAJ, "loss": losses,
+                    "launches": c, "routes": r,
+                    **_path_timing(step, 10)}
+    out["noise_train"] = c
+    check(np.isfinite(losses).all() and losses[-1] < losses[0]
+          and np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"noise_paths train: loss {losses}")
+    check(r == {"fold": NOISE_TRAIN_STEPS, "plain": 0}
+          and c["hea_chain_fwd"] == c["hea_chain_bwd"] == k
+          and c["ucomp_fwd"] == c["ucomp_bwd"] == NOISE_TRAIN_STEPS,
+          f"noise_paths train: launches {c}, routes {r}")
+    emit(rec)
+    return out
+
+
+def _zne_gate_q2():
+    """tests/test_mitigation.py's prediction case on the card: Q2, noise
+    0.1, 256 trajectories, scales (1, 2); ZNE must land nearer the ideal
+    than the noisy value."""
+    from quanonet_torch.infer import zne_predict
+    kw = dict(num_qubits=2, branch_input_size=5, trunk_input_size=2,
+              net_size=(2, 1, 2, 1), scale_coeff=0.1, device='cuda')
+    rng = np.random.RandomState(4)
+    b = rng.randn(6, 5).astype(np.float32)
+    t = rng.rand(6, 2).astype(np.float32)
+    cfg = {'model_type': 'QuanONet'}
+    ideal_model = QuanONet(**kw, generator=torch.Generator().manual_seed(0))
+    ideal = predict(ideal_model, b, t, cfg=cfg)
+    noisy_model = QuanONet(**kw, noise_p=0.1, noise_traj=ZNE_GATE_TRAJ)
+    noisy_model.load_state_dict(ideal_model.state_dict())
+    noisy = predict(noisy_model, b, t, cfg=cfg, shot_seed=1)
+    zne = zne_predict(noisy_model, b, t, cfg=cfg, scales=(1.0, 2.0),
+                      shot_seed=1)
+    return {"noisy_l2_from_ideal": float(np.linalg.norm(noisy - ideal)),
+            "zne_l2_from_ideal": float(np.linalg.norm(zne - ideal))}
+
+
+def phase_infer_noise():
+    """The Advection anchor scored from its name by the infer CLI three
+    ways: exact, --noise_p 0.01 --noise_traj 32, and --zne 1 2 on that
+    channel (a record: 300 error sites may be past what 2-point ZNE
+    recovers); then the Q2 ZNE gate.  Returns the launches."""
+    here = os.getcwd()
+    os.chdir(REPO)
+    runs = {"exact": [],
+            "noise": ['--noise_p', str(NOISE_P), '--noise_traj',
+                      str(NOISE_TRAJ)]}
+    runs["zne"] = runs["noise"] + ['--zne', '1', '2']
+    rel, seconds = {}, {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            r0 = dict(noise.routes)
+            _zero_counts()            # the path starts here
+            for name, extra in runs.items():
+                np.random.seed(0)
+                t0 = time.time()
+                preds = infer_main(['--ckpt', ANCHOR, '--device', 'cuda',
+                                    '--output',
+                                    os.path.join(tmp, f'{name}.npz'),
+                                    *extra])
+                torch.cuda.synchronize()
+                seconds[name] = time.time() - t0
+                check(np.isfinite(preds).all(),
+                      f"infer_noise {name}: predictions not finite")
+                with np.load(os.path.join(tmp, f'{name}.npz')) as z:
+                    rel[name] = float(z['rel_l2'])
+            counts = _counts()        # ... and ends here
+            routes = _routes_since(r0)
+    finally:
+        os.chdir(here)
+    gate = _zne_gate_q2()
+    emit({"phase": "infer_noise", "rows": int(preds.shape[0]),
+          "rel_l2": rel, "seconds": seconds, "launches": counts,
+          "routes": routes, "zne_gate_q2": gate})
+    check(routes == {"fold": 2 * -(-preds.shape[0] // 20000), "plain": 0},
+          f"infer_noise: routes {routes}")
+    check(gate["zne_l2_from_ideal"] < gate["noisy_l2_from_ideal"],
+          f"infer_noise: Q2 ZNE is not nearer the ideal: {gate}")
+    return counts
+
+
+def phase_compare_engines():
+    """The port's cross-engine gate (quanonet_torch/compare_engines.py) on
+    the card, Q14 included: every check must pass."""
+    from quanonet_torch import compare_engines
+    t0 = time.time()
+    art = compare_engines.Gate('cuda').run()
+    emit({"phase": "compare_engines", "seconds": time.time() - t0, **art})
+    check(art["all_ok"] and art["passed"] == art["total"],
+          f"compare_engines: {art['passed']}/{art['total']}")
+    check('Q14 fused≡pfused' in art["checks"],
+          "compare_engines: the Q14 check did not run")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3035,6 +3417,11 @@ def main():
                  "serve_shots_q10": shots_q10,
                  "multiseed": phase_multiseed(),
                  "infer_from_name": phase_infer_from_name()}
+    # QPU emulation part 2 and the cross-engine gate
+    phase_compare_engines()
+    phase_kernel_noise()
+    new_paths.update(phase_noise_paths())
+    new_paths["infer_noise"] = phase_infer_noise()
 
     def new(kernel):
         return {path: c[kernel] for path, c in new_paths.items()}

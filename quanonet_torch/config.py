@@ -132,12 +132,25 @@ def get_base_parser():
     parser.add_argument('--profile', type=str, default=None,
                         help='Write a torch.profiler trace of one training '
                              'segment to this directory')
-    for flag in ('--noise_p', '--readout_p', '--damp_gamma', '--dephase_p'):
-        parser.add_argument(flag, type=float, default=None,
-                            help='Noise emulation: not ported yet '
-                                 '(ROADMAP §A item 5)')
+    parser.add_argument('--noise_p', type=float, default=None,
+                        help='Noise-aware training: per-qubit per-block '
+                             'depolarizing error prob simulated by '
+                             'Pauli-twirled trajectories (ops/noise.py); '
+                             'the run ID gains a _Noise suffix')
     parser.add_argument('--noise_traj', type=int, default=None,
-                        help='Noise trajectories (ROADMAP §A item 5)')
+                        help='Noise trajectories per forward (default 8 '
+                             'in training, 32 in inference)')
+    parser.add_argument('--readout_p', type=float, default=None,
+                        help='Per-qubit measurement bit-flip prob, applied '
+                             'exactly inside the noisy forward')
+    parser.add_argument('--damp_gamma', type=float, default=None,
+                        help='Per-block T1 amplitude-damping γ for '
+                             'noise-aware training (quantum-jump '
+                             'trajectories, ops/noise.py); run ID gains a G '
+                             'suffix')
+    parser.add_argument('--dephase_p', type=float, default=None,
+                        help='Per-block T2 pure-dephasing Z-flip prob; '
+                             'run ID gains an F suffix')
     parser.add_argument('--grad_method', type=str, default=None,
                         choices=['autodiff', 'shift', 'spsa'],
                         help='Gradient source: autodiff (default), shift '
@@ -203,9 +216,6 @@ def reject_unported(config):
         unported.append(('--shard', '§A item 8'))
     if config.get('num_devices') and int(config['num_devices']) > 1:
         unported.append(('--num_devices > 1', '§A item 8'))
-    for k in ('noise_p', 'readout_p', 'damp_gamma', 'dephase_p'):
-        if config.get(k):
-            unported.append((f'--{k}', '§A item 5'))
     if str(config.get('datagen') or 'host') != 'host':
         unported.append((f"--datagen {config['datagen']}", '§A item 7'))
     if unported:

@@ -8,18 +8,23 @@ MindSpore .ckpt) load.  Runs on ``cuda`` unless ``device='cpu'`` is asked
 for.  Without --data or --branch the CLI generates the test set that the
 checkpoint's name describes (:func:`generate_test_data`).  With --shots
 each prediction is estimated from that many sampled shots
-(ops/sampling.py), replayable from --shot_seed.
-
-Not ported yet: the noise, ZNE and T1/T2 flags (ROADMAP §A item 5).  The
-CLI parses every flag of the JAX package's, and each of these raises
-NotImplementedError naming its item.
+(ops/sampling.py), replayable from --shot_seed.  With --noise_p,
+--readout_p, --damp_gamma, --dephase_p (or --t1_us/--t2_us with
+--block_time_us) each prediction is the mean over --noise_traj noise
+trajectories (ops/noise.py), and with --zne it is zero-noise
+extrapolated (ops/mitigation.py); a ``_Noise`` checkpoint name loads
+under its channel.
 
 CLI:  python -m quanonet_torch.infer --ckpt <best_model.ckpt|.npz>
           [--data <file.npz> | --branch <b.npy> [--trunk <t.npy>]]
-          [--num_points_0 P] [--shots N [--shot_seed S]]
+          [--num_points_0 P] [--shots N] [--shot_seed S]
+          [--noise_p P [--noise_traj T] [--zne C1 C2 ...]] [--readout_p R]
+          [--t1_us T1 --t2_us T2 --block_time_us B]
+          [--damp_gamma G] [--dephase_p F]
           [--output preds.npy] [--device cuda|cpu]
 """
 import argparse
+import copy
 import os
 import re
 
@@ -30,6 +35,8 @@ from quanonet_torch import checkpoint as ckpt_io
 from quanonet_torch import resolve_device
 from quanonet_torch.convert import state_dict_from_raw
 from quanonet_torch.metrics import compute_metrics, rel_l2
+from quanonet_torch.ops.mitigation import richardson_weights
+from quanonet_torch.ops.noise import channel_params_from_t1t2
 from quanonet_torch.ops.sampling import key_generator
 
 _NET_RE = re.compile(r'Net(\d+)-(\d+)-(\d+)-(\d+)')
@@ -179,7 +186,8 @@ def _build_model(cfg: dict, branch_in: int, trunk_in: int, device):
         return FNO(branch_in, **fno_sizes(net_size), device=device)
     if mt not in QUANTUM_MODELS:
         raise ValueError(f"Unknown model_type: {mt}")
-    # --noise_p 0 with no readout error is the ideal model
+    # --noise_p 0 with no readout error is the ideal model: the exact path,
+    # not a 0-probability trajectory ensemble
     if cfg.get('noise_p') is not None and float(cfg['noise_p']) == 0.0 \
             and not cfg.get('readout_p'):
         cfg = {**cfg, 'noise_p': None}
@@ -194,11 +202,16 @@ def _build_model(cfg: dict, branch_in: int, trunk_in: int, device):
               ham_diag=(tuple(cfg['ham_diag'])
                         if cfg.get('ham_diag') is not None else None),
               ham_pauli=cfg.get('ham_pauli', 'Z'),
-              shots=cfg.get('shots'), noise_p=cfg.get('noise_p'),
-              readout_p=cfg.get('readout_p') or 0.0,
+              shots=int(cfg['shots']) if cfg.get('shots') else None,
+              noise_p=(float(cfg['noise_p'])
+                       if cfg.get('noise_p') is not None else None),
+              noise_traj=int(cfg.get('noise_traj') or 32),
+              readout_p=float(cfg.get('readout_p') or 0.0),
               zne_scales=cfg.get('zne_scales'),
-              damp_gamma=cfg.get('damp_gamma'),
-              dephase_p=cfg.get('dephase_p'),
+              damp_gamma=(float(cfg['damp_gamma'])
+                          if cfg.get('damp_gamma') else None),
+              dephase_p=(float(cfg['dephase_p'])
+                         if cfg.get('dephase_p') else None),
               device=device)
     if mt == 'QuanONet':
         return QuanONet(branch_input_size=branch_in,
@@ -234,9 +247,10 @@ def predict(model, branch_input, trunk_input=None, cfg=None,
     their concatenation, HEAQNN branch only, FNO the grid tensor.  Returns
     a NumPy array, (n, 1) for all but FNO's (n, points, 1).
 
-    A model loaded with ``shots`` predicts from sampled shots: the batch at
-    row offset s draws from a generator seeded from (shot_seed, s), so the
-    predictions replay for equal arguments."""
+    A model loaded with ``shots`` or a noise channel predicts from sampled
+    shots and trajectories: the batch at row offset s draws from a
+    generator seeded from (shot_seed, s), so the predictions replay for
+    equal arguments."""
     if batch_size is None:
         batch_size = 20000
     model_type = (cfg or {}).get('model_type', 'QuanONet')
@@ -244,7 +258,7 @@ def predict(model, branch_input, trunk_input=None, cfg=None,
         model_type in ('QuanONet', 'DeepONet')
     concat = trunk_input is not None and model_type == 'FNN'
     device = next(model.parameters()).device
-    sampled = bool(getattr(model, 'shots', None))
+    sampled = bool(getattr(model, 'sampled', False))
     n = branch_input.shape[0]
     preds = []
     with torch.inference_mode():
@@ -264,6 +278,28 @@ def predict(model, branch_input, trunk_input=None, cfg=None,
                 out = model(b, **kw)
             preds.append(out.cpu().numpy())
     return np.concatenate(preds, axis=0)
+
+
+def zne_predict(model, branch_input, trunk_input=None, cfg=None,
+                scales=(1.0, 2.0), batch_size=None, shot_seed=0):
+    """Zero-noise-extrapolated predictions (ops/mitigation.py): every
+    trajectory evaluates all amplified noise levels ``c·noise_p`` on one
+    shared error draw (common random numbers), Richardson-extrapolated to
+    c = 0.  The model must have ``noise_p`` set; equal arguments replay bit
+    for bit.  ``model`` itself is left as it was."""
+    p = getattr(model, 'measure', None) and model.measure.noise_p
+    if not p:
+        raise ValueError("zne_predict needs a model with noise_p > 0 "
+                         "(nothing to extrapolate)")
+    richardson_weights(scales)           # validate the scales up front
+    m = copy.deepcopy(model)
+    m.measure.shots = None
+    ms = m.measure
+    ms.configure(ms.noise_p, ms.noise_traj, ms.readout_p,
+                 tuple(float(c) for c in scales), ms.damp_gamma,
+                 ms.dephase_p)
+    return predict(m, branch_input, trunk_input, cfg=cfg,
+                   batch_size=batch_size, shot_seed=shot_seed)
 
 
 def evaluate(y_pred, y_true):
@@ -315,30 +351,6 @@ def generate_test_data(ckpt_path, num_points_0=None):
     return branch, data.get('test_trunk_input'), data.get('test_output')
 
 
-# the reference CLI's noise-emulation flags, each parsed here and refused
-# naming the ROADMAP item that ports it
-_UNPORTED_ITEM = 'ROADMAP §A item 5'
-_UNPORTED_FLAGS = ('--noise_p', '--noise_traj', '--readout_p', '--t1_us',
-                   '--t2_us', '--block_time_us', '--damp_gamma',
-                   '--dephase_p')
-
-
-def _reject_unported_flags(args):
-    """Raise for the noise-emulation flags that were given.  ``--noise_p
-    0`` and ``--readout_p 0`` are the ideal model and pass, as in the JAX
-    package."""
-    used = [flag for flag in _UNPORTED_FLAGS
-            if getattr(args, flag[2:]) is not None
-            and not (flag in ('--noise_p', '--readout_p')
-                     and getattr(args, flag[2:]) == 0.0)]
-    if args.zne:
-        used.append('--zne')
-    if used:
-        raise NotImplementedError(
-            f"{', '.join(used)}: noise emulation is not ported yet "
-            f"({_UNPORTED_ITEM}); the port measures exactly or with shots")
-
-
 def _parser():
     p = argparse.ArgumentParser(
         description='QuanONet inference on the PyTorch/CUDA port',
@@ -377,21 +389,44 @@ def _parser():
                         'instead of the exact expectation')
     p.add_argument('--shot_seed', type=int, default=0,
                    help='Seed of the --shots sampling (replayable)')
-    for flag in _UNPORTED_FLAGS:
-        p.add_argument(flag, type=int if flag == '--noise_traj' else float,
-                       default=None,
-                       help=f'Noise emulation: not ported yet '
-                            f'({_UNPORTED_ITEM})')
+    p.add_argument('--noise_p', type=float, default=None,
+                   help='Per-qubit per-block depolarizing error prob '
+                        '(Pauli-twirled trajectory simulation, '
+                        'ops/noise.py); combine with --shots for the full '
+                        'QPU error budget')
+    p.add_argument('--noise_traj', type=int, default=None,
+                   help='Noise trajectories to average (default 32)')
+    p.add_argument('--readout_p', type=float, default=None,
+                   help='Per-qubit measurement bit-flip prob, applied '
+                        'exactly (no sampling)')
     p.add_argument('--zne', type=float, nargs='+', default=None,
                    metavar='SCALE',
-                   help='Zero-noise extrapolation: not ported yet '
-                        f"({_UNPORTED_ITEM})")
+                   help='Zero-noise extrapolation (ops/mitigation.py): '
+                        'evaluate at these noise scale factors and '
+                        'Richardson-extrapolate the predictions to zero '
+                        'noise; requires --noise_p or a _Noise checkpoint')
+    p.add_argument('--t1_us', type=float, default=None,
+                   help='Calibration T1 (µs): adds the amplitude-damping '
+                        '(quantum-jump) channel per block; needs '
+                        '--block_time_us')
+    p.add_argument('--t2_us', type=float, default=None,
+                   help='Calibration T2 (µs): adds the pure-dephasing '
+                        '(Z-twirl) channel per block; needs --block_time_us')
+    p.add_argument('--block_time_us', type=float, default=None,
+                   help='Hardware wall-time one HEA block occupies (µs); '
+                        'converts --t1_us/--t2_us to per-block (γ, p_φ) '
+                        'via ops.noise.channel_params_from_t1t2')
+    p.add_argument('--damp_gamma', type=float, default=None,
+                   help='Directly set the per-block amplitude-damping γ '
+                        '(overrides --t1_us)')
+    p.add_argument('--dephase_p', type=float, default=None,
+                   help='Directly set the per-block pure-dephasing Z-flip '
+                        'prob (overrides --t2_us)')
     return p
 
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    _reject_unported_flags(args)
     y_true = None
     if args.data:
         d = np.load(args.data)
@@ -410,14 +445,31 @@ def main(argv=None):
 
     branch_in = branch.shape[-1] if branch.ndim == 3 else branch.shape[1]
     trunk_in = trunk.shape[1] if trunk is not None else 0
+
+    # T1/T2 decoherence: --t1_us/--t2_us with --block_time_us map
+    # calibration times to per-block channel strengths; --damp_gamma and
+    # --dephase_p set them directly
+    damp_gamma, dephase_p = args.damp_gamma, args.dephase_p
+    if args.t1_us is not None or args.t2_us is not None:
+        if args.block_time_us is None:
+            raise SystemExit("--t1_us/--t2_us need --block_time_us")
+        g, pphi = channel_params_from_t1t2(
+            args.block_time_us, args.t1_us or 1e12, args.t2_us or 1e12)
+        if damp_gamma is None and args.t1_us is not None:
+            damp_gamma = g
+        if dephase_p is None and args.t2_us is not None:
+            dephase_p = pphi
+        print(f"T1/T2 : block={args.block_time_us}us "
+              f"T1={args.t1_us}us T2={args.t2_us}us -> "
+              f"damp_gamma={damp_gamma} dephase_p={dephase_p}")
+
     overrides = dict(model_type=args.model_type, num_qubits=args.num_qubits,
                      net_size=args.net_size, scale_coeff=args.scale_coeff,
                      ham_bound=args.ham_bound,
                      quantum_backend=args.quantum_backend,
                      shots=args.shots, noise_p=args.noise_p,
-                     readout_p=args.readout_p, damp_gamma=args.damp_gamma,
-                     dephase_p=args.dephase_p,
-                     zne_scales=tuple(args.zne) if args.zne else None)
+                     noise_traj=args.noise_traj, readout_p=args.readout_p,
+                     damp_gamma=damp_gamma, dephase_p=dephase_p)
     model, cfg = load_model(args.ckpt, branch_in=branch_in,
                             trunk_in=trunk_in, device=args.device,
                             **overrides)
@@ -428,8 +480,23 @@ def main(argv=None):
     if cfg.get('shots'):
         print(f"Shots : {cfg['shots']} per prediction "
               f"(sampled measurement, seed={args.shot_seed})")
-    preds = predict(model, branch, trunk, cfg=cfg, batch_size=args.batch_size,
-                    shot_seed=args.shot_seed)
+    if cfg.get('noise_p') is not None or cfg.get('readout_p'):
+        print(f"Noise : depolarizing p={cfg.get('noise_p') or 0} over "
+              f"{cfg.get('noise_traj') or 32} trajectories, "
+              f"readout_p={cfg.get('readout_p') or 0} "
+              f"(seed={args.shot_seed})")
+
+    if args.zne:
+        print(f"ZNE   : Richardson extrapolation over noise scales "
+              f"{args.zne}")
+        preds = zne_predict(model, branch, trunk, cfg=cfg,
+                            scales=tuple(args.zne),
+                            batch_size=args.batch_size,
+                            shot_seed=args.shot_seed)
+    else:
+        preds = predict(model, branch, trunk, cfg=cfg,
+                        batch_size=args.batch_size,
+                        shot_seed=args.shot_seed)
     print(f"Output: {preds.shape}")
 
     if y_true is not None:

@@ -20,8 +20,11 @@ Measurement: exact, or with ``shots`` finite-shot sampled
 (ops/sampling.py) from a ``torch.Generator`` passed to ``forward``; with
 ``grad_method='shift'`` the circuit's gradient is the parameter-shift rule
 (ops/param_shift.py) for the ansatz and the encode inputs, exact or
-sampled.  The noise, ZNE and T1/T2 flags raise until their slice lands
-(ROADMAP §A item 5).
+sampled.  With ``noise_p``, ``readout_p``, ``damp_gamma`` or ``dephase_p``
+the output is the mean over ``noise_traj`` noise trajectories
+(ops/noise.py), drawn from the same generator, and with ``zne_scales`` it
+is zero-noise extrapolated (ops/mitigation.py); autograd differentiates
+through the trajectories (noise-aware training).
 """
 import torch
 from torch import nn
@@ -32,30 +35,24 @@ from quanonet_torch.ops.hamiltonian import resolve_ham_diag, simple_ham_params
 from quanonet_torch.ops.hea import (
     hea_expectation, heaqnn_spec, init_ansatz_weights, quanonet_spec,
 )
+from quanonet_torch.ops.mitigation import zne_expectation
+from quanonet_torch.ops.noise import is_noisy, noisy_expectation
 from quanonet_torch.ops.param_shift import make_ps_expectation
 from quanonet_torch.ops.sampling import shot_expectation
 
 
-def _reject_unported(noise_p=None, readout_p=0.0, zne_scales=None,
-                     damp_gamma=None, dephase_p=None):
-    """Flags of a later slice raise instead of being ignored."""
-    flags = dict(noise_p=noise_p, readout_p=readout_p,
-                 zne_scales=zne_scales, damp_gamma=damp_gamma,
-                 dephase_p=dephase_p)
-    used = [k for k, v in flags.items() if v]
-    if used:
-        raise NotImplementedError(
-            f"{', '.join(used)}: noise emulation is not ported yet "
-            f"(ROADMAP §A item 5); the port measures exactly or with shots")
-
-
 class _Measure(nn.Module):
     """Measurement of the HEA circuit: the Z-diagonal or an X/Y Pauli sum,
-    exact or from ``shots``; with grad_method 'shift' its gradient is the
-    shift rule (ps_chunk bounds the fan-out)."""
+    exact, from ``shots``, or under a noise channel (the mean over
+    ``noise_traj`` trajectories, zero-noise extrapolated with
+    ``zne_scales``); with grad_method 'shift' its gradient is the shift
+    rule (ps_chunk bounds the fan-out).  ``sampled``: forward needs a
+    generator."""
 
     def __init__(self, spec, ham_bound, ham_diag, ham_pauli, engine, device,
-                 shots=None, grad_method='autodiff', ps_chunk=None):
+                 shots=None, grad_method='autodiff', ps_chunk=None,
+                 noise_p=None, noise_traj=32, readout_p=0.0,
+                 zne_scales=None, damp_gamma=None, dephase_p=None):
         super().__init__()
         if grad_method not in ('autodiff', 'shift'):
             raise ValueError(f"unknown grad_method {grad_method!r}")
@@ -63,6 +60,8 @@ class _Measure(nn.Module):
         self.engine = engine
         self.pauli = ham_pauli
         self.shots = int(shots) if shots else None
+        self.configure(noise_p, noise_traj, readout_p, zne_scales,
+                       damp_gamma, dephase_p, grad_method)
         if ham_pauli == 'Z' or ham_diag is not None:
             self.pauli = 'Z'
             diag = resolve_ham_diag(
@@ -83,10 +82,55 @@ class _Measure(nn.Module):
                 coeff=self.coeff, engine=engine, shots=self.shots,
                 chunk=ps_chunk)
 
+    def configure(self, noise_p=None, noise_traj=32, readout_p=0.0,
+                  zne_scales=None, damp_gamma=None, dephase_p=None,
+                  grad_method='autodiff'):
+        """Set the noise channel, with the JAX package's guards."""
+        noisy = is_noisy(noise_p, readout_p, damp_gamma, dephase_p)
+        if grad_method == 'shift' and (noisy or zne_scales):
+            raise ValueError(
+                "grad_method='shift' assumes a unitary circuit; drop the "
+                "noise/zne flags (noise-aware training uses autodiff)")
+        if zne_scales:
+            if not noise_p:
+                raise ValueError("zne_scales requires noise_p > 0")
+            if self.shots:
+                raise ValueError(
+                    "zne_scales and shots are mutually exclusive "
+                    "(extrapolate exact trajectory expectations)")
+            if is_noisy(damp_gamma=damp_gamma, dephase_p=dephase_p):
+                raise ValueError(
+                    "zne_scales extrapolates the depolarizing channel "
+                    "only; drop damp_gamma/dephase_p")
+        self.noisy = noisy
+        self.noise_p = noise_p
+        self.noise_traj = int(noise_traj)
+        self.readout_p = readout_p or 0.0
+        self.zne_scales = (tuple(float(c) for c in zne_scales)
+                           if zne_scales else None)
+        self.damp_gamma = damp_gamma
+        self.dephase_p = dephase_p
+        self.sampled = bool(self.shots or noisy or self.zne_scales)
+
     def forward(self, ansatz, x, generator=None):
-        if self.shots and generator is None:
-            raise ValueError(f"a model measured with {self.shots} shots "
-                             f"needs a generator")
+        if self.sampled and generator is None:
+            what = (f"{self.shots} shots" if not self.noisy
+                    else "a noise channel")
+            raise ValueError(f"a model measured with {what} needs a "
+                             f"generator")
+        obs = dict(diag=self.diag, pauli=self.pauli, offset=self.offset,
+                   coeff=self.coeff)
+        if self.zne_scales:
+            return zne_expectation(generator, self.spec, ansatz, x,
+                                   self.noise_p, self.noise_traj,
+                                   scales=self.zne_scales,
+                                   readout_p=self.readout_p, **obs)
+        if self.noisy:
+            return noisy_expectation(
+                generator, self.spec, ansatz, x,
+                self.noise_p if self.noise_p is not None else 0.0,
+                self.noise_traj, shots=self.shots, readout_p=self.readout_p,
+                damp_gamma=self.damp_gamma, dephase_p=self.dephase_p, **obs)
         if self.shift is not None:
             return (self.shift(ansatz, x, generator) if self.shots
                     else self.shift(ansatz, x))
@@ -108,11 +152,9 @@ class QuanONet(nn.Module):
                  ham_bound=(-5.0, 5.0), ham_diag=None, ham_pauli='Z',
                  engine='auto', shots=None, noise_p=None, readout_p=0.0,
                  zne_scales=None, damp_gamma=None, dephase_p=None,
-                 grad_method='autodiff', ps_chunk=None, *, device=None,
-                 generator=None):
+                 grad_method='autodiff', ps_chunk=None, noise_traj=32, *,
+                 device=None, generator=None):
         super().__init__()
-        _reject_unported(noise_p, readout_p, zne_scales, damp_gamma,
-                         dephase_p)
         device = resolve_device(device)
         self.num_qubits = int(num_qubits)
         self.branch_input_size = int(branch_input_size)
@@ -136,12 +178,19 @@ class QuanONet(nn.Module):
             init_ansatz_weights(self.spec, generator, device))
         self.bias = nn.Parameter(torch.zeros((), device=device))
         self.measure = _Measure(self.spec, ham_bound, ham_diag, ham_pauli,
-                                engine, device, shots, grad_method, ps_chunk)
+                                engine, device, shots, grad_method, ps_chunk,
+                                noise_p, noise_traj, readout_p, zne_scales,
+                                damp_gamma, dephase_p)
         self.shots = self.measure.shots
         self.grad_method = grad_method
 
+    @property
+    def sampled(self):
+        """Whether forward draws from a generator (shots or noise)."""
+        return self.measure.sampled
+
     def forward(self, branch_input, trunk_input, generator=None):
-        """``generator`` draws the shots of a sampled model."""
+        """``generator`` draws the shots and noise of a sampled model."""
         # trunk encoding first: the circuit is trunk blocks then branch blocks
         x = torch.cat([self.trunk_freq(trunk_input),
                        self.branch_freq(branch_input)], dim=1)
@@ -157,10 +206,9 @@ class HEAQNN(nn.Module):
                  ham_diag=None, ham_pauli='Z', engine='auto', shots=None,
                  noise_p=None, readout_p=0.0, zne_scales=None,
                  damp_gamma=None, dephase_p=None, grad_method='autodiff',
-                 ps_chunk=None, *, device=None, generator=None):
+                 ps_chunk=None, noise_traj=32, *, device=None,
+                 generator=None):
         super().__init__()
-        _reject_unported(noise_p, readout_p, zne_scales, damp_gamma,
-                         dephase_p)
         device = resolve_device(device)
         self.num_qubits = int(num_qubits)
         self.input_size = int(input_size)
@@ -176,10 +224,17 @@ class HEAQNN(nn.Module):
         self.ansatz = nn.Parameter(
             init_ansatz_weights(self.spec, generator, device))
         self.measure = _Measure(self.spec, ham_bound, ham_diag, ham_pauli,
-                                engine, device, shots, grad_method, ps_chunk)
+                                engine, device, shots, grad_method, ps_chunk,
+                                noise_p, noise_traj, readout_p, zne_scales,
+                                damp_gamma, dephase_p)
         self.shots = self.measure.shots
         self.grad_method = grad_method
 
+    @property
+    def sampled(self):
+        """Whether forward draws from a generator (shots or noise)."""
+        return self.measure.sampled
+
     def forward(self, x, generator=None):
-        """``generator`` draws the shots of a sampled model."""
+        """``generator`` draws the shots and noise of a sampled model."""
         return self.measure(self.ansatz, self.freq(x), generator)

@@ -48,6 +48,46 @@ def ham_diag_full(diag_elements, num_qubits) -> np.ndarray:
     return d
 
 
+def zero_state_ham_diag(num_qubits, lower_bound=0.0,
+                        upper_bound=1.0) -> np.ndarray:
+    """Diagonal of lb·I + (ub-lb)·|0…0⟩⟨0…0| (the reference's
+    zero_state_hamiltonian: the sum over all {I,Z}^n strings with weight
+    (ub-lb)/2^n collapses to the |0…0⟩ projector)."""
+    d = np.full(2 ** num_qubits, float(lower_bound), dtype=np.float32)
+    d[0] += float(upper_bound - lower_bound)
+    return d
+
+
+def generate_ham_diag_rank1(num_qubits, seed=None) -> np.ndarray:
+    """Rank-1 spectrum: one random position set to 5, the rest -5 (the
+    reference's one-hot * 10 - 5)."""
+    length = 2 ** num_qubits
+    rng = np.random.RandomState(seed) if seed is not None else np.random
+    arr = np.zeros(length)
+    idx = rng.choice(length, 1, replace=False)
+    arr[idx[0]] = 1
+    return arr * 10 - 5
+
+
+def generate_ham_spectrum_uniform(num_qubits, rank, seed=None) -> np.ndarray:
+    """Uniform eigenspectrum: ``rank`` values evenly spaced in [-5, 5] at
+    random positions, zeros elsewhere (an even rank avoids a zero
+    eigenvalue)."""
+    length = 2 ** num_qubits
+    if rank > length:
+        raise ValueError(
+            f"Rank ({rank}) cannot be greater than Hilbert space "
+            f"dimension ({length}).")
+    if rank % 2 != 0:
+        print(f"Warning: Rank {rank} is odd. 0.0 might be included in the "
+              f"spectrum, reducing the effective rank.")
+    rng = np.random.RandomState(seed) if seed is not None else np.random
+    arr = np.zeros(length)
+    idx = rng.choice(length, rank, replace=False)
+    arr[idx] = np.linspace(-5, 5, rank)
+    return arr
+
+
 def resolve_ham_diag(num_qubits, ham_bound=None, ham_diag=None) -> np.ndarray:
     """Config -> diagonal vector: ham_diag overrides ham_bound."""
     if ham_diag is not None:

@@ -17,14 +17,17 @@ quanonet_tpu/serve.py), on ``cuda`` unless ``--device cpu`` is asked for.
   Q10 Net40-2-20-2 model at bucket 8192, and builds the phases inside the
   kernel; the state is 2 × 8192 × 1024 × 4 B = 67 MB.  Lower --max_batch
   for wider registers.
-* **Shots.**  With --shots each prediction is estimated from sampled
-  shots (ops/sampling.py); each executed bucket draws from a generator
-  seeded from (--shot_seed, a counter of the buckets run), the JAX
-  server's rule, so one server's answers replay from its seed.
+* **Shots and noise.**  With --shots each prediction is estimated from
+  sampled shots (ops/sampling.py), with --noise_p / --readout_p (or a
+  ``_Noise`` checkpoint name) from --noise_traj noise trajectories
+  (ops/noise.py); each executed bucket draws from a generator seeded from
+  (--shot_seed, a counter of the buckets run), the JAX server's rule, so
+  one server's answers replay from its seed.
 
 CLI:  python -m quanonet_torch.serve --ckpt <best_model.ckpt|.npz>
           --branch_in 100 [--trunk_in 2] [--port 8777] [--max_batch 8192]
-          [--shots N [--shot_seed S]] [--device cuda|cpu]
+          [--shots N] [--noise_p P [--noise_traj T]] [--readout_p R]
+          [--shot_seed S] [--device cuda|cpu]
 API:  POST /predict   {"branch": [[...], ...], "trunk": [[...], ...]}
                       -> {"pred": [[...], ...], "n": N, "buckets": [B, ...]}
                       (one bucket per executed chunk; bodies over the
@@ -63,7 +66,7 @@ class Predictor:
         self.model, self.cfg = load_model(ckpt_path, branch_in, trunk_in,
                                           device=device, **overrides)
         self.shot_seed = int(shot_seed)
-        self._sampled = bool(getattr(self.model, 'shots', None))
+        self._sampled = bool(getattr(self.model, 'sampled', False))
         self._req_counter = 0
         self.device = next(self.model.parameters()).device
         self.branch_in = branch_in
@@ -244,14 +247,22 @@ def main(argv=None):
     ap.add_argument('--device', default=None, help='cuda (default) or cpu')
     ap.add_argument('--shots', type=int, default=None,
                     help='Finite-shot sampled predictions (QPU emulation)')
+    ap.add_argument('--noise_p', type=float, default=None,
+                    help='Noisy predictions via Pauli trajectories '
+                         '(ops/noise.py)')
+    ap.add_argument('--readout_p', type=float, default=None)
+    ap.add_argument('--noise_traj', type=int, default=None)
     ap.add_argument('--shot_seed', type=int, default=0,
-                    help='Seed of the --shots sampling')
+                    help='Seed of the --shots and noise sampling')
     ap.add_argument('--no_warmup', action='store_true')
     args = ap.parse_args(argv)
 
+    overrides = {k: getattr(args, k) for k in
+                 ('shots', 'noise_p', 'readout_p', 'noise_traj')
+                 if getattr(args, k) is not None}
     pred = Predictor(args.ckpt, args.branch_in, args.trunk_in,
                      max_batch=args.max_batch, device=args.device,
-                     shot_seed=args.shot_seed, shots=args.shots)
+                     shot_seed=args.shot_seed, **overrides)
     if not args.no_warmup:
         print(f"[serve] warming {len(pred.buckets)} buckets "
               f"(max {args.max_batch})...", flush=True)

@@ -26,14 +26,20 @@ QPU-trainable gradients (ops/param_shift.py): ``--grad_method shift``
 makes the circuit's gradient the parameter-shift rule, ``spsa`` replaces
 ``loss.backward()`` with the two-evaluation SPSA estimate (``--spsa_c``),
 and ``--train_shots`` measures the loss, and the evaluation, with finite
-shots; ``--ps_chunk`` bounds the shift rule's fan-out.
+shots; ``--ps_chunk`` bounds the shift rule's fan-out.  Noise-aware
+training (ops/noise.py): ``--noise_p``, ``--readout_p``, ``--damp_gamma``
+and ``--dephase_p`` make the forward the mean over ``--noise_traj``
+trajectories of the channel (8 by default), drawn from the step's
+generator; on ``cuda`` up to 7 qubits without damping each trajectory is
+one chain launch on the shared compile (B1f and B1b a trajectory, B4f and
+B4b a step).
 
 The random streams are torch's, not JAX's: parameters are drawn from a
 ``torch.Generator`` seeded with the run seed, epoch e's permutation from
-one seeded with (seed, e), and a sampled or SPSA step t from generators
-seeded from (seed, t), so a resumed run replays them.  Training is held
-to the JAX package by outcome and, step by step, in the tests (which hand
-both the same parameters and permutations).
+one seeded with (seed, e), and a sampled, noisy or SPSA step t from
+generators seeded from (seed, t), so a resumed run replays them.
+Training is held to the JAX package by outcome and, step by step, in the
+tests (which hand both the same parameters and permutations).
 """
 import math
 import os
@@ -50,6 +56,7 @@ from quanonet_torch.convert import raw_from_state_dict, state_dict_from_raw
 from quanonet_torch.data.manager import DataManager
 from quanonet_torch.logger import ExperimentLogger, StreamToLogger, setup_logger
 from quanonet_torch.metrics import compute_metrics, count_parameters, rel_l2
+from quanonet_torch.ops.noise import is_noisy
 from quanonet_torch.ops.param_shift import make_spsa_step
 from quanonet_torch.ops.sampling import derive_seed, key_generator
 
@@ -119,6 +126,21 @@ def build_model(config, data, device=None, generator=None):
         return _build_classical(config, data, device, generator)
     net_size = config.get('net_size')
     ham_diag = config.get('ham_diag')
+    # noise-aware training (ops/noise.py): the forward is the trajectory
+    # mean under the channel; 8 trajectories by default in training (the
+    # gradient averages over them and the batch), 32 at inference
+    noise = {}
+    if is_noisy(config.get('noise_p'), config.get('readout_p'),
+                config.get('damp_gamma'), config.get('dephase_p')):
+        noise = dict(
+            noise_p=(float(config['noise_p'])
+                     if config.get('noise_p') is not None else None),
+            noise_traj=int(config.get('noise_traj') or 8),
+            readout_p=float(config.get('readout_p') or 0.0),
+            damp_gamma=(float(config['damp_gamma'])
+                        if config.get('damp_gamma') else None),
+            dephase_p=(float(config['dephase_p'])
+                       if config.get('dephase_p') else None))
     # QPU-trainable gradients (ops/param_shift.py): the shift rule as the
     # circuit's gradient, and finite shots in the training loss
     qpu = dict(shots=int(train_shots) if train_shots else None,
@@ -134,7 +156,7 @@ def build_model(config, data, device=None, generator=None):
               ham_diag=tuple(ham_diag) if ham_diag is not None else None,
               ham_pauli=config.get('ham_pauli', 'Z'),
               engine=config.get('engine', 'auto'), device=device,
-              generator=generator, **qpu)
+              generator=generator, **qpu, **noise)
     if model_type == 'QuanONet':
         return QuanONet(branch_input_size=data['train_branch_input'].shape[1],
                         trunk_input_size=data['train_trunk_input'].shape[1],
@@ -361,16 +383,17 @@ def make_train_epoch(model, optimizer, num_samples, batch_size, per_sample,
     per-epoch averaging (solver_ms.py:219-245): each step's loss is
     sum(sq · mask) / max(sum(mask) · per_sample, 1).
 
-    A model measured with shots (``model.shots``), or ``spsa_c`` (the SPSA
-    estimator at that perturbation size in place of ``loss.backward()``),
-    makes the step stochastic: step t = epoch · batches + b draws from
-    generators seeded from (``seed``, t), the counterpart of the JAX
-    package's per-step rngs, so a resumed run draws what the unbroken run
-    drew: (seed, t, 0) the SPSA direction, (seed, t, 1) the model's shots,
-    the same shots for both SPSA evaluations (common random numbers)."""
+    A model measured with shots or under a noise channel
+    (``model.sampled``), or ``spsa_c`` (the SPSA estimator at that
+    perturbation size in place of ``loss.backward()``), makes the step
+    stochastic: step t = epoch · batches + b draws from generators seeded
+    from (``seed``, t), the counterpart of the JAX package's per-step rngs,
+    so a resumed run draws what the unbroken run drew: (seed, t, 0) the
+    SPSA direction, (seed, t, 1) the model's shots and noise trajectories,
+    the same for both SPSA evaluations (common random numbers)."""
     num_batches = max(1, int(np.ceil(num_samples / batch_size)))
     padded = num_batches * batch_size
-    sampled = bool(getattr(model, 'shots', None))
+    sampled = bool(getattr(model, 'sampled', False))
     params = dict(model.named_parameters())
 
     def batch_loss(pred, batch_out, mask):
@@ -394,7 +417,7 @@ def make_train_epoch(model, optimizer, num_samples, batch_size, per_sample,
             def predict(ps=None):
                 """The batch's predictions, with the tensors ``ps`` in place
                 of the model's parameters; a sampled model draws the step's
-                shots."""
+                shots and noise."""
                 kw = ({'generator': key_generator(step, 1, device=dev)}
                       if sampled else {})
                 if ps is None:
@@ -716,12 +739,13 @@ class Solver:
     def predict_test(self):
         """The model's predictions on the test inputs, (n, 1) NumPy, in
         chunks of max(batch_size, 4096) rows under inference mode (so the
-        chain takes the primal-only kernel).  A model trained with shots is
-        evaluated with them, chunk s drawing from a generator seeded from
-        (run seed, s), as the JAX package keys it."""
+        chain takes the primal-only kernel).  A model trained with shots or
+        under a noise channel is evaluated with them, chunk s drawing from
+        a generator seeded from (run seed, s), as the JAX package keys
+        it."""
         batch_size = max(self.config.get('batch_size', 100), 4096)
         n = self.test_output.shape[0]
-        sampled = bool(getattr(self.model, 'shots', None))
+        sampled = bool(getattr(self.model, 'sampled', False))
         preds = []
         with torch.inference_mode():
             for s in range(0, n, batch_size):

@@ -614,3 +614,81 @@ def test_model_training_step_embed_matches_dense(card):
     assert out['embed'][0] == pytest.approx(out['dense'][0], rel=1e-5)
     for k, v in out['embed'][1].items():
         assert (v - out['dense'][1][k]).abs().max().item() <= 1e-5, k
+
+
+# ── noise trajectories on the fold route (B1f/B1b a trajectory) ─────────────
+
+def _noise_case(nq, net, n, n_traj, seed, device):
+    spec, (mt_r, mt_i, phi) = _operands(nq, net, n, seed, device)
+    rng = np.random.RandomState(seed)
+    a = torch.tensor(rng.rand(n_traj, spec.n_blocks, nq) < 0.3, device=device)
+    b = torch.tensor(rng.rand(n_traj, spec.n_blocks, nq) < 0.3, device=device)
+    return spec, (mt_r, mt_i, phi), a, b
+
+
+@pytest.mark.parametrize("nq,net,n", [(5, (40, 2, 20, 2), 100),
+                                      (2, (5, 1, 5, 1), 37),
+                                      (7, (10, 2, 5, 2), 64)])
+def test_noise_fold_route_kernel_matches_plain(card, nq, net, n):
+    """Each trajectory's folded matrices through B1f equal the plain chain
+    on them, one launch a trajectory."""
+    from quanonet_torch.ops import noise
+    spec, ops, a, b = _noise_case(nq, net, n, 4, nq, card)
+    before = cuda_hea.launches
+    kr, ki = noise.fold_states(*ops, a, b)
+    torch.cuda.synchronize()
+    assert cuda_hea.launches == before + 4
+    pr, pi = noise.fold_states(*ops, a, b, chain=hea.chain_dense)
+    assert (kr - pr).abs().max().item() <= 2e-5
+    assert (ki - pi).abs().max().item() <= 2e-5
+
+
+def test_noise_fold_gradient_through_the_kernels(card):
+    """Autograd through B4f/B1f with B1b and B4b against the plain chain
+    and the autograd fold, 1e-4 x max(1, max|plain|)."""
+    from quanonet_torch.ops import noise
+    spec = hea.quanonet_spec(5, (40, 2, 20, 2))
+    rng = np.random.RandomState(3)
+    w0 = rng.uniform(-np.pi, np.pi, spec.weight_shape()).astype(np.float32)
+    x0 = rng.uniform(-4, 4, (100, spec.total_encode)).astype(np.float32)
+    a = torch.tensor(rng.rand(3, spec.n_blocks, 5) < 0.2, device=card)
+    b = torch.tensor(rng.rand(3, spec.n_blocks, 5) < 0.2, device=card)
+    diag = torch.as_tensor(simple_ham_diag(5, -5, 5), device=card)
+    grads = {}
+    for route in ('kernel', 'plain'):
+        w = torch.tensor(w0, device=card, requires_grad=True)
+        x = torch.tensor(x0, device=card, requires_grad=True)
+        if route == 'kernel':
+            sr, si = noise.fold_states(*cuda_hea._prepare(spec, w, x), a, b)
+        else:
+            sr, si = noise.fold_states(*hea.prepare_chain(spec, w, x), a, b,
+                                       chain=hea.chain_dense)
+        (((sr * sr + si * si) * diag).sum(-1) ** 2).sum().backward()
+        grads[route] = (w.grad, x.grad)
+    for got, want in zip(grads['kernel'], grads['plain']):
+        assert (got - want).abs().max().item() <= 1e-4 * max(
+            1.0, want.abs().max().item())
+
+
+def test_noisy_expectation_routes_on_the_card(card):
+    from quanonet_torch.ops import mitigation, noise
+    spec = hea.quanonet_spec(5, (40, 2, 20, 2))
+    rng = np.random.RandomState(4)
+    w = torch.tensor(rng.uniform(-np.pi, np.pi, spec.weight_shape())
+                     .astype(np.float32), device=card)
+    x = torch.tensor(rng.uniform(-4, 4, (50, spec.total_encode))
+                     .astype(np.float32), device=card)
+    diag = simple_ham_diag(5, -5, 5)
+    g = torch.Generator(device=card).manual_seed(1)
+    routes = dict(noise.routes)
+    before = cuda_hea.launches
+    e1 = noise.noisy_expectation(g, spec, w, x, 0.01, 8, diag=diag)
+    e2 = noise.noisy_expectation(g, spec, w, x, 0.01, 8, diag=diag)
+    torch.cuda.synchronize()
+    assert torch.equal(e1, e2) and cuda_hea.launches == before + 16
+    z = mitigation.zne_expectation(g, spec, w, x, 0.01, 4, diag=diag)
+    d = noise.noisy_expectation(g, spec, w, x, 0.0, 2, diag=diag,
+                                damp_gamma=0.01)
+    assert noise.routes['fold'] == routes['fold'] + 3
+    assert noise.routes['plain'] == routes['plain'] + 1
+    assert all(torch.isfinite(t).all() for t in (e1, z, d))

@@ -42,7 +42,7 @@ def test_port_imports_no_jax():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 35
+    assert n_modules >= 39
 
 
 _IMPORT_KERNEL_MODULES = r"""
@@ -83,9 +83,10 @@ def test_new_kernel_modules_import_clean():
 
 _IMPORT_QPU_MODULES = r"""
 import sys
-from quanonet_torch import backend, multiseed
-from quanonet_torch.ops import _build, param_shift, sampling
+from quanonet_torch import backend, compare_engines, multiseed
+from quanonet_torch.ops import _build, mitigation, noise, param_shift, sampling
 assert _build._loaded == {}, _build._loaded
+assert noise.routes == {'fold': 0, 'plain': 0}, noise.routes
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                     'quanonet_tpu', 'qiskit', 'pennylane',
@@ -96,9 +97,10 @@ print(backend.backend.check_compatibility('QuanONet'))
 
 
 def test_qpu_modules_import_clean():
-    """The QPU-emulation modules (sampling, param_shift), multiseed and
-    backend import no JAX and build no kernel; backend finds the
-    reference's frameworks without importing them."""
+    """The QPU-emulation modules (sampling, param_shift, noise,
+    mitigation), compare_engines, multiseed and backend import no JAX and
+    build no kernel; backend finds the reference's frameworks without
+    importing them."""
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     out = subprocess.run([sys.executable, '-c', _IMPORT_QPU_MODULES],
                          cwd=REPO, env=env, capture_output=True, text=True,

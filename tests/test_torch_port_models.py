@@ -147,23 +147,18 @@ def test_seeded_init_and_layers():
                                       [3, 4, 5, 3, 4, 5, 3]]
 
 
-@pytest.mark.parametrize("flag", [dict(noise_p=0.01),
-                                  dict(readout_p=0.02),
-                                  dict(zne_scales=(1.0, 2.0)),
-                                  dict(damp_gamma=0.1), dict(dephase_p=0.1)])
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match='§A item 5'):
-        QuanONet(2, 3, 1, (2, 1, 2, 1), device='cpu', **flag)
-
-
-@pytest.mark.parametrize("flag", [dict(shots=100), dict(grad_method='shift')])
+@pytest.mark.parametrize("flag", [
+    dict(shots=100), dict(grad_method='shift'), dict(noise_p=0.01),
+    dict(readout_p=0.02), dict(noise_p=0.01, zne_scales=(1.0, 2.0)),
+    dict(damp_gamma=0.1), dict(dephase_p=0.1)])
 def test_qpu_flags_build_and_run(flag):
-    """shots and the shift rule, which raised until they were ported, now
-    build a model that runs forward and backward."""
+    """shots, the shift rule and the noise, ZNE and T1/T2 channels, which
+    raised until they were ported, now build a model that runs forward and
+    backward."""
     model = QuanONet(2, 3, 1, (2, 1, 2, 1), device='cpu', **flag,
                      generator=torch.Generator().manual_seed(0))
     kw = ({'generator': torch.Generator().manual_seed(1)}
-          if 'shots' in flag else {})
+          if model.sampled else {})
     out = model(torch.rand(4, 3), torch.rand(4, 1), **kw)
     assert out.shape == (4, 1) and torch.isfinite(out).all()
     out.sum().backward()

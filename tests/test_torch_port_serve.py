@@ -113,18 +113,19 @@ def test_infer_cli_on_data_file(tmp_path):
     np.testing.assert_array_equal(again, preds)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (['--shots', '100'], None), (['--shot_seed', '3'], None),
-    (['--noise_traj', '8'], '§A item 5'), (['--t1_us', '50'], '§A item 5'),
-    (['--t2_us', '70'], '§A item 5'), (['--block_time_us', '1.5'], '§A item 5'),
-    (['--noise_p', '0.01'], '§A item 5'), (['--zne', '1', '2'], '§A item 5'),
-    (['--damp_gamma', '0.1', '--shots', '8'], '§A item 5'),
+@pytest.mark.parametrize("flags", [
+    ['--shots', '100'], ['--shot_seed', '3'], ['--noise_traj', '8'],
+    ['--t1_us', '50', '--block_time_us', '1.5', '--noise_traj', '2'],
+    ['--t2_us', '70', '--block_time_us', '1.5', '--noise_traj', '2'],
+    ['--block_time_us', '1.5'],
+    ['--noise_p', '0.01', '--noise_traj', '2'],
+    ['--zne', '1', '2', '--noise_p', '0.01', '--noise_traj', '2'],
+    ['--damp_gamma', '0.1', '--shots', '8', '--noise_traj', '2'],
 ])
-def test_infer_cli_parses_every_reference_flag(tmp_path, flags, item):
-    """Every flag of the JAX package's infer CLI parses; a noise-emulation
-    flag that is not ported raises NotImplementedError naming its ROADMAP
-    item (not argparse's 'unrecognized arguments' exit), and the ported
-    --shots / --shot_seed predict (item None)."""
+def test_infer_cli_parses_every_reference_flag(tmp_path, flags):
+    """Every flag of the JAX package's infer CLI parses and predicts:
+    --shots / --shot_seed, and the noise-emulation flags, which raised
+    NotImplementedError until they were ported."""
     from quanonet_tpu.infer import _parser as j_parser
     ref = {a.dest for a in j_parser()._actions}
     port = {a.dest for a in t_infer._parser()._actions}
@@ -134,16 +135,15 @@ def test_infer_cli_parses_every_reference_flag(tmp_path, flags, item):
     np.savez(data, test_branch_input=branch, test_trunk_input=trunk)
     argv = ['--ckpt', ADVECTION, '--data', str(data), '--device', 'cpu',
             *flags]
-    if item is None:
-        preds = t_infer.main(argv)
-        assert preds.shape == (2, 1) and np.isfinite(preds).all()
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        t_infer.main(argv)
-    # --noise_p 0 is the ideal model: it passes
-    if flags == ['--noise_p', '0.01']:
-        t_infer.main(['--ckpt', ADVECTION, '--data', str(data),
-                      '--device', 'cpu', '--noise_p', '0'])
+    preds = t_infer.main(argv)
+    assert preds.shape == (2, 1) and np.isfinite(preds).all()
+    # --noise_p 0 is the ideal model
+    if flags[:2] == ['--noise_p', '0.01']:
+        ideal = t_infer.main(['--ckpt', ADVECTION, '--data', str(data),
+                              '--device', 'cpu'])
+        np.testing.assert_array_equal(
+            t_infer.main(['--ckpt', ADVECTION, '--data', str(data),
+                          '--device', 'cpu', '--noise_p', '0']), ideal)
 
 
 # ── counterparts of tests/test_serve.py ─────────────────────────────────────

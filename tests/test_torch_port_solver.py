@@ -322,7 +322,6 @@ def test_cli_end_to_end_and_resume_skip(isolated):
 
 @pytest.mark.parametrize("flags,item", [
     (['--shard', 'amp'], '§A item 8'), (['--num_devices', '2'], '§A item 8'),
-    (['--noise_p', '0.01'], '§A item 5'),
     (['--datagen', 'device'], '§A item 7'),
     (['--datagen', 'native'], '§A item 7'),
 ])
@@ -338,10 +337,12 @@ def test_cli_unported_flags_raise(isolated, flags, item):
     (['--multi_seed', '0', '1'], ['_Seed0', '_Seed1']),
     (['--grad_method', 'shift'], ['_Shift_']),
     (['--train_shots', '10', '--grad_method', 'spsa'], ['_SpsaSh10_']),
+    (['--noise_p', '0.01', '--noise_traj', '2'], ['_Noise0.01_']),
 ])
 def test_cli_ported_flags_run(isolated, flags, run_ids):
-    """--multi_seed, --grad_method shift and --train_shots, which raised
-    until they were ported, now train and evaluate through the CLI."""
+    """--multi_seed, --grad_method shift, --train_shots and --noise_p,
+    which raised until they were ported, now train and evaluate through
+    the CLI."""
     cli.main(['--operator', 'Antideriv', '--model_type', 'QuanONet',
               '--net_size', '2', '1', '2', '1', '--num_qubits', '2',
               '--num_epochs', '1', '--num_train', '10', '--num_test', '5',
