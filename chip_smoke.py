@@ -103,6 +103,12 @@ Phases, each printed as one JSON line:
              flagship and at Q7, and one --ps_chunk 64 chunk) against
              ucomp_weights_dense to 2e-5, and single sets, inner and
              final, against the autograd fold of the shifted weights.
+             Then kernel_ucomp_packed: B4f and B4b at the stacks the
+             packed multi-seed step compiles at the flagship for 4 seeds
+             (the 236 inner blocks with last = -1, the 4 final blocks
+             with EVERY_BLOCK) against ucomp_weights_dense and
+             ucomp_weights_backward_dense at the limits above, and the
+             joined stack and its w̄ against each seed's own compile.
 14. kernel_adam — the one-launch Adam (csrc/adam.cu) through FusedAdam,
              its rates from the card's table, against adam_step_dense on
              the flagship's six leaves over 25 steps (atol 2e-6, rtol
@@ -186,9 +192,10 @@ Phases, each printed as one JSON line:
              inner) and must fail the leaf check.  The same at Q7
              Net40-2-20-2 (B1f at 84,000 rows); the peak memory of each
              backward, shift and autograd.
-28. multiseed — --multi_seed 0 1 in the quick regime through the CLI:
-             each seed's metric.json equals its single run's (but the
-             wall-clock rate), and the rerun skips both.
+28. multiseed — the sequential route of --multi_seed 0 1 in the quick
+             regime (multiseed.train_seeds_sequential): each seed's
+             metric.json equals its single CLI run's (but the wall-clock
+             rate), and the rerun skips both.
 29. infer_from_name — the Advection anchor scored by the infer CLI with
              no --data: the test set generated from its directory's name;
              its rel-L2 within INFER_NAME_BAND.
@@ -220,13 +227,45 @@ Phases, each printed as one JSON line:
              three rel-L2s, a record; then tests/test_mitigation.py's Q2
              prediction case on the card (noise 0.1, 256 trajectories,
              scales (1, 2)): ZNE must land nearer the ideal.
+34. multiseed_packed — --multi_seed 0 1 2 3 in the quick regime through
+             the CLI on `cuda`, the packed route: each seed against its
+             single run (losses 1e-4 relative, rel-L2 1e-3 relative,
+             best_model.npz 5e-4), the rerun skipping every seed, B4f and
+             B4b 2 launches a step for all seeds, B1f and B1b one a seed
+             and step; then --multi_seed 0 1 at Q10 Net40-2-20-2 for one
+             epoch of 2 batches (B2f, B2b a seed and step) and FNN,
+             DeepONet, FNO packed (no kernel), with the same checks.
+35. seedpack — profile_seedpack at S = 1, 2, 4, 8, 50 steps an arm, the
+             packed and the sequential arms in turns: samples/s, ms a
+             step, device rows and busy share; the packed losses finite
+             and falling (no limit on speed); each arm's launches in one
+             step (packed: B4f, B4b 2, B1f, B1b S; sequential: S each).
+36. datagen_device — Advection at the flagship's size generated on the
+             card through DataManager (time, peak memory, the host
+             generator's time, the _dgdevice name), two CLI epochs of the
+             flagship from it (finite, falling), each solver against its
+             CPU run on equal inputs (1e-5; Darcy's CG 1e-4), Darcy and
+             RDiffusion at their default sizes and RDiffusion at num_cal
+             1000, timed.
+37. datagen_native — the C++ library built from native/ (build time),
+             Antideriv and Advection through --datagen native (the
+             _dgnative and _rk4 / _native names), the solvers against
+             SciPy's RK45 (5e-3) and the host stencils (1e-4).
+38. ibm_export — python -m quanonet_torch.ibm_inference --simulator_only
+             on `cuda` and on the CPU (QASM byte-equal, the manifest equal
+             but its two shot-stream numbers), the gate replay against the
+             engine (1e-4), ideal_predictions on the Advection anchor at
+             full width against infer.predict and the replay of 3 points
+             (1e-4), noisy_predictions at p = 0.01, 32 trajectories on both
+             anchors (the fold route, replayed bit-equal).
 The kernel phase (3) also holds B1f at N = 60,000 and, at Q7, 84,000: the
 rows of the shift rule's encode-shift batch at the flagship and at Q7.
 
 Each path (serve, train, train_q10, serve_q10, profile_step, serve_ucomp,
 train_embed, serve_embed, train_shift, train_spsa, serve_shots,
 serve_shots_q10, shift_grad, multiseed, infer_from_name, noise_forward,
-noise_zne, noise_damping, noise_train, infer_noise) starts with
+noise_zne, noise_damping, noise_train, infer_noise, multiseed_packed,
+multiseed_packed_q10, seedpack, datagen_device, ibm_export) starts with
 every launch count at 0 and reads them when it ends.  A card time
 ("device_ms") comes from a warmed profiler
 window (each kernel's mean over the rows it kept), else from the launches
@@ -252,7 +291,14 @@ import numpy as np
 import torch
 from torch.utils import cpp_extension
 
-from quanonet_torch import bench, cli, profile_step, time_chain
+from quanonet_torch import (
+    bench, cli, ibm_export, ibm_inference, multiseed, profile_seedpack,
+    profile_step, time_chain,
+)
+from quanonet_torch.config import (
+    get_base_parser, load_config, set_random_seed,
+)
+from quanonet_torch.data import device_gen, generation, native
 from quanonet_torch.data.manager import DataManager
 from quanonet_torch.infer import load_model, predict
 from quanonet_torch.infer import main as infer_main
@@ -1452,33 +1498,35 @@ ARM_ROUNDS, ARM_STEPS = 5, 20
 STEP_ARMS_STEPS = 100
 
 
-def ucomp_counts(nb, ld, d, n):
+def ucomp_counts(nb, ld, d, n, h_blocks=None):
     """Least work of the block-matrix compile from the weights, in the gate
     form the kernels compute (csrc/ucomp.cu), as a dict: flops and bytes
     forward and backward.  Per row of H (D rows a block) and sublayer: two
     RY passes, n D / 2 pairs of two complex rotations each (12 flops a
     pair), the phase (a complex product an amplitude, 6 flops), the gather
-    (no flops); then, unless the block is the last, a Hadamard pass (4
-    flops a pair) and its 1 / sqrt(D) scale (2 an amplitude).  The backward
-    counts the cotangent through the same passes and each angle's
-    cotangent (8 flops a pair of an RY, 3 + n an amplitude of the phase),
-    not the recompute of the forward state.  Bytes: the weights (and g)
-    read once, mt (or w̄) written once.  Beside them, as ``*_matmul_flops``,
-    the D^3 count of the matrix form the TPU kernel and the plain version
+    (no flops); then, in each of the ``h_blocks`` blocks that end with
+    it (default nb − 1, every block but the last; nb for last = -1, 0 for
+    EVERY_BLOCK), a Hadamard pass (4 flops a pair) and its 1 / sqrt(D)
+    scale (2 an amplitude).  The backward counts the cotangent through the
+    same passes and each angle's cotangent (8 flops a pair of an RY, 3 + n
+    an amplitude of the phase), not the recompute of the forward state.
+    Bytes: the weights (and g) read once, mt (or w̄) written once.  Beside
+    them, as ``*_matmul_flops``, the D^3 count of the matrix form the TPU kernel and the plain version
     compute (a real D x D product 2 D^3 flops, a complex one three of them
     plus 5 D^2 additions; forward: ld products U1t . B' and ld - 1 fold
     products a block, H . acc and . R as butterflies; backward: the VJP's
     own products)."""
     rows = nb * d
+    h_blocks = nb - 1 if h_blocks is None else h_blocks
     sub_fwd = (12 * n + 6) * d
     h = (2 * n + 2) * d
-    fwd = rows * ld * sub_fwd + (nb - 1) * d * h
-    bwd = rows * ld * (sub_fwd + 8 * n * d + (3 + n) * d) + (nb - 1) * d * h
+    fwd = rows * ld * sub_fwd + h_blocks * d * h
+    bwd = rows * ld * (sub_fwd + 8 * n * d + (3 + n) * d) + h_blocks * d * h
     w_bytes = 4.0 * nb * ld * 3 * n
     mt_bytes = 4.0 * 2 * nb * d * d
     real = 2.0 * d ** 3
     cplx = 3 * real + 5.0 * d * d
-    hr = (2 * nb - 1) * 2.0 * n * d * d
+    hr = (nb + h_blocks) * 2.0 * n * d * d
     return {"fwd_flops": float(fwd), "bwd_flops": float(bwd),
             "fwd_bytes": w_bytes + mt_bytes,
             "bwd_bytes": 2 * w_bytes + mt_bytes,
@@ -1682,7 +1730,7 @@ def phase_kernel_ucomp_shift():
         final_vs_fold = _max_err(
             (fr[0], fi[0]), _shifted_fold(spec, w, p_last, -1.0, b_last))
         torch.cuda.synchronize()
-        counts = ucomp_counts(len(inner), ld, d, spec.n_qubits)
+        counts = ucomp_counts(len(inner), ld, d, spec.n_qubits, len(inner))
         bound, by = _bound(counts["fwd_flops"], counts["fwd_bytes"])
         rec = {"phase": "kernel_ucomp_shift", "case": label,
                "ps_chunk": chunk, "sets": len(sets),
@@ -1704,6 +1752,99 @@ def phase_kernel_ucomp_shift():
                   f"ucomp shift stack {label} chunk {chunk}: {key} "
                   f"{rec[key]} > {AMP_TOL}")
         records.append(rec)
+    return records
+
+
+def phase_kernel_ucomp_packed():
+    """B4f and B4b at the stacks the packed route compiles
+    (cuda_ucomp.compile_block_mats_stacked) at the flagship for
+    len(PACKED_SEEDS) seeds: the S·(nb − 1) inner blocks with last = -1
+    and the S final blocks with EVERY_BLOCK, each forward and backward
+    against ucomp_weights_dense / ucomp_weights_backward_dense on the same
+    weights and cotangents, at kernel_ucomp's limits.  Then the joined
+    stack and its w̄ under autograd against each seed's own
+    compile_block_mats.  Returns the records of the two stacks."""
+    dev = torch.device('cuda')
+    spec = hea.quanonet_spec(*FLAGSHIP)
+    s = len(PACKED_SEEDS)
+    nb, d, ld, n = (spec.n_blocks, spec.dim, spec.block_configs[0][1],
+                    spec.n_qubits)
+    sms = cuda_ucomp.sm_count(dev.index)
+    rng = np.random.RandomState(7000)
+    w = torch.tensor(rng.uniform(-np.pi, np.pi, (s, *spec.weight_shape()))
+                     .astype(np.float32), device=dev)
+    ws = w.reshape(s, nb, ld, 3, n)
+    stacks = (('inner', ws[:, :-1].reshape(-1, 3, n).contiguous(), -1),
+              ('final', ws[:, -1].reshape(-1, 3, n).contiguous(),
+               cuda_ucomp.EVERY_BLOCK))
+    records = []
+    for label, stack, last in stacks:
+        blocks = stack.shape[0] // ld
+        g = [torch.tensor(rng.randn(blocks, d, d).astype(np.float32),
+                          device=dev) for _ in range(2)]
+        fwd = cuda_ucomp.ucomp_forward(stack, ld, last)
+        bwd = cuda_ucomp.ucomp_backward(stack, ld, last, *g)
+        fwd_plain = cuda_ucomp.ucomp_weights_dense(stack, ld, last)
+        bwd_plain = cuda_ucomp.ucomp_weights_backward_dense(stack, ld, last,
+                                                            *g)
+        torch.cuda.synchronize()
+        counts = ucomp_counts(blocks, ld, d, n,
+                              blocks if last == -1 else 0)
+        fwd_bound, fwd_by = _bound(counts["fwd_flops"], counts["fwd_bytes"])
+        bwd_bound, bwd_by = _bound(counts["bwd_flops"], counts["bwd_bytes"])
+        rec = {"phase": "kernel_ucomp_packed", "case": f"Q5 S={s} {label}",
+               "seeds": s, "nb": blocks, "ld": ld, "D": d, "last": last,
+               "geometry": {
+                   "fwd": cuda_ucomp.ucomp_geometry(d, blocks, sms)._asdict(),
+                   "bwd": cuda_ucomp.ucomp_geometry(
+                       d, blocks, sms, backward=True)._asdict()},
+               "max_abs_err_fwd": _max_err(fwd, fwd_plain),
+               "max_abs_err_bwd": (bwd - bwd_plain).abs().max().item(),
+               "bwd_scale": max(1.0, bwd_plain.abs().max().item()),
+               "fwd_ms": time_ms(lambda: cuda_ucomp.ucomp_forward(
+                   stack, ld, last), 30),
+               "fwd_plain_ms": time_ms(lambda: cuda_ucomp.ucomp_weights_dense(
+                   stack, ld, last), 5),
+               "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by,
+               "bwd_ms": time_ms(lambda: cuda_ucomp.ucomp_backward(
+                   stack, ld, last, *g), 30),
+               "bwd_plain_ms": time_ms(
+                   lambda: cuda_ucomp.ucomp_weights_backward_dense(
+                       stack, ld, last, *g), 5),
+               "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by}
+        emit(rec)
+        finite = all(bool(torch.isfinite(t).all()) for t in (*fwd, bwd))
+        check(finite, f"ucomp packed {label}: output not finite")
+        check(rec["max_abs_err_fwd"] <= AMP_TOL,
+              f"ucomp packed {label}: forward error {rec['max_abs_err_fwd']}")
+        check(rec["max_abs_err_bwd"] <= BWD_REL_TOL * rec["bwd_scale"],
+              f"ucomp packed {label}: wbar error {rec['max_abs_err_bwd']} > "
+              f"{BWD_REL_TOL} x {rec['bwd_scale']}")
+        records.append(rec)
+    # the joined stack and its wbar against each seed's own compile
+    gr, gi = (torch.tensor(rng.randn(s, nb, d, d).astype(np.float32),
+                           device=dev) for _ in range(2))
+    wp = w.clone().requires_grad_()
+    jr, ji = cuda_ucomp.compile_block_mats_stacked(spec, wp)
+    (wbar,) = torch.autograd.grad((jr * gr + ji * gi).sum(), wp)
+    own_err = own_bwd_err = 0.0
+    for i in range(s):
+        wi = w[i].clone().requires_grad_()
+        mr, mi = cuda_ucomp.compile_block_mats(spec, wi)
+        (own,) = torch.autograd.grad((mr * gr[i] + mi * gi[i]).sum(), wi)
+        own_err = max(own_err, _max_err((jr[i], ji[i]), (mr, mi)))
+        own_bwd_err = max(own_bwd_err, (wbar[i] - own).abs().max().item())
+    scale = max(1.0, wbar.abs().max().item())
+    emit({"phase": "kernel_ucomp_packed", "case": f"Q5 S={s} joined",
+          "max_abs_err_vs_own_compile": own_err,
+          "max_abs_err_wbar_vs_own_compile": own_bwd_err,
+          "wbar_scale": scale})
+    check(own_err <= AMP_TOL,
+          f"ucomp packed: the joined stack differs from each seed's compile "
+          f"by {own_err}")
+    check(own_bwd_err <= BWD_REL_TOL * scale,
+          f"ucomp packed: wbar differs from each seed's compile by "
+          f"{own_bwd_err} > {BWD_REL_TOL} x {scale}")
     return records
 
 
@@ -2932,23 +3073,48 @@ def phase_serve_shots():
     return q5, q10
 
 
+MULTISEED_ARGV = ['--operator', 'Advection', '--model_type', 'QuanONet',
+                  '--net_size', '40', '2', '20', '2', '--num_qubits', '5',
+                  '--scale_coeff', '0.1', '--num_epochs', '10',
+                  '--num_train', '200', '--num_test', '100',
+                  '--train_sample_num', '100', '--test_sample_num', '100',
+                  '--learning_rate', '0.003', '--device', 'cuda']
+
+
+def _cli(argv):
+    """cli.main(argv) with sys.stdout restored after it (the solver
+    redirects it to its log)."""
+    stdout = sys.stdout
+    try:
+        return cli.main(argv)
+    finally:
+        sys.stdout = stdout
+
+
+def _sequential(argv):
+    """The sequential route of --multi_seed (multiseed.
+    train_seeds_sequential) for the CLI flags ``argv``, seeded as the CLI
+    seeds it."""
+    config = load_config(get_base_parser().parse_args(argv))
+    set_random_seed(config.get('seed', 0))
+    stdout = sys.stdout
+    try:
+        return multiseed.train_seeds_sequential(config)
+    finally:
+        sys.stdout = stdout
+
+
 def phase_multiseed():
-    """--multi_seed 0 1 in the quick regime through the CLI against two
-    single runs: each seed's metric.json equal (but the wall-clock rate);
-    the rerun skips.  Returns the launches of the multi-seed run."""
-    argv = ['--operator', 'Advection', '--model_type', 'QuanONet',
-            '--net_size', '40', '2', '20', '2', '--num_qubits', '5',
-            '--scale_coeff', '0.1', '--num_epochs', '10',
-            '--num_train', '200', '--num_test', '100',
-            '--train_sample_num', '100', '--test_sample_num', '100',
-            '--learning_rate', '0.003', '--device', 'cuda']
+    """The sequential route of --multi_seed 0 1 in the quick regime against
+    two single runs of the CLI: each seed's metric.json equal (but the
+    wall-clock rate); the rerun skips.  Returns the launches of the
+    multi-seed run."""
+    argv = MULTISEED_ARGV
 
     def run(args):
-        stdout = sys.stdout
-        try:
-            return cli.main(argv + args)
-        finally:
-            sys.stdout = stdout
+        if '--multi_seed' in args:
+            return _sequential(argv + args)
+        return _cli(argv + args)
 
     def saved(prefix, seed):
         base = os.path.join(prefix, 'Advection')
@@ -2971,7 +3137,8 @@ def phase_multiseed():
         seconds = time.time() - t0
         equal = {s: saved(single, s) == saved(multi, s) for s in (0, 1)}
         rerun = run(['--multi_seed', '0', '1', '--prefix', multi])
-    emit({"phase": "multiseed", "seeds": [0, 1], "seconds": seconds,
+    emit({"phase": "multiseed", "route": "sequential", "seeds": [0, 1],
+          "seconds": seconds,
           "rel_l2": {s: result[s]['rel_l2'] for s in (0, 1)},
           "equal_to_single_runs": equal, "rerun": rerun,
           "launches": counts})
@@ -3354,6 +3521,476 @@ def phase_infer_noise():
     return counts
 
 
+# ── packed multi-seed, data generation, the QPU export ─────────────────────
+# each seed of the packed route against its single run (the stacked
+# reductions round differently from one run's; the train_parity limits)
+PACKED_LOSS_RTOL = 1e-4      # each epoch's loss, relative
+PACKED_REL_L2_RTOL = 1e-3    # the test rel-L2, relative
+PACKED_PARAM_TOL = 5e-4      # best_model.npz, absolute
+PACKED_SEEDS = (0, 1, 2, 3)
+PACKED_Q10_ARGV = ['--operator', 'Advection', '--model_type', 'QuanONet',
+                   '--net_size', '40', '2', '20', '2', '--num_qubits', '10',
+                   '--scale_coeff', '0.1', '--num_epochs', '1',
+                   '--num_train', '2', '--num_test', '2',
+                   '--train_sample_num', '100', '--test_sample_num', '100',
+                   '--learning_rate', '0.003', '--device', 'cuda']
+PACKED_CLASSICAL_EPOCHS = 2
+SEEDPACK_SEEDS, SEEDPACK_ITERS, SEEDPACK_ROUNDS = '1,2,4,8', 50, 3
+DATAGEN_SIZE = dict(num_train=1000, num_test=1000, num_points=100,
+                    num_points_0=100, train_sample_num=100,
+                    test_sample_num=100)   # the flagship's data
+DATAGEN_TOL = 1e-5           # a device solver against its CPU run
+DATAGEN_CG_TOL = 1e-4        # ... Darcy's CG (its reductions round apart)
+NATIVE_ODE_TOL = 5e-3        # tests/test_native.py: RK4 against RK45
+NATIVE_STENCIL_TOL = 1e-4    # ... fp32 stencils against the fp64 host's
+EXPORT_TOL = 1e-4            # the export's self-verification contract
+EXPORT_MEASURED = ('expected_shot_noise_std_mean', 'sampled_rel_l2_at_shots')
+
+
+def _artifacts(prefix, operator, seed):
+    """(metrics, loss history, best_model.npz arrays) of seed's run."""
+    base = os.path.join(prefix, operator)
+    (d,) = [r for r in os.listdir(base) if r.endswith(f'_Seed{seed}')]
+    with open(os.path.join(base, d, 'metric.json')) as f:
+        m = json.load(f)
+    with np.load(os.path.join(base, d, 'best_model.npz')) as z:
+        arrays = {k: z[k] for k in z.files}
+    return m['metrics'], m['history']['loss_train'], arrays
+
+
+def _packed_against_single(argv, seeds, tmp, label, operator='Advection'):
+    """Single CLI runs of ``seeds``, then --multi_seed of them (the packed
+    route) with every count zeroed just before, then its rerun: per seed
+    the largest relative loss and rel-L2 differences and the largest
+    parameter difference; the launches and seconds of the packed run."""
+    single = os.path.join(tmp, label, 'single')
+    packed = os.path.join(tmp, label, 'packed')
+    for seed in seeds:
+        _cli(argv + ['--seed', str(seed), '--prefix', single])
+    ms = ['--multi_seed'] + [str(s) for s in seeds]
+    torch.cuda.synchronize()
+    _zero_counts()                    # the packed path starts here
+    t0 = time.time()
+    result = _cli(argv + ms + ['--prefix', packed])
+    torch.cuda.synchronize()
+    counts = _counts()                # ... and ends here
+    seconds = time.time() - t0
+    rerun = _cli(argv + ms + ['--prefix', packed])
+    seeds_out = {}
+    for seed in seeds:
+        m_s, l_s, a_s = _artifacts(single, operator, seed)
+        m_p, l_p, a_p = _artifacts(packed, operator, seed)
+        l_s, l_p = np.asarray(l_s), np.asarray(l_p)
+        seeds_out[seed] = {
+            "epochs": [len(l_s), len(l_p)],
+            "loss_rel_err": float(np.max(np.abs(l_p - l_s)
+                                         / np.abs(l_s))),
+            "rel_l2": [m_s['rel_l2'], m_p['rel_l2']],
+            "rel_l2_rel_err": abs(m_p['rel_l2'] - m_s['rel_l2'])
+            / m_s['rel_l2'],
+            "param_max_abs_err": max(float(np.abs(a_p[k] - a_s[k]).max())
+                                     for k in a_s),
+            "same_keys": sorted(a_s) == sorted(a_p),
+            "samples_per_sec": [m_s.get('train_samples_per_sec'),
+                                m_p.get('train_samples_per_sec')]}
+    return {"seeds": seeds_out, "seconds": seconds, "launches": counts,
+            "rerun": rerun, "result_seeds": sorted(result)}
+
+
+def _check_packed(label, run, seeds):
+    for seed, r in run["seeds"].items():
+        check(r["same_keys"] and r["epochs"][0] == r["epochs"][1],
+              f"{label}: seed {seed}'s artifacts differ in form: {r}")
+        check(r["loss_rel_err"] <= PACKED_LOSS_RTOL,
+              f"{label}: seed {seed}'s losses off by {r['loss_rel_err']}")
+        check(r["rel_l2_rel_err"] <= PACKED_REL_L2_RTOL,
+              f"{label}: seed {seed}'s rel-L2 off by {r['rel_l2_rel_err']}")
+        check(r["param_max_abs_err"] <= PACKED_PARAM_TOL,
+              f"{label}: seed {seed}'s parameters off by "
+              f"{r['param_max_abs_err']}")
+    check(run["rerun"] == {s: None for s in seeds},
+          f"{label}: the rerun trained {run['rerun']}")
+    check(run["result_seeds"] == sorted(seeds),
+          f"{label}: seeds {run['result_seeds']}")
+
+
+def phase_multiseed_packed():
+    """--multi_seed 0 1 2 3 in the quick regime through the CLI on `cuda`:
+    the packed route, each seed against its single run (losses, rel-L2,
+    best_model.npz), the rerun skipping every seed, and its launches: B4f
+    and B4b 2 a step for all seeds, B1f and B1b one a seed and step, and
+    the evaluation's B4f and B1f a chunk and seed.  Then --multi_seed 0 1
+    at Q10 Net40-2-20-2 for one epoch of 2 batches (B2f, B2b a seed and
+    step), and FNN, DeepONet and FNO packed for 2 epochs (no kernel).
+    Returns the launches of the Q5 and Q10 runs."""
+    seeds = PACKED_SEEDS
+    s = len(seeds)
+    with tempfile.TemporaryDirectory() as tmp:
+        q5 = _packed_against_single(MULTISEED_ARGV, seeds, tmp, 'q5')
+        q10 = _packed_against_single(PACKED_Q10_ARGV, seeds[:2], tmp, 'q10')
+        classical = {}
+        for mt, flags in CLASSICAL_RUNS:
+            argv = ['--operator', 'Antideriv', '--model_type', mt, *flags,
+                    '--num_epochs', str(PACKED_CLASSICAL_EPOCHS),
+                    '--num_train', '100', '--num_test', '20',
+                    '--learning_rate', '0.003', '--device', 'cuda']
+            classical[mt] = _packed_against_single(argv, seeds[:2], tmp, mt,
+                                                   'Antideriv')
+    steps = 10 * (200 * 100 // 100)
+    chunks = -(-100 * 100 // 4096)            # evaluation chunks a seed
+    want = {"ucomp_fwd": 2 * steps + chunks * s, "ucomp_bwd": 2 * steps,
+            "hea_chain_fwd": s * steps + chunks * s,
+            "hea_chain_bwd": s * steps}
+    q10_steps = 2
+    q10_want = {"fused_chain_fwd": 2 * q10_steps + 2,
+                "fused_chain_bwd": 2 * q10_steps}
+    emit({"phase": "multiseed_packed", "seeds": list(seeds),
+          "steps": steps, "expected_launches": want,
+          "limits": {"loss_rel": PACKED_LOSS_RTOL,
+                     "rel_l2_rel": PACKED_REL_L2_RTOL,
+                     "param_abs": PACKED_PARAM_TOL},
+          "q5": q5, "q10": {**q10, "expected_launches": q10_want},
+          "classical": classical})
+    _check_packed("multiseed_packed", q5, seeds)
+    _check_packed("multiseed_packed q10", q10, seeds[:2])
+    for mt, run in classical.items():
+        _check_packed(f"multiseed_packed {mt}", run, seeds[:2])
+        check(not any(run["launches"].values()),
+              f"multiseed_packed {mt}: a kernel launched {run['launches']}")
+    got = {k: q5["launches"][k] for k in want}
+    check(got == want and q5["launches"]["fused_chain_fwd"] == 0
+          and q5["launches"]["adam_step"] == 0,
+          f"multiseed_packed: launches {q5['launches']}, want {want}")
+    got = {k: q10["launches"][k] for k in q10_want}
+    check(got == q10_want and q10["launches"]["hea_chain_fwd"] == 0,
+          f"multiseed_packed q10: launches {q10['launches']}, "
+          f"want {q10_want}")
+    return q5["launches"], q10["launches"]
+
+
+def phase_seedpack(out_dir):
+    """profile_seedpack at S = 1, 2, 4, 8, SEEDPACK_ITERS steps an arm,
+    the packed and the sequential arms in turns: samples/s, ms a step,
+    device rows and busy share.  No limit on speed (no gain is claimed);
+    the packed arm's losses must be finite and falling.  Every count is
+    zeroed just before and read just after: both arms must have launched
+    B4f, B4b, B1f and B1b.  Returns the launches."""
+    t0 = time.time()
+    torch.cuda.synchronize()
+    _zero_counts()                    # the path starts here
+    res = profile_seedpack.main([
+        '--seeds', SEEDPACK_SEEDS, '--iters', str(SEEDPACK_ITERS),
+        '--rounds', str(SEEDPACK_ROUNDS), '--device', 'cuda',
+        '--out', os.path.join(out_dir, 'seedpack_profile_torch.json')])
+    torch.cuda.synchronize()
+    counts = _counts()                # ... and ends here
+    emit({"phase": "seedpack", "seconds": time.time() - t0,
+          "launches": counts, **res})
+    for size, row in res["packs"].items():
+        check(row["packed"]["losses_finite"]
+              and row["packed"]["losses_falling"],
+              f"seedpack: S={size} losses {row['packed']['loss_first']} -> "
+              f"{row['packed']['loss_last']}")
+        k = int(size)
+        for arm, compiles in (("packed", 2), ("sequential", k)):
+            want = {"ucomp_fwd": compiles, "ucomp_bwd": compiles,
+                    "hea_chain_fwd": k, "hea_chain_bwd": k,
+                    "fused_chain_fwd": 0, "fused_chain_bwd": 0}
+            got = row[arm]["launches_per_step"]
+            check(got == want, f"seedpack: S={size} {arm} step launched "
+                               f"{got}, want {want}")
+    check(all(counts[k] for k in ("ucomp_fwd", "ucomp_bwd", "hea_chain_fwd",
+                                  "hea_chain_bwd")),
+          f"seedpack: a kernel of the step was not launched: {counts}")
+    return counts
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def _solver_errors(dev):
+    """Each device solver on the card against its CPU run on equal inputs
+    (GRF draws made on the card): max abs errors."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    _, full = device_gen.sample_grf(g, 8, 1000)
+    u0, _ = device_gen.sample_grf(g, 8, 100)
+    d0, _ = device_gen.sample_grf(g, 4, 400)
+    cases = {
+        "ode_rk4": lambda u: device_gen.solve_ode_batch('Nonlinear', u, 1000),
+        "advection": device_gen.solve_advection_batch,
+        "rdiffusion": device_gen.solve_rdiffusion_batch,
+        "darcy_cg": device_gen.solve_darcy_batch}
+    inputs = {"ode_rk4": full, "advection": u0, "rdiffusion": u0,
+              "darcy_cg": d0}
+    return {name: float((fn(inputs[name]).cpu()
+                         - fn(inputs[name].cpu())).abs().max())
+            for name, fn in cases.items()}
+
+
+def phase_datagen_device():
+    """--datagen device: Advection at the flagship's size generated on the
+    card through DataManager (time, peak memory, the host generator's
+    time for the same size, the _dgdevice cache name), two CLI epochs of
+    the flagship trained from it (finite, falling), its solvers against
+    their CPU runs on equal inputs, and Darcy and RDiffusion at their
+    default sizes (and RDiffusion at num_cal 1000, 100 functions: ~20,000
+    steps).  Returns the launches of the training run."""
+    dev = torch.device('cuda')
+    cfg = dict(operator='Advection', model_type='QuanONet', datagen='device',
+               device='cuda', **DATAGEN_SIZE)
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, 'data')
+        np.random.seed(0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        dm = DataManager(cfg, data_dir=data_dir)
+        data, dev_s = _timed(dm.get_data)
+        peak = torch.cuda.max_memory_allocated(dev)
+        name = dm._get_filename()
+        root = generation.DATA_ROOT
+        generation.DATA_ROOT = os.path.join(tmp, 'raw')
+        try:
+            np.random.seed(0)
+            host = DataManager({**cfg, 'datagen': 'host'},
+                               data_dir=os.path.join(tmp, 'host'))
+            _, host_s = _timed(host._generate_and_process)
+        finally:
+            generation.DATA_ROOT = root
+        argv = ['--operator', 'Advection', '--model_type', 'QuanONet',
+                '--net_size', '40', '2', '20', '2', '--num_qubits', '5',
+                '--scale_coeff', '0.1', '--num_epochs', '2',
+                '--learning_rate', '0.003', '--datagen', 'device',
+                '--device', 'cuda', '--prefix', os.path.join(tmp, 'out')]
+        for k, v in DATAGEN_SIZE.items():
+            argv += [f'--{k}', str(v)]
+        torch.cuda.synchronize()
+        _zero_counts()                # the training path starts here
+        solver = _cli(argv)
+        torch.cuda.synchronize()
+        counts = _counts()            # ... and ends here
+        with open(os.path.join(solver.exp_logger.exp_dir,
+                               'metric.json')) as f:
+            saved = json.load(f)
+        cached = os.path.exists(os.path.join(data_dir, 'Advection', name))
+    errs = _solver_errors(dev)
+    defaults = {}
+    for op in ('Darcy', 'RDiffusion'):
+        np.random.seed(0)
+        out, sec = _timed(lambda: device_gen.generate_pde_operator_data_device(
+            op, 1000, 1000, 100, 100, device='cuda'))
+        defaults[op] = {"seconds": sec, "functions": 2000, "num_cal": 100,
+                        "finite": bool(np.isfinite(out[1]).all())}
+    np.random.seed(0)
+    out, sec = _timed(lambda: device_gen.generate_pde_operator_data_device(
+        'RDiffusion', 50, 50, 100, 100, num_cal=1000, device='cuda'))
+    defaults["RDiffusion_num_cal_1000"] = {
+        "seconds": sec, "functions": 100, "num_cal": 1000,
+        "finite": bool(np.isfinite(out[1]).all())}
+    losses = saved['history']['loss_train']
+    emit({"phase": "datagen_device", "size": DATAGEN_SIZE,
+          "cache_name": name, "device_seconds": dev_s,
+          "host_seconds": host_s, "peak_memory_bytes": peak,
+          "train_shape": list(data['train_output'].shape),
+          "loss_train": losses, "rel_l2": saved['metrics']['rel_l2'],
+          "solver_max_abs_err_vs_cpu": errs,
+          "limits": {"solvers": DATAGEN_TOL, "darcy_cg": DATAGEN_CG_TOL},
+          "defaults": defaults, "launches": counts})
+    check(name.endswith('_dgdevice.npz') and cached,
+          f"datagen_device: cache {name}, written {cached}")
+    check(data['train_output'].shape == (100000, 1)
+          and np.isfinite(data['train_output']).all(),
+          f"datagen_device: train_output {data['train_output'].shape}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"datagen_device: losses {losses}")
+    for k, e in errs.items():
+        check(e <= (DATAGEN_CG_TOL if k == 'darcy_cg' else DATAGEN_TOL),
+              f"datagen_device: {k} off its CPU run by {e}")
+    check(all(d["finite"] for d in defaults.values()),
+          f"datagen_device: non-finite output {defaults}")
+    check(counts["hea_chain_fwd"] > 0 and counts["ucomp_bwd"] > 0,
+          f"datagen_device: launches {counts}")
+    return counts
+
+
+def phase_datagen_native():
+    """--datagen native: the C++ library built from native/ at first use
+    (its build time; without -fopenmp where the compiler cannot build
+    OpenMP code), Antideriv and Advection through DataManager with
+    the _dgnative names, and the solvers against SciPy's RK45 and the host
+    stencils on equal inputs at tests/test_native.py's limits."""
+    from scipy.integrate import solve_ivp
+    t0 = time.time()
+    lib = native.build()
+    build_s = time.time() - t0
+    native.load()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = generation.DATA_ROOT
+        generation.DATA_ROOT = os.path.join(tmp, 'raw')
+        try:
+            for op in ('Antideriv', 'Advection'):
+                cfg = dict(operator=op, model_type='QuanONet',
+                           datagen='native', **DATAGEN_SIZE)
+                np.random.seed(0)
+                dm = DataManager(cfg, data_dir=os.path.join(tmp, 'data'))
+                data, sec = _timed(dm.get_data)
+                out[op] = {"seconds": sec, "cache_name": dm._get_filename(),
+                           "finite": bool(np.isfinite(
+                               data['train_output']).all()),
+                           "raw": sorted(os.listdir(os.path.join(
+                               tmp, 'raw', f'{op}_Operator_data')))}
+        finally:
+            generation.DATA_ROOT = root
+    np.random.seed(0)
+    u0s = np.stack([generation.generate_random_gaussian_field(1024)[1]
+                    for _ in range(3)]).astype(np.float32)
+    grid, x = np.linspace(0, 1, 1024), np.linspace(0, 1, 300)
+    ode_err = 0.0
+    for op, rhs in (('Antideriv', lambda fn: lambda t, y: fn(t)),
+                    ('Nonlinear', lambda fn: lambda t, y: -y ** 3 + fn(t))):
+        got = native.solve_ode_batch_native(op, u0s, 300)
+        for i in range(3):
+            fn = (lambda u: lambda t: np.interp(t, grid, u))(u0s[i])
+            ref = solve_ivp(rhs(fn), [0, 1], [0], t_eval=x,
+                            method='RK45').y[0]
+            ode_err = max(ode_err, float(np.abs(got[i] - ref).max()))
+    np.random.seed(1)
+    _, u0 = generation.generate_random_gaussian_field(80)
+    adv_err = float(np.abs(native.solve_advection_batch_native(
+        u0.astype(np.float32)[None])[0]
+        - generation.solve_advection_pde(80, u0_cal=u0)[0]).max())
+    _, u0 = generation.generate_random_gaussian_field(40)
+    rd_err = float(np.abs(native.solve_rdiffusion_batch_native(
+        u0.astype(np.float32)[None])[0]
+        - generation.solve_rdiffusion_pde(40, 0.2, u0_cal=u0)[0]).max())
+    emit({"phase": "datagen_native", "library": os.path.relpath(lib, REPO),
+          "build_seconds": build_s, "compiler": native.make_settings(),
+          "openmp": native.openmp,
+          "size": DATAGEN_SIZE, "runs": out,
+          "ode_max_abs_err_vs_rk45": ode_err,
+          "advection_max_abs_err_vs_host": adv_err,
+          "rdiffusion_max_abs_err_vs_host": rd_err,
+          "limits": {"ode": NATIVE_ODE_TOL, "stencils": NATIVE_STENCIL_TOL}})
+    for op, r in out.items():
+        tag = '_rk4.npz' if op == 'Antideriv' else '_native.npz'
+        check(r["cache_name"].endswith('_dgnative.npz') and r["finite"]
+              and any(f.endswith(tag) for f in r["raw"]),
+              f"datagen_native {op}: {r}")
+    check(ode_err <= NATIVE_ODE_TOL, f"datagen_native: ODE off by {ode_err}")
+    check(max(adv_err, rd_err) <= NATIVE_STENCIL_TOL,
+          f"datagen_native: stencils off by {adv_err}, {rd_err}")
+
+
+def _export(tmp, device, extra=()):
+    """ibm_inference on the default Q2 anchor into tmp/<device>: the
+    QASM texts and the manifest."""
+    d = os.path.join(tmp, device)
+    ibm_inference.main(['--simulator_only', '--device', device,
+                        '--export_dir', d, *extra])
+    files = sorted(f for f in os.listdir(d) if f.endswith('.qasm'))
+    qasm = {}
+    for f in files:
+        with open(os.path.join(d, f), 'rb') as fh:
+            qasm[f] = fh.read()
+    with open(os.path.join(d, 'manifest.json')) as f:
+        return qasm, json.load(f)
+
+
+def _self_verify(raw, net, nq, branch, trunk, ideal, points):
+    """Largest |gate-level replay - engine| over ``points`` (ham_bound
+    ±5)."""
+    offset, coeff = ibm_export.simple_ham_params(nq, -5.0, 5.0)
+    tw, bw, cf, bias = ibm_export.unpack_quanonet_weights(raw, net, nq)
+    dev = 0.0
+    for k in points:
+        n, ops = ibm_export.build_gate_list(branch, np.atleast_1d(trunk[k]),
+                                            tw, bw, cf)
+        zsum = ibm_export.simulate_gate_list(n, ops)
+        dev = max(dev, abs(zsum * coeff + offset + bias - ideal[k]))
+    return float(dev)
+
+
+def phase_ibm_export():
+    """The QPU export: quanonet_torch.ibm_inference --simulator_only on
+    `cuda` and on the CPU for the default Q2 anchor (QASM byte-equal, the
+    manifest equal but the two numbers drawn from each device's shot
+    stream), the gate lists' replay against the engine on `cuda` (<=
+    1e-4); ideal_predictions on the Advection anchor at full width (one
+    branch vector, 100 (x, t) trunk points) against infer.predict and
+    simulate_gate_list on 3 of its points (1e-4); noisy_predictions at p
+    = 0.01, 32 trajectories, on both anchors: the fold route, replayed
+    bit-equal.  Returns the launches of the export."""
+    from quanonet_torch.checkpoint import load_raw
+    q2 = ibm_inference.DEFAULT_WEIGHTS
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        _zero_counts()                # the export path starts here
+        t0 = time.time()
+        qasm_gpu, man_gpu = _export(tmp, 'cuda')
+        torch.cuda.synchronize()
+        counts = _counts()            # ... and ends here
+        seconds = time.time() - t0
+        qasm_cpu, man_cpu = _export(tmp, 'cpu')
+    measured = {k: [man_gpu.pop(k), man_cpu.pop(k)] for k in EXPORT_MEASURED}
+    raw2 = load_raw(q2)
+    branch2 = np.cos(np.pi * np.linspace(0, 1, 10))
+    trunk2 = np.linspace(0, 1, 100)
+    ideal2 = ibm_export.ideal_predictions(raw2, [5, 1, 5, 1], 2, branch2,
+                                          trunk2, device='cuda')
+    dev2 = _self_verify(raw2, [5, 1, 5, 1], 2, branch2, trunk2, ideal2,
+                        np.linspace(0, 99, 3, dtype=int))
+    # the Advection anchor at full width
+    raw5 = load_raw(ANCHOR)
+    rng = np.random.RandomState(0)
+    branch5 = rng.randn(100).astype(np.float32)
+    trunk5 = rng.rand(100, 2).astype(np.float32)
+    ideal5 = ibm_export.ideal_predictions(raw5, [40, 2, 20, 2], 5, branch5,
+                                          trunk5, device='cuda')
+    model, cfg = load_model(ANCHOR, 100, 2, device='cuda')
+    direct = predict(model, np.tile(branch5, (100, 1)), trunk5, cfg=cfg)
+    err5 = float(np.abs(ideal5 - direct[:, 0]).max())
+    dev5 = _self_verify(raw5, [40, 2, 20, 2], 5, branch5, trunk5, ideal5,
+                        (0, 49, 99))
+    noisy = {}
+    for label, raw, net, nq, br, tr in (
+            ('q2', raw2, [5, 1, 5, 1], 2, branch2, trunk2),
+            ('advection', raw5, [40, 2, 20, 2], 5, branch5, trunk5)):
+        before = dict(noise.routes)
+        runs = [ibm_export.noisy_predictions(raw, net, nq, br, tr, 0.01,
+                                             n_traj=32, seed=3,
+                                             device='cuda')
+                for _ in range(2)]
+        noisy[label] = {"routes": {k: noise.routes[k] - before[k]
+                                   for k in before},
+                        "replay_bit_equal": bool(np.array_equal(*runs)),
+                        "finite": bool(np.isfinite(runs[0]).all())}
+    emit({"phase": "ibm_export", "seconds": seconds,
+          "qasm_files": sorted(qasm_gpu),
+          "qasm_equal_cpu": qasm_gpu == qasm_cpu,
+          "manifest_equal_cpu": man_gpu == man_cpu,
+          "measured_cuda_cpu": measured,
+          "q2_replay_max_dev": dev2, "advection_ideal_vs_predict": err5,
+          "advection_replay_max_dev": dev5, "noisy": noisy,
+          "limit": EXPORT_TOL, "launches": counts})
+    check(len(qasm_gpu) == 3 and qasm_gpu == qasm_cpu,
+          "ibm_export: the QASM files differ from the CPU run's")
+    check(man_gpu == man_cpu, "ibm_export: the manifests differ")
+    check(max(dev2, dev5, err5) <= EXPORT_TOL,
+          f"ibm_export: replay {dev2}, {dev5}; ideal vs predict {err5}")
+    for label, r in noisy.items():
+        check(r["routes"]["fold"] == 2 and r["routes"]["plain"] == 0
+              and r["replay_bit_equal"] and r["finite"],
+              f"ibm_export noisy {label}: {r}")
+    check(counts["hea_chain_fwd"] > 0 and counts["ucomp_fwd"] > 0
+          and counts["hea_chain_bwd"] == 0,
+          f"ibm_export: launches {counts}")
+    return counts
+
+
 def phase_compare_engines():
     """The port's cross-engine gate (quanonet_torch/compare_engines.py) on
     the card, Q14 included: every check must pass."""
@@ -3393,6 +4030,7 @@ def main():
     launch = smallest_launch()
     ucomp_records = phase_kernel_ucomp(launch)
     shift_stacks = phase_kernel_ucomp_shift()
+    packed_stacks = phase_kernel_ucomp_packed()
     adam = phase_kernel_adam(launch)
     phase_train_parity_ucomp(default_run)
     phase_train_parity_fold(default_run)
@@ -3422,6 +4060,15 @@ def main():
     phase_kernel_noise()
     new_paths.update(phase_noise_paths())
     new_paths["infer_noise"] = phase_infer_noise()
+    # packed multi-seed, data generation on the card and natively, and
+    # the QPU export: each path read with every count zeroed just before it
+    new_paths["multiseed_packed"], new_paths["multiseed_packed_q10"] = \
+        phase_multiseed_packed()
+    with tempfile.TemporaryDirectory() as tmp:
+        new_paths["seedpack"] = phase_seedpack(tmp)
+    new_paths["datagen_device"] = phase_datagen_device()
+    phase_datagen_native()
+    new_paths["ibm_export"] = phase_ibm_export()
 
     def new(kernel):
         return {path: c[kernel] for path, c in new_paths.items()}
@@ -3556,8 +4203,8 @@ def main():
         "twin": "quanonet_torch/ops/cuda_ucomp.py:ucomp_weights_dense",
         "launches": sum(by_path["ucomp_fwd"].values()),
         "launches_by_path": by_path["ucomp_fwd"],
-        "max_abs_err": max(r['max_abs_err_fwd']
-                           for r in ucomp_records + shift_stacks),
+        "max_abs_err": max(r['max_abs_err_fwd'] for r in
+                           ucomp_records + shift_stacks + packed_stacks),
         "ms": ustep['fwd_ms'], "plain_ms": ustep['fwd_plain_ms'],
         "bound_ms": ustep['fwd_bound_ms'], "bound_by": ustep['fwd_bound_by'],
         "library_ms": None, "timed_shape": ucomp_shape,
@@ -3568,7 +4215,11 @@ def main():
         "fold_forward_ms": ustep['replaces']['fold_forward_ms'],
         "compile_forward_ms": ustep['replaces']['compile_forward_ms'],
         "shapes": [[r['nb'], r['ld'], r['D']] for r in ucomp_records]
-        + [[r['stacked_blocks'], r['ld'], r['D']] for r in shift_stacks]}, {
+        + [[r['stacked_blocks'], r['ld'], r['D']] for r in shift_stacks]
+        + [[r['nb'], r['ld'], r['D']] for r in packed_stacks],
+        "packed_stacks": [{k: r[k] for k in ("nb", "last", "fwd_ms",
+                                              "fwd_plain_ms", "fwd_bound_ms")}
+                          for r in packed_stacks]}, {
         "name": "ucomp_bwd", "route": "cuda",
         "source": "quanonet_torch/csrc/ucomp.cu",
         "replaces": "quanonet_tpu/ops/pallas_ucomp.py:142",
@@ -3576,7 +4227,8 @@ def main():
                 "ucomp_weights_backward_dense",
         "launches": sum(by_path["ucomp_bwd"].values()),
         "launches_by_path": by_path["ucomp_bwd"],
-        "max_abs_err": max(r['max_abs_err_bwd'] for r in ucomp_records),
+        "max_abs_err": max(r['max_abs_err_bwd']
+                           for r in ucomp_records + packed_stacks),
         "ms": ustep['bwd_ms'], "plain_ms": ustep['bwd_plain_ms'],
         "bound_ms": ustep['bwd_bound_ms'], "bound_by": ustep['bwd_bound_by'],
         "library_ms": None, "timed_shape": ucomp_shape,
@@ -3589,7 +4241,11 @@ def main():
             ustep['replaces']['fold_forward_backward_ms'],
         "compile_forward_backward_ms":
             ustep['replaces']['compile_forward_backward_ms'],
-        "shapes": [[r['nb'], r['ld'], r['D']] for r in ucomp_records]}, {
+        "shapes": [[r['nb'], r['ld'], r['D']]
+                   for r in ucomp_records + packed_stacks],
+        "packed_stacks": [{k: r[k] for k in ("nb", "last", "bwd_ms",
+                                              "bwd_plain_ms", "bwd_bound_ms")}
+                          for r in packed_stacks]}, {
         "name": "adam_step", "route": "cuda",
         "source": "quanonet_torch/csrc/adam.cu",
         "replaces": "quanonet_tpu/ops/pallas_adam.py:51",

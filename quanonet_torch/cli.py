@@ -8,8 +8,10 @@ quanonet_tpu/cli.py; reference main.py:16-125, CLI-compatible):
 Runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
 card.  The reference's --quantum_backend / --classical_backend flags are
 accepted so its reproduce scripts run unchanged; every value resolves to
-the one engine.  ``--multi_seed`` trains its seeds one after another
-(multiseed.py).  Flags of later slices raise naming their ROADMAP item.
+the one engine.  ``--multi_seed`` trains its seeds as one packed model, or
+one after another where the step needs it (multiseed.py).  Flags of later
+slices (``--shard``, ``--num_devices`` > 1) raise naming their ROADMAP
+item.
 """
 import sys
 import traceback

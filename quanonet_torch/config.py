@@ -122,7 +122,9 @@ def get_base_parser():
     parser.add_argument('--n_microbatches', type=int, default=None,
                         help='--shard pipe microbatches (ROADMAP §A item 8)')
     parser.add_argument('--multi_seed', type=int, nargs='+', default=None,
-                        help='Train these seeds one after another, each in '
+                        help='Train these seeds together as one packed '
+                             'model (or one after another where the step '
+                             'needs it: noise, shift/SPSA, shots), each in '
                              'its own experiment directory; completed seeds '
                              'are skipped')
     parser.add_argument('--multi_seed_fresh_data', type=str, default=None,
@@ -175,8 +177,11 @@ def get_base_parser():
     parser.add_argument('--datagen', type=str, default=None,
                         choices=['host', 'device', 'native'],
                         help='Raw data generator: host = reference '
-                             'NumPy/SciPy (default); device and native are '
-                             'not ported yet (ROADMAP §A item 7)')
+                             'NumPy/SciPy (default), device = on the card '
+                             '(GRF + RK4 + stencils + CG in PyTorch), '
+                             'native = the C++ solvers of native/ built at '
+                             'first use; the last two cache under their own '
+                             'names')
     return parser
 
 
@@ -216,8 +221,6 @@ def reject_unported(config):
         unported.append(('--shard', '§A item 8'))
     if config.get('num_devices') and int(config['num_devices']) > 1:
         unported.append(('--num_devices > 1', '§A item 8'))
-    if str(config.get('datagen') or 'host') != 'host':
-        unported.append((f"--datagen {config['datagen']}", '§A item 7'))
     if unported:
         raise NotImplementedError(
             'not ported yet: ' + ', '.join(f'{flag} (ROADMAP {item})'

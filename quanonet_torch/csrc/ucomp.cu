@@ -6,7 +6,8 @@
 //
 //   B4f  _fwd_kernel.  The Hadamard-folded, transposed block matrices
 //        mt_b = H . prod_d (U1t_s . B'_s) . R_b,   s = b*ld + d,
-//        R_b = H, or I for block `last`.
+//        R_b = H, or I for block `last` (for every block when last = -2:
+//        the final blocks of several chains in one launch).
 //   B4b  _bwd_kernel.  The weights' cotangent from the cotangent (g_r, g_i)
 //        of mt.
 //
@@ -81,6 +82,12 @@ constexpr int kMaxWarps = 16;
 constexpr int kMaxQubits = 7;
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 232448;
+constexpr int kEveryBlock = -2;   // `last`: every block's right factor is I
+
+// Whether block blk ends with the Hadamard pass (R = H).
+__device__ __forceinline__ bool right_h(int blk, int last) {
+  return last != kEveryBlock && blk != last;
+}
 
 // The layout of one row over a warp at n qubits.
 template <int N>
@@ -346,7 +353,7 @@ ucomp_fwd_kernel(const float* __restrict__ w, float* __restrict__ mt_r,
     Amps<N> x;
     hadamard_row<N>(x, row, lane, scale);
     for (int d = 0; d < ld; ++d) sublayer<N>(x, t, d, buf, lane);
-    if (blk != last) hadamard_pass<N>(x, lane, scale);
+    if (right_h(blk, last)) hadamard_pass<N>(x, lane, scale);
     if (valid) {
       const size_t o = base + static_cast<size_t>(row) * R::D;
 #pragma unroll
@@ -493,7 +500,8 @@ ucomp_bwd_kernel(const float* __restrict__ w, const float* __restrict__ g_r,
       g.r[j] = valid ? __ldg(g_r + o + amp<N>(lane, j)) : 0.f;
       g.i[j] = valid ? __ldg(g_i + o + amp<N>(lane, j)) : 0.f;
     }
-    if (blk != last) hadamard_pass<N>(g, lane, scale);   // R = H: symmetric
+    if (right_h(blk, last))
+      hadamard_pass<N>(g, lane, scale);   // R = H: symmetric
     for (int d = ld - 1; d >= 0; --d) {
       constexpr int V = Angles<N>::V;
       float acc[V];        // rows 0 (RY), 1 (RZ), 2 (RY') of (3, n), padded
@@ -539,7 +547,8 @@ ucomp_bwd_sum_kernel(const float* __restrict__ part, float* __restrict__ wbar,
 bool bad_shape(int n, int nb, int ld, int last, int warps, int ctas,
                bool backward) {
   return n < 1 || n > kMaxQubits || nb < 1 || nb > 65535 || ld < 1 ||
-         last < -1 || last >= nb || warps < 1 || warps > kMaxWarps ||
+         last < kEveryBlock || last >= nb || warps < 1 ||
+         warps > kMaxWarps ||
          ctas < 1 || ctas > 65535 ||
          sizeof(float) * static_cast<size_t>(
              smem_floats(n, ld, warps, backward)) > kMaxSmem;
@@ -595,7 +604,8 @@ int backward_n(const float* w, const float* g_r, const float* g_i,
 // ctypes (quanonet_torch/ops/cuda_ucomp.py).  Each takes device pointers
 // of contiguous fp32 tensors and the stream to launch on, and returns the
 // cudaError_t of its launches (0 on success).  n = 1 .. 7 qubits, w
-// (nb*ld, 3, n), last the block whose right factor is I (-1: none), warps
+// (nb*ld, 3, n), last the block whose right factor is I (-1: none, -2:
+// every block), warps
 // (1 .. 16) the warps of a CTA, ctas the CTAs of a block.
 
 // Row groups of a block at n qubits: the rows a warp carries at once are

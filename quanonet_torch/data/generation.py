@@ -12,8 +12,15 @@ randn stream), and the PDE stencils are vectorised.
 Randomness uses the global NumPy RNG, matching the reference's seeding
 contract (utils/common.py:154-181: np.random.seed at launch).  The raw
 caches are guarded by an ``fcntl`` file lock (the ``filelock`` package is
-not needed).  The native C++ and on-device generators are not ported yet
-(ROADMAP §A item 7; data/manager.py raises for them).
+not needed).
+
+``use_native`` (or ``QUANONET_NATIVE=1``) routes the ODE solves and the
+Advection / RDiffusion stencils through the C++ library (data/native.py):
+RK4 against SciPy's RK45 at ~1e-3, float32 stencils against the float64
+host ones at ~1e-4, so their raw caches carry a ``_rk4`` / ``_native``
+tag and never mix with the byte-contract files.  Asked for, the native
+path runs or raises (the JAX package falls back to SciPy there).  The
+on-device generators are data/device_gen.py.
 """
 import fcntl
 import os
@@ -87,20 +94,67 @@ ODE_SYSTEMS = {
 DATA_ROOT = os.environ.get('QUANONET_DATA_ROOT', 'data')
 
 
+def _resolve_native(use_native):
+    """The use_native tri-state: None defers to ``QUANONET_NATIVE=1``."""
+    if use_native is None:
+        use_native = os.environ.get('QUANONET_NATIVE') == '1'
+    return bool(use_native)
+
+
+def _native_ode_solve(operator_type, samples, num_cal, u_cals, u0_cals):
+    """The C++ batched RK4 of every sample (data/native.py), each sample's
+    input evaluated on the high-resolution grid first."""
+    from quanonet_torch.data.native import solve_ode_batch_native
+    grid = np.linspace(0, 1, _GRF_N)
+    u0_full = np.stack([fn(grid) for fn, _ in samples]).astype(np.float32)
+    u = solve_ode_batch_native(operator_type, u0_full, num_cal)
+    for i, (_, u0_cal) in enumerate(samples):
+        u_cals.append(u[i].astype(np.float64))
+        u0_cals.append(u0_cal)
+
+
+def _native_pde_solve(operator_type, total_needed, num_cal, length_scale,
+                      input_sampler, u_cals, u0_cals):
+    """The C++ batched stencil of Advection / RDiffusion (data/native.py)
+    on ``total_needed`` sequential GRF draws, as the host loop draws them;
+    NaN samples are skipped."""
+    from quanonet_torch.data.native import (
+        solve_advection_batch_native, solve_rdiffusion_batch_native,
+    )
+    batch_solver = {'Advection': solve_advection_batch_native,
+                    'RDiffusion': solve_rdiffusion_batch_native,
+                    }[operator_type]
+    sampler = input_sampler or (
+        lambda n: generate_random_gaussian_field(n, length_scale))
+    u0s = np.stack([sampler(num_cal)[1] for _ in range(total_needed)])
+    us = batch_solver(u0s.astype(np.float32))
+    for i in range(total_needed):
+        if np.isnan(us[i]).any():
+            continue
+        u_cals.append(us[i].astype(np.float64))
+        u0_cals.append(u0s[i])
+
+
 def generate_ode_operator_data(operator_type, num_train, num_test,
                                num_points, num_points_0,
                                length_scale=0.2, num_cal=1000,
-                               input_sampler=None):
+                               input_sampler=None, use_native=None):
     """GRF inputs -> RK45 solutions, dual-resolution interpolation, random
     train/test split (reference data_generation.py:87-206).  Raw solutions
-    are cached on disk under a file lock unless input_sampler is given."""
+    are cached on disk under a file lock unless input_sampler is given.
+
+    use_native: True routes the solves through the C++ batched RK4
+    (data/native.py), raw cache ``..._rk4.npz``; None defers to
+    QUANONET_NATIVE=1."""
     if operator_type not in ODE_SYSTEMS:
         raise ValueError(f"Unknown operator type: {operator_type}")
     ode_func_generator = ODE_SYSTEMS[operator_type]['ode_func']
+    use_native = _resolve_native(use_native)
+    cache_tag = '_rk4' if use_native else ''
 
     data_path = os.path.join(
         DATA_ROOT, f'{operator_type}_Operator_data',
-        f'{operator_type}_Operator_data_{num_cal}_1.npz')
+        f'{operator_type}_Operator_data_{num_cal}_1{cache_tag}.npz')
     os.makedirs(os.path.dirname(data_path), exist_ok=True)
     x_cal = np.linspace(0, 1, num_cal)
 
@@ -122,6 +176,9 @@ def generate_ode_operator_data(operator_type, num_train, num_test,
                 for _, u0 in samples:
                     u_cals.append(u0.copy())
                     u0_cals.append(u0)
+            elif use_native:
+                _native_ode_solve(operator_type, samples, num_cal, u_cals,
+                                  u0_cals)
             else:
                 def _solve_one(args):
                     u0_fn, u0_cal = args
@@ -284,17 +341,23 @@ ODE_OPERATORS = tuple(ODE_SYSTEMS)
 def generate_pde_operator_data(operator_type, num_train, num_test,
                                num_points, num_points_0,
                                length_scale=0.2, num_cal=100,
-                               input_sampler=None):
+                               input_sampler=None, use_native=None):
     """PDE analogue of generate_ode_operator_data
     (reference data_generation.py:355-480): NaN samples skipped, periodic
-    cache save, 2-D grid interpolation onto num_points x num_points."""
+    cache save, 2-D grid interpolation onto num_points x num_points.
+
+    use_native: True routes Advection / RDiffusion through the C++ batched
+    stencils (data/native.py), raw cache ``..._native.npz``; Darcy always
+    takes the host sparse solve.  None defers to QUANONET_NATIVE=1."""
     if operator_type not in _PDE_SOLVERS:
         raise ValueError(f"Unknown PDE operator: {operator_type}")
     solver = _PDE_SOLVERS[operator_type]
+    use_native = operator_type != 'Darcy' and _resolve_native(use_native)
+    cache_tag = '_native' if use_native else ''
 
     data_path = os.path.join(
         DATA_ROOT, f'{operator_type}_Operator_data',
-        f'{operator_type}_Operator_data_{num_cal}_1.npz')
+        f'{operator_type}_Operator_data_{num_cal}_1{cache_tag}.npz')
     os.makedirs(os.path.dirname(data_path), exist_ok=True)
 
     with _file_lock(data_path + '.lock'):
@@ -311,6 +374,13 @@ def generate_pde_operator_data(operator_type, num_train, num_test,
         if len(u_cals) < num_train + num_test:
             total_needed = num_train + num_test - len(u_cals)
             save_interval = 100
+            if use_native:
+                _native_pde_solve(operator_type, total_needed, num_cal,
+                                  length_scale, input_sampler, u_cals,
+                                  u0_cals)
+                if input_sampler is None:
+                    np.savez(data_path, u_cals=u_cals, u0_cals=u0_cals)
+                total_needed = 0
             for i in range(total_needed):
                 try:
                     u0_override = None

@@ -1,9 +1,16 @@
 """
 DataManager: generation -> encoding -> processed-data disk cache (the
-port's own copy of quanonet_tpu/data/manager.py, host generators only;
-reference data_utils/data_manager.py:36-193).  The cache file names are
-the JAX package's, so the two packages share datasets:
-``{op}_{num_train}_{num_test}_{pts}_{pts0}[_FNO|_{tsn}_{tesn}].npz``.
+port's own copy of quanonet_tpu/data/manager.py; reference
+data_utils/data_manager.py:36-193).  The cache file names are the JAX
+package's, so the two packages share datasets:
+``{op}_{num_train}_{num_test}_{pts}_{pts0}[_FNO|_{tsn}_{tesn}][_dg{gen}].npz``.
+
+``datagen`` (``--datagen``): 'host' (the NumPy/SciPy generators, the
+cache's byte contract), 'device' (data/device_gen.py on the config's
+device: the card unless ``device`` is 'cpu') or 'native' (the C++ solvers
+of data/native.py, also set by ``QUANONET_NATIVE=1``); the last two are
+not byte-equal to the host path and cache under ``_dgdevice`` /
+``_dgnative``.  A custom ``input_sampler`` forces 'host'.
 """
 import logging
 import os
@@ -34,8 +41,8 @@ class DataManager:
 
         self.operator_type = config['operator']
         self.model_type = config.get('model_type', 'DeepONet')
-        # 'host' (the NumPy/SciPy generators, the cache's byte contract);
-        # 'device' and 'native' are not ported yet and raise below
+        # 'host' (the NumPy/SciPy generators, the cache's byte contract),
+        # 'device' (data/device_gen.py) or 'native' (data/native.py)
         datagen = config.get('datagen') or 'host'
         if datagen == 'host' and os.environ.get('QUANONET_NATIVE') == '1':
             datagen = 'native'    # legacy env opt-in == --datagen native
@@ -47,10 +54,6 @@ class DataManager:
                              "datagen=host (the sampler is a host-side "
                              "function seam)")
             datagen = 'host'
-        if datagen != 'host':
-            raise NotImplementedError(
-                f"datagen {datagen}: only the host generators are ported "
-                f"(ROADMAP §A item 7)")
         self.datagen = datagen
         self.num_points = config.get('num_points', 100)
         self.num_points_0 = config.get('num_points_0', 100)
@@ -93,21 +96,35 @@ class DataManager:
         base = (f"{self.operator_type}_{c['num_train']}_{c['num_test']}"
                 f"_{self.num_points}_{self.num_points_0}")
         if self.model_type == 'FNO':
-            return f"{base}_FNO.npz"
-        return (f"{base}_{c.get('train_sample_num', 10)}"
-                f"_{c.get('test_sample_num', 100)}.npz")
+            base += "_FNO"
+        else:
+            base += (f"_{c.get('train_sample_num', 10)}"
+                     f"_{c.get('test_sample_num', 100)}")
+        if self.datagen != 'host':
+            # never mix generators that are not byte-equal to the host
+            # path into the reference-contract cache files
+            base += f"_dg{self.datagen}"
+        return f"{base}.npz"
 
     def _generate_and_process(self):
         c = self.config
         is_pde = self.operator_type in PDE_OPERATORS
-        raw_gen = (gen.generate_pde_operator_data if is_pde
-                   else gen.generate_ode_operator_data)
+        extra = {}
+        if self.datagen == 'device':
+            from quanonet_torch.data import device_gen
+            raw_gen = (device_gen.generate_pde_operator_data_device if is_pde
+                       else device_gen.generate_ode_operator_data_device)
+            extra['device'] = c.get('device')
+        else:
+            raw_gen = (gen.generate_pde_operator_data if is_pde
+                       else gen.generate_ode_operator_data)
+            extra['use_native'] = (self.datagen == 'native') or None
 
         def gen_func(nt, nte, *args, **kwargs):
             return raw_gen(self.operator_type, nt, nte,
                            self.num_points, self.num_points_0,
                            num_cal=self.num_cal,
-                           input_sampler=self.input_sampler)
+                           input_sampler=self.input_sampler, **extra)
 
         if self.model_type == 'FNO':
             encoder = pde_fncode if is_pde else ode_fncode

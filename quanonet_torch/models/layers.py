@@ -36,8 +36,15 @@ class TrainableFreq(nn.Module):
         bias.uniform_(-r, r, generator=generator)   # drawn on the CPU
         self.bias = nn.Parameter(bias.to(device))
 
-    def forward(self, x):
-        return tile_to(x, self.out_features) * self.weights + self.bias
+    def forward(self, x, params=None, prefix=None):
+        """x (..., batch, m); with ``params`` the tensors
+        ``params[prefix + '.weights']``/``'.bias'`` (..., out) in place of
+        the layer's own, their leading axes matching x's (a seed axis:
+        models/packed.py)."""
+        w, b = ((self.weights, self.bias) if params is None else
+                (params[f'{prefix}.weights'], params[f'{prefix}.bias']))
+        return (tile_to(x, self.out_features) * w.unsqueeze(-2)
+                + b.unsqueeze(-2))
 
 
 class FixedScale(nn.Module):
@@ -48,5 +55,5 @@ class FixedScale(nn.Module):
         self.out_features = int(out_features)
         self.scale = float(scale)
 
-    def forward(self, x):
+    def forward(self, x, params=None, prefix=None):
         return tile_to(x * self.scale, self.out_features)

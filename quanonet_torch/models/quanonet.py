@@ -189,12 +189,25 @@ class QuanONet(nn.Module):
         """Whether forward draws from a generator (shots or noise)."""
         return self.measure.sampled
 
+    def encode(self, branch_input, trunk_input, params=None):
+        """The circuit's angles (..., batch, width); ``params`` (tensors by
+        state_dict name, with leading axes) in place of the module's
+        own."""
+        # trunk encoding first: the circuit is trunk blocks then branch blocks
+        return torch.cat([self.trunk_freq(trunk_input, params, 'trunk_freq'),
+                          self.branch_freq(branch_input, params,
+                                           'branch_freq')], dim=-1)
+
+    def readout(self, out, params=None):
+        """The measured ``out`` (..., batch, 1) plus the output bias."""
+        bias = self.bias if params is None else params['bias']
+        return out + bias.reshape(bias.shape
+                                  + (1,) * (out.dim() - bias.dim()))
+
     def forward(self, branch_input, trunk_input, generator=None):
         """``generator`` draws the shots and noise of a sampled model."""
-        # trunk encoding first: the circuit is trunk blocks then branch blocks
-        x = torch.cat([self.trunk_freq(trunk_input),
-                       self.branch_freq(branch_input)], dim=1)
-        return self.measure(self.ansatz, x, generator) + self.bias
+        x = self.encode(branch_input, trunk_input)
+        return self.readout(self.measure(self.ansatz, x, generator))
 
 
 class HEAQNN(nn.Module):
@@ -235,6 +248,14 @@ class HEAQNN(nn.Module):
         """Whether forward draws from a generator (shots or noise)."""
         return self.measure.sampled
 
+    def encode(self, x, params=None):
+        """The circuit's angles (QuanONet.encode)."""
+        return self.freq(x, params, 'freq')
+
+    def readout(self, out, params=None):
+        """``out`` itself: HEAQNN has no output bias."""
+        return out
+
     def forward(self, x, generator=None):
         """``generator`` draws the shots and noise of a sampled model."""
-        return self.measure(self.ansatz, self.freq(x), generator)
+        return self.measure(self.ansatz, self.encode(x), generator)

@@ -309,6 +309,43 @@ def block_mats(spec, weights):
     return _hea.fold_block_mats(spec, weights)
 
 
+def block_mats_stacked(spec, weights):
+    """weights (S, n_sub, 3, n) -> (mt_r, mt_i), each (S, nb, D, D): the
+    block matrices of S circuits, by the compile kernels in two launches
+    for all S where :func:`compile_route` takes them
+    (cuda_ucomp.compile_block_mats_stacked), else by the fold of each."""
+    if compile_route(USE_UCOMP, spec, weights.device.type):
+        return _ucomp.compile_block_mats_stacked(spec, weights)
+    mats = [_hea.fold_block_mats(spec, w) for w in weights]
+    return (torch.stack([m[0] for m in mats]),
+            torch.stack([m[1] for m in mats]))
+
+
+def _aligned(t):
+    """``t``, or a copy of it where its start is not 16-byte aligned (a
+    slice of a stacked tensor at D = 2)."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def hea_expectation_stacked(spec, weights, x, diag):
+    """Z-diagonal expectation (S, batch, 1) of S circuits of one spec:
+    weights (S, n_sub, 3, n), x (S, batch, nb·n).  The block matrices of
+    all S come from :func:`block_mats_stacked`, the phases from one
+    elementwise pass, and each circuit's chain is one call of
+    :func:`block_chain` on its slice (one B1f launch a circuit, B1b under
+    autograd)."""
+    if not spec.uniform_encode:
+        raise ValueError(
+            "the block-chain engine requires n_encode == n_qubits per block")
+    mt_r, mt_i = block_mats_stacked(spec, weights)
+    phi = _hea.encoding_phases(spec, x)
+    states = [block_chain(_aligned(mt_r[s]), _aligned(mt_i[s]),
+                          _aligned(phi[s])) for s in range(phi.shape[0])]
+    return _hea.diag_expectation_pair(torch.stack([r for r, _ in states]),
+                                      torch.stack([i for _, i in states]),
+                                      diag)
+
+
 def _prepare(spec, weights, x):
     """Chain operands (mt_r, mt_i, phi), the counterpart of
     pallas_hea._prepare."""

@@ -53,6 +53,7 @@ from quanonet_torch.ops.gates import (
 
 KERNEL = 'ucomp'
 MAX_QUBITS = 7
+EVERY_BLOCK = -2  # ``last``: every block's right factor is I (kEveryBlock)
 FWD_WARPS = 4     # warps of a forward CTA
 BWD_WARPS = 8     # warps of a backward CTA
 
@@ -130,7 +131,11 @@ def _hadamard(dim, like):
 
 
 def _right_factors(nb, dim, last, like):
-    """R (nb, D, D): H for every block, I for block ``last``."""
+    """R (nb, D, D): H for every block, I for block ``last`` (for every
+    block when ``last`` is EVERY_BLOCK)."""
+    if last == EVERY_BLOCK:
+        return torch.eye(dim, dtype=torch.float32,
+                         device=like.device).repeat(nb, 1, 1)
     r = _hadamard(dim, like).repeat(nb, 1, 1)
     if 0 <= last < nb:
         r[last] = torch.eye(dim, dtype=torch.float32, device=like.device)
@@ -153,7 +158,7 @@ def ucomp_dense(u1t, br, bi, ld, last):
     """Plain PyTorch block-matrix compile from the operands: u1t, br, bi
     (nb·ld, D, D) -> (mt_r, mt_i), each (nb, D, D).  Per block the fold of
     its ``ld`` products U1ᵀ·B′, then H · acc · R with R = H, and I for block
-    ``last`` (-1: none)."""
+    ``last`` (-1: none; EVERY_BLOCK: all)."""
     dim = u1t.shape[-1]
     sr, si = _sublayer_products(u1t, br, bi, ld)
     ar, ai = sr[:, 0], si[:, 0]
@@ -286,9 +291,9 @@ def _check_weights(w, ld, last):
     nb = s // ld
     if nb > 65535:
         raise ValueError(f"{nb} blocks are too many for one launch")
-    if not -1 <= last < nb:
-        raise ValueError(f"last must be -1 or a block index < {nb}, got "
-                         f"{last}")
+    if not EVERY_BLOCK <= last < nb:
+        raise ValueError(f"last must be -1, EVERY_BLOCK ({EVERY_BLOCK}) or "
+                         f"a block index < {nb}, got {last}")
     _check((('w', w, (s, 3, n)),), w.device)
     if w.device.type != 'cuda':
         raise ValueError(f"the compile kernels take CUDA tensors, got "
@@ -390,3 +395,28 @@ def compile_block_mats(spec, weights):
             f"most {MAX_QUBITS} qubits, got {spec}")
     ld = spec.block_configs[0][1]
     return ucomp(weights.contiguous(), ld, spec.n_blocks - 1)
+
+
+def compile_block_mats_stacked(spec, weights):
+    """weights (S, n_sub, 3, n) of S circuits of one spec -> (mt_r, mt_i),
+    each (S, n_blocks, D, D) contiguous, circuit s's block matrices those
+    of :func:`compile_block_mats` of weights[s]: two launches for all S,
+    the inner blocks with ``last`` = -1 and the S final blocks with
+    EVERY_BLOCK, joined in chain order by one ``cat`` each."""
+    if not ucomp_applicable(spec):
+        raise ValueError(
+            "the compile kernel needs one uniform linear_depth >= 1 and at "
+            f"most {MAX_QUBITS} qubits, got {spec}")
+    ld, nb, n = spec.block_configs[0][1], spec.n_blocks, spec.n_qubits
+    s, dim = weights.shape[0], spec.dim
+    w = weights.reshape(s, nb, ld, 3, n)
+    fr, fi = ucomp(w[:, -1].reshape(s * ld, 3, n).contiguous(), ld,
+                   EVERY_BLOCK)
+    if nb == 1:
+        return fr.reshape(s, 1, dim, dim), fi.reshape(s, 1, dim, dim)
+    ir, ii = ucomp(w[:, :-1].reshape(s * (nb - 1) * ld, 3, n).contiguous(),
+                   ld, -1)
+    return (torch.cat([ir.reshape(s, nb - 1, dim, dim),
+                       fr.reshape(s, 1, dim, dim)], 1),
+            torch.cat([ii.reshape(s, nb - 1, dim, dim),
+                       fi.reshape(s, 1, dim, dim)], 1))

@@ -58,6 +58,21 @@ def zero_state_ham_diag(num_qubits, lower_bound=0.0,
     return d
 
 
+def walsh_hadamard_coeffs(diag_elements, num_qubits) -> np.ndarray:
+    """Pauli-Z-string coefficients of a diagonal H (Walsh–Hadamard
+    transform, the reference's quantum_circuits_ms.py:41-63): coeffs[idx]
+    multiplies the Z-string whose qubit set is the bit pattern of idx.
+    Used by the QPU export (quanonet_torch/ibm_export.py)."""
+    n = num_qubits
+    d = np.asarray(diag_elements, dtype=np.float64)
+    dim = 2 ** n
+    i = np.arange(dim)[:, None]
+    j = np.arange(dim)[None, :]
+    popcount = np.vectorize(lambda x: bin(x).count('1'))(i & j)
+    had = (-1.0) ** popcount
+    return (had @ d) / dim
+
+
 def generate_ham_diag_rank1(num_qubits, seed=None) -> np.ndarray:
     """Rank-1 spectrum: one random position set to 5, the rest -5 (the
     reference's one-hot * 10 - 5)."""

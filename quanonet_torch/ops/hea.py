@@ -229,13 +229,15 @@ def compile_block_unitaries(spec: HEASpec, weights):
 def encoding_phases(spec: HEASpec, x):
     """Raw encoding phases φ (n_blocks, batch, 2^n):
     φ_{b,k} = ½ Σ_i zsign[k, i] · x_{b,i}, x block-major (batch, nb·n).
+    Leading axes carry over: x (S, batch, nb·n) -> φ (S, n_blocks, batch,
+    2^n), each seed's slice elementwise equal to its own call.
 
     Written as an explicit sum over the K = n qubits, not a matmul, so it
     stays exact fp32 whatever the matmul precision (TF32 rounding here
     random-walks into ~2% output error over a 60-block chain).  At Q10 and
     a batch of 8192 it is 60 × 8192 × 1024 × 4 B = 2.0 GB."""
     n = spec.n_qubits
-    xb = x.reshape(x.shape[0], spec.n_blocks, n).transpose(0, 1)
+    xb = x.reshape(*x.shape[:-1], spec.n_blocks, n).transpose(-3, -2)
     zsgn = _table(z_signs(n), x)                         # (D, n)
     phi = xb[..., 0, None] * zsgn[:, 0]
     for i in range(1, n):

@@ -369,6 +369,38 @@ def build_optimizer(config, total_steps, params):
     return ScheduledOptimizer(opt, build_schedule(config, total_steps))
 
 
+def padded_batches(perm, num_samples, batch_size):
+    """The batches of the orders ``perm`` (..., num_samples) long: (idx
+    (..., batches, batch_size), masks (batches, batch_size) float32).  The
+    last batch wraps around to the order's start and its extra rows are
+    masked out (solver_ms.py:219-245)."""
+    num_batches = max(1, int(np.ceil(num_samples / batch_size)))
+    padded = num_batches * batch_size
+    idx = torch.cat([perm, perm[..., :padded - num_samples]], -1)
+    masks = (torch.arange(padded, device=perm.device) < num_samples).to(
+        torch.float32).reshape(num_batches, batch_size)
+    return idx.reshape(*perm.shape[:-1], num_batches, batch_size), masks
+
+
+def predict_chunks(model, inputs, batch_size, device, seed=None):
+    """``model``'s predictions on the NumPy ``inputs``, (n, 1) NumPy, in
+    chunks of max(batch_size, 4096) rows under inference mode (so the
+    chain takes the primal-only kernel).  With ``seed`` (a model measured
+    with shots or under a noise channel) chunk s draws from a generator
+    seeded from (seed, s), as the JAX package keys it."""
+    chunk = max(batch_size, 4096)
+    n = inputs[0].shape[0]
+    preds = []
+    with torch.inference_mode():
+        for s in range(0, n, chunk):
+            batch = tuple(torch.as_tensor(a[s:s + chunk], device=device)
+                          for a in inputs)
+            kw = ({'generator': key_generator(seed, s, device=device)}
+                  if seed is not None else {})
+            preds.append(model(*batch, **kw).cpu().numpy())
+    return np.concatenate(preds, axis=0)
+
+
 def make_train_epoch(model, optimizer, num_samples, batch_size, per_sample,
                      seed=0, spsa_c=None):
     """One training epoch: ``train_epoch(perm, inputs, outputs, epoch=0) ->
@@ -392,7 +424,6 @@ def make_train_epoch(model, optimizer, num_samples, batch_size, per_sample,
     SPSA direction, (seed, t, 1) the model's shots and noise trajectories,
     the same for both SPSA evaluations (common random numbers)."""
     num_batches = max(1, int(np.ceil(num_samples / batch_size)))
-    padded = num_batches * batch_size
     sampled = bool(getattr(model, 'sampled', False))
     params = dict(model.named_parameters())
 
@@ -403,11 +434,9 @@ def make_train_epoch(model, optimizer, num_samples, batch_size, per_sample,
 
     def train_epoch(perm, inputs, outputs, epoch=0):
         dev = outputs.device
-        perm = torch.as_tensor(perm, dtype=torch.long, device=dev)
-        pad_idx = torch.cat([perm, perm[:padded - num_samples]])
-        masks = (torch.arange(padded, device=dev) < num_samples).to(
-            torch.float32).reshape(num_batches, batch_size)
-        idx = pad_idx.reshape(num_batches, batch_size)
+        idx, masks = padded_batches(
+            torch.as_tensor(perm, dtype=torch.long, device=dev), num_samples,
+            batch_size)
         losses = []
         for b in range(num_batches):
             bi = idx[b]
@@ -472,6 +501,17 @@ def epoch_permutation(seed, epoch, n):
     state = np.random.SeedSequence([int(seed) & 0xFFFFFFFF, int(epoch)])
     gen = torch.Generator().manual_seed(int(state.generate_state(1)[0]))
     return torch.randperm(n, generator=gen)
+
+
+def save_checkpoint(params, ckpt_path, model_type):
+    """Dual-format save of a state_dict (.ckpt MindSpore-compatible + .npz
+    reference schema), mirroring solver_ms.py:256-263."""
+    raw = raw_from_state_dict(params, model_type)
+    ckpt_io.save_ms_ckpt(ckpt_path, raw)
+    npz_path = ckpt_path.replace('.ckpt', '.npz')
+    tmp = npz_path + '.tmp.npz'
+    np.savez(tmp, **raw)
+    os.replace(tmp, npz_path)
 
 
 def save_train_state(path, done, model, optimizer, best_loss, best_params,
@@ -717,14 +757,7 @@ class Solver:
 
     # ── checkpointing ─────────────────────────────────────────────────────────
     def _save_checkpoint(self, params, ckpt_path):
-        """Dual-format save (.ckpt MindSpore-compatible + .npz reference
-        schema), mirroring solver_ms.py:256-263."""
-        raw = raw_from_state_dict(params, self.model_type)
-        ckpt_io.save_ms_ckpt(ckpt_path, raw)
-        npz_path = ckpt_path.replace('.ckpt', '.npz')
-        tmp = npz_path + '.tmp.npz'
-        np.savez(tmp, **raw)
-        os.replace(tmp, npz_path)
+        save_checkpoint(params, ckpt_path, self.model_type)
 
     def _load_into_params(self, path):
         default = (20, 2, 10, 2) if self.model_type == 'QuanONet' else (20, 2)
@@ -743,20 +776,10 @@ class Solver:
         under a noise channel is evaluated with them, chunk s drawing from
         a generator seeded from (run seed, s), as the JAX package keys
         it."""
-        batch_size = max(self.config.get('batch_size', 100), 4096)
-        n = self.test_output.shape[0]
         sampled = bool(getattr(self.model, 'sampled', False))
-        preds = []
-        with torch.inference_mode():
-            for s in range(0, n, batch_size):
-                batch = tuple(torch.as_tensor(a[s:s + batch_size],
-                                              device=self.device)
-                              for a in self.test_inputs)
-                kw = ({'generator': key_generator(self.seed, s,
-                                                  device=self.device)}
-                      if sampled else {})
-                preds.append(self.model(*batch, **kw).cpu().numpy())
-        return np.concatenate(preds, axis=0)
+        return predict_chunks(self.model, self.test_inputs,
+                              self.config.get('batch_size', 100), self.device,
+                              self.seed if sampled else None)
 
     def evaluate(self, history=None):
         self.logger.info("Evaluating...")

@@ -423,6 +423,55 @@ def test_ucomp_rejects_bad_inputs_and_trains(card, monkeypatch):
     assert (grads[True] - grads[False]).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("nq,net", [(5, (40, 2, 20, 2)), (2, (3, 1, 2, 1)),
+                                    (1, (2, 1, 1, 1))])
+def test_stacked_compile_and_packed_step_on_the_card(card, nq, net):
+    """The packed multi-seed compile: B4f with last = EVERY_BLOCK against
+    the plain version; three seeds' block matrices in two launches each
+    way equal to each seed's own compile (forward bit-equal: the forward's
+    geometry depends on D alone), w̄ within 1e-4 x max(1, max|g|); one
+    packed step's chains a launch a seed (Q1: a seed's slice realigned)."""
+    from quanonet_torch.models import QuanONet
+    from quanonet_torch.models.packed import PackedModel
+    from quanonet_torch.ops import cuda_ucomp
+    spec, w, ld, rng = _ucomp_weights(nq, net, 40 + nq, card)
+    every = cuda_ucomp.ucomp_forward(w, ld, cuda_ucomp.EVERY_BLOCK)
+    for a, b in zip(every, cuda_ucomp.ucomp_weights_dense(
+            w, ld, cuda_ucomp.EVERY_BLOCK)):
+        assert (a - b).abs().max().item() <= 2e-5
+    ws = torch.stack([w, w.flip(0), -w]).requires_grad_()
+    g = [torch.tensor(rng.randn(3, spec.n_blocks, spec.dim, spec.dim)
+                      .astype(np.float32), device=card) for _ in range(2)]
+    before = (cuda_ucomp.launches, cuda_ucomp.bwd_launches)
+    mr, mi = cuda_ucomp.compile_block_mats_stacked(spec, ws)
+    (got,) = torch.autograd.grad((mr * g[0]).sum() + (mi * g[1]).sum(), ws)
+    torch.cuda.synchronize()
+    two = 1 if spec.n_blocks == 1 else 2
+    assert (cuda_ucomp.launches - before[0],
+            cuda_ucomp.bwd_launches - before[1]) == (two, two)
+    for i in range(3):
+        wi = ws.detach()[i].clone().requires_grad_()
+        r, im = cuda_ucomp.compile_block_mats(spec, wi)
+        assert torch.equal(mr[i], r) and torch.equal(mi[i], im)
+        (want,) = torch.autograd.grad((r * g[0][i]).sum()
+                                      + (im * g[1][i]).sum(), wi)
+        assert (got[i] - want).abs().max().item() <= _bwd_tol(want)
+    models = [QuanONet(nq, 6, 2, net, scale_coeff=0.3, device=card,
+                       generator=torch.Generator().manual_seed(i))
+              for i in range(3)]
+    pack = PackedModel(models)
+    b = torch.randn(3, 7, 6, device=card)
+    t = torch.rand(3, 7, 2, device=card)
+    before = (cuda_hea.launches, cuda_hea.bwd_launches)
+    out = pack(b, t)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (cuda_hea.launches - before[0],
+            cuda_hea.bwd_launches - before[1]) == (3, 3)
+    for i, m in enumerate(models):
+        assert (out[i] - m(b[i], t[i])).abs().max().item() <= 1e-5
+
+
 # ── the one-launch Adam (csrc/adam.cu) ──────────────────────────────────────
 
 def _adam_leaves(device, seed=0):

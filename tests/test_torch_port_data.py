@@ -48,21 +48,23 @@ def test_data_manager_byte_equal_to_jax(tmp_path, monkeypatch, cfg):
         assert cached[k].tobytes() == want[k].tobytes(), k
 
 
-@pytest.mark.parametrize("over,item", [
-    (dict(datagen='device'), '§A item 7'), (dict(datagen='native'), '§A item 7'),
-    (dict(model_type='FNO'), None)], ids=['over0-A10', 'over1-A10', 'over2-None'])
-def test_unported_generators_raise(over, item):
-    """The device and native generators raise naming their ROADMAP item;
-    the FNO grid encoding is ported and names its own cache file."""
+@pytest.mark.parametrize("over,name", [
+    (dict(datagen='device'), 'Advection_2_1_100_100_10_100_dgdevice.npz'),
+    (dict(datagen='native'), 'Advection_2_1_100_100_10_100_dgnative.npz'),
+    (dict(model_type='FNO'), 'Advection_2_1_100_100_FNO.npz')],
+    ids=['over0-A10', 'over1-A10', 'over2-None'])
+def test_unported_generators_raise(over, name):
+    """The device and native generators (ROADMAP §A item 7, raising until
+    they were ported) build and cache under their own names, as the JAX
+    package's DataManager names them; the FNO grid encoding names its own
+    cache file."""
     cfg = dict(operator='Advection', model_type='QuanONet', num_train=2,
                num_test=1)
     cfg.update(over)
-    if item is None:
-        assert DataManager(cfg)._get_filename() == \
-            'Advection_2_1_100_100_FNO.npz'
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        DataManager(cfg)
+    dm = DataManager(cfg)
+    assert dm.datagen == over.get('datagen', 'host')
+    assert dm._get_filename() == name
+    assert JDataManager(cfg)._get_filename() == name
 
 
 def test_unknown_operator_raises():
@@ -124,11 +126,13 @@ def test_input_sampler_forces_host(tmp_path, monkeypatch, caplog):
 
 
 def test_datagen_env_and_unknown(monkeypatch):
-    """QUANONET_NATIVE=1 asks for the native generators (not ported: it
-    raises naming the item); an unknown datagen is a ValueError."""
+    """QUANONET_NATIVE=1 asks for the native generators (ported from
+    ROADMAP §A item 7: the route is 'native' and caches under _dgnative, as
+    the JAX package's); an unknown datagen is a ValueError."""
     monkeypatch.setenv('QUANONET_NATIVE', '1')
-    with pytest.raises(NotImplementedError, match='native'):
-        DataManager(_ode_cfg())
+    dm = DataManager(_ode_cfg())
+    assert dm.datagen == JDataManager(_ode_cfg()).datagen == 'native'
+    assert dm._get_filename().endswith('_dgnative.npz')
     monkeypatch.delenv('QUANONET_NATIVE')
     with pytest.raises(ValueError, match='host|device|native'):
         DataManager(_ode_cfg(datagen='gpu'))

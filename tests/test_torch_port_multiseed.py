@@ -1,12 +1,14 @@
 """
-Multi-seed training of the port (quanonet_torch/multiseed.py, the
-sequential route of the JAX package's multiseed.py) and backend.py, on
-the CPU.
+Multi-seed training of the port (quanonet_torch/multiseed.py) and
+backend.py, on the CPU.
 
-S = 2 seeds through ``--multi_seed`` equal two single runs of those seeds
-bit for bit (losses, metrics and checkpoints); a completed seed is
-skipped without side effects and the rest still train;
-``--multi_seed_fresh_data`` gives each seed its own dataset.
+The sequential route (``train_seeds_sequential``, the JAX package's
+``_train_seeds_sequential``): S = 2 seeds equal two single runs of those
+seeds bit for bit (losses, metrics and checkpoints), and
+``--multi_seed_fresh_data`` gives each seed its own dataset.  Through
+``--multi_seed`` (the packed route; its own tests are
+test_torch_port_multiseed_packed.py) a completed seed is skipped without
+side effects and the rest still train.
 """
 import json
 import os
@@ -18,6 +20,9 @@ import quanonet_torch.data.generation as t_gen
 from quanonet_torch import cli
 from quanonet_torch import multiseed as t_multiseed
 from quanonet_torch.backend import BackendManager
+from quanonet_torch.config import (
+    get_base_parser, load_config, set_random_seed,
+)
 
 ARGV = ['--operator', 'Antideriv', '--model_type', 'QuanONet',
         '--net_size', '2', '1', '2', '1', '--num_qubits', '2',
@@ -52,14 +57,22 @@ def _artifacts(prefix, seed):
     return m['metrics'], m['history'], arrays
 
 
+def _sequential(argv):
+    """The sequential route for the CLI flags ``argv``, seeded as the CLI
+    seeds it."""
+    config = load_config(get_base_parser().parse_args(argv))
+    set_random_seed(config.get('seed', 0))
+    return t_multiseed.train_seeds_sequential(config)
+
+
 def test_sequential_seeds_equal_single_runs(isolated):
     # both layouts share one data cache (prefix/../data), as runs of the
     # reference's scripts share theirs
     for seed in (0, 1):
         cli.main(ARGV + ['--seed', str(seed), '--prefix',
                          str(isolated / 'single')])
-    result = cli.main(ARGV + ['--multi_seed', '0', '1', '--prefix',
-                              str(isolated / 'multi')])
+    result = _sequential(ARGV + ['--multi_seed', '0', '1', '--prefix',
+                                 str(isolated / 'multi')])
     assert sorted(result) == [0, 1]
     for seed in (0, 1):
         m_s, h_s, a_s = _artifacts(str(isolated / 'single'), seed)
@@ -104,7 +117,7 @@ def test_fresh_data_gives_each_seed_its_own_data(isolated, monkeypatch,
                    str(isolated / 'out')]
     if fresh:
         argv += ['--multi_seed_fresh_data', 'true']
-    cli.main(argv)
+    _sequential(argv)
     assert sorted(seen) == [0, 1]
     assert np.array_equal(seen[0], seen[1]) is not fresh
 

@@ -10,8 +10,9 @@ at the barriers and the warp shuffles.  This holds the kernels' gate passes
 (the lane and register pairs of every qubit, the ring gather through
 shuffles and through shared memory), the walk back with each angle's
 cotangent, the warp, CTA and block reductions, at Q1-Q7, depths 1-3, the
-last block at the end, in the middle and absent, a single block and the
-flagship, with the launch geometry an H100 takes.  What it cannot hold
+last block at the end, in the middle, absent and every block
+(EVERY_BLOCK, the final blocks of a packed multi-seed step), a single
+block and the flagship, with the launch geometry an H100 takes.  What it cannot hold
 (timing, memory ordering) is left to the cuda-marked tests on the card.
 
 Tolerances as on the card (chip_smoke.py): 2e-5 on the block matrices,
@@ -38,6 +39,8 @@ CASES = [    # (qubits, blocks, linear depth, last)
     (1, 3, 1, 2), (2, 4, 2, -1), (3, 3, 3, 1), (4, 5, 2, 4),
     (5, 1, 2, 0), (5, 3, 3, -1), (6, 2, 1, 0), (6, 3, 2, 1),
     (7, 2, 2, 1), (7, 1, 3, -1), (5, 60, 2, 59),
+    # every block's right factor I: the final blocks of several chains
+    (3, 4, 2, cuda_ucomp.EVERY_BLOCK), (5, 4, 2, cuda_ucomp.EVERY_BLOCK),
 ]
 IDS = [f"q{n}-nb{nb}-ld{ld}-last{last}" for n, nb, ld, last in CASES]
 
@@ -119,6 +122,7 @@ def test_refuses_what_it_does_not_take(lib):
     ptrs = (w.data_ptr(), out.data_ptr(), out.data_ptr())
     assert lib.ucomp_forward(*ptrs, 8, 2, 2, 1, 1, 1, None) == 1
     assert lib.ucomp_forward(*ptrs, 3, 2, 2, 2, 1, 1, None) == 1
+    assert lib.ucomp_forward(*ptrs, 3, 2, 2, -3, 1, 1, None) == 1
     assert lib.ucomp_forward(*ptrs, 3, 2, 2, 1, 17, 1, None) == 1
     assert lib.ucomp_backward(w.data_ptr(), out.data_ptr(), out.data_ptr(),
                               None, w.data_ptr(), 3, 2, 2, 1, 1, 2,
