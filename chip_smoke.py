@@ -258,6 +258,41 @@ Phases, each printed as one JSON line:
              full width against infer.predict and the replay of 3 points
              (1e-4), noisy_predictions at p = 0.01, 32 trajectories on both
              anchors (the fold route, replayed bit-equal).
+39. multichip_ranks — the multi-GPU checks on ranks started by
+             parallel/launch: world 1 on NCCL, worlds 2 and 4 as ranks
+             sharing the one card over gloo (which checks the code path and
+             measures nothing of scaling); one start a world, its seconds.
+40. multichip_dp — the flagship data-parallel at batch 100 under Adam on
+             the quick regime's rows: world 1, 50 make_dp_run_segment steps
+             against the single-process make_train_epoch on the same orders
+             (epoch losses 1e-5 relative; B4f, B4b, B1f, B1b once a step);
+             one make_dp_train_step step on a fixed 100-row batch at world
+             2 against world 1's (1e-6); 20 world-2 segment steps leaving
+             the ranks bit-identical; ms a make_dp_run_segment step at
+             each world size, and at world 1 the single-process step's in
+             the same rank, in turns.
+41. multichip_amp — the amplitude-sharded engine at Q12 Net40-2-20-2,
+             batch 100, worlds 1, 2, 4 against the unsharded 'pfused'
+             engine (B2f, B2b): outputs 1e-4, the weight gradient 1e-3 ×
+             max(1, max|g|); the forward's exchanges equal
+             sharded_collective_counts; ms of one shard's forward and
+             backward under virtual_global k = 1, 2, 3.
+42. multichip_pipe — the pipelined engine on the flagship's 60 blocks, 4
+             microbatches at batch 100, worlds 1, 2, 4 against the
+             unsharded block-chain engine, the same limits; one B4f launch
+             a stage a forward, one B4b a backward, M + P - 1 hops.
+43. multichip_cli — the Solver's data-parallel route through the CLI at
+             the flagship on the quick regime's rows: --num_devices 2
+             --share_device true (two ranks sharing the card) at batch =
+             the 20,000 training rows against --num_devices 1 (the plain
+             single-process path), 5 epochs: losses and rel-L2 1e-5
+             relative, each rank's B4f, B4b, B1f, B1b in train, only rank
+             0's artifacts, the caller's model holding the trained
+             parameters; the quick regime at batch 100 on the two ranks
+             (rel-L2 in the band, 2,000 steps a rank); --shard pipe
+             --num_devices 1 at the flagship (3 steps: B4f, no chain
+             kernel); --num_devices 2 without --share_device, which must
+             fail naming the card count.
 The kernel phase (3) also holds B1f at N = 60,000 and, at Q7, 84,000: the
 rows of the shift rule's encode-shift batch at the flagship and at Q7.
 
@@ -265,8 +300,10 @@ Each path (serve, train, train_q10, serve_q10, profile_step, serve_ucomp,
 train_embed, serve_embed, train_shift, train_spsa, serve_shots,
 serve_shots_q10, shift_grad, multiseed, infer_from_name, noise_forward,
 noise_zne, noise_damping, noise_train, infer_noise, multiseed_packed,
-multiseed_packed_q10, seedpack, datagen_device, ibm_export) starts with
-every launch count at 0 and reads them when it ends.  A card time
+multiseed_packed_q10, seedpack, datagen_device, ibm_export, multichip_dp,
+multichip_amp, multichip_pipe, multichip_cli) starts with every launch
+count at 0 and reads them when it ends; a multichip path adds the ranks'
+own counts, read in each rank around the driven window.  A card time
 ("device_ms") comes from a warmed profiler
 window (each kernel's mean over the rows it kept), else from the launches
 queued back to back behind a sleep (kernel_device_ms); the run's count of
@@ -275,6 +312,7 @@ the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failed
 check exits non-zero before the last line.  Needs one card; exits 1
 without CUDA.
 """
+import glob
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -313,7 +351,7 @@ from quanonet_torch.ops.hamiltonian import simple_ham_diag
 from quanonet_torch.serve import Predictor, make_server
 from quanonet_torch.solver import (
     ScheduledOptimizer, _decay_tuple_schedule, epoch_permutation,
-    build_optimizer,
+    build_optimizer, make_run_segment, make_train_epoch,
 )
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -4004,6 +4042,388 @@ def phase_compare_engines():
           "compare_engines: the Q14 check did not run")
 
 
+# ── multi-GPU: data parallelism, the sharded and pipelined engines ─────────
+
+MULTICHIP_WORLDS = (1, 2, 4)   # 1: NCCL; 2 and 4: ranks sharing the card
+MULTICHIP_TIMEOUT_S = 300
+MULTICHIP_LR = 1e-3
+DP_STEP_TOL = 1e-6             # one step, world 2 against world 1
+DP_LOSS_RTOL = 1e-5            # world 1 against the single-process run
+AMP_Q = 12
+AMP_OUT_TOL = 1e-4
+SHARD_GRAD_TOL = 1e-3          # × max(1, max|g|), the shift rule's limit
+PIPE_MICROBATCHES = 4
+VIRTUAL_GLOBAL = (1, 2, 3)
+
+
+def _multichip_inputs():
+    """The three paths' inputs, seeded: the flagship's state and the quick
+    regime's first 2,000 rows (dp); Q12 Net40-2-20-2 and the flagship with
+    batch-100 angles (amp, pipe)."""
+    data = quick_data()
+    arrays = (data['train_branch_input'][:2000].astype(np.float32),
+              data['train_trunk_input'][:2000].astype(np.float32))
+    target = data['train_output'][:2000].astype(np.float32)
+    model = _flagship_model('cpu')
+    state = {k: v.numpy() for k, v in model.state_dict().items()}
+    kw = dict(num_qubits=FLAGSHIP[0], branch_input_size=100,
+              trunk_input_size=2, net_size=FLAGSHIP[1], scale_coeff=0.1)
+    rng = np.random.RandomState(15)
+    amp_spec = hea.quanonet_spec(AMP_Q, FLAGSHIP[1])
+    pipe_spec = hea.quanonet_spec(*FLAGSHIP)
+    circuits = {}
+    for name, spec in (('amp', amp_spec), ('pipe', pipe_spec)):
+        circuits[name] = (
+            spec,
+            rng.uniform(-np.pi, np.pi, spec.weight_shape()).astype(np.float32),
+            rng.uniform(-2, 2, (100, spec.total_encode)).astype(np.float32),
+            simple_ham_diag(spec.n_qubits, -5, 5))
+    return kw, state, arrays, target, circuits
+
+
+def _dp_perms():
+    """World 1's orders: 5 epochs of the first 1,000 rows (50 steps)."""
+    return [epoch_permutation(0, e, 1000) for e in range(5)]
+
+
+def multichip_runs():
+    """Every multi-GPU check on the ranks, one start a world: world 1 on
+    NCCL, worlds 2 and 4 sharing the card over gloo.  Returns ({world: the
+    checks' results of every rank}, the inputs, the seconds a world)."""
+    from quanonet_torch.parallel import _workers, launch
+    kw, state, arrays, target, circuits = _multichip_inputs()
+    runs, seconds = {}, {}
+    for world in MULTICHIP_WORLDS:
+        calls = []
+        if world == 1:
+            calls.append(('dp_check', (kw, state, tuple(a[:1000] for a in
+                                                        arrays),
+                                       target[:1000], MULTICHIP_LR, 5,
+                                       _dp_perms())))
+            calls += [('amp_check', (*circuits['amp'], k))
+                      for k in VIRTUAL_GLOBAL]
+        elif world == 2:
+            calls.append(('dp_check', (kw, state, arrays, target,
+                                       MULTICHIP_LR, 1)))
+        # one timed repetition where ranks share the card: a code path
+        calls.append(('amp_check', (*circuits['amp'], None,
+                                    3 if world == 1 else 1)))
+        calls.append(('pipe_check', (*circuits['pipe'], PIPE_MICROBATCHES)))
+        t0 = time.time()
+        runs[world] = launch.run_ranks(
+            _workers.run_checks, world, 'cuda', args=(calls,),
+            share_device=world > 1, timeout_s=MULTICHIP_TIMEOUT_S)
+        seconds[world] = time.time() - t0
+    return runs, (kw, state, arrays, target, circuits), seconds
+
+
+def _rank_launches(results):
+    """Kernel launches summed over the ranks' results."""
+    out = {}
+    for r in results:
+        for k, v in r['launches'].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _path_counts(parent, ranks):
+    """A path's launches: this process's counts plus the ranks'."""
+    return {k: v + ranks.get(k, 0) for k, v in parent.items()}
+
+
+def phase_multichip_dp(runs, inputs, smi_line):
+    """Data parallelism of the flagship (Q5 Net40-2-20-2, batch 100, Adam)
+    on the quick regime's rows: world 1 on NCCL, 50 steps of
+    make_dp_run_segment against the single-process make_train_epoch on the
+    same orders (epoch losses 1e-5 relative; B4f, B4b, B1f, B1b once a
+    step); one make_dp_train_step step on a fixed 100-row batch at world 2
+    (ranks sharing the card, 50 rows a rank) against world 1's (1e-6); 20
+    segment steps at world 2 leaving the ranks' parameters bit-identical;
+    the ms a segment step at each world size, and at world 1 the plain
+    step's in the same rank.  Returns the path's launches."""
+    kw, state, arrays, target, _ = inputs
+    _zero_counts()
+    model = _flagship_model('cuda')
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+    opt = build_optimizer({'learning_rate': MULTICHIP_LR}, 1,
+                          model.parameters())
+    run = make_run_segment(make_train_epoch(model, opt, 1000, 100, 1),
+                           model)
+    _, _, plain = run(float('inf'), None, _dp_perms(),
+                      tuple(torch.as_tensor(a[:1000], device='cuda')
+                            for a in arrays),
+                      torch.as_tensor(target[:1000], device='cuda'))
+    plain_params = {k: v.detach().cpu().numpy()
+                    for k, v in model.state_dict().items()}
+    one = runs[1][0][0]
+    two = [r[0] for r in runs[2]]
+    loss_dev = max(abs(a[0] / b[0] - 1) for a, b in zip(one['hist'], plain))
+    param_dev = max(float(np.abs(one['params'][k] - v).max())
+                    for k, v in plain_params.items())
+    check(loss_dev <= DP_LOSS_RTOL,
+          f"multichip_dp: world 1 losses {loss_dev:.2e} from the plain run")
+    check(param_dev <= PARITY_PARAM_TOL,
+          f"multichip_dp: world 1 parameters {param_dev:.2e} apart")
+    steps = one['steps']
+    for name in ('ucomp_fwd', 'ucomp_bwd', 'hea_chain_fwd', 'hea_chain_bwd'):
+        check(one['launches'][name] == steps,
+              f"multichip_dp: {name} {one['launches'][name]} in {steps} "
+              f"steps")
+    step_dev = max(float(np.abs(r['one_step'][k] - one['one_step'][k]).max())
+                   for r in two for k in one['one_step'])
+    check(step_dev <= DP_STEP_TOL,
+          f"multichip_dp: world 2's step {step_dev:.2e} from world 1's")
+    identical = all(np.array_equal(two[1]['params'][k], two[0]['params'][k])
+                    for k in two[0]['params'])
+    check(identical, "multichip_dp: world 2's replicas differ")
+    for r in two:
+        check(r['launches']['hea_chain_fwd'] == r['steps'] == 20,
+              "multichip_dp: world 2 launches a step")
+    ranks = _rank_launches([one] + two)
+    emit({"phase": "multichip_dp", "nvidia_smi": smi_line,
+          "world1_backend": "nccl", "world2": "2 ranks sharing one card "
+          "over gloo", "world1_loss_max_rel_dev": loss_dev,
+          "world1_param_max_abs_dev": param_dev,
+          "world1_steps": steps, "world1_launches": one['launches'],
+          "world2_step_max_abs_dev": step_dev,
+          "world2_replicas_bit_identical": identical,
+          "world2_steps_a_rank": two[0]['steps'],
+          "step_ms": {"world1_nccl": one['step_ms'],
+                      "world1_plain_same_rank": one['plain_step_ms'],
+                      "world2_shared_card": two[0]['step_ms']},
+          "step_ms_of": "make_dp_run_segment at batch 100 (the plain: "
+                        "make_train_epoch), in turns in one rank, median "
+                        "of 3 rounds",
+          "plain_losses": [h[0] for h in plain]})
+    return _path_counts(_counts(), ranks)
+
+
+def _grad_err(got, want):
+    return float(np.abs(got - want).max()), max(1.0, float(np.abs(want).max()))
+
+
+def phase_multichip_amp(runs, inputs, smi_line):
+    """The amplitude-sharded engine at Q12 Net40-2-20-2, batch 100, on the
+    grouped-kron local path: world 1 (NCCL) and worlds 2 and 4 (ranks
+    sharing the card) against the unsharded 'pfused' engine on the card
+    (B2f, B2b): outputs 1e-4, the weight gradient 1e-3 × max(1, max|g|);
+    the forward's exchanges equal sharded_collective_counts; the ms of one
+    shard's forward and backward under virtual_global k = 1, 2, 3.
+    Returns the path's launches."""
+    from quanonet_torch.parallel.amplitude import sharded_collective_counts
+    spec, w, x, diag = inputs[4]['amp']
+    _zero_counts()
+    wt = torch.tensor(w, device='cuda', requires_grad=True)
+    ref = hea.hea_expectation(spec, wt, torch.tensor(x, device='cuda'),
+                              diag=diag, engine='pfused')
+    ref.sum().backward()
+    ref_out, ref_grad = ref.detach().cpu().numpy(), wt.grad.cpu().numpy()
+    check(cuda_fused.launches == 1 and cuda_fused.bwd_launches == 1,
+          "multichip_amp: the pfused reference did not launch B2f, B2b")
+    records = {}
+    for world in MULTICHIP_WORLDS:
+        res = [r[-2] for r in runs[world]]
+        want = sharded_collective_counts(spec, world)['ppermutes']
+        out_err = max(float(np.abs(r['out'] - ref_out).max()) for r in res)
+        g_err, scale = max(_grad_err(r['w_grad'], ref_grad) for r in res)
+        check(out_err <= AMP_OUT_TOL,
+              f"multichip_amp: world {world} output {out_err:.2e}")
+        check(g_err <= SHARD_GRAD_TOL * scale,
+              f"multichip_amp: world {world} gradient {g_err:.2e}")
+        check(all(r['exchanges'] == want for r in res),
+              f"multichip_amp: world {world} exchanges "
+              f"{[r['exchanges'] for r in res]}, model {want}")
+        records[str(world)] = {"max_abs_err": out_err,
+                               "grad_max_abs_err": g_err, "grad_scale": scale,
+                               "exchanges": want,
+                               "fwd_bwd_ms": [r['fwd_bwd_ms'] for r in res]}
+    virtual = {str(k): r['fwd_bwd_ms'] for k, r in
+               zip(VIRTUAL_GLOBAL, runs[1][0][1:1 + len(VIRTUAL_GLOBAL)])}
+    emit({"phase": "multichip_amp", "nvidia_smi": smi_line, "nq": AMP_Q,
+          "net": FLAGSHIP[1], "batch": 100, "reference": "pfused",
+          "worlds": records, "shared_card": "worlds 2 and 4: ranks sharing "
+          "one card over gloo", "virtual_global_fwd_bwd_ms": virtual})
+    return _counts()
+
+
+def phase_multichip_pipe(runs, inputs, smi_line):
+    """The pipelined engine on the flagship (60 blocks), 4 microbatches of
+    25 at batch 100, worlds 1 (NCCL), 2 and 4 (ranks sharing the card)
+    against the unsharded block-chain engine on the card (B4f, B1f; B4b,
+    B1b): outputs 1e-4, the weight gradient 1e-3 × max(1, max|g|); one B4f
+    launch a stage a forward and one B4b a backward, no chain kernel.
+    Returns the path's launches."""
+    spec, w, x, diag = inputs[4]['pipe']
+    _zero_counts()
+    wt = torch.tensor(w, device='cuda', requires_grad=True)
+    ref = hea.hea_expectation(spec, wt, torch.tensor(x, device='cuda'),
+                              diag=diag, engine='pallas')
+    ref.sum().backward()
+    ref_out, ref_grad = ref.detach().cpu().numpy(), wt.grad.cpu().numpy()
+    records, ranks = {}, []
+    for world in MULTICHIP_WORLDS:
+        res = [r[-1] for r in runs[world]]
+        ranks += res
+        out_err = max(float(np.abs(r['out'] - ref_out).max()) for r in res)
+        g_err, scale = max(_grad_err(r['w_grad'], ref_grad) for r in res)
+        check(out_err <= AMP_OUT_TOL,
+              f"multichip_pipe: world {world} output {out_err:.2e}")
+        check(g_err <= SHARD_GRAD_TOL * scale,
+              f"multichip_pipe: world {world} gradient {g_err:.2e}")
+        for r in res:
+            check(r['fwd_launches']['ucomp_fwd'] == 1
+                  and r['launches']['ucomp_fwd'] == 1
+                  and r['launches']['ucomp_bwd'] == 1
+                  and r['launches']['hea_chain_fwd'] == 0,
+                  f"multichip_pipe: world {world} launches {r['launches']}")
+            check(r['hops']['shift'] == PIPE_MICROBATCHES + world - 1,
+                  f"multichip_pipe: world {world} hops {r['hops']}")
+        records[str(world)] = {"max_abs_err": out_err,
+                               "grad_max_abs_err": g_err, "grad_scale": scale,
+                               "hops": res[0]['hops'],
+                               "fwd_bwd_ms": [r['fwd_bwd_ms'] for r in res]}
+    emit({"phase": "multichip_pipe", "nvidia_smi": smi_line,
+          "blocks": spec.n_blocks, "microbatches": PIPE_MICROBATCHES,
+          "batch": 100, "reference": "pallas", "worlds": records,
+          "shared_card": "worlds 2 and 4: ranks sharing one card over "
+          "gloo"})
+    return _path_counts(_counts(), _rank_launches(ranks))
+
+
+MULTICHIP_CLI_EXPECTED = ['train_args.json', 'train.log', 'best_model.ckpt',
+                          'best_model.npz', 'final.ckpt', 'final.npz',
+                          'metric.json']
+
+
+def _saved_metrics(solver):
+    with open(os.path.join(solver.exp_logger.exp_dir, 'metric.json')) as f:
+        return json.load(f)
+
+
+def _dp_cli_check(name, solver, steps):
+    """A data-parallel CLI run on the ranks: only rank 0's artifacts and
+    one TensorBoard writer; each rank's backward kernels once a training
+    step and its forward kernels at least once, B1f in evaluate.  Returns
+    the ranks' launches."""
+    exp_dir = solver.exp_logger.exp_dir
+    check(sorted(os.listdir(exp_dir)) == sorted(MULTICHIP_CLI_EXPECTED)
+          and len(os.listdir(solver.exp_logger.tb_dir)) == 1,
+          f"multichip_cli {name}: artifacts {sorted(os.listdir(exp_dir))}")
+    ranks = solver.rank_launches
+    check(len(ranks) == 2, f"multichip_cli {name}: {len(ranks)} ranks")
+    for r in ranks:
+        check(r['ucomp_bwd'] == r['hea_chain_bwd'] == steps
+              and r['ucomp_fwd'] >= steps and r['hea_chain_fwd'] > steps,
+              f"multichip_cli {name}: a rank's launches {r} in {steps} "
+              f"steps")
+    return _rank_launches([{'launches': r} for r in ranks])
+
+
+def phase_multichip_cli():
+    """The Solver's data-parallel route through the CLI at the flagship on
+    the quick regime's 20,000 training rows: --num_devices 2
+    --share_device true (two ranks sharing the card over gloo) at batch =
+    the training set against --num_devices 1 --shard data (world 1: the
+    plain single-process path), 5 epochs, losses and rel-L2 1e-5
+    relative, the caller's model holding the trained parameters; the quick
+    regime (10 epochs at batch 100) on the two ranks, rel-L2 in the band;
+    --shard pipe --num_devices 1 at the flagship, 3 steps (B4f, no chain
+    kernel); --num_devices 2 without --share_device, which must fail
+    naming the card count.  Returns the launches of the runs (this
+    process's and the ranks')."""
+    from quanonet_torch.parallel.shard_engine import clear_shard_context
+    share = ['--num_devices', '2', '--share_device', 'true']
+    full = ['--batch_size', '20000', '--num_epochs', '5']
+    _zero_counts()
+    record, ranks = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(name, args):
+            t0 = time.time()
+            solver = _cli(MULTISEED_ARGV + args
+                          + ['--prefix', os.path.join(tmp, name)])
+            torch.cuda.synchronize()
+            return solver, time.time() - t0
+
+        one, _ = run('world1', full + ['--num_devices', '1', '--shard',
+                                       'data'])
+        two, seconds = run('world2', full + share + ['--shard', 'data'])
+        m1, m2 = _saved_metrics(one), _saved_metrics(two)
+        h1, h2 = m1['history']['loss_train'], m2['history']['loss_train']
+        loss_dev = max(abs(a / b - 1) for a, b in zip(h2, h1))
+        rel_dev = abs(m2['metrics']['rel_l2'] / m1['metrics']['rel_l2'] - 1)
+        check(len(h2) == len(h1) == 5 and loss_dev <= DP_LOSS_RTOL
+              and rel_dev <= DP_LOSS_RTOL,
+              f"multichip_cli: world 2 losses {loss_dev:.2e}, rel-L2 "
+              f"{rel_dev:.2e} from world 1")
+        ranks['full_batch'] = _dp_cli_check('full batch', two, 5)
+        two.model.load_state_dict(two.best_params)
+        pred = two.predict_test()
+        caller_rel = float(np.linalg.norm(pred - two.test_output)
+                           / np.linalg.norm(two.test_output))
+        caller_dev = abs(caller_rel / m2['metrics']['rel_l2'] - 1)
+        check(caller_dev <= DP_LOSS_RTOL,
+              f"multichip_cli: the caller's model scores {caller_rel}, the "
+              f"ranks {m2['metrics']['rel_l2']}")
+        record['full_batch'] = {
+            "world1": "the plain single-process path",
+            "world2": "2 ranks sharing one card over gloo",
+            "loss_max_rel_dev": loss_dev, "rel_l2_rel_dev": rel_dev,
+            "rel_l2": [m1['metrics']['rel_l2'], m2['metrics']['rel_l2']],
+            "caller_rel_l2_rel_dev": caller_dev, "world2_seconds": seconds,
+            "rank_launches": two.rank_launches}
+
+        quick, seconds = run('quick', share + ['--batch_size', '100'])
+        rel = _saved_metrics(quick)['metrics']['rel_l2']
+        check(np.isfinite(rel) and rel <= QUICK_BAND_REL_L2,
+              f"multichip_cli: the quick regime on two ranks, rel-L2 {rel} "
+              f"> {QUICK_BAND_REL_L2}")
+        ranks['quick'] = _dp_cli_check('quick', quick, 2000)
+        record['quick_batch_100'] = {
+            "world2": "2 ranks sharing one card over gloo", "rel_l2": rel,
+            "band_rel_l2": QUICK_BAND_REL_L2, "seconds": seconds,
+            "train_samples_per_sec": _saved_metrics(quick)['metrics'].get(
+                'train_samples_per_sec'),
+            "rank_launches": quick.rank_launches}
+
+        before = _counts()
+        pipe, _ = run('pipe', ['--shard', 'pipe', '--num_devices', '1',
+                               '--num_train', '3', '--num_test', '5',
+                               '--num_epochs', '1', '--batch_size', '100'])
+        clear_shard_context()
+        pipe_counts = {k: v - before[k] for k, v in _counts().items()}
+        exp_dir = pipe.exp_logger.exp_dir
+        for f in ('metric.json', 'best_model.ckpt', 'best_model.npz',
+                  'final.ckpt', 'train_args.json'):
+            check(os.path.exists(os.path.join(exp_dir, f)),
+                  f"multichip_cli --shard pipe: no {f}")
+        rel = _saved_metrics(pipe)['metrics']['rel_l2']
+        check(np.isfinite(rel) and pipe_counts['ucomp_fwd'] > 0
+              and pipe_counts['hea_chain_fwd'] == 0,
+              f"multichip_cli --shard pipe: rel-L2 {rel}, launches "
+              f"{pipe_counts}")
+        record['pipe'] = {"rel_l2": rel, "launches": pipe_counts}
+
+        prefix = os.path.join(tmp, 'two')
+        try:
+            _cli(MULTISEED_ARGV + ['--prefix', prefix, '--num_devices', '2'])
+            failed = False
+        except SystemExit as e:
+            failed = e.code != 0
+        logs = [open(p).read() for p in glob.glob(
+            os.path.join(prefix, '*', '*', 'train.log'))]
+        named = any(f"the {torch.cuda.device_count()} CUDA device" in t
+                    for t in logs)
+        check(failed and named,
+              "multichip_cli: --num_devices 2 on one card did not fail "
+              "naming the card count")
+    emit({"phase": "multichip_cli", **record,
+          "num_devices_2": "raised, naming the card count"})
+    out = _counts()
+    for r in ranks.values():
+        out = _path_counts(out, r)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4069,6 +4489,15 @@ def main():
     new_paths["datagen_device"] = phase_datagen_device()
     phase_datagen_native()
     new_paths["ibm_export"] = phase_ibm_export()
+    # multi-GPU: the ranks' checks first (one start a world), then each
+    # path read with every count of this process zeroed just before it
+    runs, inputs, seconds = multichip_runs()
+    emit({"phase": "multichip_ranks", "seconds_a_world": seconds})
+    new_paths["multichip_dp"] = phase_multichip_dp(runs, inputs, smi_line)
+    new_paths["multichip_amp"] = phase_multichip_amp(runs, inputs, smi_line)
+    new_paths["multichip_pipe"] = phase_multichip_pipe(runs, inputs,
+                                                       smi_line)
+    new_paths["multichip_cli"] = phase_multichip_cli()
 
     def new(kernel):
         return {path: c[kernel] for path, c in new_paths.items()}

@@ -12,7 +12,9 @@ beside it that the CPU path and the tests use.
 Entry points (``infer.load_model``, ``serve.Predictor``, the
 ``python -m quanonet_torch.infer`` / ``.serve`` CLIs) run on ``cuda``
 unless the caller passes ``device='cpu'``; without a card they raise
-instead of carrying on on the CPU.
+instead of carrying on on the CPU.  Multi-GPU runs are one process a
+rank (``parallel/``); ``backend.device_summary()`` reports the rank and
+the world size inside a world.
 """
 import torch
 

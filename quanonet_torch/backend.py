@@ -6,6 +6,7 @@ quanonet_tpu/backend.py).  The port has one engine, so every combination
 of model and backend names resolves to the PyTorch solver.
 """
 import torch
+import torch.distributed as dist
 
 QUANTUM_MODELS = ('QuanONet', 'HEAQNN')
 CLASSICAL_MODELS = ('DeepONet', 'FNN', 'FNO')
@@ -27,13 +28,20 @@ class BackendManager:
 
     def device_summary(self):
         """The platform and its devices: the CUDA cards by name when one
-        is present, else the CPU."""
+        is present, else the CPU; inside a world of ranks
+        (``torch.distributed`` initialised: parallel/launch.py or
+        ``torchrun``) also this process's rank and the world size."""
         if torch.cuda.is_available():
             n = torch.cuda.device_count()
-            return {'platform': 'cuda', 'num_devices': n,
-                    'devices': [torch.cuda.get_device_name(i)
-                                for i in range(n)]}
-        return {'platform': 'cpu', 'num_devices': 1, 'devices': ['cpu']}
+            out = {'platform': 'cuda', 'num_devices': n,
+                   'devices': [torch.cuda.get_device_name(i)
+                               for i in range(n)]}
+        else:
+            out = {'platform': 'cpu', 'num_devices': 1, 'devices': ['cpu']}
+        if dist.is_available() and dist.is_initialized():
+            out.update(rank=dist.get_rank(),
+                       world_size=dist.get_world_size())
+        return out
 
 
 backend = BackendManager()

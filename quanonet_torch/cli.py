@@ -9,16 +9,22 @@ Runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
 card.  The reference's --quantum_backend / --classical_backend flags are
 accepted so its reproduce scripts run unchanged; every value resolves to
 the one engine.  ``--multi_seed`` trains its seeds as one packed model, or
-one after another where the step needs it (multiseed.py).  Flags of later
-slices (``--shard``, ``--num_devices`` > 1) raise naming their ROADMAP
-item.
+one after another where the step needs it (multiseed.py).
+``--num_devices N`` trains data-parallel over N ranks, ``--shard amp|pipe``
+shards the circuit's state or pipelines its block chain over them
+(parallel/): one rank a card on ``cuda`` (N beyond the card count raises;
+``--share_device true`` puts the ranks on card 0 over gloo, to check the
+code path on one card), gloo ranks sharing the host on the CPU; the Solver
+starts the ranks, or
+joins the world under ``torchrun --nproc_per_node N -m
+quanonet_torch.cli ...``.
 """
 import sys
 import traceback
 
 from quanonet_torch import resolve_device
 from quanonet_torch.config import (
-    get_base_parser, load_config, reject_unported, set_random_seed,
+    get_base_parser, load_config, set_random_seed,
 )
 
 
@@ -28,7 +34,6 @@ def main(argv=None):
     parser = get_base_parser()
     args = parser.parse_args(argv)
     config = load_config(args)
-    reject_unported(config)
     device = resolve_device(config.get('device'))
 
     model_type = config['model_type']

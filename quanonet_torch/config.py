@@ -8,8 +8,7 @@ JAX package's, which keeps them contract-compatible with the reference
 a JSON config are not clobbered by argparse-injected defaults.
 
 The port adds ``--device``: ``cuda`` by default (raising without a card),
-the CPU only when it is named.  Flags of later slices are parsed, and
-:func:`reject_unported` raises naming their ROADMAP item when one is set.
+the CPU only when it is named.
 """
 import argparse
 import json
@@ -113,14 +112,23 @@ def get_base_parser():
                              'PyTorch engine; auto picks as the JAX package '
                              'does')
     parser.add_argument('--num_devices', type=int, default=None,
-                        help='Devices for data parallelism: not ported yet '
-                             '(ROADMAP §A item 8)')
+                        help='Devices for the data-parallel mesh (default: all)')
     parser.add_argument('--shard', type=str, default=None,
                         choices=['none', 'data', 'amp', 'pipe'],
-                        help='Mesh-sharded training: not ported yet '
-                             '(ROADMAP §A item 8)')
+                        help='Mesh-sharded training: data = batch data '
+                             'parallelism (same as --num_devices alone); '
+                             'amp = amplitude sharding, the 2^n state axis '
+                             'splits across devices (Q12+ capacity); '
+                             'pipe = pipeline parallelism over the block '
+                             'chain (GPipe schedule)')
+    parser.add_argument('--share_device', type=str, default=None,
+                        help="'true' => every rank of --num_devices on "
+                             "card 0, over gloo: checks the multi-GPU code "
+                             "path on one card (no speed-up)")
     parser.add_argument('--n_microbatches', type=int, default=None,
-                        help='--shard pipe microbatches (ROADMAP §A item 8)')
+                        help='--shard pipe: microbatches per batch '
+                             '(default: the pipeline size); batch_size '
+                             'must divide evenly by it')
     parser.add_argument('--multi_seed', type=int, nargs='+', default=None,
                         help='Train these seeds together as one packed '
                              'model (or one after another where the step '
@@ -211,20 +219,6 @@ def load_config(args):
 def parse_bool(v) -> bool:
     """Reference convention: booleans arrive as strings 'true'/'false'."""
     return str(v).lower() == 'true'
-
-
-def reject_unported(config):
-    """Raise NotImplementedError, naming its ROADMAP item, for a set flag
-    of a later slice."""
-    unported = []
-    if str(config.get('shard') or 'none') != 'none':
-        unported.append(('--shard', '§A item 8'))
-    if config.get('num_devices') and int(config['num_devices']) > 1:
-        unported.append(('--num_devices > 1', '§A item 8'))
-    if unported:
-        raise NotImplementedError(
-            'not ported yet: ' + ', '.join(f'{flag} (ROADMAP {item})'
-                                           for flag, item in unported))
 
 
 def set_random_seed(seed):

@@ -7,8 +7,9 @@ byte (reference utils/logger.py:55-118, 121-190): a run ID made here
 parses with both packages' ``infer._parse_path``, and a run whose
 ``metric.json`` exists is resume-skipped.
 
-TensorBoard is optional: ``torch.utils.tensorboard`` is imported when an
-:class:`ExperimentLogger` is made, and left out when it does not import.
+TensorBoard is optional: ``torch.utils.tensorboard`` is imported at an
+:class:`ExperimentLogger`'s first scalar, and left out when it does not
+import.
 """
 import json
 import logging
@@ -142,9 +143,13 @@ class ExperimentLogger:
     Layout: ``{prefix}/{Operator}/{exp_id}/`` containing train.log,
     train_args.json, metric.json, best_model.* / final.*; TensorBoard
     scalars under ``{prefix}/{Operator}/tensorboard/{exp_id}``.
+
+    ``write=False`` (a rank other than 0 of a multi-GPU run) keeps the
+    identity and the paths and writes nothing: no directory, no scalars,
+    no metric.json.
     """
 
-    def __init__(self, config, base_output_dir="outputs"):
+    def __init__(self, config, base_output_dir="outputs", write=True):
         self.config = config
         self.operator_name = config.get('operator', 'Unknown')
         self.exp_name = get_experiment_id(config)
@@ -152,12 +157,14 @@ class ExperimentLogger:
         self.base_dir = os.path.join(base_output_dir, self.operator_name)
         self.exp_dir = os.path.join(self.base_dir, self.exp_name)
         self.tb_dir = os.path.join(self.base_dir, "tensorboard", self.exp_name)
+        self.text_log_path = os.path.join(self.exp_dir, "train.log")
+        self.write = write
+        self.writer = None
+        if not write:
+            return
         os.makedirs(self.exp_dir, exist_ok=True)
         os.makedirs(self.tb_dir, exist_ok=True)
 
-        writer = _summary_writer()
-        self.writer = writer(log_dir=self.tb_dir) if writer else None
-        self.text_log_path = os.path.join(self.exp_dir, "train.log")
         self.save_args()
 
     def save_args(self):
@@ -165,10 +172,17 @@ class ExperimentLogger:
             json.dump(self.config, f, indent=4, default=str)
 
     def log_metric(self, tag, value, step):
+        if not self.write:
+            return
+        if self.writer is None:     # opened at the first scalar
+            writer = _summary_writer()
+            self.writer = writer(log_dir=self.tb_dir) if writer else False
         if self.writer:
             self.writer.add_scalar(tag, value, step)
 
     def save_metrics(self, metrics, history=None):
+        if not self.write:
+            return
         metric_path = os.path.join(self.exp_dir, "metric.json")
         data = {'metrics': metrics}
         if history is not None:

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from quanonet_torch import resolve_device
-from quanonet_torch.config import parse_bool, reject_unported, set_random_seed
+from quanonet_torch.config import parse_bool, set_random_seed
 from quanonet_torch.data.manager import DataManager
 from quanonet_torch.logger import ExperimentLogger
 from quanonet_torch.metrics import compute_metrics, rel_l2
@@ -193,7 +193,6 @@ def train_seeds_packed(config):
     """Train the seeds of ``config['multi_seed']`` that are not completed
     as one packed model (module docstring); returns {seed: metrics}, None
     for a completed seed."""
-    reject_unported(config)
     seeds = list(config['multi_seed'])
     prefix = config.get('prefix') or "outputs"
     pending = _pending(config)

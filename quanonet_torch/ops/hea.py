@@ -432,6 +432,10 @@ FUSED_MIN_QUBITS = 8  # the JAX package auto-routes n >= 8 to its fused engines
 
 ENGINES = ('dense', 'gates', 'fused', 'pallas', 'embed', 'pfused')
 
+# The sharded engines (parallel/shard_engine.py): never chosen by 'auto';
+# the Solver's --shard amp|pipe installs their group first.
+SHARDED_ENGINES = ('amp', 'pipe')
+
 
 def resolve_engine(engine, n_qubits: int, device) -> str:
     """Engine name -> the engine that runs.  ``'auto'``: below
@@ -439,8 +443,8 @@ def resolve_engine(engine, n_qubits: int, device) -> str:
     the plain chain (``'dense'``) on the CPU; from there the fused-group
     chain kernels (``'pfused'``) on a card up to
     cuda_fused.AUTO_MAX_QUBITS, the grouped-kron engine (``'fused'``) above
-    and on the CPU.  Explicit engines are honoured on either device;
-    engines of later slices raise, never reroute."""
+    and on the CPU.  Explicit engines are honoured on either device, the
+    sharded ones ('amp', 'pipe') among them; an unknown name raises."""
     if engine in ('auto', None):
         cuda = torch.device(device).type == 'cuda'
         if n_qubits >= FUSED_MIN_QUBITS:
@@ -448,9 +452,9 @@ def resolve_engine(engine, n_qubits: int, device) -> str:
             return 'pfused' if cuda and n_qubits <= AUTO_MAX_QUBITS \
                 else 'fused'
         return 'pallas' if cuda else 'dense'
-    if engine not in ENGINES:
+    if engine not in ENGINES + SHARDED_ENGINES:
         raise ValueError(f"unknown engine '{engine}' (choose from "
-                         f"{('auto',) + ENGINES})")
+                         f"{('auto',) + ENGINES + SHARDED_ENGINES})")
     return engine
 
 
@@ -472,6 +476,11 @@ def resolve_inference_engine(engine, n_qubits: int, device) -> str:
 def hea_forward_pair(spec: HEASpec, weights, x, engine='auto'):
     """Evolve |0…0⟩; returns (sr, si) each (batch, 2^n) float32."""
     engine = resolve_engine(engine, spec.n_qubits, x.device)
+    if engine in SHARDED_ENGINES:
+        raise ValueError(
+            f"engine '{engine}' computes expectations only (the state is "
+            f"sharded over the ranks and never gathered); use "
+            f"hea_expectation, or a single-device engine for the state")
     if engine == 'dense':
         return forward_dense(spec, weights, x)
     if engine == 'gates':
@@ -505,9 +514,13 @@ def hea_expectation(spec: HEASpec, weights, x, diag=None, pauli='Z',
     offset/coeff parameterise Σ X_i / Σ Y_i observables otherwise.
     """
     resolved = resolve_engine(engine, spec.n_qubits, x.device)
+    if pauli == 'Z' and diag is None:
+        raise ValueError("Z-basis measurement requires a diagonal")
+    if resolved in SHARDED_ENGINES:
+        from quanonet_torch.parallel.shard_engine import sharded_expectation
+        return sharded_expectation(spec, weights, x, diag, pauli=pauli,
+                                   offset=offset, coeff=coeff)
     if pauli == 'Z':
-        if diag is None:
-            raise ValueError("Z-basis measurement requires a diagonal")
         diag = torch.as_tensor(diag, dtype=torch.float32, device=x.device)
         if resolved == 'pallas':
             from quanonet_torch.ops.cuda_hea import hea_expectation_pallas

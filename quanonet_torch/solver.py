@@ -34,6 +34,11 @@ generator; on ``cuda`` up to 7 qubits without damping each trajectory is
 one chain launch on the shared compile (B1f and B1b a trajectory, B4f and
 B4b a step).
 
+Multi-GPU (parallel/, :class:`Solver`): ``--num_devices N`` trains
+data-parallel over N ranks (parallel/dp_solver.py), ``--shard amp|pipe``
+runs the model's expectation on the amplitude-sharded or the pipelined
+engine; one process a rank over ``torch.distributed``.
+
 The random streams are torch's, not JAX's: parameters are drawn from a
 ``torch.Generator`` seeded with the run seed, epoch e's permutation from
 one seeded with (seed, e), and a sampled, noisy or SPSA step t from
@@ -41,6 +46,7 @@ generators seeded from (seed, t), so a resumed run replays them.
 Training is held to the JAX package by outcome and, step by step, in the
 tests (which hand both the same parameters and permutations).
 """
+import logging
 import math
 import os
 import sys
@@ -51,7 +57,7 @@ import torch
 
 from quanonet_torch import checkpoint as ckpt_io
 from quanonet_torch import resolve_device
-from quanonet_torch.config import parse_bool, reject_unported
+from quanonet_torch.config import parse_bool
 from quanonet_torch.convert import raw_from_state_dict, state_dict_from_raw
 from quanonet_torch.data.manager import DataManager
 from quanonet_torch.logger import ExperimentLogger, StreamToLogger, setup_logger
@@ -59,6 +65,7 @@ from quanonet_torch.metrics import compute_metrics, count_parameters, rel_l2
 from quanonet_torch.ops.noise import is_noisy
 from quanonet_torch.ops.param_shift import make_spsa_step
 from quanonet_torch.ops.sampling import derive_seed, key_generator
+from quanonet_torch.parallel import comm, launch
 
 QUANTUM_MODELS = ('QuanONet', 'HEAQNN')
 CLASSICAL_MODELS = ('DeepONet', 'FNN', 'FNO')
@@ -401,6 +408,31 @@ def predict_chunks(model, inputs, batch_size, device, seed=None):
     return np.concatenate(preds, axis=0)
 
 
+def predict_chunks_sharded(model, inputs, batch_size, group, seed=None):
+    """:func:`predict_chunks` with each chunk's rows shared over ``group``:
+    the chunk padded to a multiple of the group's size by repeating its
+    first rows, each rank predicting its contiguous share, the shares
+    gathered back (the JAX package's sharded evaluation).  A sampled model
+    draws chunk s of rank r from a generator seeded from (seed, s, r)."""
+    chunk = max(batch_size, 4096)
+    n, world = inputs[0].shape[0], group.world
+    preds = []
+    with torch.inference_mode():
+        for s in range(0, n, chunk):
+            real = min(chunk, n - s)
+            rows = np.arange(real + (-real) % world) % real + s
+            share = rows.size // world
+            mine = rows[group.rank * share:(group.rank + 1) * share]
+            batch = tuple(torch.as_tensor(a[mine], device=group.device)
+                          for a in inputs)
+            kw = ({'generator': key_generator(seed, s, group.rank,
+                                              device=group.device)}
+                  if seed is not None else {})
+            out = comm.all_gather_rows(model(*batch, **kw), group)
+            preds.append(out[:real].cpu().numpy())
+    return np.concatenate(preds, axis=0)
+
+
 def make_train_epoch(model, optimizer, num_samples, batch_size, per_sample,
                      seed=0, spsa_c=None):
     """One training epoch: ``train_epoch(perm, inputs, outputs, epoch=0) ->
@@ -562,26 +594,56 @@ def load_train_state(path, model, optimizer):
                 [float(x) for x in z['loss_hist']])
 
 
+def _available_devices(device):
+    """The devices a run may spread over when --num_devices is not given:
+    every card on ``cuda``, one on the CPU."""
+    return torch.cuda.device_count() if device.type == 'cuda' else 1
+
+
 class Solver:
     """__init__(config) / train() -> history / evaluate(history) -> metrics
-    (uniform interface, reference main.py:114-115)."""
+    (uniform interface, reference main.py:114-115).
+
+    Multi-GPU (``--num_devices N``, ``--shard data|amp|pipe``): one process a
+    rank over ``torch.distributed`` (parallel/).  A Solver made outside a
+    world is the run's caller: at N > 1 its ``train`` starts the ranks
+    (``launch.Ranks``, kept until ``evaluate`` ends; each rank makes its own
+    Solver on the caller's data), and ``train`` and ``evaluate`` return
+    what a single run returns, rank 0's, with the trained parameters
+    loaded into the caller's model.  A Solver made inside a world (under
+    ``torchrun``, or in a rank of ``launch.Ranks``) is that rank.  Only
+    rank 0 writes logs, checkpoints, snapshots and metric.json; the caller
+    records rank 0's TensorBoard scalars in its own writer, and keeps each
+    rank's kernel launches of train and evaluate in ``rank_launches``.
+    ``share_device`` puts every rank on card 0 over gloo (a check of the
+    code path on one card, not a speed-up).  ``--shard amp|pipe`` at N = 1
+    runs in this process on a world-1 group."""
 
     def __init__(self, config, input_sampler=None, data=None):
         """``data``: the processed dataset to train on, in place of the
-        DataManager's (multi-seed training with fresh data per seed)."""
-        reject_unported(config)
+        DataManager's (multi-seed training with fresh data per seed, and
+        the ranks of a multi-GPU run)."""
         _check_model_type(config['model_type'])
         self.config = config
         self.operator_type = config['operator']
         self.model_type = config['model_type']
         self.device = resolve_device(config.get('device'))
+        self.share_device = parse_bool(config.get('share_device', False))
+        self.group = launch.current_group(self.device, self.share_device)
+        self.rank = self.group.rank if self.group is not None else 0
 
         prefix = config.get('prefix') or "outputs"
-        self.exp_logger = ExperimentLogger(config, base_output_dir=prefix)
+        self.exp_logger = ExperimentLogger(config, base_output_dir=prefix,
+                                           write=self.rank == 0)
         self.run_id = self.exp_logger.exp_name
         self.config['run_id'] = self.run_id
 
-        self.logger = setup_logger(self.exp_logger.text_log_path)
+        if self.rank == 0:
+            self.logger = setup_logger(self.exp_logger.text_log_path)
+        else:
+            self.logger = logging.getLogger(f'training.rank{self.rank}')
+            self.logger.propagate = False
+            self.logger.addHandler(logging.NullHandler())
         sys.stdout = StreamToLogger(self.logger)
         self.logger.info(f"Initialized Solver (PyTorch) for "
                          f"{self.model_type} on {self.device}")
@@ -594,14 +656,136 @@ class Solver:
         self._route_data()
 
         self.seed = int(config.get('seed') or 0)
+        engine = config.get('engine', 'auto')
+        self.shard_mode, self.world = self._setup_sharding()
+        build_cfg = config
+        if self.shard_mode in ('amp', 'pipe') and self.group is None:
+            # the caller of a sharded run: its own model (which receives
+            # the trained parameters) runs a single-device engine
+            build_cfg = dict(config, engine=engine)
         self.model, self.input_mode = build_model(
-            config, self.data, device=self.device,
+            build_cfg, self.data, device=self.device,
             generator=torch.Generator().manual_seed(self.seed))
         self.params = _clone(self.model)
         self.logger.info(f"Model Parameters: {count_parameters(self.model)}")
         self.best_loss = float('inf')
         self.best_params = None
         self.best_model_path = None
+        self._ranks = None       # the caller's rank processes (N > 1)
+        self.rank_launches = []  # their kernel launches, one dict a rank
+
+    # ── multi-GPU (--num_devices, --shard data|amp|pipe) ────────────────────
+    def _setup_sharding(self):
+        """(shard mode, device count), with the JAX package's guards
+        (quanonet_tpu/solver.py _setup_sharding).
+
+        'data' (or no --shard) with N > 1 trains data-parallel
+        (parallel/dp_solver.py); 'amp' shards the 2^n state over the ranks
+        (parallel/amplitude.py), 'pipe' pipelines the block chain
+        (parallel/pipeline.py).  amp/pipe install this process's shard
+        context and set the model engine, so every expectation (train
+        loss, evaluation) runs the sharded program."""
+        config = self.config
+        mode = str(config.get('shard') or 'none').lower()
+        if mode not in ('none', 'data', 'amp', 'pipe'):
+            raise ValueError(f"--shard must be one of none/data/amp/pipe, "
+                             f"got '{mode}'")
+        n_dev = int(config.get('num_devices') or 0)
+        if self.group is not None:
+            if n_dev and n_dev != self.group.world:
+                raise ValueError(f"--num_devices {n_dev} in a world of "
+                                 f"{self.group.world} ranks")
+            n_dev = self.group.world
+        elif n_dev <= 0:
+            n_dev = _available_devices(self.device) if mode != 'none' else 1
+        else:
+            launch.check_devices(n_dev, self.device, self.share_device)
+        config['num_devices'] = n_dev
+        gm = str(config.get('grad_method') or 'autodiff')
+        if mode in ('none', 'data'):
+            if n_dev > 1 and (gm != 'autodiff' or config.get('train_shots')):
+                raise ValueError(
+                    "--grad_method shift/spsa and --train_shots are "
+                    "single-device for now; drop --num_devices")
+            return mode, n_dev
+        if self.model_type not in QUANTUM_MODELS:
+            raise ValueError(f"--shard {mode} shards the quantum state/"
+                             f"circuit; {self.model_type} has neither "
+                             f"(use --shard data)")
+        for k in ('noise_p', 'readout_p', 'damp_gamma', 'dephase_p',
+                  'train_shots', 'multi_seed', 'ps_chunk', 'spsa_c'):
+            if config.get(k):
+                raise ValueError(f"--shard {mode} is incompatible with "
+                                 f"--{k} for now")
+        if gm != 'autodiff':
+            raise ValueError(f"--shard {mode} trains by autodiff through "
+                             f"the collectives; drop --grad_method")
+        from quanonet_torch.ops.hea import heaqnn_spec, quanonet_spec
+        from quanonet_torch.parallel.shard_engine import (
+            set_shard_context, validate_shard_config,
+        )
+        if self.model_type == 'QuanONet':
+            spec = quanonet_spec(config['num_qubits'],
+                                 tuple(config.get('net_size')
+                                       or (20, 2, 10, 2)))
+        else:
+            spec = heaqnn_spec(config['num_qubits'],
+                               tuple(config.get('net_size') or (20, 2)))
+        validate_shard_config(mode, n_dev, spec,
+                              batch_size=int(config.get('batch_size', 100)),
+                              n_microbatches=config.get('n_microbatches'))
+        if self.group is None and n_dev == 1:
+            self.group = comm.Group(device=self.device)
+        if self.group is not None:
+            set_shard_context(self.group, mode,
+                              n_microbatches=config.get('n_microbatches'))
+        config['engine'] = mode
+        self.logger.info(
+            f"Sharded training: --shard {mode} over {n_dev} devices "
+            f"(Q{spec.n_qubits}, {spec.n_blocks} blocks)")
+        return mode, n_dev
+
+    def _on_ranks(self, fn, *args):
+        """``fn(group, *args)`` on the run's ranks, started at the first
+        call and kept until evaluate() ends; rank 0's result.  Each rank's
+        result carries its kernel launches, added to ``rank_launches``."""
+        if self._ranks is None:
+            self.logger.info(f"Starting {self.world} ranks...")
+            self._ranks = launch.Ranks(self.world, self.device,
+                                       self.share_device)
+        results = self._ranks.call(fn, *args)
+        if not self.rank_launches:
+            self.rank_launches = [{} for _ in results]
+        for mine, r in zip(self.rank_launches, results):
+            for k, v in r['launches'].items():
+                mine[k] = mine.get(k, 0) + v
+        return results[0]
+
+    def _train_ranks(self):
+        """The caller's train(): the ranks train and rank 0 writes the
+        checkpoints; the caller records rank 0's scalars and its model
+        takes the trained parameters."""
+        from quanonet_torch.parallel import _workers
+        r = self._on_ranks(_workers.solver_train, dict(self.config),
+                           self.data)
+        for tag, value, step in r['scalars']:
+            self.exp_logger.log_metric(tag, value, step)
+
+        def tensors(sd):
+            return {k: torch.as_tensor(v) for k, v in sd.items()}
+        self.params = tensors(r['params'])
+        self.model.load_state_dict(self.params)
+        self.best_params = (tensors(r['best_params'])
+                            if r['best_params'] is not None else None)
+        self.best_loss = r['best_loss']
+        self.best_model_path = r['best_model_path']
+        if r['train_samples_per_sec'] is not None:
+            self.train_samples_per_sec = r['train_samples_per_sec']
+        return r['history']
+
+    @property
+    def _data_parallel(self):
+        return self.world > 1 and self.shard_mode in ('none', 'data')
 
     # ── data routing (reference solver_ms.py:72-89) ─────────────────────────
     def _route_data(self):
@@ -627,6 +811,8 @@ class Solver:
             print("⏩ [Resume] Experiment already completed "
                   "(metric.json found). Skipping training.")
             sys.exit(0)
+        if self.group is None and self.world > 1:
+            return self._train_ranks()
 
         self.logger.info("Starting Training...")
         config = self.config
@@ -655,31 +841,53 @@ class Solver:
             return history
 
         dev = self.device
-        inputs = tuple(torch.as_tensor(a, device=dev)
-                       for a in self.train_inputs)
-        outputs = torch.as_tensor(self.train_output, device=dev)
         out_norm_sq = float(np.sum(self.train_output.astype(np.float64) ** 2))
         per_sample = int(np.prod(self.train_output.shape[1:]))
-        gm = str(config.get('grad_method') or 'autodiff')
-        spsa_c = (float(config.get('spsa_c') or 0.05) if gm == 'spsa'
-                  else None)
-        run_segment = make_run_segment(
-            make_train_epoch(self.model, optimizer, num_samples, batch_size,
-                             per_sample, seed=self.seed, spsa_c=spsa_c),
-            self.model)
+        if self._data_parallel:
+            from quanonet_torch.parallel.dp_solver import (
+                local_permutation, make_dp_run_segment,
+            )
+            run_segment, shard_data = make_dp_run_segment(
+                self.model, optimizer, self.group, num_samples, batch_size,
+                per_sample, seed=self.seed)
+            inputs, outputs = shard_data(self.train_inputs,
+                                         self.train_output)
+            rank = self.group.rank
+
+            def perm_of(e):
+                return local_permutation(self.seed, e, rank,
+                                         run_segment.local_n)
+            self.logger.info(f"Data-parallel training over {self.world} "
+                             f"devices")
+        else:
+            inputs = tuple(torch.as_tensor(a, device=dev)
+                           for a in self.train_inputs)
+            outputs = torch.as_tensor(self.train_output, device=dev)
+            gm = str(config.get('grad_method') or 'autodiff')
+            spsa_c = (float(config.get('spsa_c') or 0.05) if gm == 'spsa'
+                      else None)
+            run_segment = make_run_segment(
+                make_train_epoch(self.model, optimizer, num_samples,
+                                 batch_size, per_sample, seed=self.seed,
+                                 spsa_c=spsa_c),
+                self.model)
+
+            def perm_of(e):
+                return epoch_permutation(self.seed, e, num_samples)
 
         seg = int(config.get('epochs_per_sync') or _segment_size(epochs))
         best_loss = float('inf')
         best_params = _clone(self.model)
-        if_save = config.get('if_save', True)
-        profile_dir = config.get('profile')
+        writes = self.rank == 0
+        if_save = config.get('if_save', True) and writes
+        profile_dir = config.get('profile') if writes else None
         done = 0
 
         # Elastic mid-run resume (--save_state): snapshot (epoch, params,
         # optimizer state, best) at every segment boundary; a killed run
         # restarted with the identical config continues from the last
         # boundary bit-identically (epoch e's permutation depends on
-        # (seed, e) only).
+        # (seed, e) only, and on the rank in a data-parallel run).
         save_state = parse_bool(config.get('save_state', 'false'))
         state_path = os.path.join(self.exp_logger.exp_dir, 'train_state.npz')
         if save_state and os.path.exists(state_path):
@@ -693,8 +901,7 @@ class Solver:
         t0 = time.time()
         while done < epochs:
             n = min(seg, epochs - done)
-            perms = [epoch_permutation(self.seed, e, num_samples)
-                     for e in range(done, done + n)]
+            perms = [perm_of(e) for e in range(done, done + n)]
             if profile_dir and ((done == seg) or (seg >= epochs
                                                   and done == 0)):
                 # the second segment (the first builds the kernels), or
@@ -731,12 +938,12 @@ class Solver:
                     self.best_model_path = self.exp_logger.get_ckpt_path()
                     self._save_checkpoint(self.best_params,
                                           self.best_model_path)
-            if save_state and done < epochs:
+            if save_state and writes and done < epochs:
                 save_train_state(state_path, done, self.model, optimizer,
                                  best_loss, best_params,
                                  history['loss_train'])
 
-        if save_state and os.path.exists(state_path):
+        if save_state and writes and os.path.exists(state_path):
             os.remove(state_path)           # run completed; snapshot obsolete
         self._sync()
         wall = time.time() - t0
@@ -772,17 +979,36 @@ class Solver:
     def predict_test(self):
         """The model's predictions on the test inputs, (n, 1) NumPy, in
         chunks of max(batch_size, 4096) rows under inference mode (so the
-        chain takes the primal-only kernel).  A model trained with shots or
-        under a noise channel is evaluated with them, chunk s drawing from
-        a generator seeded from (run seed, s), as the JAX package keys
-        it."""
+        chain takes the primal-only kernel); data-parallel, each chunk's
+        rows shared over the ranks (:func:`predict_chunks_sharded`).  A
+        model trained with shots or under a noise channel is evaluated with
+        them, chunk s drawing from a generator seeded from (run seed, s),
+        as the JAX package keys it."""
         sampled = bool(getattr(self.model, 'sampled', False))
-        return predict_chunks(self.model, self.test_inputs,
-                              self.config.get('batch_size', 100), self.device,
-                              self.seed if sampled else None)
+        seed = self.seed if sampled else None
+        batch_size = self.config.get('batch_size', 100)
+        if self._data_parallel and self.group is not None:
+            return predict_chunks_sharded(self.model, self.test_inputs,
+                                          batch_size, self.group, seed)
+        return predict_chunks(self.model, self.test_inputs, batch_size,
+                              self.device, seed)
 
     def evaluate(self, history=None):
         self.logger.info("Evaluating...")
+        if self.group is None and self.world > 1:
+            from quanonet_torch.parallel import _workers
+            params = (self.best_params if self.best_params is not None
+                      else self.params)
+            try:
+                metrics = self._on_ranks(
+                    _workers.solver_evaluate, dict(self.config), self.data,
+                    {k: v.cpu().numpy() for k, v in params.items()},
+                    history)['metrics']
+            finally:
+                self._ranks.close()
+                self._ranks = None
+            self.exp_logger.close()
+            return metrics
         if self.best_params is not None:
             self.model.load_state_dict(self.best_params)
             self.logger.info("Using best-epoch parameters")

@@ -326,17 +326,13 @@ def test_cli_end_to_end_and_resume_skip(isolated):
     (['--datagen', 'native'], '§A item 7'),
 ])
 def test_cli_unported_flags_raise(isolated, flags, item):
-    """Flags of §A item 8 raise naming it and leave nothing behind; the
-    --datagen routes of §A item 7, which raised until they were ported,
-    now generate their data (cached under _dg<route>), train and evaluate
-    through the CLI on the CPU."""
+    """The flags of §A item 8 (--shard, --num_devices) and the --datagen
+    routes of §A item 7, which raised until they were ported, now train
+    and evaluate through the CLI on the CPU (two gloo ranks for
+    --num_devices 2; --shard amp alone runs on one device, in this
+    process); the generated routes cache under _dg<route>."""
     base = ['--operator', 'Antideriv', '--model_type', 'QuanONet',
             '--device', 'cpu', '--prefix', str(isolated / 'o')]
-    if item == '§A item 8':
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(base + flags)
-        assert not os.path.exists(isolated / 'o')
-        return
     solver = cli.main(base + flags + [
         '--net_size', '2', '1', '2', '1', '--num_qubits', '2',
         '--num_epochs', '1', '--num_train', '10', '--num_test', '5',
@@ -344,6 +340,14 @@ def test_cli_unported_flags_raise(isolated, flags, item):
         '--train_sample_num', '5', '--test_sample_num', '5'])
     with open(os.path.join(solver.exp_logger.exp_dir, 'metric.json')) as f:
         assert np.isfinite(json.load(f)['metrics']['rel_l2'])
+    if item == '§A item 8':
+        from quanonet_torch.parallel.shard_engine import clear_shard_context
+        clear_shard_context()
+        if flags[0] == '--num_devices':
+            assert solver.world == 2
+        else:
+            assert solver.config['engine'] == 'amp'
+        return
     route = flags[1]
     assert os.listdir(isolated / 'data' / 'Antideriv') == [
         f'Antideriv_10_5_20_5_5_5_dg{route}.npz']
