@@ -3,7 +3,11 @@
 Drives the PyTorch/CUDA port (quanonet_torch) on one NVIDIA card and checks
 it.  Run from the root of a checkout:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases a,b,...]
+
+Without arguments every phase below runs.  ``--phases`` runs only the
+named ones (names as in PHASES), with device, build and the phases whose
+results they take (PHASE_NEEDS); it prints no kernels line.
 
 Phases, each printed as one JSON line:
 
@@ -275,8 +279,8 @@ Phases, each printed as one JSON line:
              batch 100, worlds 1, 2, 4 against the unsharded 'pfused'
              engine (B2f, B2b): outputs 1e-4, the weight gradient 1e-3 ×
              max(1, max|g|); the forward's exchanges equal
-             sharded_collective_counts; ms of one shard's forward and
-             backward under virtual_global k = 1, 2, 3.
+             sharded_collective_counts; one shard's forward under
+             virtual_global k = 1, 2, 3 from bench_amplitude's rows.
 42. multichip_pipe — the pipelined engine on the flagship's 60 blocks, 4
              microbatches at batch 100, worlds 1, 2, 4 against the
              unsharded block-chain engine, the same limits; one B4f launch
@@ -293,6 +297,29 @@ Phases, each printed as one JSON line:
              --num_devices 1 at the flagship (3 steps: B4f, no chain
              kernel); --num_devices 2 without --share_device, which must
              fail naming the card count.
+44. bench_amplitude — quanonet_torch.bench_amplitude (after
+             multichip_ranks): the Q12 Net4-2-4-2 sharded forward against
+             'pfused' (1e-4) and the Q16/Q18/Q20 capacity forwards at world
+             1 (NCCL) and world 2 (ranks sharing the card; run in
+             multichip_runs' start of each world), each row's
+             exchanges the counted model's; one shard's forward under
+             virtual_global at the JAX script's four cases (k = 3) and Q12
+             Net40-2-20-2 batch 100 at k = 1, 2, 3, in turns with 'pfused':
+             finite, local state 2^(n-k); ms, busy share, peak memory.
+45. profile_q10 — quanonet_torch.profile_q10 at Q10 Net40-2-20-2, batch
+             100, PROFILE_Q10_ITERS calls a component: the 'pfused' step's
+             components and the 'fused' ablations (ms, device rows, busy
+             share, launches); full_step the Solver's step bit for bit over
+             5 steps, fwd_full bit-equal to forward_fused, every ablation
+             finite, B2f/B2b a call as counted.
+46. bench_serve — quanonet_torch.bench_serve on the Advection anchor (Q5)
+             and the seeded Q10 checkpoint, buckets 1 … 8192: median
+             latency, rows/s, peak memory a bucket, HTTP overhead at 64;
+             every timed request and the HTTP answer equal
+             Predictor.predict bit for bit.
+47. bench_suite — quanonet_torch.bench_suite --quick: the JAX suite's four
+             lines on the port, values and rel-L2 finite, the Q5 Advection
+             rel-L2 below 1.0; the default route's kernels launched.
 The kernel phase (3) also holds B1f at N = 60,000 and, at Q7, 84,000: the
 rows of the shift rule's encode-shift batch at the flagship and at Q7.
 
@@ -300,18 +327,21 @@ Each path (serve, train, train_q10, serve_q10, profile_step, serve_ucomp,
 train_embed, serve_embed, train_shift, train_spsa, serve_shots,
 serve_shots_q10, shift_grad, multiseed, infer_from_name, noise_forward,
 noise_zne, noise_damping, noise_train, infer_noise, multiseed_packed,
-multiseed_packed_q10, seedpack, datagen_device, ibm_export, multichip_dp,
-multichip_amp, multichip_pipe, multichip_cli) starts with every launch
+multiseed_packed_q10, seedpack, datagen_device, ibm_export,
+bench_amplitude, multichip_dp, multichip_amp, multichip_pipe,
+multichip_cli, profile_q10, bench_serve, bench_suite) starts with every launch
 count at 0 and reads them when it ends; a multichip path adds the ranks'
 own counts, read in each rank around the driven window.  A card time
 ("device_ms") comes from a warmed profiler
 window (each kernel's mean over the rows it kept), else from the launches
 queued back to back behind a sleep (kernel_device_ms); the run's count of
-each source is the device_time_sources line.  Then the {"kernels": [...]} line,
-the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failed
+each source is the device_time_sources line.  Then the {"phase_seconds":
+{...}} line (each phase's wall seconds), the {"kernels": [...]} line, the
+nvidia-smi line, and last {"ok": true, "device": {...}}.  Any failed
 check exits non-zero before the last line.  Needs one card; exits 1
 without CUDA.
 """
+import argparse
 import glob
 import json
 import os
@@ -330,8 +360,9 @@ import torch
 from torch.utils import cpp_extension
 
 from quanonet_torch import (
-    bench, cli, ibm_export, ibm_inference, multiseed, profile_seedpack,
-    profile_step, time_chain,
+    bench, bench_amplitude, bench_serve, bench_suite, cli, ibm_export,
+    ibm_inference, multiseed, profile_q10, profile_seedpack, profile_step,
+    time_chain,
 )
 from quanonet_torch.config import (
     get_base_parser, load_config, set_random_seed,
@@ -348,6 +379,9 @@ from quanonet_torch.ops import (
     fused_gates, hea, noise, param_shift,
 )
 from quanonet_torch.ops.hamiltonian import simple_ham_diag
+from quanonet_torch.profile_step import (
+    launch_counts as _counts, profile_steps,
+)
 from quanonet_torch.serve import Predictor, make_server
 from quanonet_torch.solver import (
     ScheduledOptimizer, _decay_tuple_schedule, epoch_permutation,
@@ -904,13 +938,6 @@ def phase_train():
     return counts, result
 
 
-def _device_us(event):
-    for name in ('self_device_time_total', 'self_cuda_time_total'):
-        if hasattr(event, name):
-            return getattr(event, name)
-    return 0.0
-
-
 def train_breakdown(steps=20):
     """Where one training step's time goes, flagship at batch 100 on the
     card: host clock with a synchronise for the whole step, the forward
@@ -918,7 +945,6 @@ def train_breakdown(steps=20):
     events for the two chain kernels; a torch.profiler window for the
     device's busy share and the kernels that take it.  Runs outside the
     counted windows."""
-    from torch.profiler import ProfilerActivity, profile
     dev = torch.device('cuda')
     data = quick_data()
     idx = epoch_permutation(0, 0, data['train_output'].shape[0])[:100].numpy()
@@ -955,8 +981,7 @@ def train_breakdown(steps=20):
         "kernel_bwd_ms": time_ms(lambda: cuda_hea.chain_backward(
             *ops, fwd[2], fwd[3], g, g), steps),
     }
-    out.update(profile_steps(step, steps, profile, ProfilerActivity,
-                             warm=3))
+    out.update(profile_steps(step, steps, warm=3))
     return out
 
 
@@ -1276,18 +1301,6 @@ def _zero_counts():
     cuda_embed.launches = cuda_embed.bwd_launches = 0
 
 
-def _counts():
-    return {"hea_chain_fwd": cuda_hea.launches,
-            "hea_chain_bwd": cuda_hea.bwd_launches,
-            "fused_chain_fwd": cuda_fused.launches,
-            "fused_chain_bwd": cuda_fused.bwd_launches,
-            "ucomp_fwd": cuda_ucomp.launches,
-            "ucomp_bwd": cuda_ucomp.bwd_launches,
-            "adam_step": cuda_adam.launches,
-            "embed_chain_fwd": cuda_embed.launches,
-            "embed_chain_bwd": cuda_embed.bwd_launches}
-
-
 def phase_train_q10():
     """The training path at Q10: one epoch of the CLI (engine 'auto' ->
     'pfused'); returns the launches in it."""
@@ -1343,7 +1356,6 @@ def train_breakdown_q10(steps=10):
     for the step, the forward and the Adam step; CUDA events for the two
     fused-group kernels; a torch.profiler window for the card's busy
     share.  Runs outside the counted windows."""
-    from torch.profiler import ProfilerActivity, profile
     dev = torch.device('cuda')
     data = quick_data()
     idx = epoch_permutation(0, 0, data['train_output'].shape[0])[:100].numpy()
@@ -1382,60 +1394,8 @@ def train_breakdown_q10(steps=10):
         "kernel_bwd_ms": time_ms(lambda: cuda_fused.chain_backward(
             *ops, lds, fwd[2], fwd[3], g, g), steps),
     }
-    out.update(profile_steps(step, steps, profile, ProfilerActivity,
-                             warm=3))
+    out.update(profile_steps(step, steps, warm=3))
     return out
-
-
-def profile_steps(step, steps, profile, activity, match=None, warm=0):
-    """The card's busy share over ``steps`` calls of step() under
-    torch.profiler, and the kernels that take it; with ``match``, only the
-    kernels whose name holds it.  With ``warm``, the window starts after
-    ``warm`` calls made under the profiler (its schedule's warm-up step):
-    a fresh window can miss the rows of its first kernels.  The device
-    rows are the card's own (kernels, copies), not the spans that
-    ``record_function`` annotations (such as ``Optimizer.step``) also get
-    on the card's timeline."""
-    try:
-        torch.cuda.synchronize()
-        sched = ({"schedule": torch.profiler.schedule(
-            wait=0, warmup=1, active=1, repeat=1)} if warm else {})
-        with profile(activities=[activity.CPU, activity.CUDA],
-                     **sched) as prof:
-            if warm:
-                for _ in range(warm):
-                    step()
-                torch.cuda.synchronize()
-                prof.step()
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                step()
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-            if warm:
-                prof.step()
-        # the card's own rows (kernels, copies): a CPU op's device time is
-        # that of the kernels it launched, which have rows of their own
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, 'is_user_annotation', False)
-                   and (match is None or match in e.key)]
-        busy_us = sum(_device_us(e) for e in kernels)
-        if not busy_us:
-            return {"profiler_error": "no device rows in the trace"}
-        top = sorted(kernels, key=_device_us, reverse=True)[:8]
-        return {
-            "profiled_steps": steps, "profiled_wall_ms": wall_us / 1e3,
-            "device_busy_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / wall_us,
-            "device_kernels": sum(e.count for e in kernels),
-            "device_kernels_per_step": sum(e.count for e in kernels) / steps,
-            # each row's launches and card time, by kernel
-            "device_rows": [(e.count, _device_us(e) / 1e3) for e in kernels],
-            "top_device_ms_per_step": {
-                e.key[:60]: _device_us(e) / 1e3 / steps for e in top}}
-    except RuntimeError as e:     # the profiler is a measurement, no check
-        return {"profiler_error": str(e)[:200]}
 
 
 def _q10_checkpoint(tmp):
@@ -1590,8 +1550,7 @@ def smallest_launch():
 
 
 def _profiled(step, steps=10, match=None, warm=3):
-    from torch.profiler import ProfilerActivity, profile
-    return profile_steps(step, steps, profile, ProfilerActivity, match, warm)
+    return profile_steps(step, steps, match, warm)
 
 
 # where each card time of kernel_device_ms came from, for the run's record
@@ -2922,7 +2881,6 @@ def qpu_steps():
     chain an evaluation): it is timed over one step and not profiled, a
     trace of that size takes minutes to read.  Outside the counted
     windows."""
-    from torch.profiler import ProfilerActivity, profile
     dev = torch.device('cuda')
     spec = hea.quanonet_spec(*FLAGSHIP)
     evals = 1 + 2 * spec.total_sublayers * 3 * spec.n_qubits \
@@ -2943,8 +2901,7 @@ def qpu_steps():
                "reps": reps}
         if name != "shift_shots":
             rec["host_ms"] = host_ms(step, reps)
-            prof = profile_steps(step, reps, profile, ProfilerActivity,
-                                 warm=1)
+            prof = profile_steps(step, reps, warm=1)
             rec.update({k: prof.get(k) for k in (
                 "device_busy_share", "device_busy_ms",
                 "device_kernels_per_step", "profiler_error")})
@@ -3379,8 +3336,7 @@ def phase_kernel_noise():
 
 def _path_timing(fn, reps):
     """CUDA-event ms, device rows and the busy share of fn()."""
-    from torch.profiler import ProfilerActivity, profile
-    prof = profile_steps(fn, reps, profile, ProfilerActivity, warm=1)
+    prof = profile_steps(fn, reps, warm=1)
     return {"ms": time_ms(fn, reps), "reps": reps,
             **{k: prof.get(k) for k in ("device_busy_share",
                                         "device_busy_ms",
@@ -4053,7 +4009,7 @@ AMP_Q = 12
 AMP_OUT_TOL = 1e-4
 SHARD_GRAD_TOL = 1e-3          # × max(1, max|g|), the shift rule's limit
 PIPE_MICROBATCHES = 4
-VIRTUAL_GLOBAL = (1, 2, 3)
+AMP_BENCH_WORLDS = (1, 2)      # bench_amplitude's sharded rows
 
 
 def _multichip_inputs():
@@ -4087,8 +4043,9 @@ def _dp_perms():
 
 
 def multichip_runs():
-    """Every multi-GPU check on the ranks, one start a world: world 1 on
-    NCCL, worlds 2 and 4 sharing the card over gloo.  Returns ({world: the
+    """Every multi-GPU check on the ranks, and bench_amplitude's sharded
+    forwards at AMP_BENCH_WORLDS, one start a world: world 1 on NCCL,
+    worlds 2 and 4 sharing the card over gloo.  Returns ({world: the
     checks' results of every rank}, the inputs, the seconds a world)."""
     from quanonet_torch.parallel import _workers, launch
     kw, state, arrays, target, circuits = _multichip_inputs()
@@ -4100,13 +4057,13 @@ def multichip_runs():
                                                         arrays),
                                        target[:1000], MULTICHIP_LR, 5,
                                        _dp_perms())))
-            calls += [('amp_check', (*circuits['amp'], k))
-                      for k in VIRTUAL_GLOBAL]
         elif world == 2:
             calls.append(('dp_check', (kw, state, arrays, target,
                                        MULTICHIP_LR, 1)))
+        if world in AMP_BENCH_WORLDS:   # bench_amplitude's rows, second
+            calls.append(('amp_forwards', (bench_amplitude.amp_inputs(),)))
         # one timed repetition where ranks share the card: a code path
-        calls.append(('amp_check', (*circuits['amp'], None,
+        calls.append(('amp_check', (*circuits['amp'],
                                     3 if world == 1 else 1)))
         calls.append(('pipe_check', (*circuits['pipe'], PIPE_MICROBATCHES)))
         t0 = time.time()
@@ -4202,14 +4159,14 @@ def _grad_err(got, want):
     return float(np.abs(got - want).max()), max(1.0, float(np.abs(want).max()))
 
 
-def phase_multichip_amp(runs, inputs, smi_line):
+def phase_multichip_amp(runs, inputs, smi_line, shard_rows):
     """The amplitude-sharded engine at Q12 Net40-2-20-2, batch 100, on the
     grouped-kron local path: world 1 (NCCL) and worlds 2 and 4 (ranks
     sharing the card) against the unsharded 'pfused' engine on the card
     (B2f, B2b): outputs 1e-4, the weight gradient 1e-3 × max(1, max|g|);
-    the forward's exchanges equal sharded_collective_counts; the ms of one
-    shard's forward and backward under virtual_global k = 1, 2, 3.
-    Returns the path's launches."""
+    the forward's exchanges equal sharded_collective_counts.  One shard's
+    forward under virtual_global k = 1, 2, 3 comes from bench_amplitude's
+    shard-compute rows (``shard_rows``).  Returns the path's launches."""
     from quanonet_torch.parallel.amplitude import sharded_collective_counts
     spec, w, x, diag = inputs[4]['amp']
     _zero_counts()
@@ -4237,12 +4194,21 @@ def phase_multichip_amp(runs, inputs, smi_line):
                                "grad_max_abs_err": g_err, "grad_scale": scale,
                                "exchanges": want,
                                "fwd_bwd_ms": [r['fwd_bwd_ms'] for r in res]}
-    virtual = {str(k): r['fwd_bwd_ms'] for k, r in
-               zip(VIRTUAL_GLOBAL, runs[1][0][1:1 + len(VIRTUAL_GLOBAL)])}
+    virtual = {str(r['k']): {k: r[k] for k in (
+        'shard_ms', 'pfused_ms', 'device_busy_share', 'peak_memory_bytes')
+        if k in r}
+        for r in shard_rows
+        if (r['qubits'], tuple(r['net_size']), r['batch'])
+        == (AMP_Q, FLAGSHIP[1], 100)}
+    check(sorted(virtual) == ['1', '2', '3'],
+          f"multichip_amp: bench_amplitude's Q{AMP_Q} shard rows {virtual}")
     emit({"phase": "multichip_amp", "nvidia_smi": smi_line, "nq": AMP_Q,
           "net": FLAGSHIP[1], "batch": 100, "reference": "pfused",
           "worlds": records, "shared_card": "worlds 2 and 4: ranks sharing "
-          "one card over gloo", "virtual_global_fwd_bwd_ms": virtual})
+          "one card over gloo", "virtual_global_fwd": virtual,
+          "virtual_global_of": "bench_amplitude's shard-compute rows: one "
+                               "shard's forward, CUDA events, in turns with "
+                               "the unsharded pfused forward"})
     return _counts()
 
 
@@ -4424,80 +4390,295 @@ def phase_multichip_cli():
     return out
 
 
-def main():
+# ── the measurement tools: amplitude bench, Q10 profiler, serve bench, suite
+
+PROFILE_Q10_ITERS = 20         # the module's default is 300
+SERVE_BENCH_REPS = 20
+SUITE_QUICK_REL_L2 = 1.0       # a sanity floor; `train` holds the band
+
+
+def phase_bench_amplitude(runs, smi_line):
+    """quanonet_torch.bench_amplitude on the card: the correctness,
+    capacity and traffic rows at worlds 1 (NCCL) and 2 (ranks sharing the
+    card over gloo), from multichip_runs' starts of those worlds, and the
+    shard-compute rows in turns with 'pfused'.  Gates: Q12 within 1e-4 of
+    'pfused', each row's exchanges the counted model's, outputs finite,
+    local state 2^(n-k).  Returns (the path's launches, the result)."""
+    dev = torch.device('cuda')
+    _zero_counts()
+    started = {w: [r[1] for r in runs[w]] for w in AMP_BENCH_WORLDS}
+    result = {"rows": bench_amplitude.amp_rows(AMP_BENCH_WORLDS, dev,
+                                               started=started)[0],
+              "shard_compute": bench_amplitude.shard_compute_rows(dev)}
+    gates = bench_amplitude.gates(result)
+    for name, ok in gates.items():
+        check(ok, f"bench_amplitude: {name}")
+    counts = _counts()
+    check(counts["fused_chain_fwd"] > 0 and counts["fused_chain_bwd"] == 0,
+          f"bench_amplitude: the pfused forwards launch B2f only: {counts}")
+    emit({"phase": "bench_amplitude", "nvidia_smi": smi_line, **result,
+          "gates": gates, "launches": counts,
+          "shared_card": "world 2: two ranks sharing one card over gloo "
+                         "(a code path, not scaling)",
+          "link_bytes_per_s": bench_amplitude.LINK_BYTES_PER_S})
+    return counts, result
+
+
+def phase_profile_q10(smi_line):
+    """quanonet_torch.profile_q10 at Q10 Net40-2-20-2, batch 100, on the
+    card (PROFILE_Q10_ITERS calls a component): both profiles' gates (the
+    Solver's step bit for bit, fwd_full bit-equal to forward_fused, finite
+    ablations, B2f/B2b a call as counted).  Returns the path's launches."""
+    _zero_counts()
+    pfused, fused = profile_q10.run(10, (40, 2, 20, 2), 100,
+                                    PROFILE_Q10_ITERS, torch.device('cuda'))
+    for label, res in (("pfused", pfused), ("fused", fused)):
+        for name, ok in res["gates"].items():
+            check(ok, f"profile_q10 {label}: {name}")
+    emit({"phase": "profile_q10", "nvidia_smi": smi_line,
+          "pfused": pfused, "fused": fused})
+    return _counts()
+
+
+def phase_bench_serve(smi_line):
+    """quanonet_torch.bench_serve on the card: the shipped Advection anchor
+    (Q5) and the seeded Q10 checkpoint, buckets 1 … 8192: each timed
+    request and the HTTP answer equal Predictor.predict bit for bit.
+    Returns the path's launches."""
+    _zero_counts()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        q10 = _q10_checkpoint(tmp)[0]
+        for label, ckpt, engine in (("q5", ANCHOR, "pallas"),
+                                    ("q10", q10, "pfused")):
+            res = bench_serve.run(ckpt, 100, 2, 8192, SERVE_BENCH_REPS,
+                                  'cuda')
+            check(res["engine"] == engine,
+                  f"bench_serve {label}: engine {res['engine']}")
+            for name, ok in res["gates"].items():
+                check(ok, f"bench_serve {label}: {name}")
+            out[label] = res
+    emit({"phase": "bench_serve", "nvidia_smi": smi_line, **out})
+    return _counts()
+
+
+def phase_bench_suite(smi_line):
+    """quanonet_torch.bench_suite --quick on the card: the four lines under
+    the JAX script's names, every value and rel-L2 finite, the Q5 Advection
+    line's rel-L2 below SUITE_QUICK_REL_L2.  Returns the path's launches."""
+    _zero_counts()
+    lines = bench_suite.suite(True, torch.device('cuda'))
+    for line in lines:
+        check(np.isfinite(line["value"]) and line["value"] > 0,
+              f"bench_suite: {line['metric']} = {line['value']}")
+        if "rel_l2" in line:
+            check(np.isfinite(line["rel_l2"]),
+                  f"bench_suite: {line['metric']} rel-L2 {line['rel_l2']}")
+    check(lines[0]["rel_l2"] < SUITE_QUICK_REL_L2,
+          f"bench_suite: Q5 Advection rel-L2 {lines[0]['rel_l2']}")
+    counts = _counts()
+    check(all(counts[k] > 0 for k in ("hea_chain_fwd", "hea_chain_bwd",
+                                      "ucomp_fwd", "ucomp_bwd")),
+          f"bench_suite: the default route's kernels: {counts}")
+    emit({"phase": "bench_suite", "nvidia_smi": smi_line, "quick": True,
+          "lines": lines, "launches": counts})
+    return counts
+
+
+# every phase by name, in the order main() runs them; --phases picks some
+PHASES = (
+    'device', 'build', 'kernel', 'serve', 'kernel_bwd', 'train_parity',
+    'train', 'train_breakdown', 'kernel_fused', 'kernel_fused_bwd',
+    'train_parity_q10', 'train_q10', 'train_breakdown_q10', 'serve_q10',
+    'smallest_launch', 'kernel_ucomp', 'kernel_ucomp_shift',
+    'kernel_ucomp_packed', 'kernel_adam', 'train_parity_ucomp',
+    'train_parity_fold', 'profile_step', 'step_arms', 'serve_ucomp',
+    'kernel_embed', 'kernel_embed_bwd', 'train_parity_embed', 'train_embed',
+    'serve_embed', 'embed_vs_pallas', 'classical', 'train_qpu', 'serve_shots',
+    'shift_grad', 'multiseed', 'infer_from_name', 'compare_engines',
+    'kernel_noise', 'noise_paths', 'infer_noise', 'multiseed_packed',
+    'seedpack', 'datagen_device', 'datagen_native', 'ibm_export',
+    'multichip_ranks', 'bench_amplitude', 'multichip_dp', 'multichip_amp',
+    'multichip_pipe', 'multichip_cli', 'profile_q10', 'bench_serve',
+    'bench_suite')
+# the phases whose results a phase takes
+PHASE_NEEDS = {
+    'kernel_ucomp': ('smallest_launch',), 'kernel_adam': ('smallest_launch',),
+    'train_parity_ucomp': ('train_parity',),
+    'train_parity_fold': ('train_parity',),
+    'train_parity_embed': ('train_parity',),
+    'bench_amplitude': ('multichip_ranks',),
+    'multichip_dp': ('multichip_ranks',),
+    'multichip_amp': ('multichip_ranks', 'bench_amplitude'),
+    'multichip_pipe': ('multichip_ranks',)}
+
+
+def selected_phases(names):
+    """The phases ``names`` (comma-separated), with device, build and the
+    phases they need; raises on an unknown name."""
+    out = {'device', 'build'}
+    for name in filter(None, names.split(',')):
+        if name not in PHASES:
+            raise SystemExit(f"chip_smoke: unknown phase {name!r}; the "
+                             f"phases: {', '.join(PHASES)}")
+        out.add(name)
+        out.update(PHASE_NEEDS.get(name, ()))
+    return out
+
+
+class Phases:
+    """Runs each phase asked for (all when ``only`` is None) and keeps its
+    wall seconds."""
+
+    def __init__(self, only=None):
+        self.only, self.seconds = only, {}
+
+    def run(self, name, fn, *args):
+        if self.only is not None and name not in self.only:
+            return None
+        t0 = time.time()
+        out = fn(*args)
+        self.seconds[name] = time.time() - t0
+        return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Drive the PyTorch/CUDA port on one card and check it.")
+    ap.add_argument('--phases', default=None,
+                    help="comma-separated phases to run, with device, build "
+                         "and the phases they need; no kernels line then "
+                         "(default: every phase)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    smi_line = phase_device()
-    phase_build()
-    records = phase_kernel()
-    serve = phase_serve()
-    launches = serve["hea_chain_fwd"]
-    bwd_records = phase_kernel_bwd()
-    default_run = phase_train_parity()
-    train, _ = phase_train()
-    train_fwd, train_bwd = train["hea_chain_fwd"], train["hea_chain_bwd"]
-    emit({"phase": "train_breakdown", "batch": 100, **train_breakdown()})
-    fused_records = phase_kernel_fused()
-    fused_bwd_records = phase_kernel_fused_bwd()
-    phase_train_parity_q10()
-    q10_train = phase_train_q10()
-    q10_train_fwd = q10_train["fused_chain_fwd"]
-    q10_train_bwd = q10_train["fused_chain_bwd"]
-    emit({"phase": "train_breakdown_q10", "batch": 100,
-          **train_breakdown_q10()})
-    q10_serve = phase_serve_q10()
-    launch = smallest_launch()
-    ucomp_records = phase_kernel_ucomp(launch)
-    shift_stacks = phase_kernel_ucomp_shift()
-    packed_stacks = phase_kernel_ucomp_packed()
-    adam = phase_kernel_adam(launch)
-    phase_train_parity_ucomp(default_run)
-    phase_train_parity_fold(default_run)
-    ps_counts = phase_profile_step()
-    step_arms()
-    serve_ucomp = phase_serve_ucomp()
-    embed_records = phase_kernel_embed()
-    embed_bwd_records = phase_kernel_embed_bwd()
-    phase_train_parity_embed(default_run)
-    train_embed, _ = phase_train_embed()
-    serve_embed = phase_serve_embed()
-    emit({"phase": "embed_vs_pallas", "batch": 100, "rounds": ARM_ROUNDS,
-          "steps_per_round": ARM_STEPS, **embed_vs_pallas()})
-    classical = phase_classical()
+    ph = Phases(None if args.phases is None
+                else selected_phases(args.phases))
+    smi_line = ph.run('device', phase_device)
+    ph.run('build', phase_build)
+    records = ph.run('kernel', phase_kernel)
+    serve = ph.run('serve', phase_serve)
+    bwd_records = ph.run('kernel_bwd', phase_kernel_bwd)
+    default_run = ph.run('train_parity', phase_train_parity)
+    train = ph.run('train', lambda: phase_train()[0])
+    ph.run('train_breakdown', lambda: emit(
+        {"phase": "train_breakdown", "batch": 100, **train_breakdown()}))
+    fused_records = ph.run('kernel_fused', phase_kernel_fused)
+    fused_bwd_records = ph.run('kernel_fused_bwd', phase_kernel_fused_bwd)
+    ph.run('train_parity_q10', phase_train_parity_q10)
+    q10_train = ph.run('train_q10', phase_train_q10)
+    ph.run('train_breakdown_q10', lambda: emit(
+        {"phase": "train_breakdown_q10", "batch": 100,
+         **train_breakdown_q10()}))
+    q10_serve = ph.run('serve_q10', phase_serve_q10)
+    launch = ph.run('smallest_launch', smallest_launch)
+    ucomp_records = ph.run('kernel_ucomp', phase_kernel_ucomp, launch)
+    shift_stacks = ph.run('kernel_ucomp_shift', phase_kernel_ucomp_shift)
+    packed_stacks = ph.run('kernel_ucomp_packed', phase_kernel_ucomp_packed)
+    adam = ph.run('kernel_adam', phase_kernel_adam, launch)
+    ph.run('train_parity_ucomp', phase_train_parity_ucomp, default_run)
+    ph.run('train_parity_fold', phase_train_parity_fold, default_run)
+    ps_counts = ph.run('profile_step', phase_profile_step)
+    ph.run('step_arms', step_arms)
+    serve_ucomp = ph.run('serve_ucomp', phase_serve_ucomp)
+    embed_records = ph.run('kernel_embed', phase_kernel_embed)
+    embed_bwd_records = ph.run('kernel_embed_bwd', phase_kernel_embed_bwd)
+    ph.run('train_parity_embed', phase_train_parity_embed, default_run)
+    train_embed = ph.run('train_embed', lambda: phase_train_embed()[0])
+    serve_embed = ph.run('serve_embed', phase_serve_embed)
+    ph.run('embed_vs_pallas', lambda: emit(
+        {"phase": "embed_vs_pallas", "batch": 100, "rounds": ARM_ROUNDS,
+         "steps_per_round": ARM_STEPS, **embed_vs_pallas()}))
+    classical = ph.run('classical', phase_classical)
     # QPU emulation, multi-seed and the infer CLI's own data: each path read
     # with every count zeroed just before it
-    qpu = phase_train_qpu()
-    shots_q5, shots_q10 = phase_serve_shots()
-    new_paths = {"shift_grad": phase_shift_grad(),
-                 "train_shift": qpu["train_shift"],
-                 "train_spsa": qpu["train_spsa"], "serve_shots": shots_q5,
-                 "serve_shots_q10": shots_q10,
-                 "multiseed": phase_multiseed(),
-                 "infer_from_name": phase_infer_from_name()}
+    new_paths = {}
+
+    def paths(name, fn, *args, keys=None):
+        """Run phase ``name``; keep its path counts under ``keys`` (one
+        name, a tuple of names for a tuple result, or None for a dict of
+        paths)."""
+        out = ph.run(name, fn, *args)
+        if out is None:
+            return
+        if keys is None:
+            new_paths.update(out)
+        elif isinstance(keys, tuple):
+            new_paths.update(zip(keys, out))
+        else:
+            new_paths[keys] = out
+    paths('train_qpu', phase_train_qpu)
+    paths('serve_shots', phase_serve_shots,
+          keys=('serve_shots', 'serve_shots_q10'))
+    paths('shift_grad', phase_shift_grad, keys='shift_grad')
+    paths('multiseed', phase_multiseed, keys='multiseed')
+    paths('infer_from_name', phase_infer_from_name, keys='infer_from_name')
     # QPU emulation part 2 and the cross-engine gate
-    phase_compare_engines()
-    phase_kernel_noise()
-    new_paths.update(phase_noise_paths())
-    new_paths["infer_noise"] = phase_infer_noise()
+    ph.run('compare_engines', phase_compare_engines)
+    ph.run('kernel_noise', phase_kernel_noise)
+    paths('noise_paths', phase_noise_paths)
+    paths('infer_noise', phase_infer_noise, keys='infer_noise')
     # packed multi-seed, data generation on the card and natively, and
     # the QPU export: each path read with every count zeroed just before it
-    new_paths["multiseed_packed"], new_paths["multiseed_packed_q10"] = \
-        phase_multiseed_packed()
-    with tempfile.TemporaryDirectory() as tmp:
-        new_paths["seedpack"] = phase_seedpack(tmp)
-    new_paths["datagen_device"] = phase_datagen_device()
-    phase_datagen_native()
-    new_paths["ibm_export"] = phase_ibm_export()
-    # multi-GPU: the ranks' checks first (one start a world), then each
-    # path read with every count of this process zeroed just before it
-    runs, inputs, seconds = multichip_runs()
-    emit({"phase": "multichip_ranks", "seconds_a_world": seconds})
-    new_paths["multichip_dp"] = phase_multichip_dp(runs, inputs, smi_line)
-    new_paths["multichip_amp"] = phase_multichip_amp(runs, inputs, smi_line)
-    new_paths["multichip_pipe"] = phase_multichip_pipe(runs, inputs,
-                                                       smi_line)
-    new_paths["multichip_cli"] = phase_multichip_cli()
+    paths('multiseed_packed', phase_multiseed_packed,
+          keys=('multiseed_packed', 'multiseed_packed_q10'))
+
+    def seedpack():
+        with tempfile.TemporaryDirectory() as tmp:
+            return phase_seedpack(tmp)
+    paths('seedpack', seedpack, keys='seedpack')
+    paths('datagen_device', phase_datagen_device, keys='datagen_device')
+    ph.run('datagen_native', phase_datagen_native)
+    paths('ibm_export', phase_ibm_export, keys='ibm_export')
+    # the measurement tools and multi-GPU: each path read with every count
+    # of this process zeroed just before it (a multichip path adds its
+    # ranks' counts)
+
+    def ranks():
+        runs, inputs, seconds = multichip_runs()
+        emit({"phase": "multichip_ranks", "seconds_a_world": seconds})
+        return runs, inputs
+    mc = ph.run('multichip_ranks', ranks)
+    amp = ph.run('bench_amplitude', lambda: phase_bench_amplitude(mc[0],
+                                                                  smi_line))
+    if amp is not None:
+        new_paths['bench_amplitude'] = amp[0]
+    paths('multichip_dp', lambda: phase_multichip_dp(*mc, smi_line),
+          keys='multichip_dp')
+    paths('multichip_amp', lambda: phase_multichip_amp(
+        *mc, smi_line, amp[1]['shard_compute']), keys='multichip_amp')
+    paths('multichip_pipe', lambda: phase_multichip_pipe(*mc, smi_line),
+          keys='multichip_pipe')
+    paths('multichip_cli', phase_multichip_cli, keys='multichip_cli')
+    paths('profile_q10', phase_profile_q10, smi_line, keys='profile_q10')
+    paths('bench_serve', phase_bench_serve, smi_line, keys='bench_serve')
+    paths('bench_suite', phase_bench_suite, smi_line, keys='bench_suite')
+    emit({"phase_seconds": ph.seconds})
+    if ph.only is None:
+        kernels_line(new_paths, records, bwd_records, serve, train, q10_train,
+                     fused_records, fused_bwd_records, q10_serve, ps_counts,
+                     serve_ucomp, ucomp_records, shift_stacks, packed_stacks,
+                     adam, embed_records, embed_bwd_records, train_embed,
+                     serve_embed, classical)
+    print(smi_line, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def kernels_line(new_paths, records, bwd_records, serve, train, q10_train,
+                 fused_records, fused_bwd_records, q10_serve, ps_counts,
+                 serve_ucomp, ucomp_records, shift_stacks, packed_stacks,
+                 adam, embed_records, embed_bwd_records, train_embed,
+                 serve_embed, classical):
+    """The {"kernels": [...]} line from every phase's results and the
+    paths' launch counts."""
+    launches = serve["hea_chain_fwd"]
+    train_fwd, train_bwd = train["hea_chain_fwd"], train["hea_chain_bwd"]
+    q10_train_fwd = q10_train["fused_chain_fwd"]
+    q10_train_bwd = q10_train["fused_chain_bwd"]
 
     def new(kernel):
         return {path: c[kernel] for path, c in new_paths.items()}
@@ -4698,10 +4879,12 @@ def main():
                 "chain_embed_saved",
         "launches": (train_embed["embed_chain_fwd"]
                      + serve_embed["embed_chain_fwd"]
-                     + ps_counts["embed_chain_fwd"]),
+                     + ps_counts["embed_chain_fwd"]
+                     + sum(new("embed_chain_fwd").values())),
         "launches_by_path": {"train_embed": train_embed["embed_chain_fwd"],
                              "serve_embed": serve_embed["embed_chain_fwd"],
-                             "profile_step": ps_counts["embed_chain_fwd"]},
+                             "profile_step": ps_counts["embed_chain_fwd"],
+                             **new("embed_chain_fwd")},
         "max_abs_err": max(max(r['max_abs_err_amp'], r['max_abs_err_u'])
                            for r in embed_records),
         "max_abs_err_expect": max(r['max_abs_err_expect']
@@ -4724,10 +4907,12 @@ def main():
         "replaces": "quanonet_tpu/ops/pallas_embed.py:85",
         "twin": "quanonet_torch/ops/cuda_embed.py:chain_embed_backward",
         "launches": (train_embed["embed_chain_bwd"]
-                     + ps_counts["embed_chain_bwd"]),
+                     + ps_counts["embed_chain_bwd"]
+                     + sum(new("embed_chain_bwd").values())),
         "launches_by_path": {"train_embed": train_embed["embed_chain_bwd"],
                              "serve_embed": 0,
-                             "profile_step": ps_counts["embed_chain_bwd"]},
+                             "profile_step": ps_counts["embed_chain_bwd"],
+                             **new("embed_chain_bwd")},
         "max_abs_err": max(max(r['max_abs_err'].values())
                            for r in embed_bwd_records),
         "ms": ebwd['ms'], "plain_ms": ebwd['plain_ms'],
@@ -4742,11 +4927,6 @@ def main():
                       "ebar_splits": ebwd_big['ebar_splits']},
         "shapes": [[r['nb'], r['N'], r['d']] for r in embed_bwd_records],
         "geometry_by_case": _embed_geometry_by_case(embed_bwd_records)}]})
-    print(smi_line, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
 
 
 if __name__ == '__main__':

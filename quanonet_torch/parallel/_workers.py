@@ -171,14 +171,13 @@ def dp_check(group, model_kw, state, arrays, target, lr, epochs, perms=None,
     return out
 
 
-def amp_check(group, spec, w, x, diag, virtual_global=None, reps=3):
+def amp_check(group, spec, w, x, diag, reps=3):
     """The amplitude-sharded expectation (grouped-kron local path) of
     ``spec`` and its weight gradient (of the sum of the outputs) on this
     rank's device: the output, w̄, the forward's exchanges and the ms of one
     forward and backward (median of ``reps``)."""
     from quanonet_torch.parallel.amplitude import make_sharded_hea
-    f = make_sharded_hea(spec, group, fused=True,
-                         virtual_global=virtual_global)
+    f = make_sharded_hea(spec, group, fused=True)
     w = torch.as_tensor(w, device=group.device)
     x = torch.as_tensor(x, device=group.device)
     group.counts.clear()
@@ -193,6 +192,25 @@ def amp_check(group, spec, w, x, diag, virtual_global=None, reps=3):
         times.append(t.ms)
     return {'out': out, 'w_grad': wg.grad, 'exchanges': exchanges,
             'fwd_bwd_ms': float(np.median(times))}
+
+
+def amp_forwards(group, cases):
+    """The amplitude-sharded forward (grouped-kron local path) of each
+    case (spec, w, x, diag) under no_grad: its output, the exchanges the
+    engine counted, the amplitudes this rank held and the ms of the call
+    (quanonet_torch/bench_amplitude.py's correctness and capacity rows)."""
+    from quanonet_torch.parallel.amplitude import make_sharded_hea
+    out = []
+    for spec, w, x, diag in cases:
+        f = make_sharded_hea(spec, group, fused=True)
+        w = torch.as_tensor(w, device=group.device)
+        x = torch.as_tensor(x, device=group.device)
+        group.counts.clear()
+        with torch.no_grad(), _Timer(group.device) as t:
+            y = f(w, x, diag)
+        out.append({'out': y, 'exchanges': group.counts['exchange'],
+                    'local_amplitudes': f.local_dim, 'ms': t.ms})
+    return out
 
 
 def pipe_check(group, spec, w, x, diag, n_microbatches):

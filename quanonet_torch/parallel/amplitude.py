@@ -289,6 +289,7 @@ def make_sharded_hea(spec, group, fused=False, virtual_global=None,
                 d[group.rank * sh.local_dim:(group.rank + 1) * sh.local_dim]
         return sh.measure(sr, si, dl, pauli, offset, coeff)
 
+    f.local_dim = sh.local_dim      # the amplitudes a rank holds, 2^(n-k)
     return f
 
 

@@ -39,7 +39,7 @@ from quanonet_torch import resolve_device
 from quanonet_torch.models import QuanONet
 from quanonet_torch.models.packed import PackedModel
 from quanonet_torch.ops import cuda_fused, cuda_hea, cuda_ucomp
-from quanonet_torch.profile_step import card_line
+from quanonet_torch.profile_step import card_line, profile_steps
 from quanonet_torch.solver import build_optimizer
 
 NUM_QUBITS, NET_SIZE = 5, (40, 2, 20, 2)   # the flagship's shape
@@ -122,44 +122,17 @@ def _launch_counts():
             "ucomp_bwd": cuda_ucomp.bwd_launches}
 
 
-def _device_us(event):
-    return getattr(event, 'self_device_time_total', None) or \
-        getattr(event, 'self_cuda_time_total', 0.0)
-
-
 def device_profile(step, steps=10, warm=3):
     """Device rows a step, the card's busy ms a step and its share of the
     wall time, over ``steps`` calls of step() in a torch.profiler window
-    opened after ``warm`` calls; {'profiler_error': ...} where the trace
-    holds no device row."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-    try:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            for _ in range(warm):
-                step()
-            torch.cuda.synchronize()
-            prof.step()
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                step()
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-            prof.step()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, 'is_user_annotation', False)]
-        busy_us = sum(_device_us(e) for e in rows)
-        if not busy_us:
-            return {"profiler_error": "no device rows in the trace"}
-        return {"device_rows_per_step": sum(e.count for e in rows) / steps,
-                "device_busy_ms_per_step": busy_us / 1e3 / steps,
-                "device_busy_share": busy_us / wall_us}
-    except RuntimeError as e:        # a measurement, not a check
-        return {"profiler_error": str(e)[:200]}
+    opened after ``warm`` calls (profile_step.profile_steps);
+    {'profiler_error': ...} where the trace holds no device row."""
+    prof = profile_steps(step, steps, warm=warm)
+    if "profiler_error" in prof:
+        return prof
+    return {"device_rows_per_step": prof["device_kernels_per_step"],
+            "device_busy_ms_per_step": prof["device_busy_ms"] / steps,
+            "device_busy_share": prof["device_busy_share"]}
 
 
 def sweep(args, dev):

@@ -87,6 +87,148 @@ def card_line(device):
     return out.stdout.strip().splitlines()[device.index or 0]
 
 
+def launch_counts():
+    """Every kernel wrapper's launch count so far, by kernel."""
+    from quanonet_torch.ops import cuda_adam, cuda_embed, cuda_fused, \
+        cuda_ucomp
+    return {"hea_chain_fwd": cuda_hea.launches,
+            "hea_chain_bwd": cuda_hea.bwd_launches,
+            "fused_chain_fwd": cuda_fused.launches,
+            "fused_chain_bwd": cuda_fused.bwd_launches,
+            "ucomp_fwd": cuda_ucomp.launches,
+            "ucomp_bwd": cuda_ucomp.bwd_launches,
+            "adam_step": cuda_adam.launches,
+            "embed_chain_fwd": cuda_embed.launches,
+            "embed_chain_bwd": cuda_embed.bwd_launches}
+
+
+def launches_since(before):
+    """The launches by kernel since ``before`` (a :func:`launch_counts`),
+    the kernels that launched only."""
+    return {k: v - before[k] for k, v in launch_counts().items()
+            if v != before[k]}
+
+
+def event_ms(fn, iters, device, warmup=WARMUP):
+    """Mean ms a call of fn() over ``iters`` calls after ``warmup`` calls:
+    two CUDA events around the loop on the card, the host clock on the
+    CPU."""
+    for _ in range(warmup):
+        fn()
+    if device.type != 'cuda':
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_rows(events, match=None):
+    """{name: [launches, device µs]} of the card's own rows (kernels,
+    copies) among a trace's raw events, read without building the
+    profiler's event tree, whose cost grows with every row of the trace."""
+    rows = {}
+    for e in events:
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        annotation = getattr(e, 'is_user_annotation', None)
+        if annotation is not None and annotation():
+            continue
+        name = e.name()
+        if match is not None and match not in name:
+            continue
+        row = rows.setdefault(name, [0, 0.0])
+        row[0] += 1
+        row[1] += e.duration_ns() / 1e3
+    return rows
+
+
+def profile_steps(step, steps, match=None, warm=0):
+    """The card's busy share over ``steps`` calls of step() under
+    torch.profiler, and the kernels that take it; with ``match``, only the
+    kernels whose name holds it.  With ``warm``, the window starts after
+    ``warm`` calls made under the profiler (its schedule's warm-up step):
+    a fresh window can miss the rows of its first kernels.  The device
+    rows are the card's own (kernels, copies), not the spans that
+    ``record_function`` annotations (such as ``Optimizer.step``) also get
+    on the card's timeline."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    try:
+        torch.cuda.synchronize()
+        sched = ({"schedule": schedule(wait=0, warmup=1, active=1, repeat=1)}
+                 if warm else {})
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA], **sched) as prof:
+            if warm:
+                for _ in range(warm):
+                    step()
+                torch.cuda.synchronize()
+                prof.step()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+            if warm:
+                prof.step()
+        rows = _device_rows(prof.profiler.kineto_results.events(), match)
+        busy_us = sum(us for _, us in rows.values())
+        if not busy_us:
+            return {"profiler_error": "no device rows in the trace"}
+        launches = sum(n for n, _ in rows.values())
+        top = sorted(rows.items(), key=lambda kv: kv[1][1], reverse=True)[:8]
+        return {
+            "profiled_steps": steps, "profiled_wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / wall_us,
+            "device_kernels": launches,
+            "device_kernels_per_step": launches / steps,
+            # each row's launches and card time, by kernel
+            "device_rows": [(n, us / 1e3) for n, us in rows.values()],
+            "top_device_ms_per_step": {
+                name[:60]: us / 1e3 / steps for name, (_, us) in top}}
+    except RuntimeError as e:     # the profiler is a measurement, no check
+        return {"profiler_error": str(e)[:200]}
+
+
+# the work a busy-share window holds: long enough to average over calls,
+# short enough that the trace stays small
+BUSY_WINDOW_MS = 250.0
+
+
+def busy_share(step, device, call_ms):
+    """:func:`profile_steps` of step() on the card over about
+    BUSY_WINDOW_MS of calls (1 to 10, ``call_ms`` each) after one warm-up
+    call: device rows a call, the busy share and the kernels that take it;
+    on the CPU a note that it was not measured."""
+    if device.type != 'cuda':
+        return {"device_busy": "not measured: CPU run"}
+    steps = max(1, min(10, int(BUSY_WINDOW_MS / max(call_ms, 1e-3))))
+    out = profile_steps(step, steps, warm=1)
+    out.pop("device_rows", None)
+    return out
+
+
+def peak_memory(fn, device):
+    """fn()'s result and its peak device memory (bytes,
+    ``torch.cuda.max_memory_allocated`` from a reset); None on the CPU."""
+    if device.type != 'cuda':
+        return fn(), None
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = fn()
+    torch.cuda.synchronize(device)
+    return out, torch.cuda.max_memory_allocated(device)
+
+
 def main(argv=None):
     args = parser().parse_args(argv)
     dev = resolve_device(args.device)

@@ -283,3 +283,47 @@ def test_training_cli_refuses_cpu_fallback():
     assert out.returncode != 0
     assert "device='cpu'" in out.stderr
     assert not os.path.exists(os.path.join(REPO, 'outputs', 'never_written'))
+
+
+_IMPORT_TOOLS = r"""
+import sys
+from quanonet_torch import bench_amplitude, bench_serve, bench_suite, \
+    profile_q10
+from quanonet_torch.ops import _build
+assert _build._loaded == {}, _build._loaded
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
+                                    'quanonet_tpu', 'triton'))
+assert not bad, bad
+print('ok')
+"""
+
+
+def test_measurement_tools_import_clean():
+    """The measurement tools (bench_amplitude, profile_q10, bench_serve,
+    bench_suite) import no JAX and build no kernel."""
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    out = subprocess.run([sys.executable, '-c', _IMPORT_TOOLS], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ['ok']
+
+
+@pytest.mark.parametrize("module,argv", [
+    ('bench_amplitude', ['--shard-compute']), ('profile_q10', []),
+    ('bench_serve', []), ('bench_suite', ['--quick'])])
+def test_measurement_tools_refuse_cpu_fallback(module, argv, tmp_path):
+    """Each tool's CLI raises without a card unless --device cpu is given,
+    before it writes its file."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    outs = (['--out_pfused', str(tmp_path / 'a.json'), '--out_fused',
+             str(tmp_path / 'b.json')] if module == 'profile_q10'
+            else ['--out', str(tmp_path / 'a.json')])
+    out = subprocess.run(
+        [sys.executable, '-m', f'quanonet_torch.{module}', *argv, *outs],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert 'CUDA is not available' in out.stderr
+    assert not any(tmp_path.iterdir())
