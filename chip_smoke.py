@@ -320,6 +320,22 @@ Phases, each printed as one JSON line:
 47. bench_suite — quanonet_torch.bench_suite --quick: the JAX suite's four
              lines on the port, values and rel-L2 finite, the Q5 Advection
              rel-L2 below 1.0; the default route's kernels launched.
+48. studies — the noise-robustness study (depolarizing) and the
+             hardware-training study's --quick arms (autodiff, shift, SPSA),
+             both at 10 epochs (JAX: 300 and --quick's 30;
+             quanonet_torch/studies/) on the card: each CSV in the JAX
+             script's columns and rows, every rel-L2 finite, the verdict
+             lines printed, shift within 10 % of autodiff; each training
+             arm's launches by its route (fold: B1f, B1b a trajectory, B4f,
+             B4b a step; shift: B1f, B4f as param_shift fans out; SPSA: two
+             forwards a step; no backward kernel on either).
+49. sweeps — quanonet_torch.sweeps: every sweep's --dry_run plan counted
+             against the shell scripts' (SWEEP_COUNTS); circuit's first Q5
+             and Q10 regimes cut to 2 epochs, 100 functions, seeds 0 and 1
+             through the driver's subprocess runner (metric.json a seed,
+             collect_results), their launches through cli.main in this
+             process (Q5 B1f/B1b/B4f/B4b, Q10 B2f/B2b, packed), and a rerun
+             that resume-skips and launches nothing.
 The kernel phase (3) also holds B1f at N = 60,000 and, at Q7, 84,000: the
 rows of the shift rule's encode-shift batch at the flagship and at Q7.
 
@@ -329,7 +345,8 @@ serve_shots_q10, shift_grad, multiseed, infer_from_name, noise_forward,
 noise_zne, noise_damping, noise_train, infer_noise, multiseed_packed,
 multiseed_packed_q10, seedpack, datagen_device, ibm_export,
 bench_amplitude, multichip_dp, multichip_amp, multichip_pipe,
-multichip_cli, profile_q10, bench_serve, bench_suite) starts with every launch
+multichip_cli, profile_q10, bench_serve, bench_suite, studies_noise,
+studies_hardware, sweeps_circuit_q5, sweeps_circuit_q10) starts with every launch
 count at 0 and reads them when it ends; a multichip path adds the ranks'
 own counts, read in each rank around the driven window.  A card time
 ("device_ms") comes from a warmed profiler
@@ -347,6 +364,7 @@ import json
 import os
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
+import shlex
 import shutil
 import subprocess
 import sys
@@ -362,7 +380,7 @@ from torch.utils import cpp_extension
 from quanonet_torch import (
     bench, bench_amplitude, bench_serve, bench_suite, cli, ibm_export,
     ibm_inference, multiseed, profile_q10, profile_seedpack, profile_step,
-    time_chain,
+    sweeps, time_chain,
 )
 from quanonet_torch.config import (
     get_base_parser, load_config, set_random_seed,
@@ -383,6 +401,8 @@ from quanonet_torch.profile_step import (
     launch_counts as _counts, profile_steps,
 )
 from quanonet_torch.serve import Predictor, make_server
+from quanonet_torch.studies import _common as studies_common
+from quanonet_torch.studies import hardware_training, noise_robustness
 from quanonet_torch.solver import (
     ScheduledOptimizer, _decay_tuple_schedule, epoch_permutation,
     build_optimizer, make_run_segment, make_train_epoch,
@@ -4485,6 +4505,234 @@ def phase_bench_suite(smi_line):
     return counts
 
 
+# the studies' budget: 30 epochs, the hardware study's --quick (the noise
+# study's JAX default is 300)
+STUDY_EPOCHS = 30
+# shift's rel-L2 against autodiff's, relative: the same gradient, so far
+# inside the JAX verdict's 10 % (which is printed, and gated too)
+STUDY_SHIFT_MATCH = 1e-3
+# the regimes a sweep issues, as tests/test_torch_port_sweeps.py recorded
+# them from the shell scripts
+SWEEP_COUNTS = {'benchmarks1': 84, 'benchmarks2': 9, 'capacity': 76,
+                'circuit': 24, 'hamiltonian': 17, 'scaling': 42,
+                'missing_benchmarks1': 19, 'stream:capacity_deeponet': 36,
+                'stream:capacity_deeponet_d5': 4, 'stream:capacity_q_a': 20,
+                'stream:capacity_q_b': 20, 'stream:capacity_q_b2': 10,
+                'stream:circuit_q10': 8}
+SWEEP_CUT = dict(num_epochs=2, num_train=100, num_test=100, multi_seed=[0, 1])
+
+
+def _jax_csv_layout(name):
+    """(header, rows) of the JAX package's shipped docs/<name>."""
+    import csv
+    with open(os.path.join(REPO, 'docs', name), newline='') as f:
+        rows = list(csv.DictReader(f))
+    return list(rows[0]), rows
+
+
+def _study_steps(epochs):
+    base = studies_common.BASE
+    return epochs * -(-base['num_train'] * base['train_sample_num']
+                      // base['batch_size'])
+
+
+def phase_studies(smi_line):
+    """The two studies on the card at a cut budget (STUDY_EPOCHS): the
+    noise study (depolarizing) and the hardware study's --quick arms
+    (autodiff, shift, SPSA on seed 0).  Gates: each CSV has the JAX script's columns and row set,
+    every rel-L2 finite, each verdict line printed; shift within
+    STUDY_SHIFT_MATCH of autodiff at seed 0, and the JAX verdict (10 %)
+    a MATCH; each training arm's launches by its route (autodiff
+    B1f, B1b, B4f, B4b one a step; noise-aware B1f, B1b one a trajectory
+    and step, B4f, B4b one a step; shift B1f, B4f as param_shift fans out,
+    no backward kernel; SPSA B1f, B4f two a step, no backward kernel).  The
+    noise verdict at this budget is recorded, not gated.  Returns the
+    launches of each study."""
+    out, paths = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        stdout = sys.stdout
+        try:
+            _zero_counts()            # the noise study's path starts here
+            t0 = time.time()
+            noise = noise_robustness.run(noise_robustness.parser().parse_args(
+                ['--epochs', str(STUDY_EPOCHS),
+                 '--prefix', os.path.join(tmp, 'noise'),
+                 '--out', os.path.join(tmp, 'noise.csv'), '--device', 'cuda']))
+            torch.cuda.synchronize()
+            paths['studies_noise'] = _counts()     # ... and ends here
+            out['noise_seconds'] = time.time() - t0
+            _zero_counts()            # the hardware study's path
+            t0 = time.time()
+            hardware_training.QUICK_EPOCHS = STUDY_EPOCHS
+            hw = hardware_training.run(hardware_training.parser().parse_args(
+                ['--quick', '--prefix', os.path.join(tmp, 'hw'),
+                 '--out', os.path.join(tmp, 'hw.csv'), '--device', 'cuda']))
+            torch.cuda.synchronize()
+            paths['studies_hardware'] = _counts()
+            out['hardware_seconds'] = time.time() - t0
+        finally:
+            sys.stdout = stdout
+        csvs = {}
+        for label, res in (('noise', noise), ('hardware', hw)):
+            with open(res['out'], newline='') as f:
+                csvs[label] = f.read()
+    noise_cols, noise_rows = _jax_csv_layout('noise_robustness.csv')
+    hw_cols, _ = _jax_csv_layout('hardware_training.csv')
+    key = ('trained', 'eval_noise_p', 'eval_readout_p', 'zne')
+    got_keys = [tuple(str(r[k]) for k in key) for r in noise['rows']]
+    want_keys = [tuple(r[k] for k in key) for r in noise_rows]
+    rel = {r['method']: r['rel_l2'] for r in hw['rows']}
+    steps = qsteps = _study_steps(STUDY_EPOCHS)
+    spec = hea.quanonet_spec(studies_common.BASE['num_qubits'],
+                             tuple(studies_common.BASE['net_size']))
+    traj = noise_robustness.parser().get_default('traj')
+    shift = shift_launches(spec, steps=qsteps)
+    kernels = ("hea_chain_fwd", "hea_chain_bwd", "ucomp_fwd", "ucomp_bwd")
+    want = {
+        'noise ideal': dict(zip(kernels, [steps] * 4)),
+        'noise noise_aware': dict(zip(kernels, [traj * steps, traj * steps,
+                                                steps, steps])),
+        'hardware autodiff': dict(zip(kernels, [qsteps] * 4)),
+        'hardware shift': {"hea_chain_fwd": shift["hea_chain_fwd"],
+                           "hea_chain_bwd": 0,
+                           "ucomp_fwd": shift["ucomp_fwd"], "ucomp_bwd": 0},
+        'hardware spsa': dict(zip(kernels, [2 * qsteps, 0, 2 * qsteps, 0]))}
+    got = {f'noise {arm}': noise['launches'][arm]['train']
+           for arm in ('ideal', 'noise_aware')}
+    got.update({f"hardware {r['method']}": c['train']
+                for r, c in zip(hw['rows'], hw['launches'])})
+    emit({"phase": "studies", "nvidia_smi": smi_line,
+          "noise": {"epochs": STUDY_EPOCHS, "rows": noise['rows'],
+                    "verdict_line": noise['verdict_line'],
+                    "wins": noise['verdict'][3],
+                    "launches": noise['launches']},
+          "hardware": {"epochs": STUDY_EPOCHS, "rows": hw['rows'],
+                       "verdicts": [line for line, _ in hw['verdicts']],
+                       "launches": hw['launches']},
+          "steps": {"noise": steps, "hardware": qsteps},
+          "expected_train_launches": want, "csv": csvs, **out})
+    check(list(noise['rows'][0]) == noise_cols and got_keys == want_keys,
+          f"studies: the noise CSV's layout {list(noise['rows'][0])}, rows "
+          f"{got_keys}")
+    check(list(hw['rows'][0]) == hw_cols
+          and [r['method'] for r in hw['rows']] == ['autodiff', 'shift',
+                                                    'spsa'],
+          f"studies: the hardware CSV's layout {list(hw['rows'][0])}")
+    check(all(np.isfinite(r['rel_l2']) for r in noise['rows'] + hw['rows']),
+          "studies: a rel-L2 is not finite")
+    check(noise['verdict_line'].startswith('VERDICT @ deployment noise')
+          and len(hw['verdicts']) == 1,
+          f"studies: verdict lines {noise['verdict_line']!r}, "
+          f"{hw['verdicts']}")
+    check(abs(rel['shift'] - rel['autodiff'])
+          <= STUDY_SHIFT_MATCH * rel['autodiff'] and hw['verdicts'][0][1],
+          f"studies: shift {rel['shift']} against autodiff "
+          f"{rel['autodiff']}")
+    for arm, w in want.items():
+        check({k: got[arm][k] for k in w} == w
+              and got[arm]["fused_chain_fwd"] == got[arm]["adam_step"] == 0,
+              f"studies: {arm} launched {got[arm]}, expected {w}")
+    return paths['studies_noise'], paths['studies_hardware']
+
+
+def phase_sweeps(smi_line):
+    """The sweep driver on the card: the --dry_run plan of every sweep
+    (its counts the shell scripts' as recorded, SWEEP_COUNTS); circuit's
+    first Q5 and first Q10 regimes cut to SWEEP_CUT through the driver's
+    own subprocess runner (exit 0, a finite metric.json a seed,
+    collect_results grouping the two seeds of each); the same two argument
+    lists once through cli.main in this process to count their launches
+    (Q5 packed: B4f, B4b 2 a step, B1f, B1b one a seed and step, the
+    evaluation's B4f, B1f a chunk and seed; Q10: B2f, B2b the same, no
+    block-chain kernel); then a rerun of the runner and of cli.main, which
+    resume-skip (metric.json unchanged, no launch).  Returns the launches
+    of the Q5 and Q10 regimes."""
+    sys.path.insert(0, os.path.join(REPO, 'scripts'))
+    try:
+        import collect_results
+    finally:
+        sys.path.pop(0)
+    plan = {name: len(sweeps.plan(name)) for name in sweeps.names()}
+    circuit = sweeps.plan('circuit')
+
+    def first(nq):
+        return next(r for r in circuit
+                    if r[r.index('--num_qubits') + 1] == str(nq))
+    regimes = {label: sweeps.with_flags(first(nq), **SWEEP_CUT)
+               for label, nq in (('q5', 5), ('q10', 10))}
+    seeds = SWEEP_CUT['multi_seed']
+    # circuit's regimes: 10 training and 100 test points a function, batch
+    # 100; the evaluation runs in chunks of max(batch, 4096) rows
+    steps = SWEEP_CUT['num_epochs'] * -(-SWEEP_CUT['num_train'] * 10 // 100)
+    chunks = -(-SWEEP_CUT['num_test'] * 100 // 4096)
+    s = len(seeds)
+    want = {'q5': {"hea_chain_fwd": s * steps + chunks * s,
+                   "hea_chain_bwd": s * steps,
+                   "ucomp_fwd": 2 * steps + chunks * s,
+                   "ucomp_bwd": 2 * steps, "fused_chain_fwd": 0},
+            'q10': {"fused_chain_fwd": s * steps + chunks * s,
+                    "fused_chain_bwd": s * steps, "hea_chain_fwd": 0}}
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        log_path = os.path.join(tmp, 'runner.log')
+        t0 = time.time()
+        with open(log_path, 'w') as log:
+            rc, done = sweeps.run(list(regimes.values()), 'cuda', tmp,
+                                  log=log)
+        res['runner_seconds'] = time.time() - t0
+        prefix = os.path.join(tmp, 'circuit_reproduction')
+        metric_files = sorted(glob.glob(os.path.join(prefix, '*', '*',
+                                                     'metric.json')))
+        before = {f: open(f, 'rb').read() for f in metric_files}
+        groups = {k[1]: sorted(m['rel_l2'] for m in v)
+                  for k, v in collect_results.collect(prefix).items()}
+        counts = {}
+        for label, argv in regimes.items():
+            _zero_counts()            # the regime's path starts here
+            _cli(sweeps.with_flags(argv, prefix=os.path.join(tmp, 'inproc'))
+                 + ['--device', 'cuda'])
+            torch.cuda.synchronize()
+            counts[label] = _counts()   # ... and ends here
+        t0 = time.time()
+        with open(log_path + '.rerun', 'w') as log:
+            rc2, _ = sweeps.run(list(regimes.values()), 'cuda', tmp, log=log)
+        res['rerun_seconds'] = time.time() - t0
+        with open(log_path + '.rerun') as f:
+            skips = f.read().count('⏩ [Resume] All seeds already completed')
+        unchanged = all(open(f, 'rb').read() == b for f, b in before.items())
+        _zero_counts()
+        rerun = {label: _cli(sweeps.with_flags(
+            argv, prefix=os.path.join(tmp, 'inproc')) + ['--device', 'cuda'])
+            for label, argv in regimes.items()}
+        rerun_counts = _counts()
+        with open(log_path) as f:
+            log_tail = f.read()[-4000:]
+    emit({"phase": "sweeps", "nvidia_smi": smi_line, "plan": plan,
+          "regimes": {k: shlex.join(v) for k, v in regimes.items()},
+          "runner": {"rc": rc, "done": [{k: d[k] for k in ('rc', 'seconds')}
+                                        for d in done]},
+          "metric_files": len(metric_files), "collected": groups,
+          "launches": counts, "expected_launches": want,
+          "rerun": {"rc": rc2, "skips": skips, "unchanged": unchanged,
+                    "cli": rerun, "launches": rerun_counts}, **res})
+    check(plan == SWEEP_COUNTS, f"sweeps: plan {plan} != {SWEEP_COUNTS}")
+    check(rc == 0 and [d['rc'] for d in done] == [0, 0],
+          f"sweeps: the runner exited {rc} ({done}); log: {log_tail}")
+    check(len(metric_files) == 2 * s and len(groups) == 2
+          and all(len(v) == s and np.isfinite(v).all()
+                  for v in groups.values()),
+          f"sweeps: metric.json files {metric_files}, collected {groups}")
+    for label, w in want.items():
+        check({k: counts[label][k] for k in w} == w,
+              f"sweeps {label}: launched {counts[label]}, expected {w}")
+    check(rc2 == 0 and skips == 2 and unchanged
+          and rerun == {k: {sd: None for sd in seeds} for k in regimes}
+          and not any(rerun_counts.values()),
+          f"sweeps: the rerun trained or launched: {rc2}, {skips}, "
+          f"{unchanged}, {rerun}, {rerun_counts}")
+    return counts['q5'], counts['q10']
+
+
 # every phase by name, in the order main() runs them; --phases picks some
 PHASES = (
     'device', 'build', 'kernel', 'serve', 'kernel_bwd', 'train_parity',
@@ -4500,7 +4748,7 @@ PHASES = (
     'seedpack', 'datagen_device', 'datagen_native', 'ibm_export',
     'multichip_ranks', 'bench_amplitude', 'multichip_dp', 'multichip_amp',
     'multichip_pipe', 'multichip_cli', 'profile_q10', 'bench_serve',
-    'bench_suite')
+    'bench_suite', 'studies', 'sweeps')
 # the phases whose results a phase takes
 PHASE_NEEDS = {
     'kernel_ucomp': ('smallest_launch',), 'kernel_adam': ('smallest_launch',),
@@ -4654,6 +4902,12 @@ def main(argv=None):
     paths('profile_q10', phase_profile_q10, smi_line, keys='profile_q10')
     paths('bench_serve', phase_bench_serve, smi_line, keys='bench_serve')
     paths('bench_suite', phase_bench_suite, smi_line, keys='bench_suite')
+    # the studies and the sweeps: each path read with every count zeroed
+    # just before it
+    paths('studies', phase_studies, smi_line,
+          keys=('studies_noise', 'studies_hardware'))
+    paths('sweeps', phase_sweeps, smi_line,
+          keys=('sweeps_circuit_q5', 'sweeps_circuit_q10'))
     emit({"phase_seconds": ph.seconds})
     if ph.only is None:
         kernels_line(new_paths, records, bwd_records, serve, train, q10_train,

@@ -8,19 +8,27 @@ stencils against the float64 host ones 1e-4.
 The library is compiled from the source with native/Makefile's compiler
 and flags into a per-test build root.  The tests that compile skip only
 where g++ is absent (they say so); the tests of the loader's settings,
-hashing and errors need no compiler.
+hashing and errors need no compiler.  Where a test holds the port against
+the JAX package's native arrays, the JAX loader too gets a library of the
+test's own (``jax_native``): built with ``make`` from a copy of native/ in
+the test's directory, never the shared native/libquanonet_native.so, which
+other test processes may be building at the same time.
 """
 import os
 import shutil
+import subprocess
 
 import numpy as np
 import pytest
 
 import quanonet_tpu.data.generation as j_gen
+import quanonet_tpu.data.native as j_native
 import quanonet_torch.data.generation as t_gen
 from quanonet_tpu.data.manager import DataManager as JDataManager
 from quanonet_torch.data import native
 from quanonet_torch.data.manager import DataManager
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 needs_gxx = pytest.mark.skipif(shutil.which('g++') is None,
                                reason="g++ is not installed: the native "
@@ -36,6 +44,32 @@ def fresh_build(tmp_path, monkeypatch):
     monkeypatch.delenv('CXX', raising=False)
     monkeypatch.delenv('CXXFLAGS', raising=False)
     return tmp_path
+
+
+@pytest.fixture
+def jax_native(fresh_build, monkeypatch):
+    """The JAX package's loader pointed at a library of this test's own:
+    native/Makefile and native/quanonet_native.cpp copied into the test's
+    directory and built there with ``make -C``, the loader's cached state
+    reset.  Skips where make or g++ is absent; a failed build fails."""
+    for tool in ('make', 'g++'):
+        if shutil.which(tool) is None:
+            pytest.skip(f"{tool} is not installed: the JAX package's "
+                        f"native library cannot be built here")
+    src = fresh_build / 'jax_native'
+    src.mkdir()
+    for name in ('Makefile', 'quanonet_native.cpp'):
+        shutil.copy(os.path.join(REPO, 'native', name), src / name)
+    out = subprocess.run(['make', '-C', str(src)], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, f"make -C {src} failed:\n{out.stderr}"
+    so = src / 'libquanonet_native.so'
+    assert so.is_file()
+    monkeypatch.setattr(j_native, '_NATIVE_DIR', str(src))
+    monkeypatch.setattr(j_native, '_SO_PATH', str(so))
+    monkeypatch.setattr(j_native, '_lib', None)
+    monkeypatch.setattr(j_native, '_tried', False)
+    return so
 
 
 @pytest.fixture
@@ -141,10 +175,14 @@ def test_stencils_match_host(fresh_build):
 @pytest.mark.parametrize("op,tag", [('Antideriv', '_rk4'),
                                     ('Advection', '_native'),
                                     ('Darcy', '')])
-def test_raw_caches_and_jax_agreement(fresh_build, data_root, op, tag):
+def test_raw_caches_and_jax_agreement(fresh_build, jax_native, data_root,
+                                      op, tag):
     """use_native writes its own raw cache (_rk4 for the ODEs, _native for
     the stencils, none for Darcy, which stays on the host solve) and, on
-    equal NumPy seeds, gives the JAX package's native arrays."""
+    equal NumPy seeds, gives the JAX package's native arrays.  The JAX side
+    runs on its own build of the library (jax_native), and its native
+    route is asserted before the arrays are compared: a fallback to SciPy
+    fails here, by name."""
     ode = op == 'Antideriv'
     fn = 'generate_ode_operator_data' if ode else \
         'generate_pde_operator_data'
@@ -153,10 +191,16 @@ def test_raw_caches_and_jax_agreement(fresh_build, data_root, op, tag):
     got = getattr(t_gen, fn)(op, 3, 2, 10, 6, **kw)
     np.random.seed(3)
     want = getattr(j_gen, fn)(op, 3, 2, 10, 6, **kw)
+    name = f"{op}_Operator_data_{kw['num_cal']}_1{tag}.npz"
+    assert j_native.native_available() and j_native._SO_PATH == \
+        str(jax_native), "the JAX package's native library did not load"
+    jraw = os.listdir(data_root / 'jraw' / f'{op}_Operator_data')
+    assert name in jraw, (f"the JAX side fell back to the host solve: its "
+                          f"raw cache holds {jraw}, not {name}")
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, b, atol=1e-6)
     raw = os.listdir(data_root / 'raw' / f'{op}_Operator_data')
-    assert f"{op}_Operator_data_{kw['num_cal']}_1{tag}.npz" in raw
+    assert name in raw
 
 
 @needs_gxx
