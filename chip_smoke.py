@@ -336,6 +336,26 @@ Phases, each printed as one JSON line:
              collect_results), their launches through cli.main in this
              process (Q5 B1f/B1b/B4f/B4b, Q10 B2f/B2b, packed), and a rerun
              that resume-skips and launches nothing.
+50. bf16_modes — the opt-in bf16 operand modes (UCOMP_BF16: the compile's
+             product form, B4f-bf16 and B4b-bf16 in csrc/ucomp.cu;
+             PFUSED_BF16: the fused chain's three low products, the kBf16
+             variants of B2f and B2b): each kernel against its bf16 twin
+             (ucomp_dense / ucomp_backward_dense and chain_fused* with
+             bf16=True; B4 at the flagship and Q7, B2 at Q10 N = 100 and
+             1000 on the chain's first BF16_PREFIX_BLOCKS blocks) within
+             3e-2 x max(1, max|twin|) and an RMS of at most half the twin's
+             own deviation from fp32; B2's 60-block chain deviating from
+             fp32 as much as its twin does (BF16_DEV_BAND); the times,
+             bounds at the bf16 peak and bf16 torch.bmm yardsticks; then
+             the flagship under UCOMP_BF16 and Q10 under PFUSED_BF16 through
+             the entry points (the training CLI, 3 epochs at Q5 and
+             train_q10's epoch at Q10, and Predictor's requests), their
+             launches (the bf16 kernels, not the fp32 ones), rel-L2 (within
+             5 % of fp32's) and ms a step against the fp32 default in one
+             process, the served rows against the twin's (Q5) or deviating
+             from fp32 as the twin's do (Q10); QON_UNPIN_EXPECT's deviation
+             at the flagship.  Every other phase runs with the three modes
+             off (modes_off).
 The kernel phase (3) also holds B1f at N = 60,000 and, at Q7, 84,000: the
 rows of the shift rule's encode-shift batch at the flagship and at Q7.
 
@@ -346,7 +366,8 @@ noise_zne, noise_damping, noise_train, infer_noise, multiseed_packed,
 multiseed_packed_q10, seedpack, datagen_device, ibm_export,
 bench_amplitude, multichip_dp, multichip_amp, multichip_pipe,
 multichip_cli, profile_q10, bench_serve, bench_suite, studies_noise,
-studies_hardware, sweeps_circuit_q5, sweeps_circuit_q10) starts with every launch
+studies_hardware, sweeps_circuit_q5, sweeps_circuit_q10, bf16_q5, bf16_q10)
+starts with every launch
 count at 0 and reads them when it ends; a multichip path adds the ranks'
 own counts, read in each rank around the driven window.  A card time
 ("device_ms") comes from a warmed profiler
@@ -419,6 +440,7 @@ FIXTURE = os.path.join(REPO, 'tests', 'fixtures',
 # H100 SXM datasheet peaks at its full 700 W limit
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 AMP_TOL = 2e-5       # fp32 chain of up to 60 block products, other order
@@ -1316,7 +1338,9 @@ def phase_train_parity_q10():
 def _zero_counts():
     cuda_hea.launches = cuda_hea.bwd_launches = 0
     cuda_fused.launches = cuda_fused.bwd_launches = 0
+    cuda_fused.bf16_launches = cuda_fused.bf16_bwd_launches = 0
     cuda_ucomp.launches = cuda_ucomp.bwd_launches = 0
+    cuda_ucomp.bf16_launches = cuda_ucomp.bf16_bwd_launches = 0
     cuda_adam.launches = 0
     cuda_embed.launches = cuda_embed.bwd_launches = 0
 
@@ -4505,9 +4529,10 @@ def phase_bench_suite(smi_line):
     return counts
 
 
-# the studies' budget: 30 epochs, the hardware study's --quick (the noise
-# study's JAX default is 300)
-STUDY_EPOCHS = 30
+# the studies' budget: 10 epochs (the hardware study's --quick takes 30,
+# the noise study's JAX default 300), cut to pay for bf16_modes within the
+# script's time
+STUDY_EPOCHS = 10
 # shift's rel-L2 against autodiff's, relative: the same gradient, so far
 # inside the JAX verdict's 10 % (which is printed, and gated too)
 STUDY_SHIFT_MATCH = 1e-3
@@ -4733,6 +4758,465 @@ def phase_sweeps(smi_line):
     return counts['q5'], counts['q10']
 
 
+# ── the opt-in bf16 operand modes (UCOMP_BF16, PFUSED_BF16) ──────────────────
+
+BF16_ATOL = 3e-2          # the JAX test's limit for its bf16 mode (tests/
+                          # test_ucomp.py), x max(1, max|plain|)
+BF16_RMS_SHARE = 0.5      # RMS of kernel - twin over the twin's own RMS
+                          # deviation from the fp32 form
+BF16_DEV_BAND = (0.8, 1.25)   # the 60-block chain: RMS of kernel - fp32 over
+                              # that of twin - fp32 (a twin whose x moved
+                              # one ulp: twin_1ulp's dev_ratio)
+BF16_PREFIX_BLOCKS = 2    # the chain's blocks held against the twin
+BF16_Q5 = (5, (40, 2, 20, 2))
+BF16_Q7 = (7, (40, 2, 20, 2))
+BF16_FUSED_ROWS = (100, 1000)    # the training batch, a serving bucket
+BF16_Q5_EPOCHS = 3        # of the flagship's CLI run in each mode
+BF16_REL_L2_RTOL = 0.05   # a run's rel-L2 in a mode against fp32's
+MODE_SWITCHES = ('UCOMP_BF16', 'PFUSED_BF16', 'QON_UNPIN_EXPECT')
+
+
+def modes_off():
+    """Every opt-in numeric mode off, in this process and in the processes
+    it starts: the exact gates of the other phases hold the fp32 paths."""
+    for name in MODE_SWITCHES:
+        os.environ[name] = '0'
+    cuda_ucomp.UCOMP_BF16 = False
+    hea.UNPIN_EXPECT = False
+
+
+@contextmanager
+def bf16_mode(ucomp=False, pfused=False):
+    """The compile's (cuda_ucomp.UCOMP_BF16) and the fused chain's
+    (PFUSED_BF16, read at each call) bf16 modes on for the block, off
+    after."""
+    cuda_ucomp.UCOMP_BF16 = ucomp
+    os.environ['PFUSED_BF16'] = '1' if pfused else '0'
+    try:
+        yield
+    finally:
+        modes_off()
+
+
+def _bf16_err(got, want, fp32):
+    """(max |got - want|, its limit, RMS(got - want) / RMS(want - fp32), the
+    mode's own max and RMS deviation from the fp32 form)."""
+    got, want, fp32 = (t.double() for t in (got, want, fp32))
+    rms = lambda a: a.pow(2).mean().sqrt().item()
+    dev = rms(want - fp32)
+    return ((got - want).abs().max().item(),
+            BF16_ATOL * max(1.0, want.abs().max().item()),
+            rms(got - want) / dev if dev else 0.0,
+            (want - fp32).abs().max().item(), dev)
+
+
+def _bf16_check(where, got, want, fp32):
+    err, limit, share, dev_max, dev_rms = _bf16_err(got, want, fp32)
+    check(bool(torch.isfinite(got).all()), f"{where}: not finite")
+    check(err <= limit and share <= BF16_RMS_SHARE,
+          f"{where}: {err} (limit {limit}), RMS share {share} (limit "
+          f"{BF16_RMS_SHARE}) from its bf16 twin")
+    return {"max_abs_err": err, "limit": limit, "rms_share": share,
+            "mode_dev_max": dev_max, "mode_dev_rms": dev_rms}
+
+
+def ucomp_bf16_counts(nb, ld, d):
+    """Per-call work of the bf16 product form: (flops of B4f-bf16, of
+    B4b-bf16, bytes of each), 2 D^3 flops a real product, inputs read once
+    and outputs written once.  A block's products: forward 2 ld (U1t.B'),
+    3 (ld - 1) (the fold), 4 (H acc R); backward 2 ld, 3 (ld - 2) (the
+    prefixes), 4 (H g R), 8 (ld - 1) (Sbar and accbar), 4 ld (u1bar,
+    bbar)."""
+    mac = 2.0 * d ** 3
+    fwd = nb * mac * (2 * ld + 3 * (ld - 1) + 4)
+    bwd = nb * mac * (2 * ld + 3 * max(0, ld - 2) + 4 + 8 * (ld - 1)
+                      + 4 * ld)
+    mats = 4.0 * nb * d * d
+    return fwd, bwd, mats * (3 * ld + 2), mats * (6 * ld + 2)
+
+
+def _bf16_bound(flops, nbytes, fp32_flops=0.0):
+    """The larger of the products at the bf16 tensor-core peak (plus any
+    other work at the fp32 peak) and the bytes at the HBM rate."""
+    t_ops = flops / PEAK_BF16_FLOPS + fp32_flops / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def _bf16_ucomp_kernels(dev):
+    """B4f-bf16 and B4b-bf16 against their twins at the flagship (nb 60, D
+    32) and Q7 Net40-2-20-2 (D 128, planes in device memory): errors,
+    the mode's deviation from the fp32 form, times, bounds."""
+    out = []
+    for nq, net in (BF16_Q5, BF16_Q7):
+        spec = hea.quanonet_spec(nq, net)
+        ld, nb, d = spec.block_configs[0][1], spec.n_blocks, spec.dim
+        last = nb - 1
+        rng = np.random.RandomState(18_000 + nq)
+        w = torch.tensor(rng.uniform(-np.pi, np.pi, spec.weight_shape())
+                         .astype(np.float32), device=dev)
+        ops = cuda_ucomp.compile_operands(w)
+        g = [torch.tensor(rng.randn(nb, d, d).astype(np.float32), device=dev)
+             for _ in range(2)]
+        fwd = cuda_ucomp.ucomp_bf16_forward(*ops, ld, last)
+        twin = cuda_ucomp.ucomp_dense(*ops, ld, last, bf16=True)
+        fp32 = cuda_ucomp.ucomp_dense(*ops, ld, last)
+        bwd = cuda_ucomp.ucomp_bf16_backward(*ops, ld, last, *g)
+        again = cuda_ucomp.ucomp_bf16_backward(*ops, ld, last, *g)
+        twin_b = cuda_ucomp.ucomp_backward_dense(*ops, ld, last, *g,
+                                                 bf16=True)
+        fp32_b = cuda_ucomp.ucomp_backward_dense(*ops, ld, last, *g)
+        torch.cuda.synchronize()
+        where = f"bf16_modes: B4 bf16 Q{nq}"
+        rec = {"nq": nq, "nb": nb, "ld": ld, "D": d,
+               "fwd": [_bf16_check(f"{where} fwd", *t)
+                       for t in zip(fwd, twin, fp32)],
+               "bwd": [_bf16_check(f"{where} bwd", *t)
+                       for t in zip(bwd, twin_b, fp32_b)],
+               "bwd_bit_equal": all(torch.equal(a, b)
+                                    for a, b in zip(bwd, again))}
+        check(rec["bwd_bit_equal"], f"{where}: two backward calls differ")
+        f_kernel = lambda: cuda_ucomp.ucomp_bf16_forward(*ops, ld, last)
+        b_kernel = lambda: cuda_ucomp.ucomp_bf16_backward(*ops, ld, last, *g)
+        ffl, bfl, fby, bby = ucomp_bf16_counts(nb, ld, d)
+        u1 = ops[0].to(torch.bfloat16)
+        b2 = torch.cat(ops[1:], -1).to(torch.bfloat16)
+        rec.update({
+            "fwd_ms": time_ms(f_kernel, 20),
+            "fwd_device_ms": kernel_device_ms(f_kernel, 'ucomp_bf16_fwd'),
+            "fwd_plain_ms": time_ms(lambda: cuda_ucomp.ucomp_dense(
+                *ops, ld, last, bf16=True), 5),
+            "bwd_ms": time_ms(b_kernel, 20),
+            "bwd_device_ms": kernel_device_ms(b_kernel, 'ucomp_bf16_bwd'),
+            "bwd_plain_ms": time_ms(lambda: cuda_ucomp.ucomp_backward_dense(
+                *ops, ld, last, *g, bf16=True), 5),
+            "gate_form_fwd_ms": time_ms(
+                lambda: cuda_ucomp.ucomp_forward(w, ld, last), 20),
+            "products_library_ms": time_ms(lambda: torch.bmm(u1, b2), 20),
+            "fwd_flops": ffl, "bwd_flops": bfl})
+        rec["fwd_bound_ms"], rec["fwd_bound_by"] = _bf16_bound(ffl, fby)
+        rec["bwd_bound_ms"], rec["bwd_bound_by"] = _bf16_bound(bfl, bby)
+        out.append(rec)
+        del ops, fwd, twin, fp32, bwd, again, twin_b, fp32_b
+    return out
+
+
+def _prefix(ops, lds, blocks):
+    """The chain operands of its first ``blocks`` blocks."""
+    s = sum(lds[:blocks])
+    return ([o[:s].contiguous() for o in ops[:4]]
+            + [ops[4][:blocks].contiguous()], tuple(lds[:blocks]))
+
+
+def _bf16_fused_kernels(dev):
+    """B2f-bf16 and B2b-bf16 at Q10 Net40-2-20-2, N = 100 and 1000: on the
+    first BF16_PREFIX_BLOCKS blocks against the bf16 twins (a product
+    state rounded each sublayer: over 60 blocks a rounding that lands on
+    the other side decorrelates two bf16 runs, see BF16_DEV_BAND); on all
+    60 blocks the deviation from the fp32 form against the twin's; times
+    at N = 100 with the fp32 kernels in turns."""
+    out = []
+    for n in BF16_FUSED_ROWS:
+        spec, w, x, rng = _fused_case(10, Q10_NET, n, 18_100 + n, dev)
+        with torch.no_grad():
+            ops_all = fused_gates.prepare_fused_chain_x(spec, w, x)
+        lds_all = fused_gates.block_depths(spec)
+        ops, lds = _prefix(ops_all, lds_all, BF16_PREFIX_BLOCKS)
+        rec = {"nq": 10, "N": n, "prefix_blocks": BF16_PREFIX_BLOCKS,
+               "nb": spec.n_blocks}
+        where = f"bf16_modes: B2 bf16 Q10 N={n}"
+        k = cuda_fused.chain_forward(*ops, lds, save_residuals=True,
+                                     bf16=True)
+        t = fused_gates.chain_fused_saved_x(*ops, lds, bf16=True)
+        f = fused_gates.chain_fused_saved_x(*ops, lds)
+        rec["prefix_fwd"] = [_bf16_check(f"{where} fwd", *a)
+                             for a in zip(k, t, f)]
+        g = [torch.tensor(rng.randn(n, spec.dim).astype(np.float32),
+                          device=dev) for _ in range(2)]
+        kb = cuda_fused.chain_backward(*ops, lds, t[2], t[3], *g, bf16=True)
+        tb = fused_gates.chain_fused_backward_x(*ops, lds, t[2:], *g,
+                                                bf16=True)
+        fb = fused_gates.chain_fused_backward_x(*ops, lds, t[2:], *g)
+        rec["prefix_bwd"] = [_bf16_check(f"{where} bwd", *a)
+                             for a in zip(kb, tb, fb)]
+        if n == BF16_FUSED_ROWS[0]:
+            rec.update(_bf16_whole_chain(where, ops_all, lds_all))
+            rec["twin_1ulp"] = {"prefix": _twin_1ulp(ops, lds),
+                                "chain": _twin_1ulp(ops_all, lds_all)}
+        rec.update(_bf16_fused_times(spec, ops_all, lds_all, g, dev,
+                                     plain=n == BF16_FUSED_ROWS[0]))
+        out.append(rec)
+        del ops_all, ops, k, t, f, kb, tb, fb
+        torch.cuda.empty_cache()
+    return out
+
+
+def _twin_1ulp(ops, lds):
+    """How far the bf16 twin moves when x moves by one ulp: the RMS of
+    the change over the twin's own RMS deviation from fp32 (the share a
+    kernel that sums in another order can be held to), and the moved
+    twin's deviation over the twin's (what BF16_DEV_BAND holds)."""
+    moved = list(ops)
+    moved[4] = torch.nextafter(ops[4], torch.tensor(float('inf'),
+                                                    device=ops[4].device))
+    t = fused_gates.chain_fused_x(*ops, lds, bf16=True)
+    m = fused_gates.chain_fused_x(*moved, lds, bf16=True)
+    f = fused_gates.chain_fused_x(*ops, lds)
+    rms = lambda a: a.double().pow(2).mean().sqrt().item()
+    return {"share": [rms(a - b) / rms(b - c) for a, b, c in zip(m, t, f)],
+            "dev_ratio": [rms(a - c) / rms(b - c)
+                          for a, b, c in zip(m, t, f)]}
+
+
+def _bf16_whole_chain(where, ops, lds):
+    """The whole 60-block chain: the kernel's deviation from the fp32 form
+    against the twin's (BF16_DEV_BAND), and within BF16_ATOL."""
+    k = cuda_fused.chain_forward(*ops, lds, bf16=True)
+    t = fused_gates.chain_fused_x(*ops, lds, bf16=True)
+    f = fused_gates.chain_fused_x(*ops, lds)
+    rms = lambda a: a.double().pow(2).mean().sqrt().item()
+    ratio = [rms(a - c) / rms(b - c) for a, b, c in zip(k, t, f)]
+    dev_max = [(a - c).abs().max().item() for a, c in zip(k, f)]
+    check(all(torch.isfinite(a).all() for a in k),
+          f"{where}: chain output not finite")
+    check(all(BF16_DEV_BAND[0] <= r <= BF16_DEV_BAND[1] for r in ratio),
+          f"{where}: the chain's deviation from fp32 is {ratio} of its "
+          f"twin's (band {BF16_DEV_BAND})")
+    check(max(dev_max) <= BF16_ATOL, f"{where}: the chain deviates "
+          f"{dev_max} from fp32 (limit {BF16_ATOL})")
+    return {"chain_dev_ratio": ratio, "chain_dev_max": dev_max,
+            "chain_twin_dev_max": [(b - c).abs().max().item()
+                                   for b, c in zip(t, f)],
+            "chain_kernel_vs_twin_max": [(a - b).abs().max().item()
+                                         for a, b in zip(k, t)]}
+
+
+def _bf16_fused_times(spec, ops, lds, g, dev, plain):
+    """B2f/B2b bf16 and fp32 in turns (fp32, bf16, bf16, fp32; CUDA
+    events), the bf16 ones' card time, the bounds at the bf16 tensor-core
+    peak, the U7bar products' one bf16 torch.bmm; with ``plain`` the
+    twins' times."""
+    st = cuda_fused.chain_forward(*ops, lds, save_residuals=True, bf16=True)
+    calls = {}
+    for bf16 in (False, True):
+        calls[bf16] = (
+            lambda b=bf16: cuda_fused.chain_forward(*ops, lds, bf16=b),
+            lambda b=bf16: cuda_fused.chain_forward(
+                *ops, lds, save_residuals=True, bf16=b),
+            lambda b=bf16: cuda_fused.chain_backward(*ops, lds, st[2], st[3],
+                                                     *g, bf16=b))
+    times = {False: [[], [], []], True: [[], [], []]}
+    for bf16 in (False, True, True, False):
+        for i, fn in enumerate(calls[bf16]):
+            times[bf16][i].append(time_ms(fn, 10))
+    n = ops[4].shape[1]
+    fwd, bwd, fwd_bytes, bwd_bytes = _fused_counts(spec, n)
+    products = 6.0 * 128 * n * spec.dim * spec.total_sublayers
+    rows = n * spec.dim // 128
+    s = spec.total_sublayers
+    a = torch.randn(3 * s, 128, rows, device=dev).to(torch.bfloat16)
+    b = torch.randn(3 * s, rows, 128, device=dev).to(torch.bfloat16)
+    out = {"fwd_ms": float(np.median(times[True][0])),
+           "fwd_saved_ms": float(np.median(times[True][1])),
+           "bwd_ms": float(np.median(times[True][2])),
+           "fp32_fwd_ms": float(np.median(times[False][0])),
+           "fp32_fwd_saved_ms": float(np.median(times[False][1])),
+           "fp32_bwd_ms": float(np.median(times[False][2])),
+           "turns_ms": {"bf16": times[True], "fp32": times[False]},
+           "fwd_device_ms": kernel_device_ms(calls[True][0],
+                                             'fused_chain_fwd', 10),
+           "bwd_device_ms": kernel_device_ms(calls[True][2], 'fused_', 10),
+           "u7bar_library_ms": time_ms(lambda: torch.bmm(a, b), 10)}
+    if plain:
+        out["fwd_plain_ms"] = time_ms(lambda: fused_gates.chain_fused_x(
+            *ops, lds, bf16=True), 1)
+        out["bwd_plain_ms"] = time_ms(
+            lambda: fused_gates.chain_fused_backward_x(
+                *ops, lds, st[2:], *g, bf16=True), 1)
+    out["fwd_bound_ms"], out["fwd_bound_by"] = _bf16_bound(
+        products, fwd_bytes, fwd - products)
+    out["bwd_bound_ms"], out["bwd_bound_by"] = _bf16_bound(
+        2 * products, bwd_bytes, bwd - 2 * products)
+    del a, b, st
+    return out
+
+
+def _bf16_requests():
+    rng = np.random.RandomState(19)
+    return [(rng.randn(n, 100).astype(np.float32),
+             rng.rand(n, 2).astype(np.float32)) for n in (1, 37, 200)]
+
+
+def _bf16_served(ckpt, reqs):
+    pred = Predictor(ckpt, branch_in=100, trunk_in=2, max_batch=256,
+                     device='cuda')
+    pred.warmup()
+    return np.concatenate([pred.predict(b, t) for b, t in reqs])
+
+
+@contextmanager
+def _twins_for_kernels():
+    """The bf16 kernels' wrappers answered by their plain twins (the served
+    reference of the modes; nothing is counted)."""
+    saved = cuda_ucomp.ucomp_bf16_forward, cuda_fused.chain_forward
+
+    def chain(*ops, save_residuals=False, bf16=False):
+        assert not save_residuals
+        return fused_gates.chain_fused_x(*ops, bf16=bf16)
+    cuda_ucomp.ucomp_bf16_forward = (
+        lambda u1t, br, bi, ld, last: cuda_ucomp.ucomp_dense(
+            u1t, br, bi, ld, last, bf16=True))
+    cuda_fused.chain_forward = chain
+    try:
+        yield
+    finally:
+        cuda_ucomp.ucomp_bf16_forward, cuda_fused.chain_forward = saved
+
+
+def _bf16_path(tmp, ckpt, nq, net, ucomp, pfused):
+    """One mode's path: the training CLI (Q5: BF16_Q5_EPOCHS epochs of 20
+    functions; Q10: the train_q10 epoch) and the served requests, with
+    every count zeroed just before and read just after; -> (counts, CLI
+    metrics, served predictions)."""
+    argv = ['--operator', 'Advection', '--model_type', 'QuanONet',
+            '--net_size', *map(str, net), '--num_qubits', str(nq),
+            '--scale_coeff', '0.1',
+            '--num_epochs', str(BF16_Q5_EPOCHS if nq == 5 else 1),
+            '--num_train', '20' if nq == 5 else str(Q10_CLI_TRAIN),
+            '--num_test', '20', '--train_sample_num', '100',
+            '--test_sample_num', '100', '--learning_rate', '0.003',
+            '--prefix', os.path.join(tmp, f'out_{int(ucomp or pfused)}'),
+            '--device', 'cuda']
+    stdout = sys.stdout
+    with bf16_mode(ucomp=ucomp, pfused=pfused):
+        _zero_counts()                  # the path starts here
+        try:
+            solver = cli.main(argv)
+        finally:
+            sys.stdout = stdout
+        served = _bf16_served(ckpt, _bf16_requests())
+        torch.cuda.synchronize()
+        counts = _counts()              # ... and ends here
+    with open(os.path.join(solver.exp_logger.exp_dir, 'metric.json')) as f:
+        metrics = json.load(f)['metrics']
+    return counts, metrics, served
+
+
+def _bf16_step_arms(nq, net, ucomp, pfused):
+    """ms a training step at batch 100, fp32 and the mode in turns
+    (_arms_in_turns)."""
+    dev = torch.device('cuda')
+    rng = np.random.RandomState(0)
+    b = torch.as_tensor(rng.randn(100, 100).astype(np.float32), device=dev)
+    t = torch.as_tensor(rng.rand(100, 2).astype(np.float32), device=dev)
+    y = torch.as_tensor(rng.randn(100, 1).astype(np.float32), device=dev)
+    arms = {}
+    for name, on in (('fp32', False), ('bf16', True)):
+        model = QuanONet(nq, 100, 2, net, scale_coeff=0.1, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+        opt = ScheduledOptimizer(torch.optim.Adam(model.parameters()),
+                                 lambda s: 1e-4)
+
+        def step(model=model, opt=opt, on=on):
+            with bf16_mode(ucomp=ucomp and on, pfused=pfused and on):
+                loss = ((model(b, t) - y) ** 2).mean()
+                opt.zero_grad()
+                loss.backward()
+                opt.step()
+        arms[name] = step
+    return _arms_in_turns(arms, ARM_STEPS)
+
+
+def phase_bf16_modes(smi_line):
+    """The opt-in bf16 operand modes on the card: each bf16 kernel against
+    its bf16 twin (B4 at the flagship and Q7; B2 at Q10, N = 100 and 1000),
+    each mode's deviation from the fp32 path beside the JAX test's limit;
+    then the flagship under UCOMP_BF16 and Q10 under PFUSED_BF16 through the
+    entry points (the training CLI, Predictor's requests), each path's
+    launches, rel-L2 and ms a step against the fp32 default in one process;
+    QON_UNPIN_EXPECT's deviation at the flagship.
+    -> (kernel records, path counts)."""
+    dev = torch.device('cuda')
+    ucomp_recs = _bf16_ucomp_kernels(dev)
+    fused_recs = _bf16_fused_kernels(dev)
+    paths, quality = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, nq, net, ucomp, pfused in (
+                ('bf16_q5', 5, FLAGSHIP[1], True, False),
+                ('bf16_q10', 10, Q10_NET, False, True)):
+            ckpt = ANCHOR if nq == 5 else _q10_checkpoint(tmp)[0]
+            counts, metrics, served = _bf16_path(tmp, ckpt, nq, net, ucomp,
+                                                 pfused)
+            _, metrics32, served32 = _bf16_path(tmp, ckpt, nq, net, False,
+                                                False)
+            with bf16_mode(ucomp=ucomp, pfused=pfused), _twins_for_kernels():
+                twin = _bf16_served(ckpt, _bf16_requests())
+            paths[label] = counts
+            rms = lambda a: float(np.sqrt(np.mean(np.square(a))))
+            served_vs = {
+                "max_abs_dev_from_fp32": float(np.abs(served - served32)
+                                               .max()),
+                "twin_max_abs_dev_from_fp32": float(np.abs(twin - served32)
+                                                    .max()),
+                "max_abs_err_vs_twin": float(np.abs(served - twin).max()),
+                "dev_ratio": rms(served - served32) / rms(twin - served32)}
+            quality[label] = {
+                "launches": counts, "cli_metrics": metrics,
+                "fp32_cli_metrics": metrics32, "served": served_vs,
+                "jax_bf16_limit": BF16_ATOL,
+                "step_arms": _bf16_step_arms(nq, net, ucomp, pfused)}
+            kernels = (('ucomp_bf16_fwd', 'ucomp_bf16_bwd') if ucomp
+                       else ('fused_chain_bf16_fwd', 'fused_chain_bf16_bwd'))
+            fp32_kernels = (('ucomp_fwd', 'ucomp_bwd') if ucomp
+                            else ('fused_chain_fwd', 'fused_chain_bwd'))
+            where = f"bf16_modes: {label}"
+            check(all(counts[k] > 0 for k in kernels)
+                  and all(counts[k] == 0 for k in fp32_kernels),
+                  f"{where}: launches {counts}")
+            rel, rel32 = metrics['rel_l2'], metrics32['rel_l2']
+            check(all(np.isfinite(v) for v in metrics.values())
+                  and abs(rel - rel32) <= BF16_REL_L2_RTOL * rel32,
+                  f"{where}: CLI metrics {metrics} against fp32's "
+                  f"{metrics32} (rel-L2 within {BF16_REL_L2_RTOL} relative)")
+            # the served rows: the compile's blocks are independent, so the
+            # flagship's predictions sit on its twin's; the 60-block fused
+            # chain decorrelates bf16 runs, so Q10's deviate from fp32 as
+            # much as its twin's do
+            check(np.isfinite(served).all(), f"{where}: served not finite")
+            if ucomp:
+                check(served_vs["max_abs_err_vs_twin"] <= BF16_ATOL,
+                      f"{where}: served {served_vs} (limit {BF16_ATOL} from "
+                      f"the twin's)")
+            else:
+                check(BF16_DEV_BAND[0] <= served_vs["dev_ratio"]
+                      <= BF16_DEV_BAND[1], f"{where}: served {served_vs} "
+                      f"(deviation band {BF16_DEV_BAND})")
+    # QON_UNPIN_EXPECT at the flagship, batch 100
+    model = _flagship_model(dev)
+    rng = np.random.RandomState(1)
+    b = torch.as_tensor(rng.randn(100, 100).astype(np.float32), device=dev)
+    t = torch.as_tensor(rng.rand(100, 2).astype(np.float32), device=dev)
+    with torch.no_grad():
+        pinned = model(b, t)
+        hea.UNPIN_EXPECT = True
+        try:
+            unpinned = model(b, t)
+        finally:
+            modes_off()
+    unpin_dev = (unpinned - pinned).abs().max().item()
+    emit({"phase": "bf16_modes", "card": smi_line,
+          "limits": {"jax_atol": BF16_ATOL, "rms_share": BF16_RMS_SHARE,
+                     "chain_dev_band": BF16_DEV_BAND},
+          "ucomp_kernels": ucomp_recs, "fused_kernels": fused_recs,
+          "paths": quality, "unpin_expect_max_abs_dev": unpin_dev})
+    check(bool(torch.isfinite(unpinned).all())
+          and unpin_dev <= BF16_ATOL * max(1.0, pinned.abs().max().item()),
+          f"bf16_modes: QON_UNPIN_EXPECT moves the flagship's output by "
+          f"{unpin_dev}")
+    return {"ucomp": ucomp_recs, "fused": fused_recs}, paths
+
+
 # every phase by name, in the order main() runs them; --phases picks some
 PHASES = (
     'device', 'build', 'kernel', 'serve', 'kernel_bwd', 'train_parity',
@@ -4748,7 +5232,7 @@ PHASES = (
     'seedpack', 'datagen_device', 'datagen_native', 'ibm_export',
     'multichip_ranks', 'bench_amplitude', 'multichip_dp', 'multichip_amp',
     'multichip_pipe', 'multichip_cli', 'profile_q10', 'bench_serve',
-    'bench_suite', 'studies', 'sweeps')
+    'bench_suite', 'studies', 'sweeps', 'bf16_modes')
 # the phases whose results a phase takes
 PHASE_NEEDS = {
     'kernel_ucomp': ('smallest_launch',), 'kernel_adam': ('smallest_launch',),
@@ -4803,6 +5287,7 @@ def main(argv=None):
         return 1
     ph = Phases(None if args.phases is None
                 else selected_phases(args.phases))
+    modes_off()     # the opt-in modes run in bf16_modes only
     smi_line = ph.run('device', phase_device)
     ph.run('build', phase_build)
     records = ph.run('kernel', phase_kernel)
@@ -4908,13 +5393,18 @@ def main(argv=None):
           keys=('studies_noise', 'studies_hardware'))
     paths('sweeps', phase_sweeps, smi_line,
           keys=('sweeps_circuit_q5', 'sweeps_circuit_q10'))
+    # the opt-in bf16 modes: each path read with every count zeroed just
+    # before it
+    bf16 = ph.run('bf16_modes', phase_bf16_modes, smi_line)
+    if bf16 is not None:
+        new_paths.update(bf16[1])
     emit({"phase_seconds": ph.seconds})
     if ph.only is None:
         kernels_line(new_paths, records, bwd_records, serve, train, q10_train,
                      fused_records, fused_bwd_records, q10_serve, ps_counts,
                      serve_ucomp, ucomp_records, shift_stacks, packed_stacks,
                      adam, embed_records, embed_bwd_records, train_embed,
-                     serve_embed, classical)
+                     serve_embed, classical, bf16[0])
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -4926,7 +5416,7 @@ def kernels_line(new_paths, records, bwd_records, serve, train, q10_train,
                  fused_records, fused_bwd_records, q10_serve, ps_counts,
                  serve_ucomp, ucomp_records, shift_stacks, packed_stacks,
                  adam, embed_records, embed_bwd_records, train_embed,
-                 serve_embed, classical):
+                 serve_embed, classical, bf16):
     """The {"kernels": [...]} line from every phase's results and the
     paths' launch counts."""
     launches = serve["hea_chain_fwd"]
@@ -5180,7 +5670,64 @@ def kernels_line(new_paths, records, bwd_records, serve, train, q10_train,
                       "device_ms": ebwd_big['device_ms'],
                       "ebar_splits": ebwd_big['ebar_splits']},
         "shapes": [[r['nb'], r['N'], r['d']] for r in embed_bwd_records],
-        "geometry_by_case": _embed_geometry_by_case(embed_bwd_records)}]})
+        "geometry_by_case": _embed_geometry_by_case(embed_bwd_records)},
+        *bf16_kernels(bf16, new_paths)]})
+
+
+def bf16_kernels(bf16, new_paths):
+    """The kernels line's entries of the bf16 variants: bf16_modes' records,
+    the launches of every path that ran them."""
+    u5 = next(r for r in bf16['ucomp'] if r['nq'] == 5)
+    f100 = next(r for r in bf16['fused'] if r['N'] == 100)
+
+    def errs(key, recs):
+        return max(e['max_abs_err'] for r in recs for e in r[key])
+
+    def entry(name, source, replaces, twin, rec, pre, err, library_ms,
+              **extra):
+        by_path = {p: c[name] for p, c in new_paths.items() if c.get(name)}
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "twin": twin,
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "max_abs_err": err,
+                "ms": rec[pre + 'ms'], "plain_ms": rec[pre + 'plain_ms'],
+                "bound_ms": rec[pre + 'bound_ms'],
+                "bound_by": rec[pre + 'bound_by'], "library_ms": library_ms,
+                "device_ms": rec[pre + 'device_ms'], **extra}
+    ucomp_src = "quanonet_torch/csrc/ucomp.cu"
+    fused_src = "quanonet_torch/csrc/fused_chain.cu"
+    return [
+        entry("ucomp_bf16_fwd", ucomp_src,
+              "quanonet_tpu/ops/pallas_ucomp.py:118",
+              "quanonet_torch/ops/cuda_ucomp.py:ucomp_dense(bf16=True)", u5,
+              'fwd_', errs('fwd', bf16['ucomp']), None,
+              products_library_ms=u5['products_library_ms'],
+              gate_form_fwd_ms=u5['gate_form_fwd_ms'],
+              timed_shape={"nb": u5['nb'], "ld": u5['ld'], "D": u5['D']},
+              shapes=[[r['nb'], r['ld'], r['D']] for r in bf16['ucomp']]),
+        entry("ucomp_bf16_bwd", ucomp_src,
+              "quanonet_tpu/ops/pallas_ucomp.py:142",
+              "quanonet_torch/ops/cuda_ucomp.py:"
+              "ucomp_backward_dense(bf16=True)", u5, 'bwd_',
+              errs('bwd', bf16['ucomp']), None,
+              timed_shape={"nb": u5['nb'], "ld": u5['ld'], "D": u5['D']}),
+        entry("fused_chain_bf16_fwd", fused_src,
+              "quanonet_tpu/ops/pallas_fused.py:492",
+              "quanonet_torch/ops/fused_gates.py:chain_fused(bf16=True)",
+              f100, 'fwd_', errs('prefix_fwd', bf16['fused']), None,
+              fp32_ms=f100['fp32_fwd_ms'],
+              residual_variant_ms=f100['fwd_saved_ms'],
+              timed_shape={"nq": 10, "nb": f100['nb'], "N": 100},
+              held_on_blocks=BF16_PREFIX_BLOCKS),
+        entry("fused_chain_bf16_bwd", fused_src,
+              "quanonet_tpu/ops/pallas_fused.py:570",
+              "quanonet_torch/ops/fused_gates.py:"
+              "chain_fused_backward(bf16=True)", f100, 'bwd_',
+              errs('prefix_bwd', bf16['fused']), None,
+              fp32_ms=f100['fp32_bwd_ms'],
+              u7bar_library_ms=f100['u7bar_library_ms'],
+              timed_shape={"nq": 10, "nb": f100['nb'], "N": 100},
+              held_on_blocks=BF16_PREFIX_BLOCKS)]
 
 
 if __name__ == '__main__':

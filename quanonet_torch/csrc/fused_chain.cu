@@ -51,6 +51,20 @@
 //   Plain versions: quanonet_torch/ops/fused_gates.py chain_fused_x (primal),
 //   chain_fused_saved_x (residuals), chain_fused_backward_x (backward).
 //
+//   The bf16 mode (bf16 != 0; PFUSED_BF16=1, the JAX kernels' use_bf16 =
+//   _make_kara(True)): the three low products of a sublayer (forward; the
+//   backward's recompute, ct . conj(U7t)^T and U7bar) in the three-product
+//   form on bf16-rounded operands with fp32 sums, t1 = ar br, t2 = ai bi,
+//   t3 = (ar + ai)(br + bi), the sums formed in fp32 before their rounding,
+//   -> t1 - t2 + i (t3 - t1 - t2): three mma.sync m16n8k16 bf16 a k16 step
+//   where the exact mode takes twelve m16n8k8 TF32 a k8 step.  The operands
+//   are rounded as the fragments are packed (cvt.rn.bf16x2.f32), U7t from
+//   the same fp32 stream as the exact mode's (the stream is not halved: one
+//   copy of U7t serves both modes).  Everything else is shared: the
+//   schedule, the copy warps, the elementwise passes, the ring, the
+//   reductions and their fixed order.  Plain versions: the same functions
+//   with bf16=True.
+//
 // What bounds them.  The low-group products are the work: per sublayer
 // N*hi*128*128 complex MACs (forward one, backward three: recompute,
 // ct . conj(U7t)^T and the U7bar GEMM), 6 flops each in the three-product
@@ -293,6 +307,54 @@ __device__ __forceinline__ void cmma(float (&yr)[4], float (&yi)[4], const FragA
   }
 }
 
+// ── bf16 on mma.sync m16n8k16: the PFUSED_BF16 mode ──────────────────────
+
+// lo and hi rounded to bf16 (to nearest even) and packed, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// d += a . b: mma.sync m16n8k16, bf16 operands, fp32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An m16 x k16 fragment of a complex operand in the three-product form,
+// rounded: re, im and re + im (the sum in fp32 first).  Element pairs
+// (2 e, 2 e + 1) of re, im go to register e: (g, 2t | 2t + 1), (g + 8, ..),
+// (g, 2t + 8 | 2t + 9), (g + 8, ..).
+struct FragBf16 {
+  uint32_t r[4], i[4], s[4];
+};
+
+__device__ __forceinline__ void load_frag_bf16(FragBf16& f, const float (&re)[8],
+                                               const float (&im)[8]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    f.r[e] = pack_bf16(re[2 * e], re[2 * e + 1]);
+    f.i[e] = pack_bf16(im[2 * e], im[2 * e + 1]);
+    f.s[e] = pack_bf16(re[2 * e] + im[2 * e], re[2 * e + 1] + im[2 * e + 1]);
+  }
+}
+
+// The three products of A . (xr + i xi) on the k16 x n8 tile whose column
+// elements (k 2t, 2t + 1, 2t + 8, 2t + 9) are xr[0..3], xi[0..3]: t[0] +=
+// Ar xr, t[1] += Ai xi, t[2] += (Ar + Ai)(xr + xi), each on bf16-rounded
+// operands.  The result is t[0] - t[1] + i (t[2] - t[0] - t[1]).
+__device__ __forceinline__ void kmma(float (&t)[3][4], const FragBf16& a,
+                                     const float (&xr)[4], const float (&xi)[4]) {
+  mma_bf16(t[0], a.r, pack_bf16(xr[0], xr[1]), pack_bf16(xr[2], xr[3]));
+  mma_bf16(t[1], a.i, pack_bf16(xi[0], xi[1]), pack_bf16(xi[2], xi[3]));
+  mma_bf16(t[2], a.s, pack_bf16(xr[0] + xi[0], xr[1] + xi[1]),
+           pack_bf16(xr[2] + xi[2], xr[3] + xi[3]));
+}
+
 // A CTA's rows: n qubits, nh = n - 7 high ones, R rows of M = R 2^nh tile
 // rows; row0 its first row, valid_m the tile rows of rows < N, g0 = row0
 // 2^n its first element in an (N, 2^n) array.  Tile row m, lane l is
@@ -401,7 +463,7 @@ __device__ void start_stream(const Stream& st) {
 // first chunk on entry, the next pass's on exit.  Ends with a barrier (y
 // is written), before which threads i < n_next store next[i] (a value they
 // loaded before the call) to next_s.
-template <int NB>
+template <int NB, bool BF16>
 __device__ void product(const Stream& st, int& g, const float* x_r,
                         const float* x_i, Buf y, const Rows& q, bool adj,
                         float* next_s, float next, int n_next) {
@@ -415,10 +477,17 @@ __device__ void product(const Stream& st, int& g, const float* x_r,
   const int i0 = mt * 16 + gid;
   for (int bt = 0; bt < batches; ++bt) {
     float yr[NB][4], yi[NB][4];
+    float t3[BF16 ? NB : 1][3][4];   // the bf16 mode's three products
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) yr[nb][e] = yi[nb][e] = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < (BF16 ? NB : 1); ++nb)
+#pragma unroll
+      for (int u = 0; u < 3; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t3[nb][u][e] = 0.f;
     for (int c = 0; c < kChunks; ++c, ++g) {
       cp_async_wait(st.nslots - 2);        // chunk g has landed (the copy warp's)
       __syncthreads();                     // ... for all; chunk g - 1 is used
@@ -428,6 +497,37 @@ __device__ void product(const Stream& st, int& g, const float* x_r,
       }
       const float* s_r = st.slots + (g % st.nslots) * kSlotFloats;
       const float* s_i = s_r + kSlotHalf;
+      if constexpr (BF16) {
+#pragma unroll
+        for (int ks = 0; ks < kChunk / 16; ++ks) {
+          float ar[8], ai[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {   // A[i0 + 8 (e / 2 % 2)][kk]
+            const int i = i0 + 8 * ((e >> 1) & 1);
+            const int kk = ks * 16 + 2 * tig + (e & 1) + 8 * (e >> 2);
+            if (adj) {    // conj(U7t[i][32 c + kk])
+              ar[e] = s_r[i * kAdjPitch + kk];
+              ai[e] = -s_i[i * kAdjPitch + kk];
+            } else {      // U7t[32 c + kk][i]
+              ar[e] = s_r[kk * kFwdPitch + i];
+              ai[e] = s_i[kk * kFwdPitch + i];
+            }
+          }
+          FragBf16 fa;
+          load_frag_bf16(fa, ar, ai);
+          const int k = c * kChunk + ks * 16 + 2 * tig;
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb) {
+            const int m = (ng + groups * (bt * NB + nb)) * 8 + gid;
+            const float* pr = x_r + m * kPitch + k;
+            const float* pi = x_i + m * kPitch + k;
+            const float xr[4] = {pr[0], pr[1], pr[8], pr[9]};
+            const float xi[4] = {pi[0], pi[1], pi[8], pi[9]};
+            kmma(t3[nb], fa, xr, xi);
+          }
+        }
+        continue;
+      }
 #pragma unroll
       for (int ks = 0; ks < kChunk / 8; ++ks) {
         float ar[4], ai[4];
@@ -457,6 +557,15 @@ __device__ void product(const Stream& st, int& g, const float* x_r,
       }
     }
     if (copier) continue;
+    if constexpr (BF16) {
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          yr[nb][e] = t3[nb][0][e] - t3[nb][1][e];
+          yi[nb][e] = t3[nb][2][e] - t3[nb][0][e] - t3[nb][1][e];
+        }
+    }
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
       const int m = (ng + groups * (bt * NB + nb)) * 8 + 2 * tig;
@@ -472,17 +581,18 @@ __device__ void product(const Stream& st, int& g, const float* x_r,
 }
 
 // product with NB = the n8 tiles a warp owns, at most kMaxNb
+template <bool BF16>
 __device__ __forceinline__ void low_product(const Stream& st, int& g,
                                             const float* x_r, const float* x_i,
                                             Buf y, const Rows& q, bool adj,
                                             float* next_s, float next, int n_next) {
   const int per_warp = (q.M >> 3) / (mma_warps() >> 3);
   if (per_warp >= 4)
-    product<4>(st, g, x_r, x_i, y, q, adj, next_s, next, n_next);
+    product<4, BF16>(st, g, x_r, x_i, y, q, adj, next_s, next, n_next);
   else if (per_warp == 2)
-    product<2>(st, g, x_r, x_i, y, q, adj, next_s, next, n_next);
+    product<2, BF16>(st, g, x_r, x_i, y, q, adj, next_s, next, n_next);
   else
-    product<1>(st, g, x_r, x_i, y, q, adj, next_s, next, n_next);
+    product<1, BF16>(st, g, x_r, x_i, y, q, adj, next_s, next, n_next);
 }
 
 // ── the elementwise passes ───────────────────────────────────────────────
@@ -1012,8 +1122,9 @@ __device__ __forceinline__ int chunks_per_pass(int M) {
 // ── B2f: forward, primal output and (SAVE) each block's input state ──────
 
 // THREADS: the block size it is built for (384 or 640), so that the
-// smaller one may use up to 168 registers a thread
-template <bool SAVE, int THREADS>
+// smaller one may use up to 168 registers a thread; BF16: the low products
+// in the bf16 mode
+template <bool SAVE, int THREADS, bool BF16>
 __global__ void __launch_bounds__(THREADS)
 fused_chain_fwd_kernel(const float* __restrict__ u7t_r,
                        const float* __restrict__ u7t_i,
@@ -1063,7 +1174,7 @@ fused_chain_fwd_kernel(const float* __restrict__ u7t_r,
     }
     for (int t = s0; t < s1; ++t) {
       const float u2v = u2_entry(u2_r, u2_i, t, q.nh);
-      low_product(st, g, s.re, s.im, y, q, false, L.u2s, u2v, 8 * q.nh);
+      low_product<BF16>(st, g, s.re, s.im, y, q, false, L.u2s, u2v, 8 * q.nh);
       butterflies_all(y, q, L.u2s, L.rcols, s, nullptr, nullptr);
     }
   }
@@ -1072,7 +1183,7 @@ fused_chain_fwd_kernel(const float* __restrict__ u7t_r,
 
 // ── B2b: the reverse sweep ───────────────────────────────────────────────
 
-template <int THREADS>
+template <int THREADS, bool BF16>
 __global__ void __launch_bounds__(THREADS)
 fused_chain_bwd_kernel(const float* __restrict__ u7t_r,
                        const float* __restrict__ u7t_i,
@@ -1139,7 +1250,8 @@ fused_chain_bwd_kernel(const float* __restrict__ u7t_r,
         const bool more = t + 1 < s1;
         float* pr_next = more ? pre_r + (t + 1) * nd : nullptr;
         float* pi_next = more ? pre_i + (t + 1) * nd : nullptr;
-        low_product(st, g, b0.re, b0.im, b1, q, false, L.u2s, u2v, 8 * q.nh);
+        low_product<BF16>(st, g, b0.re, b0.im, b1, q, false, L.u2s, u2v,
+                          8 * q.nh);
         butterflies_all(b1, q, L.u2s, L.rcols, more ? b0 : none, pr_next, pi_next);
       }
       for (int t = s1 - 1; t >= s0; --t) {
@@ -1159,7 +1271,7 @@ fused_chain_bwd_kernel(const float* __restrict__ u7t_r,
         }
         // the walk of sublayer t - 1 reads its 2x2s from u2s
         const float u2v = u2_entry(u2_r, u2_i, t > s0 ? t - 1 : -1, q.nh);
-        low_product(st, g, b0.re, b0.im, b2, q, true, L.u2s, u2v,
+        low_product<BF16>(st, g, b0.re, b0.im, b2, q, true, L.u2s, u2v,
                     t > s0 ? 8 * q.nh : 0);
       }
     }
@@ -1183,7 +1295,9 @@ fused_chain_bwd_kernel(const float* __restrict__ u7t_r,
 // of one slice, on the tensor cores: chunks of 32 rows of the 64 columns m
 // of PRE and the 64 columns j of CT staged by cp.async in a 3-stage ring
 // (zeros past the slice) by kCopyWarps copy warps, each of the eight MMA
-// warps a 32 x 16 part of the 64 x 64 tile.
+// warps a 32 x 16 part of the 64 x 64 tile.  BF16: the three products of
+// the bf16 mode (conj(PRE)^T and CT rounded, the sums re + im before).
+template <bool BF16>
 __global__ void __launch_bounds__(kGemmThreads + kCopyThreads)
 fused_u7bar_kernel(const float* __restrict__ pre_r,
                    const float* __restrict__ pre_i,
@@ -1224,12 +1338,21 @@ fused_u7bar_kernel(const float* __restrict__ pre_r,
   };
 
   float yr[2][2][4], yi[2][2][4];
+  float t3[BF16 ? 2 : 1][2][3][4];   // the bf16 mode's three products
 #pragma unroll
   for (int a = 0; a < 2; ++a)
 #pragma unroll
     for (int c = 0; c < 2; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e) yr[a][c][e] = yi[a][c][e] = 0.f;
+#pragma unroll
+  for (int a = 0; a < (BF16 ? 2 : 1); ++a)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int u = 0; u < 3; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t3[a][c][u][e] = 0.f;
 
   issue(0);
   issue(1);
@@ -1243,6 +1366,36 @@ fused_u7bar_kernel(const float* __restrict__ pre_r,
     const float* a_i = stage + kGemmChunk * kGemmPitch;
     const float* b_r = stage + 2 * kGemmChunk * kGemmPitch;
     const float* b_i = stage + 3 * kGemmChunk * kGemmPitch;
+    if constexpr (BF16) {
+#pragma unroll
+      for (int ks = 0; ks < kGemmChunk / 16; ++ks) {
+        const int k0 = ks * 16 + 2 * tig;
+        FragBf16 fa[2];
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {   // A[m][q] = conj(PRE[q][m])
+          float ar[8], ai[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int o = (k0 + (e & 1) + 8 * (e >> 2)) * kGemmPitch + wm + 16 * a + gid +
+                          8 * ((e >> 1) & 1);
+            ar[e] = a_r[o];
+            ai[e] = -a_i[o];
+          }
+          load_frag_bf16(fa[a], ar, ai);
+        }
+#pragma unroll
+        for (int c2 = 0; c2 < 2; ++c2) {
+          const int o = k0 * kGemmPitch + wn + 8 * c2 + gid;
+          const float xr[4] = {b_r[o], b_r[o + kGemmPitch], b_r[o + 8 * kGemmPitch],
+                               b_r[o + 9 * kGemmPitch]};
+          const float xi[4] = {b_i[o], b_i[o + kGemmPitch], b_i[o + 8 * kGemmPitch],
+                               b_i[o + 9 * kGemmPitch]};
+#pragma unroll
+          for (int a = 0; a < 2; ++a) kmma(t3[a][c2], fa[a], xr, xi);
+        }
+      }
+      continue;
+    }
 #pragma unroll
     for (int ks = 0; ks < kGemmChunk / 8; ++ks) {
       const int k = (ks * 8 + tig) * kGemmPitch;
@@ -1267,6 +1420,17 @@ fused_u7bar_kernel(const float* __restrict__ pre_r,
     }
   }
   if (copier) return;
+  if constexpr (BF16) {
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int c2 = 0; c2 < 2; ++c2)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          yr[a][c2][e] = t3[a][c2][0][e] - t3[a][c2][1][e];
+          yi[a][c2][e] = t3[a][c2][2][e] - t3[a][c2][0][e] - t3[a][c2][1][e];
+        }
+  }
   const size_t out0 = (static_cast<size_t>(blockIdx.y) * n_sub + t) * kLanes * kLanes;
 #pragma unroll
   for (int a = 0; a < 2; ++a)
@@ -1371,7 +1535,7 @@ extern "C" int fused_chain_forward(const float* u7t_r, const float* u7t_i,
                                    const int* sched, float* out_r,
                                    float* out_i, float* st_r, float* st_i,
                                    float* scratch, int nb, int n_rows, int n,
-                                   int rows_per_cta, void* stream) {
+                                   int rows_per_cta, int bf16, void* stream) {
   Geometry g;
   if (nb < 1 || !geometry(n, n_rows, rows_per_cta, 2, scratch == nullptr, &g) ||
       (st_r == nullptr) != (st_i == nullptr))
@@ -1379,11 +1543,17 @@ extern "C" int fused_chain_forward(const float* u7t_r, const float* u7t_i,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr int kSmall = kMaxConsumers / 2 + kCopyThreads;
   const bool big = g.threads == kMaxThreads;
-  const auto kernel = st_r != nullptr
-                          ? (big ? fused_chain_fwd_kernel<true, kMaxThreads>
-                                 : fused_chain_fwd_kernel<true, kSmall>)
-                          : (big ? fused_chain_fwd_kernel<false, kMaxThreads>
-                                 : fused_chain_fwd_kernel<false, kSmall>);
+  using Kernel = decltype(&fused_chain_fwd_kernel<true, kSmall, false>);
+  static const Kernel kKernels[2][2][2] = {   // [bf16][save][big]
+      {{fused_chain_fwd_kernel<false, kSmall, false>,
+        fused_chain_fwd_kernel<false, kMaxThreads, false>},
+       {fused_chain_fwd_kernel<true, kSmall, false>,
+        fused_chain_fwd_kernel<true, kMaxThreads, false>}},
+      {{fused_chain_fwd_kernel<false, kSmall, true>,
+        fused_chain_fwd_kernel<false, kMaxThreads, true>},
+       {fused_chain_fwd_kernel<true, kSmall, true>,
+        fused_chain_fwd_kernel<true, kMaxThreads, true>}}};
+  const Kernel kernel = kKernels[bf16 != 0][st_r != nullptr][big];
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(g.bytes));
   if (err != cudaSuccess) return err;
@@ -1406,16 +1576,21 @@ extern "C" int fused_chain_backward(
     float* pre_r, float* pre_i, float* ct_r, float* ct_i, float* u2part,
     float* u7part_r, float* u7part_i, float* scratch, float* u7bar_r,
     float* u7bar_i, float* u2bar_r, float* u2bar_i, float* xbar, int nb,
-    int n_sub, int n_rows, int n, int rows_per_cta, int splits, void* stream) {
+    int n_sub, int n_rows, int n, int rows_per_cta, int splits, int bf16,
+    void* stream) {
   Geometry g;
   if (nb < 1 || n_sub < 0 || splits < 1 ||
       !geometry(n, n_rows, rows_per_cta, 4, scratch == nullptr, &g) ||
       (splits > 1 && (u7part_r == nullptr || u7part_i == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto kernel = g.threads == kMaxThreads
-                          ? fused_chain_bwd_kernel<kMaxThreads>
-                          : fused_chain_bwd_kernel<kMaxConsumers / 2 + kCopyThreads>;
+  constexpr int kSmall = kMaxConsumers / 2 + kCopyThreads;
+  const auto kernel =
+      g.threads == kMaxThreads
+          ? (bf16 ? fused_chain_bwd_kernel<kMaxThreads, true>
+                  : fused_chain_bwd_kernel<kMaxThreads, false>)
+          : (bf16 ? fused_chain_bwd_kernel<kSmall, true>
+                  : fused_chain_bwd_kernel<kSmall, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(g.bytes));
   if (err != cudaSuccess) return err;
@@ -1430,11 +1605,11 @@ extern "C" int fused_chain_backward(
   const long long per_split = (rows + splits - 1) / splits;
   const dim3 ggrid(static_cast<unsigned>(n_sub * 4), static_cast<unsigned>(splits));
   const size_t gbytes = sizeof(float) * kGemmStages * kGemmStageFloats;
-  err = cudaFuncSetAttribute(fused_u7bar_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const auto gemm = bf16 ? fused_u7bar_kernel<true> : fused_u7bar_kernel<false>;
+  err = cudaFuncSetAttribute(gemm, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(gbytes));
   if (err != cudaSuccess) return err;
-  fused_u7bar_kernel<<<ggrid, kGemmThreads + kCopyThreads, gbytes, s>>>(
+  gemm<<<ggrid, kGemmThreads + kCopyThreads, gbytes, s>>>(
       pre_r, pre_i, ct_r, ct_i, splits > 1 ? u7part_r : u7bar_r,
       splits > 1 ? u7part_i : u7bar_i, n_sub, rows, per_split);
   err = cudaGetLastError();

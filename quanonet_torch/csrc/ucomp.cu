@@ -71,8 +71,14 @@
 // NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md).  No tensor
 // cores: no D x D product is left for them to do.  No TMA: the only input
 // is the weights (7 KB at the flagship), nothing worth a bulk copy.
+//
+// The opt-in bf16 operand mode (UCOMP_BF16) rounds the TPU kernel's
+// products, so it keeps their matrix form: B4f-bf16 and B4b-bf16 below
+// ("the bf16 operand mode"), on the tensor cores.
 
 #include <cmath>
+#include <cstddef>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
@@ -544,6 +550,321 @@ ucomp_bwd_sum_kernel(const float* __restrict__ part, float* __restrict__ wbar,
   }
 }
 
+// ── the bf16 operand mode (UCOMP_BF16): the product form ──────────────────
+//
+// B4f-bf16 and B4b-bf16, pallas_ucomp's _fwd_kernel and _bwd_kernel under
+// UCOMP_BF16: every D x D product of the TPU kernel, here per block and
+// unpacked, on bf16-rounded operands (to nearest even) with fp32 sums.  The
+// gate form above has no product left to round, so this mode keeps the
+// matrix form: the operands u1t, br, bi (S, D, D) come from the elementwise
+// build in PyTorch (cuda_ucomp.compile_operands), differentiated there by
+// autograd, as in the JAX package.  Per block b, sublayers s = b ld + d:
+//
+//   forward   S_d = U1t_s . B'_s (two real products); acc = S_0, then
+//             acc <- acc . S_d in the three-product form (t1 = ar br,
+//             t2 = ai bi, t3 = (ar + ai)(br + bi), the sums in fp32 before
+//             their rounding; re t1 - t2, im t3 - t1 - t2); mt = (H acc) R.
+//   backward  the algebra of _bwd_kernel: the S_d and fold prefixes
+//             recomputed, accbar = (H g) R, and for d = ld-1 .. 0 the
+//             four-product S_d-bar = pre^H accbar, accbar <- accbar S_d^H,
+//             u1bar = Sbar_r B'r^T + Sbar_i B'i^T, bbar = U1t^T Sbar.
+//
+// Every operand is rounded where it enters a product, from its fp32 value:
+// H (+-fp32(1/sqrt D)) and R, acc, H acc and the cotangents as the TPU
+// kernel's _dot rounds them.  Plain version: cuda_ucomp.ucomp_dense and
+// ucomp_backward_dense with bf16=True.
+//
+// Design.  A CTA walks blocks blockIdx.x, + gridDim.x, ...; its kBfWarps
+// warps share each product's m16 x n8 output tiles, each tile a chain of
+// mma.sync m16n8k16 bf16 (fp32 accumulation) over k, its fragments read
+// from fp32 planes (Dp x Dp, Dp = max(D, 16), zero past D: the padding of
+// the TPU kernel's block-diagonal packing, exact) and rounded as they are
+// packed.  The planes live in shared memory where they fit, else in the
+// CTA's part of a device-memory scratch (D = 128, or a deep backward); the
+// wrapper picks by ucomp_bf16_bytes.  What bounds it: at the flagship (nb
+// 60, ld 2, D 32) 11 (forward) or 24 (backward) products of 32^3 MACs a
+// block, 0.04 / 0.09 GFLOP (0.00004 / 0.0001 ms at the card's bf16 peak)
+// against 2.0 / 3.4 MB of operands and results (0.0006 / 0.001 ms at its
+// memory rate): bytes bound it, and a block's chain of dependent products
+// and barriers sets a launch (chip_smoke.py bf16_modes; PERF.md).
+
+constexpr int kBfWarps = 8;
+
+// lo and hi rounded to bf16 (to nearest even) and packed, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// d += a . b: mma.sync m16n8k16, bf16 operands, fp32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Padded width and plane pitch at n qubits.
+__host__ __device__ __forceinline__ int bf_dp(int n) {
+  return (1 << n) < 16 ? 16 : 1 << n;
+}
+__host__ __device__ __forceinline__ int bf_pitch(int n) { return bf_dp(n) + 4; }
+
+// Planes a CTA holds: forward acc, S and the next acc (2 each); backward
+// the S_d (2 ld), the fold prefixes past S_0 (2 (ld - 2)), accbar, its next
+// value and Sbar (6).
+__host__ __device__ __forceinline__ int bf_planes(int ld, bool backward) {
+  return backward ? 2 * ld + 2 * (ld > 2 ? ld - 2 : 0) + 6 : 6;
+}
+
+size_t bf_bytes(int n, int ld, bool backward) {
+  return sizeof(float) * static_cast<size_t>(bf_planes(ld, backward)) * bf_dp(n) *
+         bf_pitch(n);
+}
+
+// An operand of a product: element (i, k) of a D x D matrix, zero outside
+// it, in fp32 before its rounding: p[i][k] (+ q[i][k], the sums of the
+// three-product form), at row stride ld, transposed with trans, negated with
+// neg; without p generated: H^{(x)n} / sqrt(D) (had) or I.
+struct Opnd {
+  const float* p;
+  const float* q;
+  int ld;
+  bool trans, neg, had;
+};
+
+__device__ __forceinline__ Opnd mem(const float* p, int ld, bool trans = false,
+                                    bool neg = false, const float* q = nullptr) {
+  return Opnd{p, q, ld, trans, neg, false};
+}
+__device__ __forceinline__ Opnd gen(bool had) {
+  return Opnd{nullptr, nullptr, 0, false, false, had};
+}
+
+__device__ __forceinline__ float elem(const Opnd& o, int i, int k, int d,
+                                      float hs) {
+  if (i >= d || k >= d) return 0.f;
+  float v;
+  if (o.p == nullptr) {
+    v = o.had ? ((__popc(i & k) & 1) ? -hs : hs) : (i == k ? 1.f : 0.f);
+  } else {
+    const int at = o.trans ? k * o.ld + i : i * o.ld + k;
+    v = o.p[at];
+    if (o.q != nullptr) v += o.q[at];
+  }
+  return o.neg ? -v : v;
+}
+
+// One product term: acc[slot] += A . B.
+struct Term {
+  Opnd a, b;
+  int slot;
+};
+
+// A destination: rows of stride ld, written where i, j < lim.
+struct Dst {
+  float* p;
+  int ld, lim;
+};
+
+// The terms' sums over the Dp x Dp output, its m16 x n8 tiles shared by the
+// warps; then out0 = slot 0, out1 = slot 1, or with kara the three-product
+// form's out0 = t0 - t1, out1 = t2 - t0 - t1 (out1.p may be null).  No
+// barrier: the caller's follows.
+template <int T, bool KARA>
+__device__ void bf_gemm(const Term (&terms)[T], Dst out0, Dst out1, int d,
+                        int dp, float hs) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int tn = dp >> 3, tiles = (dp >> 4) * tn;
+  for (int t = warp; t < tiles; t += blockDim.x >> 5) {
+    const int i0 = (t / tn) * 16 + gid, j0 = (t % tn) * 8 + gid;
+    float acc[3][4];
+#pragma unroll
+    for (int s = 0; s < 3; ++s)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[s][e] = 0.f;
+    for (int k0 = 0; k0 < dp; k0 += 16) {
+      const int k = k0 + 2 * tig;
+#pragma unroll
+      for (int u = 0; u < T; ++u) {
+        const Opnd& A = terms[u].a;
+        const Opnd& B = terms[u].b;
+        const uint32_t a[4] = {
+            pack_bf16(elem(A, i0, k, d, hs), elem(A, i0, k + 1, d, hs)),
+            pack_bf16(elem(A, i0 + 8, k, d, hs), elem(A, i0 + 8, k + 1, d, hs)),
+            pack_bf16(elem(A, i0, k + 8, d, hs), elem(A, i0, k + 9, d, hs)),
+            pack_bf16(elem(A, i0 + 8, k + 8, d, hs),
+                      elem(A, i0 + 8, k + 9, d, hs))};
+        const uint32_t b0 = pack_bf16(elem(B, k, j0, d, hs), elem(B, k + 1, j0, d, hs));
+        const uint32_t b1 = pack_bf16(elem(B, k + 8, j0, d, hs),
+                                      elem(B, k + 9, j0, d, hs));
+        mma_bf16(acc[terms[u].slot], a, b0, b1);
+      }
+    }
+    const int r0 = (t / tn) * 16 + gid, c0 = (t % tn) * 8 + 2 * tig;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = r0 + (e >> 1) * 8, j = c0 + (e & 1);
+      const float v0 = KARA ? acc[0][e] - acc[1][e] : acc[0][e];
+      const float v1 = KARA ? acc[2][e] - acc[0][e] - acc[1][e] : acc[1][e];
+      if (i < out0.lim && j < out0.lim) out0.p[i * out0.ld + j] = v0;
+      if (out1.p != nullptr && i < out1.lim && j < out1.lim)
+        out1.p[i * out1.ld + j] = v1;
+    }
+  }
+}
+
+// A complex matrix held as two planes.
+struct Cplx {
+  float* r;
+  float* i;
+};
+
+__device__ __forceinline__ Dst plane(float* p, int pitch, int dp) {
+  return Dst{p, pitch, dp};
+}
+
+// dst = a . b, complex, three-product form; the barrier after it.
+__device__ void bf_kara(Cplx a, Cplx b, Cplx dst, int d, int dp, int pitch,
+                        float hs) {
+  const Term terms[3] = {
+      {mem(a.r, pitch), mem(b.r, pitch), 0},
+      {mem(a.i, pitch), mem(b.i, pitch), 1},
+      {mem(a.r, pitch, false, false, a.i), mem(b.r, pitch, false, false, b.i), 2}};
+  bf_gemm<3, true>(terms, plane(dst.r, pitch, dp), plane(dst.i, pitch, dp), d, dp,
+                   hs);
+  __syncthreads();
+}
+
+// dst = U1t_s . B'_s (two real products); the barrier after it.
+__device__ void bf_sublayer(const float* u1t, const float* br, const float* bi,
+                            size_t s, Cplx dst, int d, int dp, int pitch,
+                            float hs) {
+  const size_t o = s * d * d;
+  const Term terms[2] = {{mem(u1t + o, d), mem(br + o, d), 0},
+                         {mem(u1t + o, d), mem(bi + o, d), 1}};
+  bf_gemm<2, false>(terms, plane(dst.r, pitch, dp), plane(dst.i, pitch, dp), d,
+                    dp, hs);
+  __syncthreads();
+}
+
+// dst = (H x) R for x in planes (src_ld = pitch) or in device memory
+// (src_ld = D), through the planes tmp; the barriers after each product.
+__device__ void bf_hxr(const float* xr, const float* xi, int src_ld, Cplx tmp,
+                       bool r_had, Dst dr, Dst di, int d, int dp, int pitch,
+                       float hs) {
+  const Term h[2] = {{gen(true), mem(xr, src_ld), 0}, {gen(true), mem(xi, src_ld), 1}};
+  bf_gemm<2, false>(h, plane(tmp.r, pitch, dp), plane(tmp.i, pitch, dp), d, dp, hs);
+  __syncthreads();
+  const Term r[2] = {{mem(tmp.r, pitch), gen(r_had), 0},
+                     {mem(tmp.i, pitch), gen(r_had), 1}};
+  bf_gemm<2, false>(r, dr, di, d, dp, hs);
+  __syncthreads();
+}
+
+// B4f-bf16.  Grid ctas; planes in smem, or scratch (ctas, planes, Dp, pitch).
+template <int N>
+__global__ void __launch_bounds__(32 * kBfWarps)
+ucomp_bf16_fwd_kernel(const float* __restrict__ u1t, const float* __restrict__ br,
+                      const float* __restrict__ bi, float* __restrict__ mt_r,
+                      float* __restrict__ mt_i, float* scratch, int nb, int ld,
+                      int last, float hs) {
+  constexpr int D = 1 << N;
+  const int dp = bf_dp(N), pitch = bf_pitch(N), pl = dp * pitch;
+  extern __shared__ __align__(16) float smem[];
+  float* base = scratch == nullptr
+                    ? smem
+                    : scratch + static_cast<size_t>(blockIdx.x) * bf_planes(ld, false) * pl;
+  Cplx acc{base, base + pl}, sub{base + 2 * pl, base + 3 * pl},
+      nxt{base + 4 * pl, base + 5 * pl};
+  for (int blk = blockIdx.x; blk < nb; blk += gridDim.x) {
+    for (int dd = 0; dd < ld; ++dd) {
+      const size_t s = static_cast<size_t>(blk) * ld + dd;
+      bf_sublayer(u1t, br, bi, s, dd == 0 ? acc : sub, D, dp, pitch, hs);
+      if (dd > 0) {
+        bf_kara(acc, sub, nxt, D, dp, pitch, hs);
+        const Cplx t = acc;
+        acc = nxt;
+        nxt = t;
+      }
+    }
+    const size_t o = static_cast<size_t>(blk) * D * D;
+    bf_hxr(acc.r, acc.i, pitch, sub, right_h(blk, last), Dst{mt_r + o, D, D},
+           Dst{mt_i + o, D, D}, D, dp, pitch, hs);
+  }
+}
+
+// B4b-bf16.  g_r, g_i (nb, D, D) -> u1bar, bbar_r, bbar_i (nb ld, D, D).
+template <int N>
+__global__ void __launch_bounds__(32 * kBfWarps)
+ucomp_bf16_bwd_kernel(const float* __restrict__ u1t, const float* __restrict__ br,
+                      const float* __restrict__ bi, const float* __restrict__ g_r,
+                      const float* __restrict__ g_i, float* __restrict__ u1bar,
+                      float* __restrict__ bbar_r, float* __restrict__ bbar_i,
+                      float* scratch, int nb, int ld, int last, float hs) {
+  constexpr int D = 1 << N;
+  const int dp = bf_dp(N), pitch = bf_pitch(N), pl = dp * pitch;
+  extern __shared__ __align__(16) float smem[];
+  float* base = scratch == nullptr
+                    ? smem
+                    : scratch + static_cast<size_t>(blockIdx.x) * bf_planes(ld, true) * pl;
+  // S_d at 2 d, the prefixes past S_0 at 2 ld + 2 (d - 1), then the rest
+  auto sub = [&](int dd) { return Cplx{base + 2 * dd * pl, base + (2 * dd + 1) * pl}; };
+  auto pre = [&](int dd) {
+    return dd == 0 ? sub(0)
+                   : Cplx{base + (2 * ld + 2 * (dd - 1)) * pl,
+                          base + (2 * ld + 2 * (dd - 1) + 1) * pl};
+  };
+  float* rest = base + (2 * ld + 2 * (ld > 2 ? ld - 2 : 0)) * pl;
+  Cplx abar{rest, rest + pl}, nbar{rest + 2 * pl, rest + 3 * pl},
+      sbar{rest + 4 * pl, rest + 5 * pl};
+  for (int blk = blockIdx.x; blk < nb; blk += gridDim.x) {
+    const size_t s0 = static_cast<size_t>(blk) * ld;
+    for (int dd = 0; dd < ld; ++dd)
+      bf_sublayer(u1t, br, bi, s0 + dd, sub(dd), D, dp, pitch, hs);
+    for (int dd = 1; dd < ld - 1; ++dd) bf_kara(pre(dd - 1), sub(dd), pre(dd), D, dp, pitch, hs);
+    const size_t o = static_cast<size_t>(blk) * D * D;
+    bf_hxr(g_r + o, g_i + o, D, sbar, right_h(blk, last), plane(abar.r, pitch, dp),
+           plane(abar.i, pitch, dp), D, dp, pitch, hs);
+    for (int dd = ld - 1; dd >= 0; --dd) {
+      Cplx sb = abar;
+      if (dd > 0) {
+        const Cplx p = pre(dd - 1), sd = sub(dd);
+        const Term sbt[4] = {{mem(p.r, pitch, true), mem(abar.r, pitch), 0},
+                             {mem(p.i, pitch, true), mem(abar.i, pitch), 0},
+                             {mem(p.r, pitch, true), mem(abar.i, pitch), 1},
+                             {mem(p.i, pitch, true, true), mem(abar.r, pitch), 1}};
+        bf_gemm<4, false>(sbt, plane(sbar.r, pitch, dp), plane(sbar.i, pitch, dp), D,
+                          dp, hs);
+        const Term nbt[4] = {{mem(abar.r, pitch), mem(sd.r, pitch, true), 0},
+                             {mem(abar.i, pitch), mem(sd.i, pitch, true), 0},
+                             {mem(abar.i, pitch), mem(sd.r, pitch, true), 1},
+                             {mem(abar.r, pitch, false, true), mem(sd.i, pitch, true), 1}};
+        bf_gemm<4, false>(nbt, plane(nbar.r, pitch, dp), plane(nbar.i, pitch, dp), D,
+                          dp, hs);
+        __syncthreads();
+        sb = sbar;
+      }
+      const size_t so = (s0 + dd) * D * D;
+      const Term ut[2] = {{mem(sb.r, pitch), mem(br + so, D, true), 0},
+                          {mem(sb.i, pitch), mem(bi + so, D, true), 0}};
+      bf_gemm<2, false>(ut, Dst{u1bar + so, D, D}, Dst{nullptr, 0, 0}, D, dp, hs);
+      const Term bt[2] = {{mem(u1t + so, D, true), mem(sb.r, pitch), 0},
+                          {mem(u1t + so, D, true), mem(sb.i, pitch), 1}};
+      bf_gemm<2, false>(bt, Dst{bbar_r + so, D, D}, Dst{bbar_i + so, D, D}, D, dp, hs);
+      __syncthreads();
+      if (dd > 0) {
+        const Cplx t = abar;
+        abar = nbar;
+        nbar = t;
+      }
+    }
+  }
+}
+
 bool bad_shape(int n, int nb, int ld, int last, int warps, int ctas,
                bool backward) {
   return n < 1 || n > kMaxQubits || nb < 1 || nb > 65535 || ld < 1 ||
@@ -564,6 +885,39 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 
 float scale_of(int n) {
   return static_cast<float>(1.0 / std::sqrt(static_cast<double>(1 << n)));
+}
+
+template <int N>
+int bf16_forward_n(const float* u1t, const float* br, const float* bi, float* mt_r,
+                   float* mt_i, float* scratch, int nb, int ld, int last, int ctas,
+                   cudaStream_t s) {
+  const size_t smem = scratch == nullptr ? bf_bytes(N, ld, false) : 0;
+  cudaError_t err = allow_smem(ucomp_bf16_fwd_kernel<N>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ucomp_bf16_fwd_kernel<N><<<ctas, 32 * kBfWarps, smem, s>>>(
+      u1t, br, bi, mt_r, mt_i, scratch, nb, ld, last, scale_of(N));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int N>
+int bf16_backward_n(const float* u1t, const float* br, const float* bi,
+                    const float* g_r, const float* g_i, float* u1bar, float* bbar_r,
+                    float* bbar_i, float* scratch, int nb, int ld, int last, int ctas,
+                    cudaStream_t s) {
+  const size_t smem = scratch == nullptr ? bf_bytes(N, ld, true) : 0;
+  cudaError_t err = allow_smem(ucomp_bf16_bwd_kernel<N>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ucomp_bf16_bwd_kernel<N><<<ctas, 32 * kBfWarps, smem, s>>>(
+      u1t, br, bi, g_r, g_i, u1bar, bbar_r, bbar_i, scratch, nb, ld, last,
+      scale_of(N));
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bf_bad_shape(int n, int nb, int ld, int last, int ctas, bool backward,
+                  const float* scratch) {
+  return n < 1 || n > kMaxQubits || nb < 1 || ld < 1 || last < kEveryBlock ||
+         last >= nb || ctas < 1 || ctas > 65535 ||
+         (scratch == nullptr && bf_bytes(n, ld, backward) > kMaxSmem);
 }
 
 template <int N>
@@ -647,6 +1001,57 @@ extern "C" int ucomp_backward(const float* w, const float* g_r,
                                     backward_n<7>};
   return kBackward[n - 1](w, g_r, g_i, part, wbar, nb, ld, last, warps, ctas,
                           static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 operand mode (UCOMP_BF16), on the operands of
+// cuda_ucomp.compile_operands: u1t, br, bi (nb*ld, D, D).  ctas CTAs walk
+// the blocks; scratch, when not null, holds their planes in device memory
+// (ctas * ucomp_bf16_bytes(n, ld, backward) bytes), else they must fit in
+// shared memory.
+
+// Bytes of a CTA's planes.
+extern "C" long long ucomp_bf16_bytes(int n, int ld, int backward) {
+  return n < 1 || n > kMaxQubits || ld < 1
+             ? 0
+             : static_cast<long long>(bf_bytes(n, ld, backward != 0));
+}
+
+// B4f-bf16.  -> mt_r, mt_i (nb, D, D).
+extern "C" int ucomp_bf16_forward(const float* u1t, const float* br,
+                                  const float* bi, float* mt_r, float* mt_i,
+                                  float* scratch, int n, int nb, int ld,
+                                  int last, int ctas, void* stream) {
+  if (bf_bad_shape(n, nb, ld, last, ctas, false, scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using Forward = int (*)(const float*, const float*, const float*, float*, float*,
+                          float*, int, int, int, int, cudaStream_t);
+  constexpr Forward kForward[] = {bf16_forward_n<1>, bf16_forward_n<2>,
+                                  bf16_forward_n<3>, bf16_forward_n<4>,
+                                  bf16_forward_n<5>, bf16_forward_n<6>,
+                                  bf16_forward_n<7>};
+  return kForward[n - 1](u1t, br, bi, mt_r, mt_i, scratch, nb, ld, last, ctas,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// B4b-bf16.  g_r, g_i (nb, D, D): the cotangent of mt -> u1bar, bbar_r,
+// bbar_i (nb*ld, D, D), the operands' cotangents.
+extern "C" int ucomp_bf16_backward(const float* u1t, const float* br,
+                                   const float* bi, const float* g_r,
+                                   const float* g_i, float* u1bar,
+                                   float* bbar_r, float* bbar_i, float* scratch,
+                                   int n, int nb, int ld, int last, int ctas,
+                                   void* stream) {
+  if (bf_bad_shape(n, nb, ld, last, ctas, true, scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using Backward = int (*)(const float*, const float*, const float*, const float*,
+                           const float*, float*, float*, float*, float*, int, int,
+                           int, int, cudaStream_t);
+  constexpr Backward kBackward[] = {bf16_backward_n<1>, bf16_backward_n<2>,
+                                    bf16_backward_n<3>, bf16_backward_n<4>,
+                                    bf16_backward_n<5>, bf16_backward_n<6>,
+                                    bf16_backward_n<7>};
+  return kBackward[n - 1](u1t, br, bi, g_r, g_i, u1bar, bbar_r, bbar_i, scratch,
+                          nb, ld, last, ctas, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* ucomp_error_string(int code) {

@@ -22,12 +22,21 @@ CTA, whatever the batch: no padding, no tiles to pick, no fallback.
   :func:`fused_gates.chain_fused_backward_x`); CUDA tensors launch the
   kernels or raise.
 
+The bf16 operand mode (``PFUSED_BF16=1``, read at each call as the JAX
+package's ``pallas_fused._use_bf16`` reads it; off by default): on `cuda`
+the kernels' bf16 variants take the three low products of every sublayer
+in the three-product form on bf16-rounded operands (the JAX kernels'
+``use_bf16``); as in the JAX package, where the mode applies on the TPU
+only, CPU tensors keep the fp32 plain chain.  The plain versions of the
+variants are the same functions with ``bf16=True``.
+
 Widths: MIN_QUBITS..MAX_QUBITS (8..16) forward, training to
 TRAIN_MAX_QUBITS (14), the JAX package's limits; above that a gradient
 raises with a pointer to ``engine='fused'``.  Outside the range the engine
 raises (the JAX package reroutes to 'fused' there).
 """
 import ctypes
+import os
 from functools import lru_cache
 
 import torch
@@ -53,11 +62,14 @@ MIN_SPLIT_ROWS = 256       # fewest tile rows per slice of the U7bar reduction
 MAX_SPLITS = 64
 
 # Launches since import: ``launches`` counts the forward kernel (primal and
-# residual variants), ``bwd_launches`` the backward.  chip_smoke.py zeroes
-# them before driving a path and reads them after, to show that the path
-# ran the kernels.
+# residual variants), ``bwd_launches`` the backward, ``bf16_launches`` and
+# ``bf16_bwd_launches`` their bf16 variants.  chip_smoke.py zeroes them
+# before driving a path and reads them after, to show that the path ran the
+# kernels.
 launches = 0
 bwd_launches = 0
+bf16_launches = 0
+bf16_bwd_launches = 0
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _sub_offsets = {}
@@ -68,9 +80,9 @@ _schedules = {}
 def _lib():
     """The library, loaded (and built) once, its argument types set."""
     lib = _build.load(KERNEL)
-    lib.fused_chain_forward.argtypes = [_VP] * 12 + [_I] * 4 + [_VP]
+    lib.fused_chain_forward.argtypes = [_VP] * 12 + [_I] * 5 + [_VP]
     lib.fused_chain_forward.restype = _I
-    lib.fused_chain_backward.argtypes = [_VP] * 24 + [_I] * 6 + [_VP]
+    lib.fused_chain_backward.argtypes = [_VP] * 24 + [_I] * 7 + [_VP]
     lib.fused_chain_backward.restype = _I
     lib.fused_chain_error_string.argtypes = [_I]
     lib.fused_chain_error_string.restype = ctypes.c_char_p
@@ -148,6 +160,12 @@ def _sched(lds, backward, device):
     return t
 
 
+def use_bf16():
+    """Whether the bf16 operand mode is on: ``PFUSED_BF16=1``, read at each
+    call (the mode applies to CUDA tensors only)."""
+    return os.environ.get('PFUSED_BF16') == '1'
+
+
 def _check(named, device):
     for name, t, shape in named:
         if tuple(t.shape) != shape:
@@ -214,11 +232,12 @@ def _scratch(nq, rows, grid, backward, dev):
                        dtype=torch.float32, device=dev)
 
 
-def chain_forward(u7t_r, u7t_i, u2_r, u2_i, x, lds, save_residuals=False):
+def chain_forward(u7t_r, u7t_i, u2_r, u2_i, x, lds, save_residuals=False,
+                  bf16=False):
     """The forward kernel on CUDA tensors, x (nb, N, n): (sr, si), and with
     ``save_residuals`` also (states_r, states_i), each block's input state
-    (nb, N, 2^n)."""
-    global launches
+    (nb, N, 2^n); ``bf16``: its bf16 variant."""
+    global launches, bf16_launches
     nq = _check_operands(u7t_r, u7t_i, u2_r, u2_i, x, lds)
     nb, n, _ = x.shape
     d = 2 ** nq
@@ -239,19 +258,22 @@ def chain_forward(u7t_r, u7t_i, u2_r, u2_i, x, lds, save_residuals=False):
             _sched(lds, False, dev).data_ptr(), out_r.data_ptr(),
             out_i.data_ptr(), *_ptrs(st),
             None if scratch is None else scratch.data_ptr(), nb, n, nq,
-            rows, torch.cuda.current_stream(dev).cuda_stream))
+            rows, int(bf16), torch.cuda.current_stream(dev).cuda_stream))
         _raise_on(lib, err, 'fused_chain_forward')
-        launches += 1
+        if bf16:
+            bf16_launches += 1
+        else:
+            launches += 1
     return (out_r, out_i, *st)
 
 
 def chain_backward(u7t_r, u7t_i, u2_r, u2_i, x, lds, states_r, states_i,
-                   gr, gi):
+                   gr, gi, bf16=False):
     """The backward kernels on CUDA tensors: the output's cotangent
     (gr, gi) -> (u7bar_r, u7bar_i, u2bar_r, u2bar_i, xbar), xbar
-    (nb, N, n).  Deterministic: two calls on equal inputs give equal
-    bits."""
-    global bwd_launches
+    (nb, N, n); ``bf16``: their bf16 variants.  Deterministic: two calls on
+    equal inputs give equal bits."""
+    global bwd_launches, bf16_bwd_launches
     nq = _check_operands(u7t_r, u7t_i, u2_r, u2_i, x, lds)
     if nq > TRAIN_MAX_QUBITS:
         raise _train_limit(nq)
@@ -289,9 +311,13 @@ def chain_backward(u7t_r, u7t_i, u2_r, u2_i, x, lds, states_r, states_i,
         *[t.data_ptr() for t in pre], u2part.data_ptr(),
         *_ptrs(part), None if scratch is None else scratch.data_ptr(),
         *[t.data_ptr() for t in u7bar + u2bar], xbar.data_ptr(), nb, s,
-        n, nq, rows, splits, torch.cuda.current_stream(dev).cuda_stream))
+        n, nq, rows, splits, int(bf16),
+        torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(lib, err, 'fused_chain_backward')
-    bwd_launches += 1
+    if bf16:
+        bf16_bwd_launches += 1
+    else:
+        bwd_launches += 1
     return (*u7bar, *u2bar, xbar)
 
 
@@ -306,18 +332,20 @@ def _train_limit(nq):
 class FusedChain(torch.autograd.Function):
     """(u7t_r, u7t_i, u2_r, u2_i, x) -> (sr, si), x (nb, N, n), with the
     backward kernels as its gradient (the counterpart of
-    pallas_fused._make_chain; x̄ comes back as (nb, N, n)).  On CPU tensors
-    both passes are the plain versions."""
+    pallas_fused._make_chain; x̄ comes back as (nb, N, n)); ``bf16`` the
+    bf16 mode in both passes.  On CPU tensors both passes are the plain
+    versions."""
 
     @staticmethod
-    def forward(ctx, u7t_r, u7t_i, u2_r, u2_i, x, lds):
+    def forward(ctx, u7t_r, u7t_i, u2_r, u2_i, x, lds, bf16=False):
         if x.device.type == 'cpu':
-            sr, si, st_r, st_i = _fg.chain_fused_saved_x(u7t_r, u7t_i, u2_r,
-                                                         u2_i, x, lds)
+            sr, si, st_r, st_i = _fg.chain_fused_saved_x(
+                u7t_r, u7t_i, u2_r, u2_i, x, lds, bf16)
         else:
             sr, si, st_r, st_i = chain_forward(u7t_r, u7t_i, u2_r, u2_i, x,
-                                               lds, save_residuals=True)
-        ctx.lds = lds
+                                               lds, save_residuals=True,
+                                               bf16=bf16)
+        ctx.lds, ctx.bf16 = lds, bf16
         ctx.save_for_backward(u7t_r, u7t_i, u2_r, u2_i, x, st_r, st_i)
         return sr, si
 
@@ -326,28 +354,31 @@ class FusedChain(torch.autograd.Function):
         u7t_r, u7t_i, u2_r, u2_i, x, st_r, st_i = ctx.saved_tensors
         if x.device.type == 'cpu':
             grads = _fg.chain_fused_backward_x(u7t_r, u7t_i, u2_r, u2_i, x,
-                                               ctx.lds, (st_r, st_i), gr, gi)
+                                               ctx.lds, (st_r, st_i), gr, gi,
+                                               ctx.bf16)
         else:
             grads = chain_backward(u7t_r, u7t_i, u2_r, u2_i, x, ctx.lds,
                                    st_r, st_i, gr.contiguous(),
-                                   gi.contiguous())
-        return (*grads, None)
+                                   gi.contiguous(), ctx.bf16)
+        return (*grads, None, None)
 
 
 def fused_chain(u7t_r, u7t_i, u2_r, u2_i, x, lds):
     """(u7t_r, u7t_i, u2_r, u2_i, x) -> (sr, si), x (nb, N, n): the chain of
     :func:`quanonet_torch.ops.fused_gates.chain_fused_x`, through the CUDA
-    kernels for CUDA tensors.  lds: the blocks' linear depths."""
+    kernels for CUDA tensors, their bf16 variants when :func:`use_bf16`.
+    lds: the blocks' linear depths."""
     lds = tuple(lds)
     ops = (u7t_r, u7t_i, u2_r, u2_i, x)
+    bf16 = x.device.type == 'cuda' and use_bf16()
     if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
         nq = x.shape[-1]
         if nq > TRAIN_MAX_QUBITS:
             raise _train_limit(nq)
-        return FusedChain.apply(*ops, lds)
+        return FusedChain.apply(*ops, lds, bf16)
     if x.device.type == 'cpu':
         return _fg.chain_fused_x(*ops, lds)
-    return chain_forward(*ops, lds)
+    return chain_forward(*ops, lds, bf16=bf16)
 
 
 def pfused_applicable(spec):

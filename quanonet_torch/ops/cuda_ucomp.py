@@ -32,6 +32,17 @@ the RZ diagonal as an explicit fp32 sum, the gather), the backward
 :func:`ucomp_backward_dense`'s operand cotangents carried through
 :func:`compile_operands`' VJP.
 
+The bf16 operand mode (``UCOMP_BF16=1``, off by default; the JAX package's
+switch of the same name): every product of the TPU kernel's matrix form on
+bf16-rounded operands with fp32 sums, the fold three-product.  The gate
+form has no product to round, so the mode takes the matrix form's split:
+:func:`compile_operands` (elementwise PyTorch, under autograd) gives u1t,
+br, bi, and :class:`UCompBf16` runs B4f-bf16 and B4b-bf16 (the product
+chains in ``csrc/ucomp.cu``, ``mma.sync`` bf16) on them, the plain versions
+:func:`ucomp_dense` / :func:`ucomp_backward_dense` with ``bf16=True``.
+:func:`ucomp` reads the module attribute ``UCOMP_BF16`` at each call, so
+every caller of the compile follows it.
+
 Applicability: one uniform linear_depth >= 1 across blocks and at most 7
 qubits (:func:`ucomp_applicable`).  CPU tensors take the plain versions;
 CUDA tensors launch the kernels or raise.  The launch geometry (warps a
@@ -40,6 +51,7 @@ CTA, CTAs a block) comes from D, nb and the card's SM count
 once.
 """
 import ctypes
+import os
 from collections import namedtuple
 from functools import lru_cache
 
@@ -48,7 +60,7 @@ import torch
 
 from quanonet_torch.ops import _build
 from quanonet_torch.ops.gates import (
-    bit_table, hadamard_kron, ring_apply, z_signs,
+    bf16_dot, bit_table, hadamard_kron, kara_bf16, ring_apply, z_signs,
 )
 
 KERNEL = 'ucomp'
@@ -57,10 +69,17 @@ EVERY_BLOCK = -2  # ``last``: every block's right factor is I (kEveryBlock)
 FWD_WARPS = 4     # warps of a forward CTA
 BWD_WARPS = 8     # warps of a backward CTA
 
+# The bf16 operand mode: '1' turns it on (read here once; callers and tests
+# set the attribute).
+UCOMP_BF16 = os.environ.get('UCOMP_BF16', '0') == '1'
+
 # Launches since import: ``launches`` counts the forward kernel,
-# ``bwd_launches`` the backward (with the CTAs' sum, when it runs, as one).
+# ``bwd_launches`` the backward (with the CTAs' sum, when it runs, as one);
+# ``bf16_launches`` and ``bf16_bwd_launches`` the bf16 mode's two kernels.
 launches = 0
 bwd_launches = 0
+bf16_launches = 0
+bf16_bwd_launches = 0
 
 Geometry = namedtuple('Geometry', 'warps ctas')
 
@@ -109,6 +128,12 @@ def _lib():
     lib.ucomp_error_string.restype = ctypes.c_char_p
     lib.ucomp_row_groups.argtypes = [_I]
     lib.ucomp_row_groups.restype = _I
+    lib.ucomp_bf16_forward.argtypes = [_VP] * 6 + [_I] * 5 + [_VP]
+    lib.ucomp_bf16_forward.restype = _I
+    lib.ucomp_bf16_backward.argtypes = [_VP] * 9 + [_I] * 5 + [_VP]
+    lib.ucomp_bf16_backward.restype = _I
+    lib.ucomp_bf16_bytes.argtypes = [_I] * 3
+    lib.ucomp_bf16_bytes.restype = ctypes.c_longlong
     for n in range(1, MAX_QUBITS + 1):
         if lib.ucomp_row_groups(n) != row_groups(2 ** n):
             raise RuntimeError(
@@ -147,29 +172,40 @@ def _cmul(ar, ai, br, bi):
     return ar @ br - ai @ bi, ar @ bi + ai @ br
 
 
-def _sublayer_products(u1t, br, bi, ld):
+def _products(bf16):
+    """(dot, complex product) of a mode: fp32 ``@`` and the four-product
+    :func:`_cmul`, or the bf16 operand mode's :func:`gates.bf16_dot` and
+    three-product :func:`gates.kara_bf16`."""
+    return (bf16_dot, kara_bf16) if bf16 else (torch.matmul, _cmul)
+
+
+def _sublayer_products(u1t, br, bi, ld, dot=torch.matmul):
     """S = U1ᵀ · B′ per sublayer, (nb, ld, D, D) each."""
     dim = u1t.shape[-1]
-    return ((u1t @ br).reshape(-1, ld, dim, dim),
-            (u1t @ bi).reshape(-1, ld, dim, dim))
+    return (dot(u1t, br).reshape(-1, ld, dim, dim),
+            dot(u1t, bi).reshape(-1, ld, dim, dim))
 
 
-def ucomp_dense(u1t, br, bi, ld, last):
+def ucomp_dense(u1t, br, bi, ld, last, bf16=False):
     """Plain PyTorch block-matrix compile from the operands: u1t, br, bi
     (nb·ld, D, D) -> (mt_r, mt_i), each (nb, D, D).  Per block the fold of
     its ``ld`` products U1ᵀ·B′, then H · acc · R with R = H, and I for block
-    ``last`` (-1: none; EVERY_BLOCK: all)."""
+    ``last`` (-1: none; EVERY_BLOCK: all).  With ``bf16`` every product
+    takes bf16-rounded operands (the fold three-product), as
+    pallas_ucomp's ``_dot``/``_kara`` under ``UCOMP_BF16``: the plain
+    version of the bf16 kernels."""
+    dot, cmul = _products(bf16)
     dim = u1t.shape[-1]
-    sr, si = _sublayer_products(u1t, br, bi, ld)
+    sr, si = _sublayer_products(u1t, br, bi, ld, dot)
     ar, ai = sr[:, 0], si[:, 0]
     for d in range(1, ld):
-        ar, ai = _cmul(ar, ai, sr[:, d], si[:, d])
+        ar, ai = cmul(ar, ai, sr[:, d], si[:, d])
     h = _hadamard(dim, u1t)
     r = _right_factors(ar.shape[0], dim, last, u1t)
-    return h @ ar @ r, h @ ai @ r
+    return dot(dot(h, ar), r), dot(dot(h, ai), r)
 
 
-def ucomp_backward_dense(u1t, br, bi, ld, last, gr, gi):
+def ucomp_backward_dense(u1t, br, bi, ld, last, gr, gi, bf16=False):
     """The VJP of :func:`ucomp_dense`, written out (no autograd): the
     cotangent (gr, gi) of (mt_r, mt_i) -> (u1bar, bbar_r, bbar_i), each
     (nb·ld, D, D), with the algebra of pallas_ucomp._bwd_kernel: the
@@ -177,31 +213,35 @@ def ucomp_backward_dense(u1t, br, bi, ld, last, gr, gi):
     (H, R symmetric and real), and for d = ld-1 .. 0
 
         S̄_d = acc_{d-1}ᴴ · accbar,   accbar <- accbar · S_dᴴ     (d > 0)
-        Ū1ᵀ = S̄r · B′rᵀ + S̄i · B′iᵀ,   B̄′ = (U1ᵀ)ᵀ · S̄.
+        Ū1ᵀ = S̄r · B′rᵀ + S̄i · B′iᵀ,   B̄′ = (U1ᵀ)ᵀ · S̄,
+
+    each of them four real products; ``bf16`` rounds every product's
+    operands as :func:`ucomp_dense` does.
     """
+    dot, cmul = _products(bf16)
     dim = u1t.shape[-1]
-    sr, si = _sublayer_products(u1t, br, bi, ld)
+    sr, si = _sublayer_products(u1t, br, bi, ld, dot)
     nb = sr.shape[0]
     pres = [(sr[:, 0], si[:, 0])]
     for d in range(1, ld - 1):    # the last fold product is never needed
-        pres.append(_cmul(*pres[-1], sr[:, d], si[:, d]))
+        pres.append(cmul(*pres[-1], sr[:, d], si[:, d]))
     h = _hadamard(dim, u1t)
     r = _right_factors(nb, dim, last, u1t)
-    abar_r, abar_i = h @ gr @ r, h @ gi @ r
+    abar_r, abar_i = dot(dot(h, gr), r), dot(dot(h, gi), r)
     t = lambda a: a.transpose(-1, -2)
     sbar_r = [None] * ld
     sbar_i = [None] * ld
     for d in range(ld - 1, 0, -1):
         pr, pi = pres[d - 1]
-        sbar_r[d] = t(pr) @ abar_r + t(pi) @ abar_i
-        sbar_i[d] = t(pr) @ abar_i - t(pi) @ abar_r
-        abar_r, abar_i = (abar_r @ t(sr[:, d]) + abar_i @ t(si[:, d]),
-                          abar_i @ t(sr[:, d]) - abar_r @ t(si[:, d]))
+        sbar_r[d] = dot(t(pr), abar_r) + dot(t(pi), abar_i)
+        sbar_i[d] = dot(t(pr), abar_i) - dot(t(pi), abar_r)
+        abar_r, abar_i = (dot(abar_r, t(sr[:, d])) + dot(abar_i, t(si[:, d])),
+                          dot(abar_i, t(sr[:, d])) - dot(abar_r, t(si[:, d])))
     sbar_r[0], sbar_i[0] = abar_r, abar_i
     sbar_r = torch.stack(sbar_r, 1).reshape(nb * ld, dim, dim)
     sbar_i = torch.stack(sbar_i, 1).reshape(nb * ld, dim, dim)
-    return (sbar_r @ t(br) + sbar_i @ t(bi), t(u1t) @ sbar_r,
-            t(u1t) @ sbar_i)
+    return (dot(sbar_r, t(br)) + dot(sbar_i, t(bi)), dot(t(u1t), sbar_r),
+            dot(t(u1t), sbar_i))
 
 
 @lru_cache(maxsize=None)
@@ -245,20 +285,22 @@ def compile_operands(weights):
     return u1t, br, bi
 
 
-def ucomp_weights_dense(w, ld, last):
+def ucomp_weights_dense(w, ld, last, bf16=False):
     """The plain version of B4f: w (nb·ld, 3, n) -> (mt_r, mt_i), each
-    (nb, D, D), as :func:`ucomp_dense` of :func:`compile_operands`."""
-    return ucomp_dense(*compile_operands(w), ld, last)
+    (nb, D, D), as :func:`ucomp_dense` of :func:`compile_operands` (in the
+    bf16 operand mode with ``bf16``)."""
+    return ucomp_dense(*compile_operands(w), ld, last, bf16)
 
 
-def ucomp_weights_backward_dense(w, ld, last, gr, gi):
+def ucomp_weights_backward_dense(w, ld, last, gr, gi, bf16=False):
     """The plain version of B4b: the cotangent (gr, gi) of (mt_r, mt_i) ->
     w̄ (nb·ld, 3, n), :func:`ucomp_backward_dense`'s operand cotangents
     carried through :func:`compile_operands`' VJP."""
     with torch.enable_grad():
         wd = w.detach().requires_grad_()
         ops = compile_operands(wd)
-    cot = ucomp_backward_dense(*(o.detach() for o in ops), ld, last, gr, gi)
+    cot = ucomp_backward_dense(*(o.detach() for o in ops), ld, last, gr, gi,
+                               bf16)
     (wbar,) = torch.autograd.grad(ops, wd, cot)
     return wbar
 
@@ -350,6 +392,130 @@ def ucomp_backward(w, ld, last, gr, gi):
     return wbar
 
 
+MAX_SMEM = 232448   # bytes of shared memory a CTA can use on the H100
+
+
+def _check_operands(named, dev):
+    if dev.type != 'cuda':
+        raise ValueError(f"the bf16 compile kernels take CUDA tensors, got "
+                         f"{dev}; ucomp_dense(..., bf16=True) is the plain "
+                         f"version")
+    _check(named, dev)
+
+
+def _bf16_shape(u1t, ld, last):
+    """(n, nb) of bf16 operands (nb·ld, D, D); raises on what the kernels
+    do not take."""
+    if u1t.dim() != 3 or u1t.shape[1] != u1t.shape[2]:
+        raise ValueError(f"u1t must be (S, D, D), got {tuple(u1t.shape)}")
+    s, dim = u1t.shape[0], u1t.shape[-1]
+    n = dim.bit_length() - 1
+    if dim != 2 ** n or not 1 <= n <= MAX_QUBITS:
+        raise ValueError(f"D must be 2^1 .. 2^{MAX_QUBITS}, got {dim}")
+    if ld < 1 or s < ld or s % ld:
+        raise ValueError(f"{s} sublayers do not make blocks of {ld}")
+    nb = s // ld
+    if not EVERY_BLOCK <= last < nb:
+        raise ValueError(f"last must be -1, EVERY_BLOCK ({EVERY_BLOCK}) or "
+                         f"a block index < {nb}, got {last}")
+    return n, nb
+
+
+def _bf16_launch(n, nb, ld, dev, backward):
+    """(ctas, scratch) of a bf16 launch: a CTA an SM at most, its planes in
+    shared memory where they fit, else in a device-memory scratch."""
+    ctas = min(nb, sm_count(dev.index))
+    per_cta = _lib().ucomp_bf16_bytes(n, ld, int(backward))
+    scratch = (None if per_cta <= MAX_SMEM else
+               torch.empty((ctas, per_cta // 4), dtype=torch.float32,
+                           device=dev))
+    return ctas, scratch
+
+
+def ucomp_bf16_forward(u1t, br, bi, ld, last):
+    """B4f-bf16 on CUDA tensors: the operands u1t, br, bi (nb·ld, D, D) of
+    :func:`compile_operands` -> (mt_r, mt_i), each (nb, D, D)."""
+    global bf16_launches
+    n, nb = _bf16_shape(u1t, ld, last)
+    shape, dim, dev = tuple(u1t.shape), 2 ** n, u1t.device
+    _check_operands((('u1t', u1t, shape), ('br', br, shape),
+                     ('bi', bi, shape)), dev)
+    ctas, scratch = _bf16_launch(n, nb, ld, dev, False)
+    mt_r = torch.empty((nb, dim, dim), dtype=torch.float32, device=dev)
+    mt_i = torch.empty((nb, dim, dim), dtype=torch.float32, device=dev)
+    lib = _lib()
+    err = _build.on_device(dev, lambda: lib.ucomp_bf16_forward(
+        u1t.data_ptr(), br.data_ptr(), bi.data_ptr(), mt_r.data_ptr(),
+        mt_i.data_ptr(), None if scratch is None else scratch.data_ptr(), n,
+        nb, ld, last, ctas, torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(lib, err, 'ucomp_bf16_forward')
+    bf16_launches += 1
+    return mt_r, mt_i
+
+
+def ucomp_bf16_backward(u1t, br, bi, ld, last, gr, gi):
+    """B4b-bf16 on CUDA tensors: the cotangent (gr, gi) of (mt_r, mt_i) ->
+    (u1bar, bbar_r, bbar_i), each (nb·ld, D, D).  Deterministic: no
+    atomics."""
+    global bf16_bwd_launches
+    n, nb = _bf16_shape(u1t, ld, last)
+    shape, dim, dev = tuple(u1t.shape), 2 ** n, u1t.device
+    _check_operands((('u1t', u1t, shape), ('br', br, shape),
+                     ('bi', bi, shape), ('gr', gr, (nb, dim, dim)),
+                     ('gi', gi, (nb, dim, dim))), dev)
+    ctas, scratch = _bf16_launch(n, nb, ld, dev, True)
+    out = [torch.empty(shape, dtype=torch.float32, device=dev)
+           for _ in range(3)]
+    lib = _lib()
+    err = _build.on_device(dev, lambda: lib.ucomp_bf16_backward(
+        u1t.data_ptr(), br.data_ptr(), bi.data_ptr(), gr.data_ptr(),
+        gi.data_ptr(), *[t.data_ptr() for t in out],
+        None if scratch is None else scratch.data_ptr(), n, nb, ld, last,
+        ctas, torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(lib, err, 'ucomp_bf16_backward')
+    bf16_bwd_launches += 1
+    return tuple(out)
+
+
+class UCompBf16(torch.autograd.Function):
+    """(u1t, br, bi) -> (mt_r, mt_i) in the bf16 operand mode, with B4b-bf16
+    as its gradient: the counterpart of pallas_ucomp._make_ucomp under
+    UCOMP_BF16, its operands' cotangents carried through
+    :func:`compile_operands` by autograd.  On CPU tensors both passes are
+    the plain versions."""
+
+    @staticmethod
+    def forward(ctx, u1t, br, bi, ld, last):
+        ctx.save_for_backward(u1t, br, bi)
+        ctx.ld, ctx.last = ld, last
+        if u1t.device.type == 'cpu':
+            return ucomp_dense(u1t, br, bi, ld, last, bf16=True)
+        return ucomp_bf16_forward(u1t, br, bi, ld, last)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        u1t, br, bi = ctx.saved_tensors
+        if u1t.device.type == 'cpu':
+            grads = ucomp_backward_dense(u1t, br, bi, ctx.ld, ctx.last, gr,
+                                         gi, bf16=True)
+        else:
+            grads = ucomp_bf16_backward(u1t, br, bi, ctx.ld, ctx.last,
+                                        gr.contiguous(), gi.contiguous())
+        return (*grads, None, None)
+
+
+def ucomp_bf16(w, ld, last):
+    """w (nb·ld, 3, n) -> (mt_r, mt_i) in the bf16 operand mode: the
+    operands of :func:`compile_operands`, then :class:`UCompBf16` (or, with
+    no gradient, its forward alone)."""
+    ops = compile_operands(w)
+    if torch.is_grad_enabled() and w.requires_grad:
+        return UCompBf16.apply(*ops, ld, last)
+    if w.device.type == 'cpu':
+        return ucomp_dense(*ops, ld, last, bf16=True)
+    return ucomp_bf16_forward(*ops, ld, last)
+
+
 class UComp(torch.autograd.Function):
     """w -> (mt_r, mt_i) with B4b as its gradient (the counterpart of
     pallas_ucomp._make_ucomp with the elementwise build inside).  On CPU
@@ -376,7 +542,10 @@ class UComp(torch.autograd.Function):
 
 def ucomp(w, ld, last):
     """w (nb·ld, 3, n) -> (mt_r, mt_i): :func:`ucomp_weights_dense`,
-    through the CUDA kernels for CUDA tensors.  w float32, contiguous."""
+    through the CUDA kernels for CUDA tensors; with ``UCOMP_BF16`` the bf16
+    operand mode (:func:`ucomp_bf16`).  w float32, contiguous."""
+    if UCOMP_BF16:
+        return ucomp_bf16(w, ld, last)
     if torch.is_grad_enabled() and w.requires_grad:
         return UComp.apply(w, ld, last)
     if w.device.type == 'cpu':

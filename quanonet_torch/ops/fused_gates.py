@@ -48,7 +48,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from quanonet_torch.ops.gates import (
-    _kron2, ring_adjoint_apply, ring_apply, z_signs,
+    _kron2, kara_bf16, ring_adjoint_apply, ring_apply, z_signs,
 )
 from quanonet_torch.ops.hea import _table, encoding_phases
 
@@ -322,26 +322,28 @@ def angles_cotangent(phibar):
                               for i in range(n)], -1)
 
 
-def chain_fused_x(u7t_r, u7t_i, u2_r, u2_i, xb, lds):
+def chain_fused_x(u7t_r, u7t_i, u2_r, u2_i, xb, lds, bf16=False):
     """:func:`chain_fused` on the angles xb (nb, N, n): the plain version of
-    the forward kernel."""
-    return chain_fused(u7t_r, u7t_i, u2_r, u2_i, angle_phases(xb), lds)
+    the forward kernel (of its bf16 variant with ``bf16``)."""
+    return chain_fused(u7t_r, u7t_i, u2_r, u2_i, angle_phases(xb), lds,
+                       bf16)
 
 
-def chain_fused_saved_x(u7t_r, u7t_i, u2_r, u2_i, xb, lds):
+def chain_fused_saved_x(u7t_r, u7t_i, u2_r, u2_i, xb, lds, bf16=False):
     """:func:`chain_fused_saved` on the angles xb: the plain version of the
     forward kernel's residual variant."""
-    return chain_fused_saved(u7t_r, u7t_i, u2_r, u2_i, angle_phases(xb), lds)
+    return chain_fused_saved(u7t_r, u7t_i, u2_r, u2_i, angle_phases(xb), lds,
+                             bf16)
 
 
 def chain_fused_backward_x(u7t_r, u7t_i, u2_r, u2_i, xb, lds, residuals,
-                           gr, gi):
+                           gr, gi, bf16=False):
     """:func:`chain_fused_backward` on the angles xb -> (u7bar_r, u7bar_i,
     u2bar_r, u2bar_i, xbar), xbar (nb, N, n): the plain version of the
     backward kernels."""
     *grads, phibar = chain_fused_backward(u7t_r, u7t_i, u2_r, u2_i,
                                           angle_phases(xb), lds, residuals,
-                                          gr, gi)
+                                          gr, gi, bf16)
     return (*grads, angles_cotangent(phibar))
 
 
@@ -370,6 +372,18 @@ def _low(sr, si, tr, ti):
     n = sr.shape[0]
     r, i = sr.reshape(-1, 128), si.reshape(-1, 128)
     return ((r @ tr - i @ ti).reshape(n, -1), (r @ ti + i @ tr).reshape(n, -1))
+
+
+def _low_bf16(sr, si, tr, ti):
+    """:func:`_low` in the bf16 mode: the three products of
+    :func:`gates.kara_bf16` (the JAX kernel's ``_make_kara(True)``)."""
+    n = sr.shape[0]
+    yr, yi = kara_bf16(sr.reshape(-1, 128), si.reshape(-1, 128), tr, ti)
+    return yr.reshape(n, -1), yi.reshape(n, -1)
+
+
+def _lows(bf16):
+    return _low_bf16 if bf16 else _low
 
 
 def _bfly(sr, si, q, u_r, u_i):
@@ -404,7 +418,7 @@ def _sub_offsets(lds):
     return off
 
 
-def _run_block(sr, si, u7t_r, u7t_i, u2_r, u2_i, phi_b, s0, ld, n):
+def _run_block(sr, si, u7t_r, u7t_i, u2_r, u2_i, phi_b, s0, ld, n, bf16):
     sr, si = _wht(sr, si, n)
     pr, pi = torch.cos(phi_b), -torch.sin(phi_b)
     sr, si = pr * sr - pi * si, pr * si + pi * sr
@@ -412,7 +426,7 @@ def _run_block(sr, si, u7t_r, u7t_i, u2_r, u2_i, phi_b, s0, ld, n):
         return _wht(sr, si, n)
     ring = ring_apply(n)
     for s in range(s0, s0 + ld):
-        sr, si = _low(sr, si, u7t_r[s], u7t_i[s])
+        sr, si = _lows(bf16)(sr, si, u7t_r[s], u7t_i[s])
         for j in range(n - LANE_QUBITS):
             sr, si = _bfly(sr, si, LANE_QUBITS + j, u2_r[s, j], u2_i[s, j])
         sr, si = ring(sr, si)
@@ -434,11 +448,12 @@ def _check_layout(u7t_r, u2_r, phi, lds):
     return n
 
 
-def chain_fused_saved(u7t_r, u7t_i, u2_r, u2_i, phi, lds):
+def chain_fused_saved(u7t_r, u7t_i, u2_r, u2_i, phi, lds, bf16=False):
     """The chain from |0…0⟩ -> (sr, si, states_r, states_i): the output
     (N, 2^n) and each block's input state (nb, N, 2^n).  lds: the blocks'
     linear depths (:func:`block_depths`).  The plain version of the
-    forward kernel's residual variant."""
+    forward kernel's residual variant; ``bf16``: of its bf16 variant, the
+    low-group products on bf16-rounded operands (:func:`_low_bf16`)."""
     n = _check_layout(u7t_r, u2_r, phi, lds)
     nb, batch, dim = phi.shape
     sr = torch.zeros((batch, dim), dtype=torch.float32, device=phi.device)
@@ -450,13 +465,13 @@ def chain_fused_saved(u7t_r, u7t_i, u2_r, u2_i, phi, lds):
         states_r.append(sr)
         states_i.append(si)
         sr, si = _run_block(sr, si, u7t_r, u7t_i, u2_r, u2_i, phi[b],
-                            off[b], lds[b], n)
+                            off[b], lds[b], n, bf16)
     return sr, si, torch.stack(states_r), torch.stack(states_i)
 
 
-def chain_fused(u7t_r, u7t_i, u2_r, u2_i, phi, lds):
+def chain_fused(u7t_r, u7t_i, u2_r, u2_i, phi, lds, bf16=False):
     """The chain from |0…0⟩ -> (sr, si), each (N, 2^n).  The plain version
-    of the forward kernel."""
+    of the forward kernel (``bf16``: of its bf16 variant)."""
     n = _check_layout(u7t_r, u2_r, phi, lds)
     nb, batch, dim = phi.shape
     sr = torch.zeros((batch, dim), dtype=torch.float32, device=phi.device)
@@ -465,12 +480,12 @@ def chain_fused(u7t_r, u7t_i, u2_r, u2_i, phi, lds):
     off = _sub_offsets(lds)
     for b in range(nb):
         sr, si = _run_block(sr, si, u7t_r, u7t_i, u2_r, u2_i, phi[b],
-                            off[b], lds[b], n)
+                            off[b], lds[b], n, bf16)
     return sr, si
 
 
 def chain_fused_backward(u7t_r, u7t_i, u2_r, u2_i, phi, lds, residuals,
-                         gr, gi):
+                         gr, gi, bf16=False):
     """Reverse sweep of the chain, written out (no autograd): the output's
     cotangent (gr, gi) -> (u7bar_r, u7bar_i, u2bar_r, u2bar_i, phibar), the
     cotangents of u7t, u2 and phi, summed over the batch.  ``residuals`` =
@@ -480,7 +495,9 @@ def chain_fused_backward(u7t_r, u7t_i, u2_r, u2_i, phi, lds, residuals,
     back through the ring (the gather by its inverse), each high qubit's
     butterfly (u2bar[j, 2a+b] = Σ ct_a · conj(t_b), ct <- u^H ct), the low
     product (u7bar = conj(S_prelow)ᵀ·ct, ct <- ct·conj(u7t)ᵀ), the phase
-    (phibar) and H, which is self-adjoint."""
+    (phibar) and H, which is self-adjoint.  ``bf16`` takes the three low
+    products (the recompute, u7bar and ct·conj(u7t)ᵀ) in the JAX kernel's
+    bf16 three-product form."""
     n = _check_layout(u7t_r, u2_r, phi, lds)
     states_r, states_i = residuals
     nb, batch, dim = phi.shape
@@ -501,7 +518,7 @@ def chain_fused_backward(u7t_r, u7t_i, u2_r, u2_i, phi, lds, residuals,
         stages = []
         for s in range(s0, s0 + ld):
             pre = (sr, si)
-            sr, si = _low(sr, si, u7t_r[s], u7t_i[s])
+            sr, si = _lows(bf16)(sr, si, u7t_r[s], u7t_i[s])
             bst = []
             for j in range(nh):
                 bst.append((sr, si))
@@ -529,9 +546,12 @@ def chain_fused_backward(u7t_r, u7t_i, u2_r, u2_i, phi, lds, residuals,
                 ctr, cti = _bfly_adj(ctr, cti, q, u2_r[s, j], u2_i[s, j])
             cr, ci = ctr.reshape(-1, 128), cti.reshape(-1, 128)
             xr, xi = plr.reshape(-1, 128), pli.reshape(-1, 128)
-            u7bar_r[s] = xr.T @ cr + xi.T @ ci
-            u7bar_i[s] = xr.T @ ci - xi.T @ cr
-            ctr, cti = _low(ctr, cti, u7t_r[s].T, -u7t_i[s].T)
+            if bf16:
+                u7bar_r[s], u7bar_i[s] = kara_bf16(xr.T, -xi.T, cr, ci)
+            else:
+                u7bar_r[s] = xr.T @ cr + xi.T @ ci
+                u7bar_i[s] = xr.T @ ci - xi.T @ cr
+            ctr, cti = _lows(bf16)(ctr, cti, u7t_r[s].T, -u7t_i[s].T)
         dbr = ar * ctr + ai * cti
         dbi = -ai * ctr + ar * cti
         phibar[b] = dbr * pi - dbi * pr

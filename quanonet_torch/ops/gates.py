@@ -144,3 +144,27 @@ def kron_chain(mats):
     for q in range(n - 2, -1, -1):
         u = _kron2(u, mats[..., q, :, :])
     return u
+
+
+# ── the bf16 operand modes ────────────────────────────────────────────────────
+
+def round_bf16(x):
+    """x rounded to bf16 (to nearest even, as ``astype(jnp.bfloat16)``) and
+    back to fp32: the operand rounding of the opt-in bf16 modes."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def bf16_dot(a, b):
+    """a @ b on bf16-rounded operands, summed in fp32 (each product of two
+    bf16 values is exact in fp32): the JAX package's bf16 ``_dot``."""
+    return round_bf16(a) @ round_bf16(b)
+
+
+def kara_bf16(ar, ai, br, bi):
+    """(ar + i ai) @ (br + i bi) as three :func:`bf16_dot` products: t1 =
+    ar·br, t2 = ai·bi, t3 = (ar + ai)·(br + bi), the sums formed in fp32
+    before their rounding; -> (t1 - t2, t3 - t1 - t2)."""
+    t1 = bf16_dot(ar, br)
+    t2 = bf16_dot(ai, bi)
+    t3 = bf16_dot(ar + ai, br + bi)
+    return t1 - t2, t3 - t1 - t2

@@ -35,7 +35,14 @@ Engines:
 qubits; from 8 qubits ``pfused`` on a card up to 14 and ``fused`` above and
 on the CPU (the JAX package's routing, hea.py:436-454), and for no-grad
 callers (:func:`resolve_inference_engine`) ``pfused`` at 15-16 on a card.
+
+``QON_UNPIN_EXPECT=1`` (the JAX package's switch, off by default) drops the
+expectation's fp32 pin on `cuda`: |ψ|² and the diagonal are rounded to bf16
+before the products, summed in fp32 (:func:`diag_expectation_unpinned`),
+the TPU's default precision that the JAX mode falls back to; on the CPU
+the expectation stays exact fp32, as the JAX package's CPU path does.
 """
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -45,9 +52,14 @@ from quanonet_torch.ops.gates import (
     hadamard_kron,
     kron_chain,
     ring_apply,
+    round_bf16,
     ry_matrix,
     z_signs,
 )
+
+# The expectation's precision pin: '1' drops it on `cuda` (read here once;
+# callers and tests set the attribute).
+UNPIN_EXPECT = os.environ.get('QON_UNPIN_EXPECT') == '1'
 
 
 @dataclass(frozen=True)
@@ -398,8 +410,18 @@ def forward_gates(spec: HEASpec, weights, x):
 def diag_expectation_pair(sr, si, diag):
     """⟨H⟩ for diagonal H: Σ_k |ψ_k|² d_k -> (batch, 1).  An elementwise
     product and a sum, exact fp32 whatever the matmul precision: this
-    reduction is the model output."""
+    reduction is the model output.  With ``UNPIN_EXPECT`` on `cuda`,
+    :func:`diag_expectation_unpinned`."""
+    if UNPIN_EXPECT and sr.device.type == 'cuda':
+        return diag_expectation_unpinned(sr, si, diag)
     return ((sr * sr + si * si) * diag).sum(-1, keepdim=True)
+
+
+def diag_expectation_unpinned(sr, si, diag):
+    """⟨H⟩ as a one-pass bf16 product would give it: |ψ_k|² (fp32) and d_k
+    rounded to bf16, their products (exact) summed in fp32 -> (batch, 1)."""
+    return (round_bf16(sr * sr + si * si) * round_bf16(diag)).sum(
+        -1, keepdim=True)
 
 
 def pauli_sum_total(sr, si, pauli, n_qubits):

@@ -99,7 +99,11 @@ def launch_counts():
             "ucomp_bwd": cuda_ucomp.bwd_launches,
             "adam_step": cuda_adam.launches,
             "embed_chain_fwd": cuda_embed.launches,
-            "embed_chain_bwd": cuda_embed.bwd_launches}
+            "embed_chain_bwd": cuda_embed.bwd_launches,
+            "ucomp_bf16_fwd": cuda_ucomp.bf16_launches,
+            "ucomp_bf16_bwd": cuda_ucomp.bf16_bwd_launches,
+            "fused_chain_bf16_fwd": cuda_fused.bf16_launches,
+            "fused_chain_bf16_bwd": cuda_fused.bf16_bwd_launches}
 
 
 def launches_since(before):

@@ -6,8 +6,8 @@
 // thread a user-level context (ucontext) on one OS thread, switched at
 // __syncthreads and at the warp shuffles and MMAs, the blocks of a grid one
 // after another, one shared-memory array per launch.  The test replaces the source's inline-PTX helpers
-// (cp.async copies, TF32 rounding, mma.sync) with the emu_* functions
-// below, which do the same thing synchronously.  It checks the kernels'
+// (cp.async copies, TF32 and bf16 rounding, mma.sync) with the emu_*
+// functions below, which do the same thing synchronously.  It checks the kernels'
 // indexing and algebra, not their timing, their memory ordering or the
 // tensor cores' rounding (the MMA here sums in fp32 with round to nearest).
 #pragma once
@@ -197,6 +197,63 @@ inline void emu_mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t
   for (int e = 0; e < 4; ++e) {
     float s = 0.f;
     for (int k = 0; k < 8; ++k) s += A[rows[e]][k] * B[k][cols[e]];
+    d[e] += s;
+  }
+}
+
+// float -> bf16 bits, to nearest even (cvt.rn.bf16.f32; no NaN here)
+inline uint32_t emu_bf16(float v) {
+  uint32_t b;
+  std::memcpy(&b, &v, 4);
+  return (b + 0x7FFFu + ((b >> 16) & 1u)) >> 16;
+}
+
+// cvt.rn.bf16x2.f32 of (hi, lo): lo in the low half
+inline uint32_t emu_bf16x2(float lo, float hi) {
+  return emu_bf16(lo) | (emu_bf16(hi) << 16);
+}
+
+inline float emu_bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
+inline float emu_bf16_hi(uint32_t x) { return __uint_as_float(x & 0xFFFF0000u); }
+
+// mma.sync m16n8k16 (row.col, bf16 in, fp32 accumulate) by the warp, the
+// fragments as in the PTX ISA: a0 (g, 2t | 2t + 1), a1 (g + 8, ...), a2 (g,
+// 2t + 8 | 2t + 9), a3 (g + 8, ...); b0 (2t | 2t + 1, g), b1 (2t + 8 |
+// 2t + 9, g), each register's low half the first; d as in emu_mma
+inline void emu_mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                         uint32_t b1) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  float* me = g_warp_buf[w][l];
+  for (int e = 0; e < 4; ++e) me[e] = __uint_as_float(a[e]);
+  me[4] = __uint_as_float(b0);
+  me[5] = __uint_as_float(b1);
+  warp_sync();
+  float A[16][16], B[16][8];
+  auto bits = [](float f) {
+    uint32_t u;
+    std::memcpy(&u, &f, 4);
+    return u;
+  };
+  for (int ln = 0; ln < 32; ++ln) {
+    const int g = ln >> 2, t = ln & 3;
+    const float* f = g_warp_buf[w][ln];
+    for (int r = 0; r < 4; ++r) {
+      const int row = g + 8 * (r & 1), col = 2 * t + 8 * (r >> 1);
+      A[row][col] = emu_bf16_lo(bits(f[r]));
+      A[row][col + 1] = emu_bf16_hi(bits(f[r]));
+    }
+    for (int r = 0; r < 2; ++r) {
+      B[2 * t + 8 * r][g] = emu_bf16_lo(bits(f[4 + r]));
+      B[2 * t + 8 * r + 1][g] = emu_bf16_hi(bits(f[4 + r]));
+    }
+  }
+  warp_sync();
+  const int g = l >> 2, t = l & 3;
+  const int rows[4] = {g, g, g + 8, g + 8};
+  const int cols[4] = {2 * t, 2 * t + 1, 2 * t, 2 * t + 1};
+  for (int e = 0; e < 4; ++e) {
+    float s = 0.f;
+    for (int k = 0; k < 16; ++k) s += A[rows[e]][k] * B[k][cols[e]];
     d[e] += s;
   }
 }

@@ -741,3 +741,126 @@ def test_noisy_expectation_routes_on_the_card(card):
     assert noise.routes['fold'] == routes['fold'] + 3
     assert noise.routes['plain'] == routes['plain'] + 1
     assert all(torch.isfinite(t).all() for t in (e1, z, d))
+
+
+# ── the opt-in bf16 operand modes (UCOMP_BF16, PFUSED_BF16) ───────────────────
+# Kernel against its bf16 twin: 3e-2 x max(1, max|twin|) on every entry and
+# an RMS of the difference at most half that of the twin's own deviation
+# from the fp32 form (chip_smoke.py's bf16_modes).  The fused chain is held
+# on a few blocks: over many, a rounding that lands on the other side
+# decorrelates two bf16 runs.
+
+def _bf16_close(got, want, fp32):
+    got, want, fp32 = (t.double() for t in (got, want, fp32))
+    rms = lambda a: a.pow(2).mean().sqrt().item()
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 3e-2 * max(
+        1.0, want.abs().max().item())
+    assert rms(got - want) <= 0.5 * rms(want - fp32)
+
+
+@pytest.mark.parametrize("nq,net", [(2, (3, 1, 2, 1)), (3, (2, 3, 2, 3)),
+                                    (5, (40, 2, 20, 2)), (6, (4, 3, 4, 3)),
+                                    (7, (40, 2, 20, 2))])
+def test_ucomp_bf16_kernels_match_bf16_plain(card, nq, net):
+    from quanonet_torch.ops import cuda_ucomp
+    spec = hea.quanonet_spec(nq, net)
+    ld, nb, d = spec.block_configs[0][1], spec.n_blocks, spec.dim
+    rng = np.random.RandomState(nq + 18)
+    w = torch.tensor(rng.uniform(-np.pi, np.pi, spec.weight_shape())
+                     .astype(np.float32), device=card)
+    ops = cuda_ucomp.compile_operands(w)
+    g = [torch.tensor(rng.randn(nb, d, d).astype(np.float32), device=card)
+         for _ in range(2)]
+    got = cuda_ucomp.ucomp_bf16_forward(*ops, ld, nb - 1)
+    for a, b, c in zip(got, cuda_ucomp.ucomp_dense(*ops, ld, nb - 1,
+                                                   bf16=True),
+                       cuda_ucomp.ucomp_dense(*ops, ld, nb - 1)):
+        _bf16_close(a, b, c)
+    got = cuda_ucomp.ucomp_bf16_backward(*ops, ld, nb - 1, *g)
+    for a, b, c in zip(got,
+                       cuda_ucomp.ucomp_backward_dense(*ops, ld, nb - 1, *g,
+                                                       bf16=True),
+                       cuda_ucomp.ucomp_backward_dense(*ops, ld, nb - 1, *g)):
+        _bf16_close(a, b, c)
+    again = cuda_ucomp.ucomp_bf16_backward(*ops, ld, nb - 1, *g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_ucomp_bf16_mode_routes_the_compile(card, monkeypatch):
+    """UCOMP_BF16 on `cuda`: the model's compile launches the bf16 kernels
+    (forward, and backward under autograd), not the gate form's."""
+    from quanonet_torch.ops import cuda_ucomp
+    monkeypatch.setattr(cuda_ucomp, 'UCOMP_BF16', True)
+    spec = hea.quanonet_spec(5, (40, 2, 20, 2))
+    w = torch.tensor(np.random.RandomState(2).uniform(
+        -np.pi, np.pi, spec.weight_shape()).astype(np.float32), device=card,
+        requires_grad=True)
+    before = (cuda_ucomp.launches, cuda_ucomp.bwd_launches,
+              cuda_ucomp.bf16_launches, cuda_ucomp.bf16_bwd_launches)
+    mr, mi = cuda_hea.block_mats(spec, w)
+    (mr.sum() + mi.sum()).backward()
+    torch.cuda.synchronize()
+    assert (cuda_ucomp.launches, cuda_ucomp.bwd_launches,
+            cuda_ucomp.bf16_launches, cuda_ucomp.bf16_bwd_launches) == (
+        before[0], before[1], before[2] + 1, before[3] + 1)
+    assert bool(torch.isfinite(w.grad).all())
+
+
+@pytest.mark.parametrize("nq,net,n,blocks", [(8, (3, 2, 2, 1), 1000, 5),
+                                             (10, (40, 2, 20, 2), 100, 2),
+                                             (13, (2, 1, 2, 1), 3, 3)])
+def test_fused_bf16_kernels_match_bf16_plain(card, nq, net, n, blocks):
+    from quanonet_torch.ops import cuda_fused, fused_gates
+    spec = hea.quanonet_spec(nq, net)
+    rng = np.random.RandomState(nq + n)
+    w = torch.tensor(rng.uniform(-np.pi, np.pi, spec.weight_shape())
+                     .astype(np.float32), device=card)
+    x = torch.tensor(rng.uniform(-2, 2, (n, spec.total_encode))
+                     .astype(np.float32), device=card)
+    ops = fused_gates.prepare_fused_chain_x(spec, w, x)
+    lds = fused_gates.block_depths(spec)
+    s = sum(lds[:blocks])
+    ops = [o[:s].contiguous() for o in ops[:4]] + [ops[4][:blocks]
+                                                   .contiguous()]
+    lds = lds[:blocks]
+    got = cuda_fused.chain_forward(*ops, lds, save_residuals=True, bf16=True)
+    want = fused_gates.chain_fused_saved_x(*ops, lds, bf16=True)
+    for a, b, c in zip(got, want, fused_gates.chain_fused_saved_x(*ops, lds)):
+        _bf16_close(a, b, c)
+    g = [torch.tensor(rng.randn(n, spec.dim).astype(np.float32), device=card)
+         for _ in range(2)]
+    got = cuda_fused.chain_backward(*ops, lds, want[2], want[3], *g,
+                                    bf16=True)
+    twin = fused_gates.chain_fused_backward_x(*ops, lds, want[2:], *g,
+                                              bf16=True)
+    fp32 = fused_gates.chain_fused_backward_x(*ops, lds, want[2:], *g)
+    for a, b, c in zip(got, twin, fp32):
+        _bf16_close(a, b, c)
+
+
+def test_fused_bf16_mode_routes_the_chain(card, monkeypatch):
+    """PFUSED_BF16=1 on `cuda`: the pfused engine's forward and gradient
+    launch the bf16 variants, not the fp32 kernels; unset, the fp32 ones."""
+    from quanonet_torch.ops import cuda_fused
+    spec = hea.quanonet_spec(10, (4, 2, 4, 2))
+    rng = np.random.RandomState(6)
+    w = torch.tensor(rng.uniform(-np.pi, np.pi, spec.weight_shape())
+                     .astype(np.float32), device=card, requires_grad=True)
+    x = torch.tensor(rng.uniform(-2, 2, (64, spec.total_encode))
+                     .astype(np.float32), device=card)
+
+    def counts():
+        return (cuda_fused.launches, cuda_fused.bwd_launches,
+                cuda_fused.bf16_launches, cuda_fused.bf16_bwd_launches)
+    for on in (True, False):
+        if on:
+            monkeypatch.setenv('PFUSED_BF16', '1')
+        else:
+            monkeypatch.delenv('PFUSED_BF16')
+        before = counts()
+        sr, si = cuda_fused.forward_pfused(spec, w, x)
+        (sr.sum() + si.sum()).backward()
+        torch.cuda.synchronize()
+        step = (0, 0, 1, 1) if on else (1, 1, 0, 0)
+        assert counts() == tuple(b + d for b, d in zip(before, step))

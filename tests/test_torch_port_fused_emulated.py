@@ -17,6 +17,16 @@ cores' own rounding) is left to the cuda-marked tests on the card.
 Tolerances as on the card (chip_smoke.py): 2e-5 on amplitudes and states,
 1e-4 x max(1, max|plain|) on the backward's cotangents; the residual
 variant's output equals the primal kernel's bit for bit.
+
+The bf16 variants (bf16 = 1: the three low products of the bf16 mode on
+mma.sync m16n8k16, emulated with bf16 operands rounded to nearest even and
+fp32 sums) against the plain versions with bf16=True.  Both round each
+product's operands from fp32 values that differ in their last bits (other
+summation orders), and a rounding on the other side moves an operand by a
+bf16 step that the chain carries on, so the limits are chip_smoke.py's
+bf16_modes: 3e-2 x max(1, max|plain|) on every entry (the JAX test's
+limit for its bf16 mode), and an RMS of the difference at most half that
+of the mode's own deviation from the fp32 chain.
 """
 import ctypes
 import os
@@ -32,6 +42,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(REPO, 'quanonet_torch', 'csrc', 'fused_chain.cu')
 AMP_TOL = 2e-5
 BWD_REL_TOL = 1e-4
+BF16_ATOL = 3e-2
+BF16_RMS_SHARE = 0.5
 
 # the inline-PTX helpers and their emulations
 _BODIES = (
@@ -44,6 +56,8 @@ _BODIES = (
     ('void mma_tf32(float (&d)[4]', 'emu_mma(d, a, b0, b1);'),
     ('void mma_tf32_zero(float (&d)[4]',
      'd[0] = d[1] = d[2] = d[3] = 0.f; emu_mma(d, a, b0, b1);'),
+    ('uint32_t pack_bf16(float lo', 'return emu_bf16x2(lo, hi);'),
+    ('void mma_bf16(float (&d)[4]', 'emu_mma_bf16(d, a, b0, b1);'),
 )
 
 
@@ -52,8 +66,8 @@ def lib(tmp_path_factory):
     lib = emulated_cuda.build(SOURCE, _BODIES,
                               tmp_path_factory.mktemp('fused_emulation'))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_chain_forward.argtypes = [vp] * 12 + [i] * 4 + [vp]
-    lib.fused_chain_backward.argtypes = [vp] * 24 + [i] * 6 + [vp]
+    lib.fused_chain_forward.argtypes = [vp] * 12 + [i] * 5 + [vp]
+    lib.fused_chain_backward.argtypes = [vp] * 24 + [i] * 7 + [vp]
     return lib
 
 
@@ -67,7 +81,7 @@ def _tables(lds, backward):
     return torch.tensor(off), torch.tensor(sched, dtype=torch.int32)
 
 
-def _forward(lib, ops, lds, sms, save):
+def _forward(lib, ops, lds, sms, save, bf16=False):
     """The wrapper's launch of the forward kernel, on CPU tensors."""
     xb = ops[4]
     nb, n, nq = xb.shape
@@ -80,12 +94,12 @@ def _forward(lib, ops, lds, sms, save):
     off, sched = _tables(lds, False)
     err = lib.fused_chain_forward(*map(_ptr, ops), _ptr(off), _ptr(sched),
                                   *map(_ptr, out + st), _ptr(scratch), nb, n,
-                                  nq, rows, None)
+                                  nq, rows, int(bf16), None)
     assert err == 0
     return (*out, *st) if save else tuple(out)
 
 
-def _backward(lib, ops, lds, sms, st_r, st_i, gr, gi):
+def _backward(lib, ops, lds, sms, st_r, st_i, gr, gi, bf16=False):
     """The wrapper's launch of the backward kernels, on CPU tensors."""
     xb = ops[4]
     nb, n, nq = xb.shape
@@ -106,7 +120,7 @@ def _backward(lib, ops, lds, sms, st_r, st_i, gr, gi):
         *map(_ptr, ops), _ptr(off), _ptr(sched), *map(_ptr, (st_r, st_i, gr, gi)),
         *map(_ptr, pre), _ptr(u2part), *map(_ptr, part), _ptr(scratch),
         *map(_ptr, u7bar + u2bar), _ptr(xbar), nb, s, n, nq, rows, splits,
-        None)
+        int(bf16), None)
     assert err == 0
     return (*u7bar, *u2bar, xbar)
 
@@ -168,3 +182,49 @@ def test_emulated_q14_forward_in_scratch(lib):
     want = fused_gates.chain_fused_x(*ops, lds)
     for a, b in zip(got, want):
         assert (a - b).abs().max().item() <= AMP_TOL
+
+
+def _bf16_close(got, want, fp32):
+    scale = max(1.0, want.abs().max().item())
+    dev = (want - fp32).pow(2).mean().sqrt().item()
+    assert (got - want).abs().max().item() <= BF16_ATOL * scale
+    assert (got - want).pow(2).mean().sqrt().item() <= BF16_RMS_SHARE * dev
+
+
+# the bf16 variants: shared memory, the large-batch geometry (4 n8 tiles a
+# warp) and the backward in device memory
+BF16_CASES = [
+    (8, (1, 1, 1, 1), 5, 132),
+    (10, (1, 1, 1, 1), 8, 0),
+    (13, (1, 1, 1, 1), 1, 132),
+]
+
+
+@pytest.mark.parametrize("nq,net,n,sms", BF16_CASES)
+def test_emulated_bf16_kernels_match_bf16_plain(lib, nq, net, n, sms):
+    spec = hea.quanonet_spec(nq, net)
+    rng = np.random.RandomState(100 + nq + n)
+    w = torch.tensor(rng.uniform(-np.pi, np.pi, spec.weight_shape())
+                     .astype(np.float32))
+    x = torch.tensor(rng.uniform(-4, 4, (n, spec.total_encode))
+                     .astype(np.float32))
+    ops = fused_gates.prepare_fused_chain_x(spec, w, x)
+    lds = fused_gates.block_depths(spec)
+    got = _forward(lib, ops, lds, sms, True, bf16=True)
+    want = fused_gates.chain_fused_saved_x(*ops, lds, bf16=True)
+    fp32 = fused_gates.chain_fused_saved_x(*ops, lds)
+    for a, b, c in zip(got, want, fp32):
+        _bf16_close(a, b, c)
+    primal = _forward(lib, ops, lds, sms, False, bf16=True)
+    assert all(torch.equal(a, b) for a, b in zip(primal, got[:2]))
+
+    g = [torch.tensor(rng.randn(n, spec.dim).astype(np.float32))
+         for _ in range(2)]
+    grads = _backward(lib, ops, lds, sms, want[2], want[3], *g, bf16=True)
+    plain = fused_gates.chain_fused_backward_x(*ops, lds, (want[2], want[3]),
+                                               *g, bf16=True)
+    exact = fused_gates.chain_fused_backward_x(*ops, lds, (want[2], want[3]),
+                                               *g)
+    for a, b, c in zip(grads, plain, exact):
+        assert a.shape == b.shape
+        _bf16_close(a, b, c)

@@ -17,6 +17,16 @@ block and the flagship, with the launch geometry an H100 takes.  What it cannot 
 
 Tolerances as on the card (chip_smoke.py): 2e-5 on the block matrices,
 1e-4 x max(1, max|plain|) on w̄; two backward calls give equal bits.
+
+The bf16 operand mode's kernels (the product form, mma.sync m16n8k16 bf16
+emulated with bf16 operands rounded to nearest even and fp32 sums) against
+ucomp_dense / ucomp_backward_dense with bf16=True, at the same widths.  Both
+round every product's operands from fp32 values that differ in their last
+bits (other summation orders), and a rounding that lands on the other side
+moves an entry by a bf16 step, so the limits are those of chip_smoke.py's
+bf16_modes: the JAX test's 3e-2 (x max(1, max|plain|) on the cotangents)
+on every entry, and the RMS of the difference at most half that of the
+mode's own deviation from the fp32 product form.
 """
 import ctypes
 import os
@@ -33,6 +43,8 @@ SOURCE = os.path.join(os.path.dirname(REPO), 'quanonet_torch', 'csrc',
                       'ucomp.cu')
 AMP_TOL = 2e-5
 BWD_REL_TOL = 1e-4
+BF16_ATOL = 3e-2
+BF16_RMS_SHARE = 0.5
 H100_SMS = 132
 
 CASES = [    # (qubits, blocks, linear depth, last)
@@ -45,15 +57,26 @@ CASES = [    # (qubits, blocks, linear depth, last)
 IDS = [f"q{n}-nb{nb}-ld{ld}-last{last}" for n, nb, ld, last in CASES]
 
 
+# the inline-PTX helpers of the bf16 mode and their emulations
+_BODIES = (
+    ('uint32_t pack_bf16(float lo', 'return emu_bf16x2(lo, hi);'),
+    ('void mma_bf16(float (&d)[4]', 'emu_mma_bf16(d, a, b0, b1);'),
+)
+
+
 @pytest.fixture(scope='module')
 def lib(tmp_path_factory):
-    lib = emulated_cuda.build(SOURCE, (),
+    lib = emulated_cuda.build(SOURCE, _BODIES,
                               tmp_path_factory.mktemp('ucomp_emulation'),
                               opt='-O1')
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.ucomp_forward.argtypes = [vp] * 3 + [i] * 6 + [vp]
     lib.ucomp_backward.argtypes = [vp] * 5 + [i] * 6 + [vp]
     lib.ucomp_row_groups.argtypes = [i]
+    lib.ucomp_bf16_forward.argtypes = [vp] * 6 + [i] * 5 + [vp]
+    lib.ucomp_bf16_backward.argtypes = [vp] * 9 + [i] * 5 + [vp]
+    lib.ucomp_bf16_bytes.argtypes = [i] * 3
+    lib.ucomp_bf16_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -128,3 +151,59 @@ def test_refuses_what_it_does_not_take(lib):
                               None, w.data_ptr(), 3, 2, 2, 1, 1, 2,
                               None) == 1
     assert bool((out == 7.0).all())
+
+
+# ── the bf16 operand mode ────────────────────────────────────────────────────
+
+BF16_CASES = [    # (qubits, blocks, linear depth, last)
+    (1, 2, 1, 1), (3, 3, 3, 1), (4, 3, 2, -1), (5, 4, 2, 3), (6, 2, 3, 0),
+    (7, 2, 2, 1), (5, 3, 2, cuda_ucomp.EVERY_BLOCK),
+]
+BF16_IDS = [f"q{n}-nb{nb}-ld{ld}-last{last}" for n, nb, ld, last in BF16_CASES]
+
+
+def _bf16_launch(lib, fn, n, ld, ctas, backward):
+    """fn(scratch pointer) with the wrapper's scratch choice for ``ctas``
+    CTAs: shared memory where a CTA's planes fit, else device memory."""
+    per_cta = lib.ucomp_bf16_bytes(n, ld, int(backward))
+    assert per_cta > 0
+    scratch = (None if per_cta <= cuda_ucomp.MAX_SMEM
+               else torch.empty(ctas, per_cta // 4))
+    assert fn(None if scratch is None else scratch.data_ptr()) == 0
+
+
+def _bf16_close(got, want, fp32, scale=1.0):
+    dev = (want - fp32).pow(2).mean().sqrt().item()
+    assert (got - want).abs().max().item() <= BF16_ATOL * scale
+    assert (got - want).pow(2).mean().sqrt().item() <= BF16_RMS_SHARE * dev
+
+
+@pytest.mark.parametrize("n,nb,ld,last", BF16_CASES, ids=BF16_IDS)
+def test_bf16_kernels_match_bf16_plain(lib, n, nb, ld, last):
+    """B4f-bf16 and B4b-bf16 on compile_operands' operands against the
+    plain product form with bf16=True, with 2 CTAs walking the blocks (the
+    planes in device memory at Q7)."""
+    rng = np.random.RandomState(1000 + 100 * n + 10 * ld + nb)
+    w = torch.tensor(rng.uniform(-np.pi, np.pi, (nb * ld, 3, n))
+                     .astype(np.float32))
+    dim = 2 ** n
+    ops = cuda_ucomp.compile_operands(w)
+    gr, gi = (torch.tensor(rng.randn(nb, dim, dim).astype(np.float32))
+              for _ in range(2))
+    ctas = min(nb, 2)
+    mt = [torch.empty(nb, dim, dim) for _ in range(2)]
+    _bf16_launch(lib, lambda sp: lib.ucomp_bf16_forward(
+        *(o.data_ptr() for o in ops + tuple(mt)), sp, n, nb, ld, last, ctas,
+        None), n, ld, ctas, False)
+    want = cuda_ucomp.ucomp_dense(*ops, ld, last, bf16=True)
+    fp32 = cuda_ucomp.ucomp_dense(*ops, ld, last)
+    for a, b, c in zip(mt, want, fp32):
+        _bf16_close(a, b, c)
+    cot = [torch.empty_like(ops[0]) for _ in range(3)]
+    _bf16_launch(lib, lambda sp: lib.ucomp_bf16_backward(
+        *(t.data_ptr() for t in ops + (gr, gi) + tuple(cot)), sp, n, nb, ld,
+        last, ctas, None), n, ld, ctas, True)
+    want = cuda_ucomp.ucomp_backward_dense(*ops, ld, last, gr, gi, bf16=True)
+    fp32 = cuda_ucomp.ucomp_backward_dense(*ops, ld, last, gr, gi)
+    for a, b, c in zip(cot, want, fp32):
+        _bf16_close(a, b, c, max(1.0, b.abs().max().item()))
