@@ -53,7 +53,7 @@ Phases, each printed as one JSON line:
              per-step losses to 1e-4 relative, parameters to
              PARITY_PARAM_TOL; B4f and B4b launched once a step.
 7. train   — the training path: the quick regime of the port's bench
-             (python -m quanonet_torch.bench --quick) for seeds 0, 1, 2,
+             (python -m quanonet_torch.bench --quick) for seeds 0, 1,
              each seed's rel-L2 held to the band fixed from the JAX
              package's CPU run (QUICK_BAND_REL_L2), then one epoch of the
              training CLI at flagship width into a temporary --prefix,
@@ -155,8 +155,8 @@ Phases, each printed as one JSON line:
 20. train_parity_embed — 20 Adam steps of the flagship with engine
              'embed': the kernels against autograd of the plain chain and
              against train_parity's 'pallas' run, on the same batches.
-21. train_embed — the quick regime through --engine embed for seeds 0, 1,
-             2 (each within QUICK_BAND_REL_L2), then one CLI epoch with
+21. train_embed — the quick regime through --engine embed for seeds 0 and
+             1 (each within QUICK_BAND_REL_L2), then one CLI epoch with
              --engine embed whose checkpoint infer.load_model reproduces;
              both embed kernels launched, the block-chain kernels not.
 22. serve_embed — the Advection anchor through load_model -> Predictor ->
@@ -197,7 +197,8 @@ Phases, each printed as one JSON line:
              Net40-2-20-2 (B1f at 84,000 rows); the peak memory of each
              backward, shift and autograd.
 28. multiseed — the sequential route of --multi_seed 0 1 in the quick
-             regime (multiseed.train_seeds_sequential): each seed's
+             regime cut to MULTISEED_EPOCHS (multiseed.
+             train_seeds_sequential): each seed's
              metric.json equals its single CLI run's (but the wall-clock
              rate), and the rerun skips both.
 29. infer_from_name — the Advection anchor scored by the infer CLI with
@@ -231,15 +232,15 @@ Phases, each printed as one JSON line:
              three rel-L2s, a record; then tests/test_mitigation.py's Q2
              prediction case on the card (noise 0.1, 256 trajectories,
              scales (1, 2)): ZNE must land nearer the ideal.
-34. multiseed_packed — --multi_seed 0 1 2 3 in the quick regime through
-             the CLI on `cuda`, the packed route: each seed against its
-             single run (losses 1e-4 relative, rel-L2 1e-3 relative,
+34. multiseed_packed — --multi_seed 0 1 2 3 in the quick regime (cut to
+             MULTISEED_EPOCHS) through the CLI on `cuda`, the packed
+             route: each seed against its single run (losses 1e-4 relative, rel-L2 1e-3 relative,
              best_model.npz 5e-4), the rerun skipping every seed, B4f and
              B4b 2 launches a step for all seeds, B1f and B1b one a seed
              and step; then --multi_seed 0 1 at Q10 Net40-2-20-2 for one
              epoch of 2 batches (B2f, B2b a seed and step) and FNN,
              DeepONet, FNO packed (no kernel), with the same checks.
-35. seedpack — profile_seedpack at S = 1, 2, 4, 8, 50 steps an arm, the
+35. seedpack — profile_seedpack at S = 1, 2, 4, 8, 25 steps an arm, the
              packed and the sequential arms in turns: samples/s, ms a
              step, device rows and busy share; the packed losses finite
              and falling (no limit on speed); each arm's launches in one
@@ -322,7 +323,7 @@ Phases, each printed as one JSON line:
              rel-L2 below 1.0; the default route's kernels launched.
 48. studies — the noise-robustness study (depolarizing) and the
              hardware-training study's --quick arms (autodiff, shift, SPSA),
-             both at 10 epochs (JAX: 300 and --quick's 30;
+             both at 3 epochs (JAX: 300 and --quick's 30;
              quanonet_torch/studies/) on the card: each CSV in the JAX
              script's columns and rows, every rel-L2 finite, the verdict
              lines printed, shift within 10 % of autodiff; each training
@@ -356,6 +357,26 @@ Phases, each printed as one JSON line:
              from fp32 as the twin's do (Q10); QON_UNPIN_EXPECT's deviation
              at the flagship.  Every other phase runs with the three modes
              off (modes_off).
+51. bench_regimes — the port's bench beyond the reference regime: the
+             throughput regime (--regime throughput: batch 1000, cosine
+             peak 1e-2) at full width and data, 100 epochs, one seed, with
+             --anchor_crossing: best-epoch rel-L2 under the in-run anchor
+             (the JAX package's outcome for this regime), epochs_to_anchor
+             the first boundary of its own trajectory under the anchor,
+             B4f, B4b, B1f and B1b once a step and B1f, B4f once an
+             evaluated chunk; --quick --datagen device on 'pallas' (the
+             _dgdevice cache, finite) with --precision unset and default in
+             turns: rel_l2_runs bit-equal (the kernels and the pinned sums
+             do not read the setting), the process's setting and TF32 off
+             restored.
+52. ood — the OOD study of visualization.ipynb (quanonet_torch.ood): both
+             shipped anchors fed sin 2πx and sin 4πx through load_model /
+             predict at batch 4096 on the card, against the JAX package's
+             predictions (tests/fixtures/torch_port_ood.npz, atol 1e-4);
+             the rel-L2s a record; one B4f and B1f a chunk.
+53. entry — quanonet_torch.entry.entry() (the twin of
+             __graft_entry__.entry): the flagship forward at batch 8 on the
+             card against the CPU plain path (1e-4), one B4f and one B1f.
 The kernel phase (3) also holds B1f at N = 60,000 and, at Q7, 84,000: the
 rows of the shift rule's encode-shift batch at the flagship and at Q7.
 
@@ -366,7 +387,8 @@ noise_zne, noise_damping, noise_train, infer_noise, multiseed_packed,
 multiseed_packed_q10, seedpack, datagen_device, ibm_export,
 bench_amplitude, multichip_dp, multichip_amp, multichip_pipe,
 multichip_cli, profile_q10, bench_serve, bench_suite, studies_noise,
-studies_hardware, sweeps_circuit_q5, sweeps_circuit_q10, bf16_q5, bf16_q10)
+studies_hardware, sweeps_circuit_q5, sweeps_circuit_q10, bf16_q5, bf16_q10,
+bench_throughput, bench_datagen, bench_precision, ood, entry)
 starts with every launch
 count at 0 and reads them when it ends; a multichip path adds the ranks'
 own counts, read in each rank around the driven window.  A card time
@@ -400,9 +422,10 @@ from torch.utils import cpp_extension
 
 from quanonet_torch import (
     bench, bench_amplitude, bench_serve, bench_suite, cli, ibm_export,
-    ibm_inference, multiseed, profile_q10, profile_seedpack, profile_step,
-    sweeps, time_chain,
+    ibm_inference, multiseed, ood, profile_q10, profile_seedpack,
+    profile_step, sweeps, time_chain,
 )
+from quanonet_torch import entry as entry_mod
 from quanonet_torch.config import (
     get_base_parser, load_config, set_random_seed,
 )
@@ -486,6 +509,7 @@ PARITY_PARAM_TOL = 5e-4
 # the worst of them.
 JAX_QUICK_REL_L2 = (0.3337, 0.3436, 0.3365)
 QUICK_BAND_REL_L2 = 1.25 * max(JAX_QUICK_REL_L2)
+QUICK_SEEDS = 2      # the seeds of train and train_embed
 CLI_PRED_TOL = 1e-5
 
 
@@ -924,11 +948,13 @@ def phase_train_parity():
 
 
 def phase_train():
-    """The training path: the bench's quick regime for 3 seeds, then one
-    epoch of the CLI; returns the launches of both kernels in it."""
+    """The training path: the bench's quick regime for QUICK_SEEDS seeds,
+    then one epoch of the CLI; returns the launches of both kernels in
+    it."""
     quick_data()                      # the bench reads the cache
     _zero_counts()                    # the path starts here
-    result = bench.run(bench.parser().parse_args(['--quick', '--runs', '3']))
+    result = bench.run(bench.parser().parse_args(
+        ['--quick', '--runs', str(QUICK_SEEDS)]))
     with tempfile.TemporaryDirectory() as tmp:
         stdout = sys.stdout
         try:
@@ -1257,7 +1283,7 @@ def phase_kernel_fused_bwd():
         device_ms = kernel_device_ms(bwd, None, 3 if big else 20)
         split = _profiled(bwd, 3 if big else 20).get("top_device_ms_per_step")
         plain_ms = time_ms(lambda: fused_gates.chain_fused_backward_x(
-            *ops, lds, (st_r, st_i), *g), 1 if big else 3)
+            *ops, lds, (st_r, st_i), *g), 1)
         bound_ms, bound_by, flops, nbytes = fused_bwd_bound(spec, n)
         rec = {"phase": "kernel_fused_bwd", "case": label, "nq": nq,
                "nb": spec.n_blocks, "S": spec.total_sublayers, "N": n,
@@ -1534,7 +1560,7 @@ UCOMP_CASES = [      # (label, spec)
 ADAM_ATOL, ADAM_RTOL = 2e-6, 1e-5   # the kernel contracts multiply-adds
 ADAM_STEPS = 25
 PROFILE_ITERS = 40
-ARM_ROUNDS, ARM_STEPS = 5, 20
+ARM_ROUNDS, ARM_STEPS = 3, 20
 # step_arms' rounds are longer: its rule compares two arms ~0.3 ms apart
 # round by round, where rounds of 20 steps spread by more
 STEP_ARMS_STEPS = 100
@@ -2511,11 +2537,12 @@ def phase_train_parity_embed(pallas_run):
 
 def phase_train_embed():
     """The training path with --engine embed: the bench's quick regime for
-    3 seeds, then one epoch of the CLI; returns the launches in it."""
+    QUICK_SEEDS seeds, then one epoch of the CLI; returns the launches in
+    it."""
     quick_data()
     _zero_counts()                    # the path starts here
     result = bench.run(bench.parser().parse_args(
-        ['--quick', '--runs', '3', '--engine', 'embed']))
+        ['--quick', '--runs', str(QUICK_SEEDS), '--engine', 'embed']))
     with tempfile.TemporaryDirectory() as tmp:
         stdout = sys.stdout
         try:
@@ -3118,6 +3145,9 @@ MULTISEED_ARGV = ['--operator', 'Advection', '--model_type', 'QuanONet',
                   '--num_train', '200', '--num_test', '100',
                   '--train_sample_num', '100', '--test_sample_num', '100',
                   '--learning_rate', '0.003', '--device', 'cuda']
+# the multi-seed phases' runs, cut from the quick regime's 10 epochs
+MULTISEED_EPOCHS = 3
+MULTISEED_CUT_ARGV = MULTISEED_ARGV + ['--num_epochs', str(MULTISEED_EPOCHS)]
 
 
 def _cli(argv):
@@ -3148,7 +3178,7 @@ def phase_multiseed():
     two single runs of the CLI: each seed's metric.json equal (but the
     wall-clock rate); the rerun skips.  Returns the launches of the
     multi-seed run."""
-    argv = MULTISEED_ARGV
+    argv = MULTISEED_CUT_ARGV
 
     def run(args):
         if '--multi_seed' in args:
@@ -3573,7 +3603,7 @@ PACKED_Q10_ARGV = ['--operator', 'Advection', '--model_type', 'QuanONet',
                    '--train_sample_num', '100', '--test_sample_num', '100',
                    '--learning_rate', '0.003', '--device', 'cuda']
 PACKED_CLASSICAL_EPOCHS = 2
-SEEDPACK_SEEDS, SEEDPACK_ITERS, SEEDPACK_ROUNDS = '1,2,4,8', 50, 3
+SEEDPACK_SEEDS, SEEDPACK_ITERS, SEEDPACK_ROUNDS = '1,2,4,8', 25, 3
 DATAGEN_SIZE = dict(num_train=1000, num_test=1000, num_points=100,
                     num_points_0=100, train_sample_num=100,
                     test_sample_num=100)   # the flagship's data
@@ -3664,7 +3694,7 @@ def phase_multiseed_packed():
     seeds = PACKED_SEEDS
     s = len(seeds)
     with tempfile.TemporaryDirectory() as tmp:
-        q5 = _packed_against_single(MULTISEED_ARGV, seeds, tmp, 'q5')
+        q5 = _packed_against_single(MULTISEED_CUT_ARGV, seeds, tmp, 'q5')
         q10 = _packed_against_single(PACKED_Q10_ARGV, seeds[:2], tmp, 'q10')
         classical = {}
         for mt, flags in CLASSICAL_RUNS:
@@ -3674,7 +3704,7 @@ def phase_multiseed_packed():
                     '--learning_rate', '0.003', '--device', 'cuda']
             classical[mt] = _packed_against_single(argv, seeds[:2], tmp, mt,
                                                    'Antideriv')
-    steps = 10 * (200 * 100 // 100)
+    steps = MULTISEED_EPOCHS * (200 * 100 // 100)
     chunks = -(-100 * 100 // 4096)            # evaluation chunks a seed
     want = {"ucomp_fwd": 2 * steps + chunks * s, "ucomp_bwd": 2 * steps,
             "hea_chain_fwd": s * steps + chunks * s,
@@ -4054,6 +4084,7 @@ AMP_OUT_TOL = 1e-4
 SHARD_GRAD_TOL = 1e-3          # × max(1, max|g|), the shift rule's limit
 PIPE_MICROBATCHES = 4
 AMP_BENCH_WORLDS = (1, 2)      # bench_amplitude's sharded rows
+SHARD_ROUNDS = 2               # bench_amplitude's shard rows in turns
 
 
 def _multichip_inputs():
@@ -4436,7 +4467,7 @@ def phase_multichip_cli():
 
 # ── the measurement tools: amplitude bench, Q10 profiler, serve bench, suite
 
-PROFILE_Q10_ITERS = 20         # the module's default is 300
+PROFILE_Q10_ITERS = 5          # the module's default is 300
 SERVE_BENCH_REPS = 20
 SUITE_QUICK_REL_L2 = 1.0       # a sanity floor; `train` holds the band
 
@@ -4453,7 +4484,8 @@ def phase_bench_amplitude(runs, smi_line):
     started = {w: [r[1] for r in runs[w]] for w in AMP_BENCH_WORLDS}
     result = {"rows": bench_amplitude.amp_rows(AMP_BENCH_WORLDS, dev,
                                                started=started)[0],
-              "shard_compute": bench_amplitude.shard_compute_rows(dev)}
+              "shard_compute": bench_amplitude.shard_compute_rows(
+                  dev, rounds=SHARD_ROUNDS)}
     gates = bench_amplitude.gates(result)
     for name, ok in gates.items():
         check(ok, f"bench_amplitude: {name}")
@@ -4529,10 +4561,10 @@ def phase_bench_suite(smi_line):
     return counts
 
 
-# the studies' budget: 10 epochs (the hardware study's --quick takes 30,
-# the noise study's JAX default 300), cut to pay for bf16_modes within the
-# script's time
-STUDY_EPOCHS = 10
+# the studies' budget: 3 epochs (the hardware study's --quick takes 30,
+# the noise study's JAX default 300), cut to pay for bf16_modes and
+# bench_regimes within the script's time
+STUDY_EPOCHS = 3
 # shift's rel-L2 against autodiff's, relative: the same gradient, so far
 # inside the JAX verdict's 10 % (which is printed, and gated too)
 STUDY_SHIFT_MATCH = 1e-3
@@ -5217,6 +5249,152 @@ def phase_bf16_modes(smi_line):
     return {"ucomp": ucomp_recs, "fused": fused_recs}, paths
 
 
+# ── the rest of the root bench, the flagship entry and the OOD study ────────
+OOD_FIXTURE = os.path.join(REPO, 'tests', 'fixtures', 'torch_port_ood.npz')
+OOD_TOL = 1e-4               # the served-prediction limit
+ENTRY_TOL = 1e-4
+REGIME_EPOCHS = 5            # the quick runs of --datagen and --precision
+
+
+def _bench(argv):
+    """bench.run on ``argv``; -> (result, the launches of the run)."""
+    torch.cuda.synchronize()
+    _zero_counts()                    # the path starts here
+    result = bench.run(bench.parser().parse_args(argv))
+    torch.cuda.synchronize()
+    return result, _counts()          # ... and ends here
+
+
+def phase_bench_regimes():
+    """The port's bench beyond the reference regime: the throughput regime
+    at full width and data with --anchor_crossing (batch 1000, one seed;
+    best-epoch rel-L2 under the in-run anchor, as the JAX package's runs
+    of this regime are; each kernel of the step once a step, and one B1f
+    and B4f an evaluated chunk); then the quick regime on 'pallas' with
+    --datagen device (the _dgdevice cache, finite), --precision unset and
+    default in turns (bit-equal: the kernels do not read the setting; the
+    process's setting restored).  -> {path: launches}."""
+    found = torch.get_float32_matmul_precision()
+    thr, thr_counts = _bench(['--regime', 'throughput', '--anchor_crossing',
+                              '--runs', '1'])
+    (track,) = thr['anchor_crossing_runs']
+    anchor = thr['reference_anchor_rel_l2']
+    steps = thr['epochs'] * thr['train_samples'] // thr['batch_size']
+    test_rows = bench.SIZES['full']['num_test'] * \
+        bench.SIZES['full']['test_sample_num']
+    evals = (len(track) + 1 + thr['anchor_measured_in_run']) * \
+        -(-test_rows // bench.EVAL_CHUNK)
+    want = {"hea_chain_fwd": steps + evals, "ucomp_fwd": steps + evals,
+            "hea_chain_bwd": steps, "ucomp_bwd": steps}
+    first = next((e for e, v in track if v < anchor), None)
+    # the quick regime on the card's data, --precision unset and default
+    prec = {}
+    for flag in (None, 'default'):
+        prec[flag] = _bench(['--quick', '--epochs', str(REGIME_EPOCHS),
+                             '--engine', 'pallas', '--datagen', 'device']
+                            + (['--precision', flag] if flag else []))
+    dg, dg_counts = prec[None]
+    after = torch.get_float32_matmul_precision()
+    emit({"phase": "bench_regimes", "throughput": thr,
+          "throughput_launches": thr_counts, "want_launches": want,
+          "steps": steps, "eval_forwards": evals,
+          "time_to_anchor_s": (first * thr['train_samples'] / thr['value']
+                               if first else None),
+          "datagen_device": dg,
+          "precision": {str(k): {"rel_l2_runs": v[0]['rel_l2_runs'],
+                                 "value": v[0]['value'],
+                                 "matmul_precision": v[0]['matmul_precision'],
+                                 "launches": v[1]}
+                        for k, v in prec.items()},
+          "precision_found": found, "precision_after": after})
+    check(thr['batch_size'] == 1000 and thr['lr'] == 1e-2
+          and thr['regime'] == 'throughput' and thr['anchor_measured_in_run'],
+          f"bench_regimes: throughput regime {thr['batch_size']}, "
+          f"{thr['lr']}, {thr['regime']}")
+    check(thr['beats_anchor_all_runs'],
+          f"bench_regimes: throughput rel-L2 {thr['rel_l2_runs']} not under "
+          f"the anchor's {anchor}")
+    check(thr['epochs_to_anchor'] == [first] and first is not None,
+          f"bench_regimes: epochs_to_anchor {thr['epochs_to_anchor']} "
+          f"against the trajectory's {first}")
+    check(all(thr_counts[k] == v for k, v in want.items())
+          and thr_counts["adam_step"] == 0,
+          f"bench_regimes: throughput launches {thr_counts}, want {want}")
+    check(dg['data_file'].endswith('_dgdevice.npz')
+          and all(np.isfinite(dg['rel_l2_runs'])),
+          f"bench_regimes: datagen device {dg['data_file']} "
+          f"{dg['rel_l2_runs']}")
+    check(dg_counts["hea_chain_bwd"] > 0 and dg_counts["ucomp_bwd"] > 0,
+          f"bench_regimes: datagen device launches {dg_counts}")
+    (r0, c0), (r1, c1) = prec[None], prec['default']
+    check(r0['rel_l2_runs'] == r1['rel_l2_runs'],
+          f"bench_regimes: --precision default moved the pallas route: "
+          f"{r0['rel_l2_runs']} against {r1['rel_l2_runs']}")
+    check(r0['matmul_precision'] == 'highest'
+          and r1['matmul_precision'] == 'high' and after == found,
+          f"bench_regimes: precision {r0['matmul_precision']}, "
+          f"{r1['matmul_precision']}, found {found}, after {after}")
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "bench_regimes: TF32 left on")
+    return {"bench_throughput": thr_counts, "bench_datagen": dg_counts,
+            "bench_precision": c1}
+
+
+def phase_ood():
+    """The OOD study of visualization.ipynb on the card: both anchors fed
+    sin 2πx and sin 4πx through infer.load_model / predict at batch 4096;
+    the predictions against the JAX package's (tests/fixtures/
+    torch_port_ood.npz, OOD_TOL), the rel-L2s a record.  -> launches."""
+    want = np.load(OOD_FIXTURE)
+    torch.cuda.synchronize()
+    _zero_counts()                    # the path starts here
+    t0 = time.time()
+    rows, arrays = ood.study(list(ood.CONFIGS), device='cuda')
+    torch.cuda.synchronize()
+    counts = _counts()                # ... and ends here
+    seconds = time.time() - t0
+    errs = {f"{r['operator']}/{r['key']}": float(np.abs(
+        arrays[f"{r['operator']}/{r['key']}/pred"]
+        - want[f"{r['operator']}/{r['key']}"]).max()) for r in rows}
+    chunks = sum(-(-r['grid'][0] * r['grid'][1] // ood.BATCH) for r in rows)
+    emit({"phase": "ood", "rows": rows, "max_abs_err_vs_jax": errs,
+          "tol": OOD_TOL, "seconds": seconds, "launches": counts})
+    check(len(rows) == 4 and all(np.isfinite(r['rel_l2']) for r in rows),
+          f"ood: rows {rows}")
+    check(max(errs.values()) <= OOD_TOL,
+          f"ood: predictions off the JAX package's by {errs}")
+    check(counts["hea_chain_fwd"] == counts["ucomp_fwd"] == chunks
+          and counts["hea_chain_bwd"] == counts["ucomp_bwd"] == 0,
+          f"ood: launches {counts}, want {chunks} B1f and B4f")
+    return counts
+
+
+def phase_entry():
+    """The flagship entry (quanonet_torch.entry, the twin of
+    __graft_entry__.entry) on the card: one call launches B4f and B1f
+    once each and gives the CPU plain path's output (ENTRY_TOL).
+    -> launches."""
+    fn, args = entry_mod.entry()
+    cpu_fn, cpu_args = entry_mod.entry(device='cpu')
+    want = cpu_fn(*cpu_args).numpy()
+    torch.cuda.synchronize()
+    _zero_counts()                    # the path starts here
+    out = fn(*args)
+    torch.cuda.synchronize()
+    counts = _counts()                # ... and ends here
+    got = out.cpu().numpy()
+    err = float(np.abs(got - want).max())
+    ms = time_ms(lambda: fn(*args), 20)
+    emit({"phase": "entry", "out": got.ravel().tolist(),
+          "max_abs_err_vs_cpu": err, "tol": ENTRY_TOL, "ms": ms,
+          "launches": counts})
+    check(got.shape == (8, 1) and err <= ENTRY_TOL,
+          f"entry: {got.shape}, {err} off the CPU plain path")
+    check(counts["hea_chain_fwd"] == counts["ucomp_fwd"] == 1
+          and sum(counts.values()) == 2, f"entry: launches {counts}")
+    return counts
+
+
 # every phase by name, in the order main() runs them; --phases picks some
 PHASES = (
     'device', 'build', 'kernel', 'serve', 'kernel_bwd', 'train_parity',
@@ -5232,7 +5410,8 @@ PHASES = (
     'seedpack', 'datagen_device', 'datagen_native', 'ibm_export',
     'multichip_ranks', 'bench_amplitude', 'multichip_dp', 'multichip_amp',
     'multichip_pipe', 'multichip_cli', 'profile_q10', 'bench_serve',
-    'bench_suite', 'studies', 'sweeps', 'bf16_modes')
+    'bench_suite', 'studies', 'sweeps', 'bf16_modes', 'bench_regimes', 'ood',
+    'entry')
 # the phases whose results a phase takes
 PHASE_NEEDS = {
     'kernel_ucomp': ('smallest_launch',), 'kernel_adam': ('smallest_launch',),
@@ -5398,6 +5577,11 @@ def main(argv=None):
     bf16 = ph.run('bf16_modes', phase_bf16_modes, smi_line)
     if bf16 is not None:
         new_paths.update(bf16[1])
+    # the rest of the root bench, the OOD study and the flagship entry: each
+    # path read with every count zeroed just before it
+    paths('bench_regimes', phase_bench_regimes)
+    paths('ood', phase_ood, keys='ood')
+    paths('entry', phase_entry, keys='entry')
     emit({"phase_seconds": ph.seconds})
     if ph.only is None:
         kernels_line(new_paths, records, bwd_records, serve, train, q10_train,

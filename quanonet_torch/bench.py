@@ -1,26 +1,52 @@
 """
 Training bench of the port: the flagship QuanONet Q5 Net40-2-20-2 on
-Advection (counterpart of the regime of the repository's bench.py,
-lines 258-480), on one CUDA card.
+Advection (counterpart of the repository's bench.py, lines 258-548), on
+one CUDA card.
 
-    python -m quanonet_torch.bench [--quick] [--runs R] [--epochs E]
-        [--lr LR] [--schedule cosine|none] [--batch_size B]
-        [--engine auto|dense|gates|fused|pallas|embed|pfused]
+    python -m quanonet_torch.bench [--quick] [--regime reference|throughput]
+        [--runs R] [--first_seed S] [--epochs E] [--lr LR]
+        [--schedule cosine|none] [--batch_size B] [--anchor_crossing]
+        [--datagen host|device|native] [--precision default|float32|highest]
+        [--f32_tail N] [--engine auto|dense|gates|fused|pallas|embed|pfused]
         [--device cuda|cpu]
 
-The regime: 1000 train functions x 100 points, batch 100, Adam with
-cosine decay from 3e-3 (``--schedule none``: the reference's fixed 1e-4),
-100 epochs, best-epoch parameters scored by rel-L2 on 1000 test functions
-x 1000 points; ``--quick`` is 200 x 100, 10 epochs, 100 x 100 test
-points.  Run r draws its parameters and epoch permutations from seed r.
-The shipped Advection anchor checkpoint is scored in the same run on the
-identical test set.  Samples/s is timed on run 0 over up to three
-segments after the first (which builds the kernels), each ended by a
-CUDA synchronise.  fp32 throughout; TF32 stays off.
+The regimes (:func:`regime_defaults`): ``reference`` is 1000 train
+functions x 100 points, batch 100, Adam with cosine decay from 3e-3;
+``throughput`` is batch 1000 with the peak scaled linearly to 1e-2 (the
+JAX package's batch-size frontier, docs/batch_regime.json);
+``--schedule none`` is the reference's fixed 1e-4 in either.  100 epochs,
+best-epoch parameters scored by rel-L2 on 1000 test functions x 1000
+points; ``--quick`` is 200 x 100, 10 epochs, 100 x 100 test points (the
+sizes are :data:`SIZES`).  Run r draws its parameters and epoch
+permutations from seed first_seed + r.  The shipped Advection anchor
+checkpoint is scored in the same run on the identical test set.
+
+Samples/s is timed on run 0 over up to three segments after the first
+(which builds the kernels), each ended by a CUDA synchronise; with one
+segment, a replay of it from a fresh copy of the model.
+``--anchor_crossing`` (the time-to-matched-quality study) scores the
+best-so-far parameters at every segment boundary with the anchor's eval
+and times run 0 as the sum of its segments after the first, the evals
+outside the clock; it adds ``anchor_crossing_runs`` ([[epoch, rel-L2],
+...] a run) and ``epochs_to_anchor`` (each run's first boundary under the
+anchor, or null).
+
+``--precision`` maps the JAX package's matmul precision onto
+``torch.set_float32_matmul_precision`` (:data:`MATMUL_PRECISION`): unset
+or float32/highest is fp32 ('highest'); ``default``, the TPU's one-pass
+bf16, is TF32 on the card ('high').  The hand-written kernels and the
+pinned sums stay fp32 at every setting, so on the 'pallas' route it moves
+no product; it acts on the library products of the other engines.
+``--f32_tail N`` runs the last N segments after the timed ones under
+'highest', as the JAX bench does.  The setting found is restored when the
+run ends.  ``--datagen device|native`` generates the data on the card or
+natively (cache names ``_dgdevice`` / ``_dgnative``): not byte-equal to
+the shared host cache, so never a headline run.
 
 Prints ONE JSON line with the JAX bench's keys (metric, value, unit,
-vs_baseline, rel_l2_runs, beats_anchor_all_runs, ...) and the card it ran
-on, the kernel launches of the run (the chain's and the compile's), the
+vs_baseline, rel_l2_runs, rel_l2_min/max, beats_anchor_all_runs,
+matmul_precision, f32_tail_segs, platform, ...) and the card it ran on,
+the kernel launches of the run (the chain's and the compile's), the
 model-FLOP rate against the card's fp32 peak (:func:`flops_per_sample`),
 and the seconds it took.
 """
@@ -58,6 +84,16 @@ PEAK_FP32_FLOPS = 67e12    # H100 SXM datasheet, fp32 outside tensor cores
 # the module whose launch counters a resolved engine moves
 KERNEL_MODULES = {'pallas': cuda_hea, 'embed': cuda_embed,
                   'pfused': cuda_fused}
+# the data sizes, epochs and epochs a segment of the full and quick runs
+SIZES = {
+    'full': dict(num_train=1000, num_test=1000, train_sample_num=100,
+                 test_sample_num=1000, epochs=100, seg=10),
+    'quick': dict(num_train=200, num_test=100, train_sample_num=100,
+                  test_sample_num=100, epochs=10, seg=5),
+}
+# --precision (the JAX package's matmul precision) -> torch's setting
+MATMUL_PRECISION = {None: 'highest', 'default': 'high',
+                    'float32': 'highest', 'highest': 'highest'}
 
 
 def log(*a):
@@ -86,11 +122,32 @@ def flops_per_sample(engine, n_qubits, n_blocks):
     return None
 
 
+def regime_defaults(regime, schedule=None, batch_size=None, lr=None):
+    """(batch size, schedule, peak lr) of a regime, as the JAX bench sets
+    them: batch 1000 for 'throughput', else 100; cosine unless 'none';
+    peak 1e-2 (throughput) or 3e-3 (reference) with cosine, 1e-4 without.
+    ``batch_size`` and ``lr`` override."""
+    schedule = schedule or 'cosine'
+    if schedule == 'cosine':
+        peak = 1e-2 if regime == 'throughput' else 3e-3
+    else:
+        peak = 1e-4
+    return (batch_size or (1000 if regime == 'throughput' else 100),
+            schedule, lr or peak)
+
+
 def parser():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--quick', action='store_true',
                     help='200 train functions, 10 epochs, 100 x 100 test '
                          'points')
+    ap.add_argument('--regime', default='reference',
+                    choices=['reference', 'throughput'],
+                    help='reference: batch 100, cosine peak 3e-3; '
+                         'throughput: batch 1000, cosine peak 1e-2')
+    ap.add_argument('--engine', default='auto',
+                    choices=['auto', 'dense', 'gates', 'fused', 'pallas',
+                             'embed', 'pfused'])
     ap.add_argument('--epochs', type=int, default=None)
     ap.add_argument('--runs', type=int, default=None,
                     help='training repeats, run r with seed first_seed + r '
@@ -98,14 +155,32 @@ def parser():
     ap.add_argument('--first_seed', type=int, default=0,
                     help='seed of the first run (to spread the runs of one '
                          'regime over several processes)')
+    ap.add_argument('--precision', default=None,
+                    choices=['default', 'float32', 'highest'],
+                    help="the JAX package's matmul precision: default -> "
+                         "TF32 ('high'), float32/highest -> fp32; unset: "
+                         "fp32")
     ap.add_argument('--lr', type=float, default=None,
-                    help='peak learning rate (default 3e-3 with cosine, '
-                         '1e-4 with --schedule none)')
-    ap.add_argument('--schedule', default='cosine', choices=['none', 'cosine'])
-    ap.add_argument('--batch_size', type=int, default=100)
-    ap.add_argument('--engine', default='auto',
-                    choices=['auto', 'dense', 'gates', 'fused', 'pallas',
-                             'embed', 'pfused'])
+                    help='peak learning rate (default by regime with '
+                         'cosine: 3e-3 reference, 1e-2 throughput; 1e-4 '
+                         'with --schedule none)')
+    ap.add_argument('--schedule', default=None, choices=['none', 'cosine'],
+                    help='learning-rate schedule (default cosine)')
+    ap.add_argument('--anchor_crossing', action='store_true',
+                    help="score the best-so-far parameters at every segment "
+                         "boundary and report each run's first epoch under "
+                         "the anchor; samples/s from the segments' own "
+                         "times")
+    ap.add_argument('--batch_size', type=int, default=None,
+                    help='override the regime batch (100 reference, 1000 '
+                         'throughput)')
+    ap.add_argument('--datagen', default=None,
+                    choices=['host', 'device', 'native'],
+                    help='data generator (device/native: not byte-equal to '
+                         'the host cache, never a headline run)')
+    ap.add_argument('--f32_tail', type=int, default=0,
+                    help="run the last N segments at matmul precision "
+                         "'highest'")
     ap.add_argument('--device', default=None, help='cuda (default) or cpu')
     return ap
 
@@ -117,42 +192,57 @@ def _sync(device):
 
 def run(args):
     """The regime of ``args`` (from :func:`parser`); returns the result
-    dict that :func:`main` prints."""
+    dict that :func:`main` prints.  The process's float32 matmul precision
+    is set for the run and restored as found, also when the run raises."""
+    found = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision(MATMUL_PRECISION[args.precision])
+        return _run(args)
+    finally:
+        torch.set_float32_matmul_precision(found)
+
+
+def _run(args):
     t_start = time.time()
     device = resolve_device(args.device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    num_train = 200 if args.quick else 1000
-    epochs = args.epochs or (10 if args.quick else 100)
+    size = SIZES['quick' if args.quick else 'full']
+    epochs = args.epochs or size['epochs']
     runs = args.runs or (1 if args.quick else 3)
     cfg = dict(operator='Advection', model_type='QuanONet',
-               num_train=num_train, num_test=100 if args.quick else 1000,
-               num_points=100, num_points_0=100, train_sample_num=100,
-               test_sample_num=100 if args.quick else 1000)
+               num_train=size['num_train'], num_test=size['num_test'],
+               num_points=100, num_points_0=100,
+               train_sample_num=size['train_sample_num'],
+               test_sample_num=size['test_sample_num'])
+    if args.datagen:
+        cfg.update(datagen=args.datagen, device=str(device))
     t0 = time.time()
     np.random.seed(0)
-    data = DataManager(cfg, data_dir=DATA_DIR).get_data()
-    log(f"data ready in {time.time() - t0:.1f}s; "
+    manager = DataManager(cfg, data_dir=DATA_DIR)
+    data = manager.get_data()
+    log(f"data ready in {time.time() - t0:.1f}s "
+        f"({manager._get_filename()}); "
         f"train={data['train_output'].shape[0]} samples")
 
     inputs = (torch.as_tensor(data['train_branch_input'], device=device),
               torch.as_tensor(data['train_trunk_input'], device=device))
     target = torch.as_tensor(data['train_output'], device=device)
     n = target.shape[0]
-    batch_size = args.batch_size
+    batch_size, schedule_name, peak_lr = regime_defaults(
+        args.regime, args.schedule, args.batch_size, args.lr)
     if n % batch_size:
         raise SystemExit(f"--batch_size {batch_size} must divide the "
                          f"{n}-sample training set")
     steps_per_epoch = n // batch_size
-    peak_lr = args.lr or (3e-3 if args.schedule == 'cosine' else 1e-4)
-    if args.schedule == 'cosine':   # optax.cosine_decay_schedule(lr, T)
+    if schedule_name == 'cosine':   # optax.cosine_decay_schedule(lr, T)
         schedule = _decay_tuple_schedule(
             peak_lr, ('cosine', epochs * steps_per_epoch, 0.0), None)
     else:
         schedule = lambda t: peak_lr
-    seg = 5 if args.quick else 10
+    seg = size['seg']
     if epochs % seg:
         raise SystemExit(f"--epochs must be a multiple of {seg}")
     n_segs = epochs // seg
+    f32_tail = args.f32_tail
 
     tb = torch.as_tensor(data['test_branch_input'], device=device)
     tt = torch.as_tensor(data['test_trunk_input'], device=device)
@@ -181,7 +271,7 @@ def run(args):
     launches0 = (kernels.launches, kernels.bwd_launches) if kernels else None
     compile0 = (cuda_ucomp.launches, cuda_ucomp.bwd_launches)
     sps = None
-    rels = []
+    rels, crossings, seg_precision = [], [], []
     seeds = [args.first_seed + r for r in range(runs)]
     for r, seed in enumerate(seeds):
         model = QuanONet(num_qubits=5, branch_input_size=100,
@@ -189,49 +279,91 @@ def run(args):
                          scale_coeff=0.1, if_trainable_freq=True,
                          engine=args.engine, device=device,
                          generator=torch.Generator().manual_seed(seed))
-        fresh = copy.deepcopy(model) if n_segs == 1 else None
+        init = copy.deepcopy(model)      # the replay's starting point
+        evaluator = copy.deepcopy(model)   # scores best-so-far parameters
         opt = ScheduledOptimizer(torch.optim.Adam(model.parameters(),
                                                   lr=peak_lr), schedule)
         run_segment = make_run_segment(
             make_train_epoch(model, opt, n, batch_size, 1), model)
         perms = [epoch_permutation(seed, e, n) for e in range(epochs)]
-        best_loss, best_params = float('inf'), None
+        state = (float('inf'), None)
 
         def segment(i, state):
+            if r == 0:
+                seg_precision.append(torch.get_float32_matmul_precision())
             return run_segment(*state, perms[i * seg:(i + 1) * seg],
                                inputs, target, i * seg)[:2]
 
+        def score(best_params):
+            evaluator.load_state_dict(best_params)
+            return eval_rel_l2(evaluator)
+
+        def replay():
+            """Seconds of a replay of the first segment from a fresh copy,
+            so the trajectory stays `epochs` long."""
+            m = copy.deepcopy(init)
+            opt2 = ScheduledOptimizer(torch.optim.Adam(m.parameters(),
+                                                       lr=peak_lr), schedule)
+            _sync(device)
+            t0 = time.time()
+            make_run_segment(make_train_epoch(m, opt2, n, batch_size, 1),
+                             m)(float('inf'), None, perms[:seg], inputs,
+                                target)
+            _sync(device)
+            return time.time() - t0
+
         t0 = time.time()
-        best_loss, best_params = segment(0, (best_loss, best_params))
+        state = segment(0, state)
         if r == 0:
             log(f"first segment ({seg} epochs, kernel builds included): "
-                f"{time.time() - t0:.1f}s (best loss {best_loss:.4f})")
-        timed = min(n_segs - 1, 3)
-        _sync(device)
-        t0 = time.time()
-        if timed:
-            for i in range(1, 1 + timed):
-                best_loss, best_params = segment(i, (best_loss, best_params))
-            timed_epochs = timed * seg
+                f"{time.time() - t0:.1f}s (best loss {state[0]:.4f})")
+        if args.anchor_crossing:
+            track = [(seg, score(state[1]))]
+            tsum = 0.0
+            for i in range(1, n_segs):
+                _sync(device)
+                t0 = time.time()
+                state = segment(i, state)
+                _sync(device)
+                tsum += time.time() - t0
+                track.append(((i + 1) * seg, score(state[1])))
+            crossings.append(track)
+            if r == 0:
+                timed_epochs, dt = ((epochs - seg, tsum) if n_segs > 1
+                                    else (seg, replay()))
+            first = next((e for e, v in track if v < anchor), None)
+            log(f"run {r}: first epoch beating anchor ({anchor:.4f}): "
+                f"{first}; trajectory "
+                + " ".join(f"{e}:{v:.4f}" for e, v in track))
         else:
-            # one segment only: time a replay of it from a fresh copy, so
-            # the trajectory stays `epochs` long
-            opt2 = ScheduledOptimizer(torch.optim.Adam(
-                fresh.parameters(), lr=peak_lr), schedule)
-            make_run_segment(make_train_epoch(fresh, opt2, n, batch_size, 1),
-                             fresh)(float('inf'), None, perms[:seg], inputs,
-                                    target)
-            timed_epochs = seg
-        _sync(device)
-        dt = time.time() - t0
+            timed = min(n_segs - 1, 3)
+            if timed:
+                _sync(device)
+                t0 = time.time()
+                for i in range(1, 1 + timed):
+                    state = segment(i, state)
+                _sync(device)
+                timed_epochs, dt = timed * seg, time.time() - t0
+            else:
+                timed_epochs, dt = seg, replay()
+            # the last f32_tail segments after the timed ones at 'highest'
+            tail_start = max(1 + timed, n_segs - f32_tail)
+            for i in range(1 + timed, n_segs):
+                if f32_tail > 0 and i >= tail_start:
+                    prev = torch.get_float32_matmul_precision()
+                    torch.set_float32_matmul_precision('highest')
+                    try:
+                        state = segment(i, state)
+                    finally:
+                        torch.set_float32_matmul_precision(prev)
+                else:
+                    state = segment(i, state)
         if r == 0:
             sps = timed_epochs * n / dt
             log(f"timed: {timed_epochs} epochs x {n} samples in {dt:.2f}s "
                 f"=> {sps:,.0f} samples/sec")
-        for i in range(1 + timed, n_segs):
-            best_loss, best_params = segment(i, (best_loss, best_params))
-        model.load_state_dict(best_params)
-        rel = eval_rel_l2(model)
+        best_loss, best_params = state
+        rel = score(best_params)
         rels.append(rel)
         log(f"run {r} (seed {seed}): best-epoch train MSE {best_loss:.6f} "
             f"-> test rel_l2 {rel:.4f}")
@@ -242,9 +374,10 @@ def run(args):
         f"{anchor:.4f}; worst-run beats anchor: {rel_worst < anchor})")
     fps = flops_per_sample(resolved, 5, 60)
     tflops = sps * fps / 1e12 if fps else None
-    return {
+    result = {
         "metric": "quanonet_q5_advection_train_samples_per_sec_per_chip",
-        "regime": "quick" if args.quick else "reference",
+        "regime": args.regime,
+        "quick": bool(args.quick),
         "value": sps,
         "unit": "samples/sec",
         "vs_baseline": sps / BASELINE_SAMPLES_PER_SEC,
@@ -252,6 +385,8 @@ def run(args):
         "rel_l2_runs": rels,
         "seeds": seeds,
         "rel_l2_mean": float(np.mean(rels)),
+        "rel_l2_min": min(rels),
+        "rel_l2_max": rel_worst,
         "eval_protocol": "best-epoch, per-seed torch generators, worst of "
                          "runs",
         "reference_anchor_rel_l2": anchor,
@@ -260,6 +395,7 @@ def run(args):
         "epochs": epochs,
         "runs": runs,
         "batch_size": batch_size,
+        "train_samples": n,
         "engine": args.engine,
         "resolved_engine": resolved,
         "model_flops_per_sample": fps,
@@ -267,7 +403,14 @@ def run(args):
         "mfu_pct": (100.0 * tflops * 1e12 / PEAK_FP32_FLOPS
                     if fps and device.type == 'cuda' else None),
         "lr": peak_lr,
-        "lr_schedule": args.schedule,
+        "lr_schedule": schedule_name,
+        "matmul_precision": torch.get_float32_matmul_precision(),
+        "precision_flag": args.precision,
+        "matmul_precision_segments": seg_precision,
+        "f32_tail_segs": f32_tail,
+        "datagen": manager.datagen,
+        "data_file": manager._get_filename(),
+        "platform": device.type,
         "device": str(device),
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == 'cuda' else 'cpu'),
@@ -278,6 +421,12 @@ def run(args):
                              cuda_ucomp.bwd_launches - compile0[1]],
         "seconds": time.time() - t_start,
     }
+    if args.anchor_crossing:
+        result["anchor_crossing_runs"] = [[[e, v] for e, v in t]
+                                          for t in crossings]
+        result["epochs_to_anchor"] = [
+            next((e for e, v in t if v < anchor), None) for t in crossings]
+    return result
 
 
 def main(argv=None):

@@ -7,10 +7,14 @@ exchanges the engine counted (and the JAX model's k + 1 ring exchanges a
 sublayer against the k the engines move); one shard's forward under
 virtual_global k = 1, 2, 3 against the JAX package's
 make_sharded_hea(..., virtual_global=k) on a one-device CPU mesh; the
-shard-compute rows' fields and gates, and the CLI's file.  Outputs 1e-5
+shard-compute rows' fields and gates, the CLI's file, and --table's
+markdown in the JAX scripts' columns.  Outputs 1e-5
 (fp32, other summation order).
 """
+import ast
 import json
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +31,7 @@ from quanonet_tpu.ops import hea as j_hea
 from quanonet_tpu.parallel import amplitude as j_amp
 
 TOL = 1e-5
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASE = (8, (2, 2, 2, 2), 3)
 CPU = torch.device('cpu')
 
@@ -127,3 +132,52 @@ def test_cli_writes_its_file(tmp_path, monkeypatch):
     assert res['platform'] == 'cpu' and res['nvidia_smi'] is None
     assert res['link_bytes_per_s'] == ba.LINK_BYTES_PER_S
     assert len(res['shard_compute']) == 1 and all(res['gates'].values())
+
+
+def _jax_headers(script):
+    """The markdown header rows a JAX script prints under --table."""
+    with open(os.path.join(REPO, script)) as f:
+        text = f.read()
+    return [ast.literal_eval(f"({h})").strip() for h in re.findall(
+        r'print\(("\\n\| Qubits.*?")\)', text, re.DOTALL)]
+
+
+def _cells(line):
+    return [c.strip() for c in line.strip().strip('|').split('|')]
+
+
+@pytest.mark.parametrize("kind", ['traffic', 'shard_compute'])
+def test_table(amp, kind, capsys, tmp_path, monkeypatch):
+    """--table: the JAX scripts' markdown tables (bench_amplitude.py's
+    traffic rows, bench_shard_compute.py's shard rows) in their columns,
+    a line a row with the row's numbers, printed before the last line."""
+    if kind == 'traffic':
+        result = {'rows': amp[0]}
+        (jax_header,) = [h for h in _jax_headers('bench_amplitude.py')
+                         if 'ppermutes/fwd' in h]
+    else:
+        result = {'shard_compute': [ba.shard_compute_row(
+            8, (2, 2, 2, 2), 4, 2, 2, CPU, rounds=1)]}
+        (jax_header,) = _jax_headers('bench_shard_compute.py')
+    header, rule, *rows = ba.table(result)
+    assert len(_cells(header)) == len(_cells(jax_header)) == 6
+    assert _cells(header)[0] == 'Qubits' and 'H100' in header
+    assert rule == '|---' * 6 + '|'
+    (row,) = result.get('rows') or result['shard_compute']
+    (line,) = rows
+    cells = _cells(line)
+    assert cells[0] == '8' and len(cells) == 6
+    if kind == 'traffic':
+        assert cells[1] == f"2^8/2 = {2 ** 7:,}"
+        assert cells[2] == str(row['ppermutes_per_fwd'])
+        assert cells[5].startswith('≤')
+    else:
+        assert cells[1] == f"{2 ** 6:,}"
+        assert cells[5] in ('yes', 'no')
+        monkeypatch.setattr(ba, 'SHARD_CASES', [(8, (2, 2, 2, 2), 4, 2, 1)])
+        assert ba.main(['--shard-compute', '--table', '--device', 'cpu',
+                        '--out', str(tmp_path / 's.json')]) == 0
+        out = capsys.readouterr().out.strip().splitlines()
+        assert json.loads(out[-1])['shard_compute']
+        assert _cells(out[-4]) == _cells(header) and out[-3] == rule
+        assert _cells(out[-2])[0] == '8'
