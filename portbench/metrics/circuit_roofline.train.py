@@ -1,0 +1,6 @@
+"""The circuit's least time over the card's busy time, training (%)."""
+from portbench.frozen import readings
+
+
+def read(record):
+    return readings.circuit_roofline(record)

@@ -1,0 +1,6 @@
+"""The share of the traced scoring window in which the card ran nothing (%)."""
+from portbench.frozen import readings
+
+
+def read(record):
+    return readings.idle_share(record)
