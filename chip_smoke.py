@@ -426,6 +426,7 @@ from quanonet_torch import (
     profile_step, sweeps, time_chain,
 )
 from quanonet_torch import entry as entry_mod
+from quanonet_torch import tracing
 from quanonet_torch.config import (
     get_base_parser, load_config, set_random_seed,
 )
@@ -688,7 +689,7 @@ def phase_serve():
              rng.rand(n, 2).astype(np.float32)) for n in SERVE_REQUESTS]
     refs = [predict(ref_model, b, t, cfg=ref_cfg) for b, t in reqs]
 
-    _zero_counts()                   # the served path starts here
+    tracing.reset()                  # the served path starts here
     t0 = time.time()
     pred = Predictor(ANCHOR, branch_in=100, trunk_in=2, max_batch=8192,
                      device='cuda')
@@ -925,7 +926,7 @@ def phase_train_parity():
         init = {k: v.detach().clone() for k, v in model.state_dict().items()}
         opt = ScheduledOptimizer(torch.optim.Adam(model.parameters()),
                                  schedule)
-        _zero_counts()
+        tracing.reset()
         runs[engine] = _parity_steps(model, opt, inputs, target, idx)
         counts[engine] = _counts()
     (lk, pk), (ld, pd) = runs['pallas'], runs['dense']
@@ -952,7 +953,7 @@ def phase_train():
     then one epoch of the CLI; returns the launches of both kernels in
     it."""
     quick_data()                      # the bench reads the cache
-    _zero_counts()                    # the path starts here
+    tracing.reset()                   # the path starts here
     result = bench.run(bench.parser().parse_args(
         ['--quick', '--runs', str(QUICK_SEEDS)]))
     with tempfile.TemporaryDirectory() as tmp:
@@ -1361,22 +1362,12 @@ def phase_train_parity_q10():
           f"train_parity_q10: parameters differ by {param_err}")
 
 
-def _zero_counts():
-    cuda_hea.launches = cuda_hea.bwd_launches = 0
-    cuda_fused.launches = cuda_fused.bwd_launches = 0
-    cuda_fused.bf16_launches = cuda_fused.bf16_bwd_launches = 0
-    cuda_ucomp.launches = cuda_ucomp.bwd_launches = 0
-    cuda_ucomp.bf16_launches = cuda_ucomp.bf16_bwd_launches = 0
-    cuda_adam.launches = 0
-    cuda_embed.launches = cuda_embed.bwd_launches = 0
-
-
 def phase_train_q10():
     """The training path at Q10: one epoch of the CLI (engine 'auto' ->
     'pfused'); returns the launches in it."""
     with tempfile.TemporaryDirectory() as tmp:
         stdout = sys.stdout
-        _zero_counts()                # the path starts here
+        tracing.reset()               # the path starts here
         try:
             solver = cli.main([
                 '--operator', 'Advection', '--model_type', 'QuanONet',
@@ -1495,7 +1486,7 @@ def phase_serve_q10():
                 for n in Q10_SERVE_REQUESTS]
         refs = [predict(ref_model, b, t, cfg=ref_cfg) for b, t in reqs]
 
-        _zero_counts()                 # the served path starts here
+        tracing.reset()                # the served path starts here
         t0 = time.time()
         pred = Predictor(ckpt, branch_in=100, trunk_in=2, max_batch=1024,
                          device='cuda')
@@ -1522,8 +1513,9 @@ def phase_serve_q10():
         code, resp, stopped = _http_predict(pred, fb, ft)
         http_err = float(np.abs(np.asarray(resp['pred']) - fpred).max())
         torch.cuda.synchronize()
-        launches = cuda_fused.launches  # ... and ends here
-        other = (cuda_hea.launches, cuda_fused.bwd_launches)
+        counts = _counts()            # ... and ends here
+        launches = counts["fused_chain_fwd"]
+        other = (counts["hea_chain_fwd"], counts["fused_chain_bwd"])
     emit({"phase": "serve_q10", "engine": pred.cfg['engine'],
           "load_and_warmup_s": load_s, "warmup_s": warm_s,
           "bucket_latency_ms": bucket_ms,
@@ -1968,9 +1960,9 @@ def phase_kernel_adam(launch):
         torch.cuda.synchronize()
         return p + m + v
 
-    before = cuda_adam.launches
+    before = _counts()["adam_step"]
     (got, count), (again, _) = run_fused(), run_fused()
-    fused_launches = cuda_adam.launches - before
+    fused_launches = _counts()["adam_step"] - before
     want = run_plain()
     err = _max_err(got, want)
     close = all(torch.allclose(a, b, atol=ADAM_ATOL, rtol=ADAM_RTOL)
@@ -2030,7 +2022,7 @@ def phase_train_parity_ucomp(default_run):
     model = _flagship_model(dev)
     opt = cuda_adam.fused_adam(schedule, total_steps=PARITY_STEPS).init(
         model.parameters())
-    _zero_counts()
+    tracing.reset()
     with use_ucomp(True):
         lu, pu = _parity_steps(model, opt, inputs, target, idx)
     counts = _counts()
@@ -2059,7 +2051,7 @@ def phase_train_parity_fold(default_run):
     inputs, target, idx, schedule = _parity_batches(dev)
     model = _flagship_model(dev)
     opt = ScheduledOptimizer(torch.optim.Adam(model.parameters()), schedule)
-    _zero_counts()
+    tracing.reset()
     with use_ucomp(False):
         lf, pf = _parity_steps(model, opt, inputs, target, idx)
     counts = _counts()
@@ -2101,7 +2093,7 @@ def phase_profile_step():
                                    ('ucomp_fused_adam', True,
                                     ['--fused_adam'])):
             out = os.path.join(tmp, f'{name}.json')
-            _zero_counts()             # the path starts here
+            tracing.reset()            # the path starts here
             stdout = sys.stdout
             sys.stdout = sys.stderr    # its results line is not this script's
             try:
@@ -2242,7 +2234,7 @@ def phase_serve_ucomp():
     it."""
     fixture = np.load(FIXTURE)
     fb, ft, fpred = fixture['branch'], fixture['trunk'], fixture['pred']
-    _zero_counts()                     # the served path starts here
+    tracing.reset()                    # the served path starts here
     with use_ucomp(True):
         model, cfg = load_model(ANCHOR, 100, 2, device='cuda')
         load_err = float(np.abs(predict(model, fb, ft, cfg=cfg)
@@ -2498,7 +2490,7 @@ def phase_train_parity_embed(pallas_run):
         model = _flagship_model(dev, engine='embed')
         opt = ScheduledOptimizer(torch.optim.Adam(model.parameters()),
                                  schedule)
-        _zero_counts()
+        tracing.reset()
         cuda_embed.embed_chain = chain
         try:
             runs[name] = _parity_steps(model, opt, inputs, target, idx)
@@ -2540,7 +2532,7 @@ def phase_train_embed():
     QUICK_SEEDS seeds, then one epoch of the CLI; returns the launches in
     it."""
     quick_data()
-    _zero_counts()                    # the path starts here
+    tracing.reset()                   # the path starts here
     result = bench.run(bench.parser().parse_args(
         ['--quick', '--runs', str(QUICK_SEEDS), '--engine', 'embed']))
     with tempfile.TemporaryDirectory() as tmp:
@@ -2603,7 +2595,7 @@ def phase_serve_embed():
     pallas = Predictor(ANCHOR, branch_in=100, trunk_in=2, max_batch=8192,
                        device='cuda')
     refs = [pallas.predict(b, t) for b, t in reqs]
-    _zero_counts()                     # the served path starts here
+    tracing.reset()                    # the served path starts here
     model, cfg = load_model(ANCHOR, 100, 2, device='cuda', engine='embed')
     load_err = float(np.abs(predict(model, fb, ft, cfg=cfg) - fpred).max())
     pred = Predictor(ANCHOR, branch_in=100, trunk_in=2, max_batch=8192,
@@ -2696,7 +2688,7 @@ def phase_classical():
     kernel runs here."""
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
-        _zero_counts()
+        tracing.reset()
         for mt, flags in CLASSICAL_RUNS:
             stdout = sys.stdout
             t0 = time.time()
@@ -2816,7 +2808,7 @@ def _shift_and_autograd(nq, b, t, y):
                          grad_method=gm, device='cuda',
                          generator=torch.Generator().manual_seed(0))
         torch.cuda.synchronize()
-        _zero_counts()
+        tracing.reset()
         loss = ((model(b, t) - y) ** 2).mean()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2985,7 +2977,7 @@ def _cli_qpu(tmp, extra):
     """Three steps (300 samples, batch 100) of the training CLI at the
     flagship's width with the flags ``extra``; -> (solver, launches)."""
     stdout = sys.stdout
-    _zero_counts()                    # the path starts here
+    tracing.reset()                   # the path starts here
     try:
         solver = cli.main([
             '--operator', 'Advection', '--model_type', 'QuanONet',
@@ -3066,7 +3058,7 @@ def _serve_shots(label, ckpt, engine, rows):
                            max_batch=SERVE_SHOT_BUCKET, device='cuda')
     exact = exact_pred.predict(b, t)
     torch.cuda.synchronize()
-    _zero_counts()                    # the served path starts here
+    tracing.reset()                   # the served path starts here
     pred = Predictor(ckpt, branch_in=100, trunk_in=2,
                      max_batch=SERVE_SHOT_BUCKET, device='cuda',
                      shots=SERVE_SHOTS, shot_seed=7)
@@ -3198,7 +3190,7 @@ def phase_multiseed():
         for seed in (0, 1):
             run(['--seed', str(seed), '--prefix', single])
         torch.cuda.synchronize()
-        _zero_counts()                # the multi-seed path starts here
+        tracing.reset()               # the multi-seed path starts here
         t0 = time.time()
         result = run(['--multi_seed', '0', '1', '--prefix', multi])
         torch.cuda.synchronize()
@@ -3229,7 +3221,7 @@ def phase_infer_from_name():
         with tempfile.TemporaryDirectory() as tmp:
             np.random.seed(0)
             torch.cuda.synchronize()
-            _zero_counts()            # the path starts here
+            tracing.reset()           # the path starts here
             t0 = time.time()
             preds = infer_main(['--ckpt', ANCHOR, '--device', 'cuda',
                                 '--output', os.path.join(tmp, 'o.npz')])
@@ -3304,7 +3296,7 @@ def _noise_grads(spec, w0, x0, a, b, diag, kernels):
     w = w0.clone().requires_grad_()
     x = x0.clone().requires_grad_()
     torch.cuda.synchronize()
-    _zero_counts()
+    tracing.reset()
     if kernels:
         sr, si = noise.fold_states(*cuda_hea._prepare(spec, w, x), a, b)
     else:
@@ -3344,7 +3336,7 @@ def phase_kernel_noise():
         with torch.no_grad():
             ops = cuda_hea._prepare(spec, w, x)
             torch.cuda.synchronize()
-            _zero_counts()
+            tracing.reset()
             kr, ki = noise.fold_states(*ops, a, b)
             torch.cuda.synchronize()
             launches = _counts()["hea_chain_fwd"]
@@ -3446,7 +3438,7 @@ def phase_noise_paths():
     def counted(fn):
         torch.cuda.synchronize()
         r0 = dict(noise.routes)
-        _zero_counts()                # the path starts here
+        tracing.reset()               # the path starts here
         val = fn()
         torch.cuda.synchronize()
         return val, _counts(), _routes_since(r0)   # ... and ends here
@@ -3560,7 +3552,7 @@ def phase_infer_noise():
         with tempfile.TemporaryDirectory() as tmp:
             torch.cuda.synchronize()
             r0 = dict(noise.routes)
-            _zero_counts()            # the path starts here
+            tracing.reset()           # the path starts here
             for name, extra in runs.items():
                 np.random.seed(0)
                 t0 = time.time()
@@ -3637,7 +3629,7 @@ def _packed_against_single(argv, seeds, tmp, label, operator='Advection'):
         _cli(argv + ['--seed', str(seed), '--prefix', single])
     ms = ['--multi_seed'] + [str(s) for s in seeds]
     torch.cuda.synchronize()
-    _zero_counts()                    # the packed path starts here
+    tracing.reset()                   # the packed path starts here
     t0 = time.time()
     result = _cli(argv + ms + ['--prefix', packed])
     torch.cuda.synchronize()
@@ -3745,7 +3737,7 @@ def phase_seedpack(out_dir):
     B4f, B4b, B1f and B1b.  Returns the launches."""
     t0 = time.time()
     torch.cuda.synchronize()
-    _zero_counts()                    # the path starts here
+    tracing.reset()                   # the path starts here
     res = profile_seedpack.main([
         '--seeds', SEEDPACK_SEEDS, '--iters', str(SEEDPACK_ITERS),
         '--rounds', str(SEEDPACK_ROUNDS), '--device', 'cuda',
@@ -3836,7 +3828,7 @@ def phase_datagen_device():
         for k, v in DATAGEN_SIZE.items():
             argv += [f'--{k}', str(v)]
         torch.cuda.synchronize()
-        _zero_counts()                # the training path starts here
+        tracing.reset()               # the training path starts here
         solver = _cli(argv)
         torch.cuda.synchronize()
         counts = _counts()            # ... and ends here
@@ -3996,7 +3988,7 @@ def phase_ibm_export():
     q2 = ibm_inference.DEFAULT_WEIGHTS
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.synchronize()
-        _zero_counts()                # the export path starts here
+        tracing.reset()               # the export path starts here
         t0 = time.time()
         qasm_gpu, man_gpu = _export(tmp, 'cuda')
         torch.cuda.synchronize()
@@ -4174,7 +4166,7 @@ def phase_multichip_dp(runs, inputs, smi_line):
     the ms a segment step at each world size, and at world 1 the plain
     step's in the same rank.  Returns the path's launches."""
     kw, state, arrays, target, _ = inputs
-    _zero_counts()
+    tracing.reset()
     model = _flagship_model('cuda')
     model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
     opt = build_optimizer({'learning_rate': MULTICHIP_LR}, 1,
@@ -4244,13 +4236,14 @@ def phase_multichip_amp(runs, inputs, smi_line, shard_rows):
     shard-compute rows (``shard_rows``).  Returns the path's launches."""
     from quanonet_torch.parallel.amplitude import sharded_collective_counts
     spec, w, x, diag = inputs[4]['amp']
-    _zero_counts()
+    tracing.reset()
     wt = torch.tensor(w, device='cuda', requires_grad=True)
     ref = hea.hea_expectation(spec, wt, torch.tensor(x, device='cuda'),
                               diag=diag, engine='pfused')
     ref.sum().backward()
     ref_out, ref_grad = ref.detach().cpu().numpy(), wt.grad.cpu().numpy()
-    check(cuda_fused.launches == 1 and cuda_fused.bwd_launches == 1,
+    counts = _counts()
+    check(counts["fused_chain_fwd"] == 1 and counts["fused_chain_bwd"] == 1,
           "multichip_amp: the pfused reference did not launch B2f, B2b")
     records = {}
     for world in MULTICHIP_WORLDS:
@@ -4295,7 +4288,7 @@ def phase_multichip_pipe(runs, inputs, smi_line):
     launch a stage a forward and one B4b a backward, no chain kernel.
     Returns the path's launches."""
     spec, w, x, diag = inputs[4]['pipe']
-    _zero_counts()
+    tracing.reset()
     wt = torch.tensor(w, device='cuda', requires_grad=True)
     ref = hea.hea_expectation(spec, wt, torch.tensor(x, device='cuda'),
                               diag=diag, engine='pallas')
@@ -4375,7 +4368,7 @@ def phase_multichip_cli():
     from quanonet_torch.parallel.shard_engine import clear_shard_context
     share = ['--num_devices', '2', '--share_device', 'true']
     full = ['--batch_size', '20000', '--num_epochs', '5']
-    _zero_counts()
+    tracing.reset()
     record, ranks = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         def run(name, args):
@@ -4439,7 +4432,7 @@ def phase_multichip_cli():
                   f"multichip_cli --shard pipe: no {f}")
         rel = _saved_metrics(pipe)['metrics']['rel_l2']
         check(np.isfinite(rel) and pipe_counts['ucomp_fwd'] > 0
-              and pipe_counts['hea_chain_fwd'] == 0,
+              and pipe_counts["hea_chain_fwd"] == 0,
               f"multichip_cli --shard pipe: rel-L2 {rel}, launches "
               f"{pipe_counts}")
         record['pipe'] = {"rel_l2": rel, "launches": pipe_counts}
@@ -4480,7 +4473,7 @@ def phase_bench_amplitude(runs, smi_line):
     'pfused', each row's exchanges the counted model's, outputs finite,
     local state 2^(n-k).  Returns (the path's launches, the result)."""
     dev = torch.device('cuda')
-    _zero_counts()
+    tracing.reset()
     started = {w: [r[1] for r in runs[w]] for w in AMP_BENCH_WORLDS}
     result = {"rows": bench_amplitude.amp_rows(AMP_BENCH_WORLDS, dev,
                                                started=started)[0],
@@ -4505,7 +4498,7 @@ def phase_profile_q10(smi_line):
     card (PROFILE_Q10_ITERS calls a component): both profiles' gates (the
     Solver's step bit for bit, fwd_full bit-equal to forward_fused, finite
     ablations, B2f/B2b a call as counted).  Returns the path's launches."""
-    _zero_counts()
+    tracing.reset()
     pfused, fused = profile_q10.run(10, (40, 2, 20, 2), 100,
                                     PROFILE_Q10_ITERS, torch.device('cuda'))
     for label, res in (("pfused", pfused), ("fused", fused)):
@@ -4521,7 +4514,7 @@ def phase_bench_serve(smi_line):
     (Q5) and the seeded Q10 checkpoint, buckets 1 … 8192: each timed
     request and the HTTP answer equal Predictor.predict bit for bit.
     Returns the path's launches."""
-    _zero_counts()
+    tracing.reset()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         q10 = _q10_checkpoint(tmp)[0]
@@ -4542,7 +4535,7 @@ def phase_bench_suite(smi_line):
     """quanonet_torch.bench_suite --quick on the card: the four lines under
     the JAX script's names, every value and rel-L2 finite, the Q5 Advection
     line's rel-L2 below SUITE_QUICK_REL_L2.  Returns the path's launches."""
-    _zero_counts()
+    tracing.reset()
     lines = bench_suite.suite(True, torch.device('cuda'))
     for line in lines:
         check(np.isfinite(line["value"]) and line["value"] > 0,
@@ -4609,7 +4602,7 @@ def phase_studies(smi_line):
     with tempfile.TemporaryDirectory() as tmp:
         stdout = sys.stdout
         try:
-            _zero_counts()            # the noise study's path starts here
+            tracing.reset()           # the noise study's path starts here
             t0 = time.time()
             noise = noise_robustness.run(noise_robustness.parser().parse_args(
                 ['--epochs', str(STUDY_EPOCHS),
@@ -4618,7 +4611,7 @@ def phase_studies(smi_line):
             torch.cuda.synchronize()
             paths['studies_noise'] = _counts()     # ... and ends here
             out['noise_seconds'] = time.time() - t0
-            _zero_counts()            # the hardware study's path
+            tracing.reset()           # the hardware study's path
             t0 = time.time()
             hardware_training.QUICK_EPOCHS = STUDY_EPOCHS
             hw = hardware_training.run(hardware_training.parser().parse_args(
@@ -4745,7 +4738,7 @@ def phase_sweeps(smi_line):
                   for k, v in collect_results.collect(prefix).items()}
         counts = {}
         for label, argv in regimes.items():
-            _zero_counts()            # the regime's path starts here
+            tracing.reset()           # the regime's path starts here
             _cli(sweeps.with_flags(argv, prefix=os.path.join(tmp, 'inproc'))
                  + ['--device', 'cuda'])
             torch.cuda.synchronize()
@@ -4757,7 +4750,7 @@ def phase_sweeps(smi_line):
         with open(log_path + '.rerun') as f:
             skips = f.read().count('⏩ [Resume] All seeds already completed')
         unchanged = all(open(f, 'rb').read() == b for f, b in before.items())
-        _zero_counts()
+        tracing.reset()
         rerun = {label: _cli(sweeps.with_flags(
             argv, prefix=os.path.join(tmp, 'inproc')) + ['--device', 'cuda'])
             for label, argv in regimes.items()}
@@ -5122,7 +5115,7 @@ def _bf16_path(tmp, ckpt, nq, net, ucomp, pfused):
             '--device', 'cuda']
     stdout = sys.stdout
     with bf16_mode(ucomp=ucomp, pfused=pfused):
-        _zero_counts()                  # the path starts here
+        tracing.reset()                 # the path starts here
         try:
             solver = cli.main(argv)
         finally:
@@ -5259,7 +5252,7 @@ REGIME_EPOCHS = 5            # the quick runs of --datagen and --precision
 def _bench(argv):
     """bench.run on ``argv``; -> (result, the launches of the run)."""
     torch.cuda.synchronize()
-    _zero_counts()                    # the path starts here
+    tracing.reset()                   # the path starts here
     result = bench.run(bench.parser().parse_args(argv))
     torch.cuda.synchronize()
     return result, _counts()          # ... and ends here
@@ -5347,7 +5340,7 @@ def phase_ood():
     torch_port_ood.npz, OOD_TOL), the rel-L2s a record.  -> launches."""
     want = np.load(OOD_FIXTURE)
     torch.cuda.synchronize()
-    _zero_counts()                    # the path starts here
+    tracing.reset()                   # the path starts here
     t0 = time.time()
     rows, arrays = ood.study(list(ood.CONFIGS), device='cuda')
     torch.cuda.synchronize()
@@ -5378,7 +5371,7 @@ def phase_entry():
     cpu_fn, cpu_args = entry_mod.entry(device='cpu')
     want = cpu_fn(*cpu_args).numpy()
     torch.cuda.synchronize()
-    _zero_counts()                    # the path starts here
+    tracing.reset()                   # the path starts here
     out = fn(*args)
     torch.cuda.synchronize()
     counts = _counts()                # ... and ends here

@@ -64,8 +64,8 @@ from quanonet_torch import resolve_device
 from quanonet_torch.data.manager import DataManager
 from quanonet_torch.infer import load_model
 from quanonet_torch.models import QuanONet
-from quanonet_torch.ops import cuda_embed, cuda_fused, cuda_hea, cuda_ucomp
 from quanonet_torch.ops.hea import resolve_engine
+from quanonet_torch.profile_step import launch_counts, launches_since
 from quanonet_torch.solver import (
     ScheduledOptimizer, _decay_tuple_schedule, epoch_permutation,
     make_run_segment, make_train_epoch,
@@ -81,9 +81,9 @@ REFERENCE_ANCHOR_REL_L2 = 0.1697   # fallback if the ckpt is absent
 DATA_DIR = os.path.join(REPO, 'data')   # shared with the repo's bench.py
 EVAL_CHUNK = 20000
 PEAK_FP32_FLOPS = 67e12    # H100 SXM datasheet, fp32 outside tensor cores
-# the module whose launch counters a resolved engine moves
-KERNEL_MODULES = {'pallas': cuda_hea, 'embed': cuda_embed,
-                  'pfused': cuda_fused}
+# the chain kernel whose launch counters a resolved engine moves
+KERNEL_KEYS = {'pallas': 'hea_chain', 'embed': 'embed_chain',
+               'pfused': 'fused_chain'}
 # the data sizes, epochs and epochs a segment of the full and quick runs
 SIZES = {
     'full': dict(num_train=1000, num_test=1000, train_sample_num=100,
@@ -267,9 +267,8 @@ def _run(args):
     anchor = anchor_rel if anchor_rel is not None else REFERENCE_ANCHOR_REL_L2
 
     resolved = resolve_engine(args.engine, 5, device)
-    kernels = KERNEL_MODULES.get(resolved)
-    launches0 = (kernels.launches, kernels.bwd_launches) if kernels else None
-    compile0 = (cuda_ucomp.launches, cuda_ucomp.bwd_launches)
+    kernel = KERNEL_KEYS.get(resolved)
+    launches0 = launch_counts()
     sps = None
     rels, crossings, seg_precision = [], [], []
     seeds = [args.first_seed + r for r in range(runs)]
@@ -374,6 +373,7 @@ def _run(args):
         f"{anchor:.4f}; worst-run beats anchor: {rel_worst < anchor})")
     fps = flops_per_sample(resolved, 5, 60)
     tflops = sps * fps / 1e12 if fps else None
+    launches = launches_since(launches0)
     result = {
         "metric": "quanonet_q5_advection_train_samples_per_sec_per_chip",
         "regime": args.regime,
@@ -414,11 +414,10 @@ def _run(args):
         "device": str(device),
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == 'cuda' else 'cpu'),
-        "fwd_launches": kernels.launches - launches0[0] if kernels else 0,
-        "bwd_launches": (kernels.bwd_launches - launches0[1]
-                         if kernels else 0),
-        "compile_launches": [cuda_ucomp.launches - compile0[0],
-                             cuda_ucomp.bwd_launches - compile0[1]],
+        "fwd_launches": launches.get(f'{kernel}_fwd', 0),
+        "bwd_launches": launches.get(f'{kernel}_bwd', 0),
+        "compile_launches": [launches.get('ucomp_fwd', 0),
+                             launches.get('ucomp_bwd', 0)],
         "seconds": time.time() - t_start,
     }
     if args.anchor_crossing:

@@ -47,13 +47,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from quanonet_torch import tracing
 from quanonet_torch.ops import _build
 
 KERNEL = 'adam'
 MAX_LEAVES = 64   # leaves of one binding, as kMaxLeaves in csrc/adam.cu
-
-# Launches of the kernel since import.
-launches = 0
 
 _VP, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 
@@ -167,11 +165,10 @@ class _Binding:
         c = count[0]; with ``advance``, adds one to c.  lr_table and count
         (two device ints: c and the kernel's ticket) as (pointer, length)
         and pointer, which do not move."""
-        global launches
         err = _build.on_device(self.dev, lambda: self.lib.adam_step(
             self.handle, *lr_table, count, advance, _stream(self.dev)))
         _raise_on(self.lib, err, 'adam_step launch')
-        launches += 1
+        tracing.count('adam_step')
 
     def grid(self):
         return self.lib.adam_grid(self.handle)

@@ -14,7 +14,7 @@ Mbar_i = Ebar_12 - Ebar_21) and tbar -> phibar outside the kernels.  The
 kernels take any E and t: they assume neither E's block structure nor t's
 antisymmetry.
 
-The operands come from :func:`cuda_hea._prepare`, so this engine takes
+The operands come from :func:`cuda_hea._operands`, so this engine takes
 the block matrices by the same route (``cuda_hea.compile_route``: the
 compile kernels for CUDA weights unless ``USE_UCOMP=0``).  The kernels run the whole chain of one batch tile per
 CTA, whatever the batch and the width (d = 1 .. 128): no padding, no
@@ -49,6 +49,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from quanonet_torch import tracing
 from quanonet_torch.ops import _build
 from quanonet_torch.ops import cuda_hea as _cuda_hea
 from quanonet_torch.ops import hea as _hea
@@ -78,11 +79,6 @@ RING = 4              # panels of E in flight (``Tile::NS``)
 
 Geometry = namedtuple('Geometry', 'tile threads cj p ks rows grid '
                                   'fwd_smem bwd_smem')
-
-# Launches since import: ``launches`` counts the forward kernel (primal and
-# residual variants), ``bwd_launches`` the backward.
-launches = 0
-bwd_launches = 0
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -272,7 +268,6 @@ def embed_forward(e, t, save_residuals=False):
     """The forward kernel on CUDA tensors: out (N, 2d), and with
     ``save_residuals`` the pair (out, u): each block's product before its
     phase step, u (max(nb-1, 1), N, 2d) (zeros when nb = 1)."""
-    global launches
     _check_operands(e, t)
     nb, n, w = t.shape
     dev = t.device
@@ -288,7 +283,7 @@ def embed_forward(e, t, save_residuals=False):
             u.data_ptr() if u is not None else None, nb, n, w // 2,
             geo.tile, _stream(dev)))
         _raise_on(lib, err, 'embed_chain_forward')
-        launches += 1
+        tracing.count('embed_chain_fwd')
     return (out, u) if save_residuals else out
 
 
@@ -325,7 +320,6 @@ def embed_backward(e, t, u, g):
     """The backward kernels on CUDA tensors: the output's cotangent
     g (N, 2d) and the forward's residual u -> (ebar, tbar).
     Deterministic: two calls on equal inputs give equal bits."""
-    global bwd_launches
     _check_operands(e, t)
     nb, n, w = t.shape
     dev = t.device
@@ -347,7 +341,7 @@ def embed_backward(e, t, u, g):
         ebar.data_ptr(), tbar.data_ptr(), nb, n, w // 2,
         embed_geometry(n, w // 2, sms).tile, splits, _stream(dev)))
     _raise_on(lib, err, 'embed_chain_backward')
-    bwd_launches += 1
+    tracing.count('embed_chain_bwd')
     return ebar, tbar
 
 
@@ -358,19 +352,23 @@ class EmbedChain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, e, t):
-        if t.device.type == 'cpu':
-            out, u = chain_embed_saved(e, t)
-        else:
-            out, u = embed_forward(e, t, save_residuals=True)
+        with tracing.span('circuit.chain_fwd', rows=t.shape[1],
+                          device=t.is_cuda):
+            if t.device.type == 'cpu':
+                out, u = chain_embed_saved(e, t)
+            else:
+                out, u = embed_forward(e, t, save_residuals=True)
         ctx.save_for_backward(e, t, u)
         return out
 
     @staticmethod
     def backward(ctx, g):
         e, t, u = ctx.saved_tensors
-        if t.device.type == 'cpu':
-            return chain_embed_backward(e, t, u, g)
-        return embed_backward(e, t, u, g.contiguous())
+        with tracing.span('circuit.chain_bwd', rows=t.shape[1],
+                          device=t.is_cuda):
+            if t.device.type == 'cpu':
+                return chain_embed_backward(e, t, u, g)
+            return embed_backward(e, t, u, g.contiguous())
 
 
 def embed_chain(e, t):
@@ -379,9 +377,10 @@ def embed_chain(e, t):
     contiguous."""
     if torch.is_grad_enabled() and (e.requires_grad or t.requires_grad):
         return EmbedChain.apply(e, t)
-    if t.device.type == 'cpu':
-        return chain_embed(e, t)
-    return embed_forward(e, t)
+    with tracing.span('circuit.chain_fwd', rows=t.shape[1], device=t.is_cuda):
+        if t.device.type == 'cpu':
+            return chain_embed(e, t)
+        return embed_forward(e, t)
 
 
 def pack_operands(mt_r, mt_i, phi):
@@ -404,7 +403,9 @@ def forward_embed(spec, weights, x):
         raise ValueError(
             f"engine 'embed' takes up to 7 qubits (d in {DIMS}), got "
             f"{spec.n_qubits}; use 'pfused' or 'fused' from 8")
-    out = embed_chain(*pack_operands(*_cuda_hea._prepare(spec, weights, x)))
+    with tracing.span('circuit.operands', device=x.is_cuda):
+        ops = pack_operands(*_cuda_hea._operands(spec, weights, x))
+    out = embed_chain(*ops)
     return out[:, :d], out[:, d:]
 
 

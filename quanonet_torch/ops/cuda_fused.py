@@ -41,6 +41,7 @@ from functools import lru_cache
 
 import torch
 
+from quanonet_torch import tracing
 from quanonet_torch.ops import _build
 from quanonet_torch.ops import fused_gates as _fg
 
@@ -60,16 +61,6 @@ PITCH = 132                # floats of a tile row of 128 lanes in a buffer
                            # (csrc/fused_chain.cu kPitch)
 MIN_SPLIT_ROWS = 256       # fewest tile rows per slice of the U7bar reduction
 MAX_SPLITS = 64
-
-# Launches since import: ``launches`` counts the forward kernel (primal and
-# residual variants), ``bwd_launches`` the backward, ``bf16_launches`` and
-# ``bf16_bwd_launches`` their bf16 variants.  chip_smoke.py zeroes them
-# before driving a path and reads them after, to show that the path ran the
-# kernels.
-launches = 0
-bwd_launches = 0
-bf16_launches = 0
-bf16_bwd_launches = 0
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _sub_offsets = {}
@@ -237,7 +228,6 @@ def chain_forward(u7t_r, u7t_i, u2_r, u2_i, x, lds, save_residuals=False,
     """The forward kernel on CUDA tensors, x (nb, N, n): (sr, si), and with
     ``save_residuals`` also (states_r, states_i), each block's input state
     (nb, N, 2^n); ``bf16``: its bf16 variant."""
-    global launches, bf16_launches
     nq = _check_operands(u7t_r, u7t_i, u2_r, u2_i, x, lds)
     nb, n, _ = x.shape
     d = 2 ** nq
@@ -261,9 +251,9 @@ def chain_forward(u7t_r, u7t_i, u2_r, u2_i, x, lds, save_residuals=False,
             rows, int(bf16), torch.cuda.current_stream(dev).cuda_stream))
         _raise_on(lib, err, 'fused_chain_forward')
         if bf16:
-            bf16_launches += 1
+            tracing.count('fused_chain_bf16_fwd')
         else:
-            launches += 1
+            tracing.count('fused_chain_fwd')
     return (out_r, out_i, *st)
 
 
@@ -273,7 +263,6 @@ def chain_backward(u7t_r, u7t_i, u2_r, u2_i, x, lds, states_r, states_i,
     (gr, gi) -> (u7bar_r, u7bar_i, u2bar_r, u2bar_i, xbar), xbar
     (nb, N, n); ``bf16``: their bf16 variants.  Deterministic: two calls on
     equal inputs give equal bits."""
-    global bwd_launches, bf16_bwd_launches
     nq = _check_operands(u7t_r, u7t_i, u2_r, u2_i, x, lds)
     if nq > TRAIN_MAX_QUBITS:
         raise _train_limit(nq)
@@ -315,9 +304,9 @@ def chain_backward(u7t_r, u7t_i, u2_r, u2_i, x, lds, states_r, states_i,
         torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(lib, err, 'fused_chain_backward')
     if bf16:
-        bf16_bwd_launches += 1
+        tracing.count('fused_chain_bf16_bwd')
     else:
-        bwd_launches += 1
+        tracing.count('fused_chain_bwd')
     return (*u7bar, *u2bar, xbar)
 
 
@@ -338,13 +327,15 @@ class FusedChain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, u7t_r, u7t_i, u2_r, u2_i, x, lds, bf16=False):
-        if x.device.type == 'cpu':
-            sr, si, st_r, st_i = _fg.chain_fused_saved_x(
-                u7t_r, u7t_i, u2_r, u2_i, x, lds, bf16)
-        else:
-            sr, si, st_r, st_i = chain_forward(u7t_r, u7t_i, u2_r, u2_i, x,
-                                               lds, save_residuals=True,
-                                               bf16=bf16)
+        with tracing.span('circuit.chain_fwd', rows=x.shape[1],
+                          device=x.is_cuda):
+            if x.device.type == 'cpu':
+                sr, si, st_r, st_i = _fg.chain_fused_saved_x(
+                    u7t_r, u7t_i, u2_r, u2_i, x, lds, bf16)
+            else:
+                sr, si, st_r, st_i = chain_forward(
+                    u7t_r, u7t_i, u2_r, u2_i, x, lds, save_residuals=True,
+                    bf16=bf16)
         ctx.lds, ctx.bf16 = lds, bf16
         ctx.save_for_backward(u7t_r, u7t_i, u2_r, u2_i, x, st_r, st_i)
         return sr, si
@@ -352,14 +343,16 @@ class FusedChain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gr, gi):
         u7t_r, u7t_i, u2_r, u2_i, x, st_r, st_i = ctx.saved_tensors
-        if x.device.type == 'cpu':
-            grads = _fg.chain_fused_backward_x(u7t_r, u7t_i, u2_r, u2_i, x,
-                                               ctx.lds, (st_r, st_i), gr, gi,
-                                               ctx.bf16)
-        else:
-            grads = chain_backward(u7t_r, u7t_i, u2_r, u2_i, x, ctx.lds,
-                                   st_r, st_i, gr.contiguous(),
-                                   gi.contiguous(), ctx.bf16)
+        with tracing.span('circuit.chain_bwd', rows=x.shape[1],
+                          device=x.is_cuda):
+            if x.device.type == 'cpu':
+                grads = _fg.chain_fused_backward_x(
+                    u7t_r, u7t_i, u2_r, u2_i, x, ctx.lds, (st_r, st_i), gr,
+                    gi, ctx.bf16)
+            else:
+                grads = chain_backward(u7t_r, u7t_i, u2_r, u2_i, x, ctx.lds,
+                                       st_r, st_i, gr.contiguous(),
+                                       gi.contiguous(), ctx.bf16)
         return (*grads, None, None)
 
 
@@ -376,9 +369,10 @@ def fused_chain(u7t_r, u7t_i, u2_r, u2_i, x, lds):
         if nq > TRAIN_MAX_QUBITS:
             raise _train_limit(nq)
         return FusedChain.apply(*ops, lds, bf16)
-    if x.device.type == 'cpu':
-        return _fg.chain_fused_x(*ops, lds)
-    return chain_forward(*ops, lds, bf16=bf16)
+    with tracing.span('circuit.chain_fwd', rows=x.shape[1], device=x.is_cuda):
+        if x.device.type == 'cpu':
+            return _fg.chain_fused_x(*ops, lds)
+        return chain_forward(*ops, lds, bf16=bf16)
 
 
 def pfused_applicable(spec):
@@ -395,8 +389,9 @@ def forward_pfused(spec, weights, x):
             f"engine 'pfused' takes {MIN_QUBITS}..{MAX_QUBITS} qubits with "
             f"n_encode == n_qubits per block, got {spec.n_qubits} qubits, "
             f"blocks {spec.block_configs}; use engine='fused'")
-    return fused_chain(*_fg.prepare_fused_chain_x(spec, weights, x),
-                       _fg.block_depths(spec))
+    with tracing.span('circuit.operands', device=x.is_cuda):
+        ops = _fg.prepare_fused_chain_x(spec, weights, x)
+    return fused_chain(*ops, _fg.block_depths(spec))
 
 
 def hea_expectation_pfused(spec, weights, x, diag):

@@ -34,6 +34,7 @@ from functools import lru_cache
 
 import torch
 
+from quanonet_torch import tracing
 from quanonet_torch.ops import _build
 from quanonet_torch.ops import cuda_ucomp as _ucomp
 from quanonet_torch.ops import hea as _hea
@@ -61,13 +62,6 @@ MAX_THREADS = 1024
 
 Geometry = namedtuple('Geometry', 'tile threads cj p rows grid fwd_smem '
                                   'bwd_smem')
-
-# Launches since import: ``launches`` counts the forward kernel (primal and
-# residual variants), ``bwd_launches`` the backward.  chip_smoke.py zeroes
-# them before driving a path and reads them after, to show that the path
-# ran the kernels.
-launches = 0
-bwd_launches = 0
 
 # Where the block matrices come from (the JAX package's toggle of the same
 # name, whose default there is off): True ('1') the compile kernels, False
@@ -177,7 +171,6 @@ def chain_forward(mt_r, mt_i, phi, save_residuals=False):
     """The forward kernel on CUDA tensors: (sr, si), and with
     ``save_residuals`` also (states_r, states_i), each block's input state
     (nb, N, D)."""
-    global launches
     _check_operands(mt_r, mt_i, phi)
     nb, n, d = phi.shape
     dev = phi.device
@@ -195,7 +188,7 @@ def chain_forward(mt_r, mt_i, phi, save_residuals=False):
             out_r.data_ptr(), out_i.data_ptr(), *st_ptrs, nb, n, d,
             geo.tile, _stream(dev)))
         _raise_on(lib, err, 'hea_chain_forward')
-        launches += 1
+        tracing.count('hea_chain_fwd')
     return (out_r, out_i, *st)
 
 
@@ -220,7 +213,6 @@ def chain_backward(mt_r, mt_i, phi, states_r, states_i, gr, gi):
     """The backward kernels on CUDA tensors: the output's cotangent
     (gr, gi) -> (mbar_r, mbar_i, phibar).  Deterministic: two calls on
     equal inputs give equal bits."""
-    global bwd_launches
     _check_operands(mt_r, mt_i, phi)
     nb, n, d = phi.shape
     dev = phi.device
@@ -250,7 +242,7 @@ def chain_backward(mt_r, mt_i, phi, states_r, states_i, gr, gi):
         mbar_r.data_ptr(), mbar_i.data_ptr(), phibar.data_ptr(),
         nb, n, d, chain_geometry(n, d, sms).tile, splits, _stream(dev)))
     _raise_on(lib, err, 'hea_chain_backward')
-    bwd_launches += 1
+    tracing.count('hea_chain_bwd')
     return mbar_r, mbar_i, phibar
 
 
@@ -261,22 +253,26 @@ class BlockChain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mt_r, mt_i, phi):
-        if phi.device.type == 'cpu':
-            sr, si, st_r, st_i = _hea.chain_dense_saved(mt_r, mt_i, phi)
-        else:
-            sr, si, st_r, st_i = chain_forward(mt_r, mt_i, phi,
-                                               save_residuals=True)
+        with tracing.span('circuit.chain_fwd', rows=phi.shape[1],
+                          device=phi.is_cuda):
+            if phi.device.type == 'cpu':
+                sr, si, st_r, st_i = _hea.chain_dense_saved(mt_r, mt_i, phi)
+            else:
+                sr, si, st_r, st_i = chain_forward(mt_r, mt_i, phi,
+                                                   save_residuals=True)
         ctx.save_for_backward(mt_r, mt_i, phi, st_r, st_i)
         return sr, si
 
     @staticmethod
     def backward(ctx, gr, gi):
         mt_r, mt_i, phi, st_r, st_i = ctx.saved_tensors
-        if phi.device.type == 'cpu':
-            return _hea.chain_backward_dense(mt_r, mt_i, phi, (st_r, st_i),
-                                             gr, gi)
-        return chain_backward(mt_r, mt_i, phi, st_r, st_i, gr.contiguous(),
-                              gi.contiguous())
+        with tracing.span('circuit.chain_bwd', rows=phi.shape[1],
+                          device=phi.is_cuda):
+            if phi.device.type == 'cpu':
+                return _hea.chain_backward_dense(mt_r, mt_i, phi,
+                                                 (st_r, st_i), gr, gi)
+            return chain_backward(mt_r, mt_i, phi, st_r, st_i,
+                                  gr.contiguous(), gi.contiguous())
 
 
 def block_chain(mt_r, mt_i, phi):
@@ -287,9 +283,11 @@ def block_chain(mt_r, mt_i, phi):
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (mt_r, mt_i, phi)):
         return BlockChain.apply(mt_r, mt_i, phi)
-    if phi.device.type == 'cpu':
-        return _hea.chain_dense(mt_r, mt_i, phi)
-    return chain_forward(mt_r, mt_i, phi)
+    with tracing.span('circuit.chain_fwd', rows=phi.shape[1],
+                      device=phi.is_cuda):
+        if phi.device.type == 'cpu':
+            return _hea.chain_dense(mt_r, mt_i, phi)
+        return chain_forward(mt_r, mt_i, phi)
 
 
 def compile_route(flag, spec, device_type):
@@ -337,8 +335,9 @@ def hea_expectation_stacked(spec, weights, x, diag):
     if not spec.uniform_encode:
         raise ValueError(
             "the block-chain engine requires n_encode == n_qubits per block")
-    mt_r, mt_i = block_mats_stacked(spec, weights)
-    phi = _hea.encoding_phases(spec, x)
+    with tracing.span('circuit.operands', device=x.is_cuda):
+        mt_r, mt_i = block_mats_stacked(spec, weights)
+        phi = _hea.encoding_phases(spec, x)
     states = [block_chain(_aligned(mt_r[s]), _aligned(mt_i[s]),
                           _aligned(phi[s])) for s in range(phi.shape[0])]
     return _hea.diag_expectation_pair(torch.stack([r for r, _ in states]),
@@ -346,10 +345,15 @@ def hea_expectation_stacked(spec, weights, x, diag):
                                       diag)
 
 
+def _operands(spec, weights, x):
+    return (*block_mats(spec, weights), _hea.encoding_phases(spec, x))
+
+
 def _prepare(spec, weights, x):
     """Chain operands (mt_r, mt_i, phi), the counterpart of
-    pallas_hea._prepare."""
-    return (*block_mats(spec, weights), _hea.encoding_phases(spec, x))
+    pallas_hea._prepare, under the ``circuit.operands`` span."""
+    with tracing.span('circuit.operands', device=x.is_cuda):
+        return _operands(spec, weights, x)
 
 
 def forward_pallas(spec, weights, x):

@@ -58,6 +58,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from quanonet_torch import tracing
 from quanonet_torch.ops import _build
 from quanonet_torch.ops.gates import (
     bf16_dot, bit_table, hadamard_kron, kara_bf16, ring_apply, z_signs,
@@ -72,14 +73,6 @@ BWD_WARPS = 8     # warps of a backward CTA
 # The bf16 operand mode: '1' turns it on (read here once; callers and tests
 # set the attribute).
 UCOMP_BF16 = os.environ.get('UCOMP_BF16', '0') == '1'
-
-# Launches since import: ``launches`` counts the forward kernel,
-# ``bwd_launches`` the backward (with the CTAs' sum, when it runs, as one);
-# ``bf16_launches`` and ``bf16_bwd_launches`` the bf16 mode's two kernels.
-launches = 0
-bwd_launches = 0
-bf16_launches = 0
-bf16_bwd_launches = 0
 
 Geometry = namedtuple('Geometry', 'warps ctas')
 
@@ -354,7 +347,6 @@ def _raise_on(lib, err, what):
 def ucomp_forward(w, ld, last):
     """B4f on CUDA tensors: w (nb·ld, 3, n) -> (mt_r, mt_i), each
     (nb, D, D)."""
-    global launches
     nb, n = _check_weights(w, ld, last)
     dim, dev = 2 ** n, w.device
     mt_r = torch.empty((nb, dim, dim), dtype=torch.float32, device=dev)
@@ -365,7 +357,7 @@ def ucomp_forward(w, ld, last):
         w.data_ptr(), mt_r.data_ptr(), mt_i.data_ptr(), n, nb, ld, last,
         geo.warps, geo.ctas, torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(lib, err, 'ucomp_forward')
-    launches += 1
+    tracing.count('ucomp_fwd')
     return mt_r, mt_i
 
 
@@ -373,7 +365,6 @@ def ucomp_backward(w, ld, last, gr, gi):
     """B4b on CUDA tensors: the cotangent (gr, gi) of (mt_r, mt_i) -> w̄
     (nb·ld, 3, n).  Deterministic: two calls on equal inputs give equal
     bits."""
-    global bwd_launches
     nb, n = _check_weights(w, ld, last)
     dim, dev = 2 ** n, w.device
     _check((('gr', gr, (nb, dim, dim)), ('gi', gi, (nb, dim, dim))), dev)
@@ -388,7 +379,7 @@ def ucomp_backward(w, ld, last, gr, gi):
         ld, last, geo.warps, geo.ctas,
         torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(lib, err, 'ucomp_backward')
-    bwd_launches += 1
+    tracing.count('ucomp_bwd')
     return wbar
 
 
@@ -435,7 +426,6 @@ def _bf16_launch(n, nb, ld, dev, backward):
 def ucomp_bf16_forward(u1t, br, bi, ld, last):
     """B4f-bf16 on CUDA tensors: the operands u1t, br, bi (nb·ld, D, D) of
     :func:`compile_operands` -> (mt_r, mt_i), each (nb, D, D)."""
-    global bf16_launches
     n, nb = _bf16_shape(u1t, ld, last)
     shape, dim, dev = tuple(u1t.shape), 2 ** n, u1t.device
     _check_operands((('u1t', u1t, shape), ('br', br, shape),
@@ -449,7 +439,7 @@ def ucomp_bf16_forward(u1t, br, bi, ld, last):
         mt_i.data_ptr(), None if scratch is None else scratch.data_ptr(), n,
         nb, ld, last, ctas, torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(lib, err, 'ucomp_bf16_forward')
-    bf16_launches += 1
+    tracing.count('ucomp_bf16_fwd')
     return mt_r, mt_i
 
 
@@ -457,7 +447,6 @@ def ucomp_bf16_backward(u1t, br, bi, ld, last, gr, gi):
     """B4b-bf16 on CUDA tensors: the cotangent (gr, gi) of (mt_r, mt_i) ->
     (u1bar, bbar_r, bbar_i), each (nb·ld, D, D).  Deterministic: no
     atomics."""
-    global bf16_bwd_launches
     n, nb = _bf16_shape(u1t, ld, last)
     shape, dim, dev = tuple(u1t.shape), 2 ** n, u1t.device
     _check_operands((('u1t', u1t, shape), ('br', br, shape),
@@ -473,7 +462,7 @@ def ucomp_bf16_backward(u1t, br, bi, ld, last, gr, gi):
         None if scratch is None else scratch.data_ptr(), n, nb, ld, last,
         ctas, torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(lib, err, 'ucomp_bf16_backward')
-    bf16_bwd_launches += 1
+    tracing.count('ucomp_bf16_bwd')
     return tuple(out)
 
 

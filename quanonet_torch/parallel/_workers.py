@@ -7,6 +7,9 @@ Group first and returns plain values (tensors come back as NumPy);
 import numpy as np
 import torch
 
+from quanonet_torch import tracing
+from quanonet_torch.profile_step import launch_counts
+
 
 def solver_train(group, config, data):
     """A rank of Solver.train(): returns the history, the TensorBoard
@@ -18,7 +21,7 @@ def solver_train(group, config, data):
     scalars = []
     solver.exp_logger.log_metric = \
         lambda tag, value, step: scalars.append((tag, value, step))
-    _zero_launches()
+    tracing.reset()
     history = solver.train()
     return {'history': history, 'scalars': scalars, 'params': solver.params,
             'best_params': solver.best_params,
@@ -26,7 +29,7 @@ def solver_train(group, config, data):
             'best_model_path': solver.best_model_path,
             'train_samples_per_sec': getattr(solver,
                                              'train_samples_per_sec', None),
-            'launches': _launches()}
+            'launches': launch_counts()}
 
 
 def solver_evaluate(group, config, data, params, history):
@@ -39,9 +42,9 @@ def solver_evaluate(group, config, data, params, history):
         solver = Solver(config, data=data)
         solver.best_params = {k: torch.as_tensor(v)
                               for k, v in params.items()}
-    _zero_launches()
+    tracing.reset()
     metrics = solver.evaluate(history)
-    return {'metrics': metrics, 'launches': _launches()}
+    return {'metrics': metrics, 'launches': launch_counts()}
 
 
 # ── checks of the multi-GPU paths on the card (chip_smoke.py, multichip.py)
@@ -50,23 +53,6 @@ def run_checks(group, calls):
     """Several of this module's check functions in one start: calls is a
     list of (name, args); returns their results in order."""
     return [globals()[name](group, *args) for name, args in calls]
-
-
-def _launches():
-    from quanonet_torch.ops import cuda_fused, cuda_hea, cuda_ucomp
-    return {'hea_chain_fwd': cuda_hea.launches,
-            'hea_chain_bwd': cuda_hea.bwd_launches,
-            'ucomp_fwd': cuda_ucomp.launches,
-            'ucomp_bwd': cuda_ucomp.bwd_launches,
-            'fused_chain_fwd': cuda_fused.launches,
-            'fused_chain_bwd': cuda_fused.bwd_launches}
-
-
-def _zero_launches():
-    from quanonet_torch.ops import cuda_fused, cuda_hea, cuda_ucomp
-    cuda_hea.launches = cuda_hea.bwd_launches = 0
-    cuda_ucomp.launches = cuda_ucomp.bwd_launches = 0
-    cuda_fused.launches = cuda_fused.bwd_launches = 0
 
 
 class _Timer:
@@ -142,11 +128,11 @@ def dp_check(group, model_kw, state, arrays, target, lr, epochs, perms=None,
     if perms is None:
         perms = [local_permutation(0, e, group.rank, run.local_n)
                  for e in range(epochs)]
-    _zero_launches()
+    tracing.reset()
     _, _, hist = run(float('inf'), None, perms, inputs, outputs)
     if group.device.type == 'cuda':
         torch.cuda.synchronize(group.device)
-    launches = _launches()
+    launches = launch_counts()
     out = {'loss': loss, 'one_step': one_step, 'hist': hist,
            'params': {k: v.clone() for k, v in model.state_dict().items()},
            'launches': launches,
@@ -223,11 +209,11 @@ def pipe_check(group, spec, w, x, diag, n_microbatches):
     w = torch.as_tensor(w, device=group.device).requires_grad_()
     x = torch.as_tensor(x, device=group.device)
     group.counts.clear()
-    _zero_launches()
+    tracing.reset()
     with _Timer(group.device) as t:
         out = f(w, x, diag)
-        fwd = _launches()
+        fwd = launch_counts()
         out.sum().backward()
     return {'out': out.detach(), 'w_grad': w.grad, 'fwd_launches': fwd,
-            'launches': _launches(), 'hops': dict(group.counts),
+            'launches': launch_counts(), 'hops': dict(group.counts),
             'fwd_bwd_ms': t.ms}

@@ -35,10 +35,9 @@ import time
 import numpy as np
 import torch
 
-from quanonet_torch import resolve_device
+from quanonet_torch import resolve_device, tracing
 from quanonet_torch.models import QuanONet
 from quanonet_torch.models.packed import PackedModel
-from quanonet_torch.ops import cuda_fused, cuda_hea, cuda_ucomp
 from quanonet_torch.profile_step import card_line, profile_steps
 from quanonet_torch.solver import build_optimizer
 
@@ -114,12 +113,10 @@ def launches_per_step(step):
 
 
 def _launch_counts():
-    return {"hea_chain_fwd": cuda_hea.launches,
-            "hea_chain_bwd": cuda_hea.bwd_launches,
-            "fused_chain_fwd": cuda_fused.launches,
-            "fused_chain_bwd": cuda_fused.bwd_launches,
-            "ucomp_fwd": cuda_ucomp.launches,
-            "ucomp_bwd": cuda_ucomp.bwd_launches}
+    counts = tracing.counts()
+    return {k: counts[k] for k in ("hea_chain_fwd", "hea_chain_bwd",
+                                   "fused_chain_fwd", "fused_chain_bwd",
+                                   "ucomp_fwd", "ucomp_bwd")}
 
 
 def device_profile(step, steps=10, warm=3):

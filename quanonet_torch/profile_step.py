@@ -48,7 +48,7 @@ import time
 import numpy as np
 import torch
 
-from quanonet_torch import resolve_device
+from quanonet_torch import resolve_device, tracing
 from quanonet_torch.models import QuanONet
 from quanonet_torch.ops import cuda_hea
 from quanonet_torch.ops.cuda_adam import fused_adam
@@ -87,23 +87,24 @@ def card_line(device):
     return out.stdout.strip().splitlines()[device.index or 0]
 
 
+# every kernel wrapper's launch counter in tracing's registry
+LAUNCH_KEYS = ("hea_chain_fwd", "hea_chain_bwd", "fused_chain_fwd",
+               "fused_chain_bwd", "ucomp_fwd", "ucomp_bwd", "adam_step",
+               "embed_chain_fwd", "embed_chain_bwd", "ucomp_bf16_fwd",
+               "ucomp_bf16_bwd", "fused_chain_bf16_fwd",
+               "fused_chain_bf16_bwd")
+
+
 def launch_counts():
     """Every kernel wrapper's launch count so far, by kernel."""
-    from quanonet_torch.ops import cuda_adam, cuda_embed, cuda_fused, \
-        cuda_ucomp
-    return {"hea_chain_fwd": cuda_hea.launches,
-            "hea_chain_bwd": cuda_hea.bwd_launches,
-            "fused_chain_fwd": cuda_fused.launches,
-            "fused_chain_bwd": cuda_fused.bwd_launches,
-            "ucomp_fwd": cuda_ucomp.launches,
-            "ucomp_bwd": cuda_ucomp.bwd_launches,
-            "adam_step": cuda_adam.launches,
-            "embed_chain_fwd": cuda_embed.launches,
-            "embed_chain_bwd": cuda_embed.bwd_launches,
-            "ucomp_bf16_fwd": cuda_ucomp.bf16_launches,
-            "ucomp_bf16_bwd": cuda_ucomp.bf16_bwd_launches,
-            "fused_chain_bf16_fwd": cuda_fused.bf16_launches,
-            "fused_chain_bf16_bwd": cuda_fused.bf16_bwd_launches}
+    counts = tracing.counts()
+    return {k: counts[k] for k in LAUNCH_KEYS}
+
+
+def launches_of(*kernels):
+    """The launch counts of ``kernels`` so far, a tuple in their order."""
+    counts = launch_counts()
+    return tuple(counts[k] for k in kernels)
 
 
 def launches_since(before):

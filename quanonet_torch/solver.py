@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from quanonet_torch import checkpoint as ckpt_io
-from quanonet_torch import resolve_device
+from quanonet_torch import resolve_device, tracing
 from quanonet_torch.config import parse_bool
 from quanonet_torch.convert import raw_from_state_dict, state_dict_from_raw
 from quanonet_torch.data.manager import DataManager
@@ -454,7 +454,12 @@ def make_train_epoch(model, optimizer, num_samples, batch_size, per_sample,
     from (``seed``, t), the counterpart of the JAX package's per-step rngs,
     so a resumed run draws what the unbroken run drew: (seed, t, 0) the
     SPSA direction, (seed, t, 1) the model's shots and noise trajectories,
-    the same for both SPSA evaluations (common random numbers)."""
+    the same for both SPSA evaluations (common random numbers).
+
+    Tracing (quanonet_torch/tracing.py): each step is a ``solver.step``
+    span, and on the autograd route its ``solver.forward`` (predictions and
+    loss), ``solver.backward`` (the host's enqueue of the backward) and
+    ``solver.optimizer`` (entered twice: ``zero_grad``, then ``step``)."""
     num_batches = max(1, int(np.ceil(num_samples / batch_size)))
     sampled = bool(getattr(model, 'sampled', False))
     params = dict(model.named_parameters())
@@ -471,31 +476,38 @@ def make_train_epoch(model, optimizer, num_samples, batch_size, per_sample,
             batch_size)
         losses = []
         for b in range(num_batches):
-            bi = idx[b]
-            batch_in, batch_out = tuple(a[bi] for a in inputs), outputs[bi]
-            step = derive_seed(seed, epoch * num_batches + b)
+            with tracing.span('solver.step', rows=batch_size):
+                bi = idx[b]
+                batch_in, batch_out = tuple(a[bi] for a in inputs), outputs[bi]
+                step = derive_seed(seed, epoch * num_batches + b)
 
-            def predict(ps=None):
-                """The batch's predictions, with the tensors ``ps`` in place
-                of the model's parameters; a sampled model draws the step's
-                shots and noise."""
-                kw = ({'generator': key_generator(step, 1, device=dev)}
-                      if sampled else {})
-                if ps is None:
-                    return model(*batch_in, **kw)
-                return torch.func.functional_call(model, ps, batch_in, kw)
+                def predict(ps=None):
+                    """The batch's predictions, with the tensors ``ps`` in
+                    place of the model's parameters; a sampled model draws
+                    the step's shots and noise."""
+                    kw = ({'generator': key_generator(step, 1, device=dev)}
+                          if sampled else {})
+                    if ps is None:
+                        return model(*batch_in, **kw)
+                    return torch.func.functional_call(model, ps, batch_in,
+                                                      kw)
 
-            if spsa_c is not None:
-                loss = make_spsa_step(
-                    lambda ps: batch_loss(predict(ps), batch_out, masks[b]),
-                    optimizer, params, spsa_c)(
-                        key_generator(step, 0, device=dev))
-            else:
-                loss = batch_loss(predict(), batch_out, masks[b])
-                optimizer.zero_grad()
-                loss.backward()
-                optimizer.step()
-            losses.append(loss.detach())
+                if spsa_c is not None:
+                    loss = make_spsa_step(
+                        lambda ps: batch_loss(predict(ps), batch_out,
+                                              masks[b]),
+                        optimizer, params, spsa_c)(
+                            key_generator(step, 0, device=dev))
+                else:
+                    with tracing.span('solver.forward'):
+                        loss = batch_loss(predict(), batch_out, masks[b])
+                    with tracing.span('solver.optimizer'):
+                        optimizer.zero_grad()
+                    with tracing.span('solver.backward'):
+                        loss.backward()
+                    with tracing.span('solver.optimizer'):
+                        optimizer.step()
+                losses.append(loss.detach())
         losses = torch.stack(losses)
         # running rel-L2 from the accumulated SSE (solver_ms.py:240-245)
         return losses.mean(), (losses * masks.sum(1) * per_sample).sum()
@@ -514,15 +526,20 @@ def make_run_segment(train_epoch, model):
     epoch])``, one epoch per permutation; the epochs' indices in the run
     (first_epoch, first_epoch + 1, ...) are passed on to ``train_epoch``.
     best_params is a state_dict copy, replaced when an epoch's average
-    loss is below best_loss."""
+    loss is below best_loss.  Each epoch ends in a ``solver.epoch_end``
+    span (the host read and the copy) around a ``solver.host_read`` span
+    (the host's wait for the card), see quanonet_torch/tracing.py."""
     def run_segment(best_loss, best_params, perms, inputs, outputs,
                     first_epoch=0):
         hist = []
         for e, perm in enumerate(perms):
             avg, sse = train_epoch(perm, inputs, outputs, first_epoch + e)
-            avg, sse = avg.item(), sse.item()   # one host read per epoch
-            if avg < best_loss:
-                best_loss, best_params = avg, _clone(model)
+            with tracing.span('solver.epoch_end'):
+                with tracing.span('solver.host_read'):
+                    # one host read per epoch: the wait for the card
+                    avg, sse = avg.item(), sse.item()
+                if avg < best_loss:
+                    best_loss, best_params = avg, _clone(model)
             hist.append((avg, sse))
         return best_loss, best_params, hist
     return run_segment

@@ -24,6 +24,7 @@ from quanonet_torch.convert import adam_state_from_flax, state_dict_from_flax
 from quanonet_torch.models import QuanONet
 from quanonet_torch.ops import cuda_adam
 from quanonet_torch.ops.cuda_adam import FusedAdam, fused_adam
+from quanonet_torch.profile_step import launch_counts
 
 ATOL, RTOL = 2e-6, 1e-5
 MODEL = dict(num_qubits=2, branch_input_size=4, trunk_input_size=1,
@@ -161,11 +162,11 @@ def test_step_semantics():
     p[0].grad = torch.ones(4, 2)[:, 0]
     with pytest.raises(ValueError, match='contiguous'):
         opt.step()
-    before = cuda_adam.launches
+    before = launch_counts()['adam_step']
     with pytest.raises(ValueError, match='CUDA leaves'):
         cuda_adam.adam_step([p[1].detach()], [torch.ones(())], opt.mu[1:],
                             opt.nu[1:], 0.1, 1)
-    assert cuda_adam.launches == before
+    assert launch_counts()['adam_step'] == before
 
 
 def _data(n, seed=1):

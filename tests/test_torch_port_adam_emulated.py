@@ -26,6 +26,7 @@ import torch
 
 import emulated_cuda
 from quanonet_torch.ops import _build, cuda_adam
+from quanonet_torch.profile_step import launch_counts
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(os.path.dirname(REPO), 'quanonet_torch', 'csrc',
@@ -73,7 +74,7 @@ def test_kernel_matches_plain(cpu_binding, shapes, grid):
     assert binding.grid() == grid
     rates = torch.tensor([1e-2, 3e-3], dtype=torch.float32)
     count = torch.zeros(2, dtype=torch.int32)
-    before = cuda_adam.launches
+    before = launch_counts()['adam_step']
     for t in range(1, 7):
         g = _leaves(100 + t, shapes)
         skip = t in (3, 4)
@@ -85,7 +86,7 @@ def test_kernel_matches_plain(cpu_binding, shapes, grid):
         cuda_adam.adam_step_dense(
             [pw[i] for i in live], [g[i] for i in live], [mw[i] for i in live],
             [vw[i] for i in live], float(rates[min(t - 1, 1)]), t)
-    assert cuda_adam.launches == before + 6
+    assert launch_counts()['adam_step'] == before + 6
     for got, want in zip(p + m + v, pw + mw + vw):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL,
                                    rtol=RTOL)
@@ -125,9 +126,10 @@ def test_more_leaves_than_a_binding(cpu_binding):
     for s, b in zip((0, 64), bindings):
         b.set_grads([a.data_ptr() for a in g[s:s + 64]])
     count = torch.tensor([4, 0], dtype=torch.int32)
-    before = cuda_adam.launches
+    before = launch_counts()['adam_step']
     cuda_adam._launch(bindings, torch.tensor([1e-2]), count)
-    assert cuda_adam.launches == before + 2 and count.tolist() == [5, 0]
+    assert launch_counts()['adam_step'] == before + 2
+    assert count.tolist() == [5, 0]
     cuda_adam.adam_step_dense(pw, g, mw, vw, float(np.float32(1e-2)), 5)
     for got, want in zip(p + m + v, pw + mw + vw):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL,

@@ -23,6 +23,7 @@ from quanonet_torch.convert import state_dict_from_flax
 from quanonet_torch.models import QuanONet
 from quanonet_torch.ops import cuda_hea
 from quanonet_torch.ops import hea as t_hea
+from quanonet_torch.profile_step import launches_of
 
 CHAIN_TOL = 2e-5
 GRAD_TOL = 2e-4
@@ -98,7 +99,7 @@ def test_saved_states_are_block_inputs():
 
 def test_block_chain_on_cpu_is_plain_and_launches_nothing():
     _, ops, g = _operands(3, (4, 2, 3, 1), 5, seed=1)
-    before = (cuda_hea.launches, cuda_hea.bwd_launches)
+    before = launches_of('hea_chain_fwd', 'hea_chain_bwd')
     t_ops = [torch.tensor(a, requires_grad=True) for a in ops]
     gr, gi = (torch.tensor(a) for a in g)
     sr, si = cuda_hea.block_chain(*t_ops)          # grad needed: BlockChain
@@ -110,7 +111,7 @@ def test_block_chain_on_cpu_is_plain_and_launches_nothing():
     assert torch.equal(sr.detach(), pr) and torch.equal(si.detach(), pi)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert (cuda_hea.launches, cuda_hea.bwd_launches) == before
+    assert launches_of('hea_chain_fwd', 'hea_chain_bwd') == before
 
 
 def test_plain_sweep_gradcheck_float64():

@@ -48,6 +48,7 @@ from quanonet_tpu.ops import pallas_ucomp
 from quanonet_torch.ops import cuda_fused, cuda_ucomp, gates
 from quanonet_torch.ops import fused_gates as t_fg
 from quanonet_torch.ops import hea as t_hea
+from quanonet_torch.profile_step import launches_of
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_ATOL = 3e-2        # tests/test_ucomp.py's limit for the bf16 mode
@@ -146,8 +147,8 @@ def test_ucomp_bf16_routes_every_compile(monkeypatch):
     bit."""
     spec, _, w, _ = _ucomp_case(4, (3, 2, 3, 2), 11)
     w2 = torch.tensor(np.stack([w, w[::-1].copy()]))
-    before = (cuda_ucomp.launches, cuda_ucomp.bwd_launches,
-              cuda_ucomp.bf16_launches, cuda_ucomp.bf16_bwd_launches)
+    kernels = ('ucomp_fwd', 'ucomp_bwd', 'ucomp_bf16_fwd', 'ucomp_bf16_bwd')
+    before = launches_of(*kernels)
     fp32 = cuda_ucomp.compile_block_mats_stacked(spec, w2)
     monkeypatch.setattr(cuda_ucomp, 'UCOMP_BF16', True)
     got = cuda_ucomp.compile_block_mats_stacked(spec, w2)
@@ -160,8 +161,7 @@ def test_ucomp_bf16_routes_every_compile(monkeypatch):
     monkeypatch.setattr(cuda_ucomp, 'UCOMP_BF16', False)
     again = cuda_ucomp.compile_block_mats_stacked(spec, w2)
     assert all(torch.equal(a, b) for a, b in zip(again, fp32))
-    assert (cuda_ucomp.launches, cuda_ucomp.bwd_launches,
-            cuda_ucomp.bf16_launches, cuda_ucomp.bf16_bwd_launches) == before
+    assert launches_of(*kernels) == before
 
 
 def test_ucomp_bf16_kernels_refuse_what_they_do_not_take():
@@ -277,8 +277,9 @@ def test_fused_bf16_mode_is_a_no_op_on_the_cpu(monkeypatch):
     lds = t_fg.block_depths(spec)
     monkeypatch.setenv('PFUSED_BF16', '1')
     assert cuda_fused.use_bf16()
-    before = (cuda_fused.launches, cuda_fused.bwd_launches,
-              cuda_fused.bf16_launches, cuda_fused.bf16_bwd_launches)
+    kernels = ('fused_chain_fwd', 'fused_chain_bwd', 'fused_chain_bf16_fwd',
+               'fused_chain_bf16_bwd')
+    before = launches_of(*kernels)
     got = cuda_fused.fused_chain(*ops, lds)
     want = t_fg.chain_fused_x(*ops, lds)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -290,8 +291,7 @@ def test_fused_bf16_mode_is_a_no_op_on_the_cpu(monkeypatch):
     sr, si = cuda_fused.fused_chain(*req, lds)
     plain = torch.autograd.grad(sr.sum() + 2 * si.sum(), req)
     assert all(torch.equal(a, b) for a, b in zip(grads, plain))
-    assert (cuda_fused.launches, cuda_fused.bwd_launches,
-            cuda_fused.bf16_launches, cuda_fused.bf16_bwd_launches) == before
+    assert launches_of(*kernels) == before
 
 
 # ── QON_UNPIN_EXPECT ─────────────────────────────────────────────────────────

@@ -15,6 +15,7 @@ import torch
 
 from quanonet_torch.ops import cuda_hea, hea
 from quanonet_torch.ops.hamiltonian import simple_ham_diag
+from quanonet_torch.profile_step import launch_counts, launches_of
 
 pytestmark = pytest.mark.cuda
 
@@ -43,10 +44,10 @@ def _operands(nq, net, n, seed, device):
 ])
 def test_kernel_matches_plain(card, nq, net, n):
     spec, ops = _operands(nq, net, n, seed=nq, device=card)
-    before = cuda_hea.launches
+    before = launch_counts()['hea_chain_fwd']
     kr, ki = cuda_hea.block_chain(*ops)
     torch.cuda.synchronize()
-    assert cuda_hea.launches == before + 1
+    assert launch_counts()['hea_chain_fwd'] == before + 1
     pr, pi = hea.chain_dense(*ops)
     assert (kr - pr).abs().max().item() <= 2e-5
     assert (ki - pi).abs().max().item() <= 2e-5
@@ -67,12 +68,12 @@ def test_kernel_rejects_bad_inputs(card):
         cuda_hea.block_chain(mt_r[:1], mt_i, phi)
     # with a gradient needed the chain goes through BlockChain: the
     # residual-saving forward, then the backward kernel
-    before = (cuda_hea.launches, cuda_hea.bwd_launches)
+    before = launches_of('hea_chain_fwd', 'hea_chain_bwd')
     sr, si = cuda_hea.block_chain(mt_r.requires_grad_(), mt_i, phi)
     (sr.sum() + si.sum()).backward()
     torch.cuda.synchronize()
-    assert (cuda_hea.launches, cuda_hea.bwd_launches) == (before[0] + 1,
-                                                          before[1] + 1)
+    assert launches_of('hea_chain_fwd', 'hea_chain_bwd') == (
+        before[0] + 1, before[1] + 1)
     assert mt_r.grad is not None and torch.isfinite(mt_r.grad).all()
     with pytest.raises(TypeError, match='float32'):
         cuda_hea.chain_backward(mt_r.detach(), mt_i, phi, phi, phi,
@@ -96,12 +97,12 @@ def test_backward_kernels_match_plain(card, nq, net, n):
     rng = np.random.RandomState(n)
     gr, gi = (torch.tensor(rng.randn(n, spec.dim).astype(np.float32),
                            device=card) for _ in range(2))
-    before = (cuda_hea.launches, cuda_hea.bwd_launches)
+    before = launches_of('hea_chain_fwd', 'hea_chain_bwd')
     sr, si, st_r, st_i = cuda_hea.chain_forward(*ops, save_residuals=True)
     got = cuda_hea.chain_backward(*ops, st_r, st_i, gr, gi)
     torch.cuda.synchronize()
-    assert (cuda_hea.launches, cuda_hea.bwd_launches) == (before[0] + 1,
-                                                          before[1] + 1)
+    assert launches_of('hea_chain_fwd', 'hea_chain_bwd') == (
+        before[0] + 1, before[1] + 1)
     pr, pi, pst_r, pst_i = hea.chain_dense_saved(*ops)
     for a, b in ((sr, pr), (si, pi), (st_r, pst_r), (st_i, pst_i)):
         assert (a - b).abs().max().item() <= 2e-5
@@ -223,10 +224,10 @@ def test_fused_kernel_matches_plain(card, nq, net, n, configs):
     device memory (from 14)."""
     from quanonet_torch.ops import cuda_fused, fused_gates
     spec, ops, lds, _ = _fused_operands(nq, net, n, nq, card, configs)
-    before = cuda_fused.launches
+    before = launch_counts()['fused_chain_fwd']
     kr, ki = cuda_fused.fused_chain(*ops, lds)
     torch.cuda.synchronize()
-    assert cuda_fused.launches == before + 1
+    assert launch_counts()['fused_chain_fwd'] == before + 1
     pr, pi = fused_gates.chain_fused_x(*ops, lds)
     assert (kr - pr).abs().max().item() <= 2e-5
     assert (ki - pi).abs().max().item() <= 2e-5
@@ -284,13 +285,13 @@ def test_fused_kernel_rejects_bad_inputs(card):
         cuda_fused.fused_chain(u7r, u7i, u2r, u2i, xb[0], lds)
     # with a gradient the chain goes through FusedChain: the residual
     # forward, then the backward kernels, x's gradient (nb, N, n)
-    before = (cuda_fused.launches, cuda_fused.bwd_launches)
+    before = launches_of('fused_chain_fwd', 'fused_chain_bwd')
     xg = xb.clone().requires_grad_()
     sr, si = cuda_fused.fused_chain(u7r.requires_grad_(), u7i, u2r, u2i,
                                     xg, lds)
     (sr.sum() + si.sum()).backward()
     torch.cuda.synchronize()
-    assert (cuda_fused.launches, cuda_fused.bwd_launches) == (
+    assert launches_of('fused_chain_fwd', 'fused_chain_bwd') == (
         before[0] + 1, before[1] + 1)
     assert u7r.grad is not None and torch.isfinite(u7r.grad).all()
     assert xg.grad.shape == xb.shape and torch.isfinite(xg.grad).all()
@@ -369,14 +370,14 @@ def test_ucomp_kernels_match_plain(card, nq, net):
     from quanonet_torch.ops import cuda_ucomp
     spec, w, ld, rng = _ucomp_weights(nq, net, 20 + nq, card)
     last = spec.n_blocks - 1
-    before = (cuda_ucomp.launches, cuda_ucomp.bwd_launches)
+    before = launches_of('ucomp_fwd', 'ucomp_bwd')
     got = cuda_ucomp.ucomp_forward(w, ld, last)
     g = [torch.tensor(rng.randn(spec.n_blocks, spec.dim, spec.dim)
                       .astype(np.float32), device=card) for _ in range(2)]
     bwd = cuda_ucomp.ucomp_backward(w, ld, last, *g)
     again = cuda_ucomp.ucomp_backward(w, ld, last, *g)
     torch.cuda.synchronize()
-    assert (cuda_ucomp.launches, cuda_ucomp.bwd_launches) == (
+    assert launches_of('ucomp_fwd', 'ucomp_bwd') == (
         before[0] + 1, before[1] + 2)
     for a, b in zip(got, cuda_ucomp.ucomp_weights_dense(w, ld, last)):
         assert a.shape == b.shape and a.is_contiguous()
@@ -413,12 +414,12 @@ def test_ucomp_rejects_bad_inputs_and_trains(card, monkeypatch):
     grads = {}
     for on in (True, False):
         monkeypatch.setattr(cuda_hea, 'USE_UCOMP', on)
-        before = (cuda_ucomp.launches, cuda_ucomp.bwd_launches)
+        before = launches_of('ucomp_fwd', 'ucomp_bwd')
         wg = w.clone().requires_grad_()
         out = hea.hea_expectation(spec, wg, x, diag=diag, engine='pallas')
         (grads[on],) = torch.autograd.grad(out.sum(), wg)
-        used = (cuda_ucomp.launches - before[0],
-                cuda_ucomp.bwd_launches - before[1])
+        after = launches_of('ucomp_fwd', 'ucomp_bwd')
+        used = (after[0] - before[0], after[1] - before[1])
         assert used == ((1, 1) if on else (0, 0))
     assert (grads[True] - grads[False]).abs().max().item() <= 1e-4
 
@@ -442,13 +443,13 @@ def test_stacked_compile_and_packed_step_on_the_card(card, nq, net):
     ws = torch.stack([w, w.flip(0), -w]).requires_grad_()
     g = [torch.tensor(rng.randn(3, spec.n_blocks, spec.dim, spec.dim)
                       .astype(np.float32), device=card) for _ in range(2)]
-    before = (cuda_ucomp.launches, cuda_ucomp.bwd_launches)
+    before = launches_of('ucomp_fwd', 'ucomp_bwd')
     mr, mi = cuda_ucomp.compile_block_mats_stacked(spec, ws)
     (got,) = torch.autograd.grad((mr * g[0]).sum() + (mi * g[1]).sum(), ws)
     torch.cuda.synchronize()
     two = 1 if spec.n_blocks == 1 else 2
-    assert (cuda_ucomp.launches - before[0],
-            cuda_ucomp.bwd_launches - before[1]) == (two, two)
+    after = launches_of('ucomp_fwd', 'ucomp_bwd')
+    assert (after[0] - before[0], after[1] - before[1]) == (two, two)
     for i in range(3):
         wi = ws.detach()[i].clone().requires_grad_()
         r, im = cuda_ucomp.compile_block_mats(spec, wi)
@@ -462,12 +463,12 @@ def test_stacked_compile_and_packed_step_on_the_card(card, nq, net):
     pack = PackedModel(models)
     b = torch.randn(3, 7, 6, device=card)
     t = torch.rand(3, 7, 2, device=card)
-    before = (cuda_hea.launches, cuda_hea.bwd_launches)
+    before = launches_of('hea_chain_fwd', 'hea_chain_bwd')
     out = pack(b, t)
     out.sum().backward()
     torch.cuda.synchronize()
-    assert (cuda_hea.launches - before[0],
-            cuda_hea.bwd_launches - before[1]) == (3, 3)
+    after = launches_of('hea_chain_fwd', 'hea_chain_bwd')
+    assert (after[0] - before[0], after[1] - before[1]) == (3, 3)
     for i, m in enumerate(models):
         assert (out[i] - m(b[i], t[i])).abs().max().item() <= 1e-5
 
@@ -491,13 +492,13 @@ def test_adam_kernel_matches_plain(card):
         p, m, v = (_adam_leaves(card, 0), [torch.zeros_like(a) for a in
                                            _adam_leaves(card, 0)],
                    [torch.zeros_like(a) for a in _adam_leaves(card, 0)])
-        before = cuda_adam.launches
+        before = launch_counts()['adam_step']
         for t in range(1, 26):
             g = _adam_leaves(card, 100 + t)
             step = cuda_adam.adam_step if kernel else cuda_adam.adam_step_dense
             step(p, g, m, v, 1e-2 * 0.95 ** t, t)
         torch.cuda.synchronize()
-        assert cuda_adam.launches - before == (25 if kernel else 0)
+        assert launch_counts()['adam_step'] - before == (25 if kernel else 0)
         runs.append(p + m + v)
     assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
     for a, b in zip(runs[0], runs[2]):
@@ -516,24 +517,24 @@ def test_fused_adam_on_card(card):
     b = [torch.nn.Parameter(x.clone()) for x in leaves]
     fused = cuda_adam.fused_adam(1e-2).init(a)
     ref = torch.optim.Adam(b, lr=1e-2)
-    before = cuda_adam.launches
+    before = launch_counts()['adam_step']
     for t in range(5):
         for pa, pb, g in zip(a, b, _adam_leaves(card, 50 + t)):
             pa.grad, pb.grad = g, g.clone()
         fused.step()
         ref.step()
     torch.cuda.synchronize()
-    assert cuda_adam.launches == before + 5 and fused.count == 5
+    assert launch_counts()['adam_step'] == before + 5 and fused.count == 5
     for pa, pb in zip(a, b):
         assert (pa - pb).abs().max().item() <= 1e-6
     many = [torch.nn.Parameter(torch.ones(3, device=card)) for _ in range(70)]
     opt = cuda_adam.fused_adam(0.1).init(many)
     for q in many:
         q.grad = torch.ones_like(q)
-    before = cuda_adam.launches
+    before = launch_counts()['adam_step']
     opt.step()
     torch.cuda.synchronize()
-    assert cuda_adam.launches == before + 2
+    assert launch_counts()['adam_step'] == before + 2
     assert all(torch.allclose(q, torch.full_like(q, 0.9)) for q in many)
     assert opt.state_dict()['count'] == 1 and fused.state_dict()['count'] == 5
     many[0].grad = torch.ones(3, 2, device=card)[:, 0]
@@ -565,13 +566,13 @@ def test_embed_kernels_match_plain(card, d, nb, n):
     counting its launch."""
     from quanonet_torch.ops import cuda_embed
     e, t, g = _embed_operands(d, nb, n, 7000 + d + nb + n, card)
-    before = (cuda_embed.launches, cuda_embed.bwd_launches)
+    before = launches_of('embed_chain_fwd', 'embed_chain_bwd')
     out = cuda_embed.embed_chain(e, t)
     saved, u = cuda_embed.embed_forward(e, t, save_residuals=True)
     got = cuda_embed.embed_backward(e, t, u, g)
     again = cuda_embed.embed_backward(e, t, u, g)
     torch.cuda.synchronize()
-    assert (cuda_embed.launches, cuda_embed.bwd_launches) == (
+    assert launches_of('embed_chain_fwd', 'embed_chain_bwd') == (
         before[0] + 2, before[1] + 2)
     want, wu = cuda_embed.chain_embed_saved(e, t)
     assert torch.equal(out, saved)
@@ -630,11 +631,11 @@ def test_embed_kernel_rejects_bad_inputs_and_trains(card):
         cuda_embed.embed_chain(torch.zeros(1, 6, 6, device=card),
                                torch.zeros(1, 2, 6, device=card))
     assert tuple(cuda_embed.embed_chain(e, t[:, :0]).shape) == (0, 8)
-    before = (cuda_embed.launches, cuda_embed.bwd_launches)
+    before = launches_of('embed_chain_fwd', 'embed_chain_bwd')
     ops = [e.clone().requires_grad_(), t.clone().requires_grad_()]
     got = torch.autograd.grad((cuda_embed.embed_chain(*ops) * g).sum(), ops)
     torch.cuda.synchronize()
-    assert (cuda_embed.launches, cuda_embed.bwd_launches) == (
+    assert launches_of('embed_chain_fwd', 'embed_chain_bwd') == (
         before[0] + 1, before[1] + 1)
     ref = [e.clone().requires_grad_(), t.clone().requires_grad_()]
     want = torch.autograd.grad((cuda_embed.chain_embed(*ref) * g).sum(), ref)
@@ -683,10 +684,10 @@ def test_noise_fold_route_kernel_matches_plain(card, nq, net, n):
     on them, one launch a trajectory."""
     from quanonet_torch.ops import noise
     spec, ops, a, b = _noise_case(nq, net, n, 4, nq, card)
-    before = cuda_hea.launches
+    before = launch_counts()['hea_chain_fwd']
     kr, ki = noise.fold_states(*ops, a, b)
     torch.cuda.synchronize()
-    assert cuda_hea.launches == before + 4
+    assert launch_counts()['hea_chain_fwd'] == before + 4
     pr, pi = noise.fold_states(*ops, a, b, chain=hea.chain_dense)
     assert (kr - pr).abs().max().item() <= 2e-5
     assert (ki - pi).abs().max().item() <= 2e-5
@@ -730,11 +731,12 @@ def test_noisy_expectation_routes_on_the_card(card):
     diag = simple_ham_diag(5, -5, 5)
     g = torch.Generator(device=card).manual_seed(1)
     routes = dict(noise.routes)
-    before = cuda_hea.launches
+    before = launch_counts()['hea_chain_fwd']
     e1 = noise.noisy_expectation(g, spec, w, x, 0.01, 8, diag=diag)
     e2 = noise.noisy_expectation(g, spec, w, x, 0.01, 8, diag=diag)
     torch.cuda.synchronize()
-    assert torch.equal(e1, e2) and cuda_hea.launches == before + 16
+    assert torch.equal(e1, e2)
+    assert launch_counts()['hea_chain_fwd'] == before + 16
     z = mitigation.zne_expectation(g, spec, w, x, 0.01, 4, diag=diag)
     d = noise.noisy_expectation(g, spec, w, x, 0.0, 2, diag=diag,
                                 damp_gamma=0.01)
@@ -796,13 +798,12 @@ def test_ucomp_bf16_mode_routes_the_compile(card, monkeypatch):
     w = torch.tensor(np.random.RandomState(2).uniform(
         -np.pi, np.pi, spec.weight_shape()).astype(np.float32), device=card,
         requires_grad=True)
-    before = (cuda_ucomp.launches, cuda_ucomp.bwd_launches,
-              cuda_ucomp.bf16_launches, cuda_ucomp.bf16_bwd_launches)
+    kernels = ('ucomp_fwd', 'ucomp_bwd', 'ucomp_bf16_fwd', 'ucomp_bf16_bwd')
+    before = launches_of(*kernels)
     mr, mi = cuda_hea.block_mats(spec, w)
     (mr.sum() + mi.sum()).backward()
     torch.cuda.synchronize()
-    assert (cuda_ucomp.launches, cuda_ucomp.bwd_launches,
-            cuda_ucomp.bf16_launches, cuda_ucomp.bf16_bwd_launches) == (
+    assert launches_of(*kernels) == (
         before[0], before[1], before[2] + 1, before[3] + 1)
     assert bool(torch.isfinite(w.grad).all())
 
@@ -851,8 +852,8 @@ def test_fused_bf16_mode_routes_the_chain(card, monkeypatch):
                      .astype(np.float32), device=card)
 
     def counts():
-        return (cuda_fused.launches, cuda_fused.bwd_launches,
-                cuda_fused.bf16_launches, cuda_fused.bf16_bwd_launches)
+        return launches_of('fused_chain_fwd', 'fused_chain_bwd',
+                           'fused_chain_bf16_fwd', 'fused_chain_bf16_bwd')
     for on in (True, False):
         if on:
             monkeypatch.setenv('PFUSED_BF16', '1')

@@ -35,6 +35,7 @@ from quanonet_torch.convert import state_dict_from_flax
 from quanonet_torch.models import QuanONet
 from quanonet_torch.ops import cuda_embed
 from quanonet_torch.ops import hea as t_hea
+from quanonet_torch.profile_step import launches_of
 from quanonet_torch.serve import Predictor
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -96,7 +97,7 @@ def test_backward_matches_autograd(d, nb, n):
     ops = [torch.tensor(a, requires_grad=True) for a in (e, t)]
     want = torch.autograd.grad((cuda_embed.chain_embed(*ops)
                                 * torch.tensor(g)).sum(), ops)
-    before = (cuda_embed.launches, cuda_embed.bwd_launches)
+    before = launches_of('embed_chain_fwd', 'embed_chain_bwd')
     out = cuda_embed.embed_chain(*ops)
     assert out.grad_fn is not None
     got = torch.autograd.grad((out * torch.tensor(g)).sum(), ops)
@@ -105,7 +106,7 @@ def test_backward_matches_autograd(d, nb, n):
     with torch.no_grad():
         assert torch.equal(cuda_embed.embed_chain(*ops),
                            cuda_embed.chain_embed(*ops))
-    assert (cuda_embed.launches, cuda_embed.bwd_launches) == before
+    assert launches_of('embed_chain_fwd', 'embed_chain_bwd') == before
 
 
 def test_backward_float64_gradcheck():

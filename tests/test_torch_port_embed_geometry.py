@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from quanonet_torch.ops import _build, cuda_embed, cuda_hea
+from quanonet_torch.profile_step import launches_of
 
 H100_SMS = 132
 NS = (1, 7, 8, 9, 100, 101, 1000, 1024, 1025, 8192)
@@ -209,7 +210,7 @@ def test_library_loaded_and_configured_once(monkeypatch):
         rng = np.random.RandomState(0)
         nb, d = 3, 32
         e = torch.tensor(rng.randn(nb, 2 * d, 2 * d).astype(np.float32))
-        before = (cuda_embed.launches, cuda_embed.bwd_launches)
+        before = launches_of('embed_chain_fwd', 'embed_chain_bwd')
         for n in (100, 8192, 100):
             t = torch.tensor(rng.randn(nb, n, 2 * d).astype(np.float32))
             g = torch.zeros(n, 2 * d)
@@ -221,8 +222,8 @@ def test_library_loaded_and_configured_once(monkeypatch):
         for fn in (lib.embed_chain_forward, lib.embed_chain_backward,
                    lib.embed_chain_error_string, lib.embed_chain_tile_rows):
             assert fn.configured == 1
-        assert (cuda_embed.launches - before[0],
-                cuda_embed.bwd_launches - before[1]) == (6, 3)
+        after = launches_of('embed_chain_fwd', 'embed_chain_bwd')
+        assert (after[0] - before[0], after[1] - before[1]) == (6, 3)
         tiles = [args[-2] for args in lib.embed_chain_forward.calls]
         want = [cuda_embed.embed_geometry(n, d, H100_SMS).tile
                 for n in (100, 100, 8192, 8192, 100, 100)]

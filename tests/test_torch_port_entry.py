@@ -12,7 +12,7 @@ import torch
 import __graft_entry__ as graft
 from quanonet_torch.convert import state_dict_from_flax
 from quanonet_torch.entry import entry
-from quanonet_torch.ops import cuda_hea, cuda_ucomp
+from quanonet_torch.profile_step import launches_of
 
 TOL = 1e-5
 
@@ -51,11 +51,11 @@ def test_forward_matches_jax_entry(jax_entry):
     want, _, _, params = jax_entry
     fn, (b, t) = entry(device='cpu')
     fn.model.load_state_dict(state_dict_from_flax(params))
-    before = (cuda_hea.launches, cuda_ucomp.launches)
+    before = launches_of('hea_chain_fwd', 'ucomp_fwd')
     got = fn(b, t)
     assert got.shape == (8, 1) and not got.requires_grad
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
-    assert (cuda_hea.launches, cuda_ucomp.launches) == before
+    assert launches_of('hea_chain_fwd', 'ucomp_fwd') == before
 
 
 def test_own_parameters_replay():

@@ -30,6 +30,7 @@ from quanonet_tpu.ops.hamiltonian import simple_ham_diag
 from quanonet_torch.ops import cuda_fused, fused_gates as t_fg
 from quanonet_torch.ops import gates as t_gates
 from quanonet_torch.ops import hea as t_hea
+from quanonet_torch.profile_step import launches_of
 
 AMP_TOL = 2e-5
 GRAD_TOL = 2e-4
@@ -222,7 +223,7 @@ def test_plain_backward_matches_autograd_and_gradcheck():
 
 def test_fused_chain_on_cpu_is_plain_and_launches_nothing():
     _, tspec, w, x, _ = _case(9, (2, 1, 2, 2), 3, seed=5)
-    before = (cuda_fused.launches, cuda_fused.bwd_launches)
+    before = launches_of('fused_chain_fwd', 'fused_chain_bwd')
     ops = t_fg.prepare_fused_chain_x(tspec, torch.tensor(w), torch.tensor(x))
     lds = t_fg.block_depths(tspec)
     got = cuda_fused.fused_chain(*ops, lds)
@@ -233,4 +234,4 @@ def test_fused_chain_on_cpu_is_plain_and_launches_nothing():
     assert 'FusedChain' in type(sr.grad_fn).__name__
     assert torch.equal(sr.detach(), want[0])
     (sr.sum() + si.sum()).backward()
-    assert (cuda_fused.launches, cuda_fused.bwd_launches) == before
+    assert launches_of('fused_chain_fwd', 'fused_chain_bwd') == before

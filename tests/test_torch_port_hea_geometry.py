@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from quanonet_torch.ops import _build, cuda_hea
+from quanonet_torch.profile_step import launches_of
 
 H100_SMS = 132
 NS = (1, 7, 8, 9, 100, 101, 1000, 8192)
@@ -183,7 +184,7 @@ def test_library_loaded_and_configured_once(monkeypatch):
         nb, d = 3, 32
         mt = [torch.tensor(rng.randn(nb, d, d).astype(np.float32))
               for _ in range(2)]
-        before = (cuda_hea.launches, cuda_hea.bwd_launches)
+        before = launches_of('hea_chain_fwd', 'hea_chain_bwd')
         for n in (100, 8192, 100):
             phi = torch.tensor(rng.randn(nb, n, d).astype(np.float32))
             g = [torch.zeros(n, d) for _ in range(2)]
@@ -196,8 +197,8 @@ def test_library_loaded_and_configured_once(monkeypatch):
         for fn in (lib.hea_chain_forward, lib.hea_chain_backward,
                    lib.hea_chain_error_string, lib.hea_chain_tile_rows):
             assert fn.configured == 1
-        assert (cuda_hea.launches - before[0],
-                cuda_hea.bwd_launches - before[1]) == (6, 3)
+        after = launches_of('hea_chain_fwd', 'hea_chain_bwd')
+        assert (after[0] - before[0], after[1] - before[1]) == (6, 3)
         tiles = [args[-2] for args in lib.hea_chain_forward.calls]
         want = [cuda_hea.chain_geometry(n, d, H100_SMS).tile
                 for n in (100, 100, 8192, 8192, 100, 100)]

@@ -114,17 +114,18 @@ def test_new_kernel_wrappers_raise_on_cpu_tensors():
     raise instead of computing the plain version, and count no launch; the
     dispatching ones (ucomp, FusedAdam.step) take the plain versions."""
     from quanonet_torch.ops import cuda_adam, cuda_embed, cuda_ucomp
+    from quanonet_torch.profile_step import launches_of
     e, t = torch.eye(4).repeat(2, 1, 1), torch.zeros(2, 3, 4)
-    counts = (cuda_embed.launches, cuda_embed.bwd_launches)
+    counts = launches_of('embed_chain_fwd', 'embed_chain_bwd')
     with pytest.raises(ValueError, match='CUDA tensors'):
         cuda_embed.embed_forward(e, t)
     with pytest.raises(ValueError, match='CUDA tensors'):
         cuda_embed.embed_backward(e, t, t[:1], t[0])
     assert torch.equal(cuda_embed.embed_chain(e, t),
                        cuda_embed.chain_embed(e, t))
-    assert (cuda_embed.launches, cuda_embed.bwd_launches) == counts
+    assert launches_of('embed_chain_fwd', 'embed_chain_bwd') == counts
     w, g = torch.ones(2, 3, 2), torch.zeros(2, 4, 4)
-    before = (cuda_ucomp.launches, cuda_ucomp.bwd_launches, cuda_adam.launches)
+    before = launches_of('ucomp_fwd', 'ucomp_bwd', 'adam_step')
     with pytest.raises(ValueError, match='CUDA tensors'):
         cuda_ucomp.ucomp_forward(w, 1, 1)
     with pytest.raises(ValueError, match='CUDA tensors'):
@@ -136,8 +137,7 @@ def test_new_kernel_wrappers_raise_on_cpu_tensors():
     got = cuda_ucomp.ucomp(w, 1, 1)
     want = cuda_ucomp.ucomp_weights_dense(w, 1, 1)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert (cuda_ucomp.launches, cuda_ucomp.bwd_launches,
-            cuda_adam.launches) == before
+    assert launches_of('ucomp_fwd', 'ucomp_bwd', 'adam_step') == before
 
 
 def test_entry_points_refuse_cpu_fallback():
@@ -254,11 +254,12 @@ def test_kernel_wrapper_plain_on_cpu_and_no_grad():
     """On CPU tensors the wrapper computes the plain chain, with and
     without a gradient; it never launches, so the launch counts stay put."""
     from quanonet_torch.ops import cuda_hea, hea
+    from quanonet_torch.profile_step import launches_of
     g = torch.Generator().manual_seed(0)
     mt_r = torch.randn(3, 4, 4, generator=g)
     mt_i = torch.randn(3, 4, 4, generator=g)
     phi = torch.randn(3, 5, 4, generator=g)
-    before = (cuda_hea.launches, cuda_hea.bwd_launches)
+    before = launches_of('hea_chain_fwd', 'hea_chain_bwd')
     got = cuda_hea.block_chain(mt_r, mt_i, phi)
     want = hea.chain_dense(mt_r, mt_i, phi)
     for a, b in zip(got, want):
@@ -274,7 +275,7 @@ def test_kernel_wrapper_plain_on_cpu_and_no_grad():
     for a, b in zip(grads, ref_grads):
         # random, unnormalised matrices: values in the tens, so relative
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
-    assert (cuda_hea.launches, cuda_hea.bwd_launches) == before
+    assert launches_of('hea_chain_fwd', 'hea_chain_bwd') == before
 
 
 def test_training_cli_refuses_cpu_fallback():

@@ -25,6 +25,7 @@ from quanonet_torch import profile_step
 from quanonet_torch.models import QuanONet
 from quanonet_torch.ops import cuda_hea, cuda_ucomp, hea
 from quanonet_torch.ops.hamiltonian import simple_ham_diag
+from quanonet_torch.profile_step import launches_of
 
 CASES = [    # (spec function, qubits, net_size): the JAX test's specs
     ('quanonet_spec', 2, (3, 1, 2, 1)),       # ld = 1
@@ -109,7 +110,7 @@ def test_backward_dense_matches_autograd(nq, ld, nb, last):
     w = torch.tensor(np.random.RandomState(nq).uniform(
         -np.pi, np.pi, (nb * ld, 3, nq)).astype(np.float32),
         requires_grad=True)
-    before = (cuda_ucomp.launches, cuda_ucomp.bwd_launches)
+    before = launches_of('ucomp_fwd', 'ucomp_bwd')
     out = cuda_ucomp.ucomp(w, ld, last)
     (via,) = torch.autograd.grad(
         (out[0] * ct[0]).sum() + (out[1] * ct[1]).sum(), w)
@@ -118,7 +119,7 @@ def test_backward_dense_matches_autograd(nq, ld, nb, last):
             out, cuda_ucomp.ucomp_weights_dense(w, ld, last)))
         assert torch.equal(via, cuda_ucomp.ucomp_weights_backward_dense(
             w, ld, last, *ct))
-    assert (cuda_ucomp.launches, cuda_ucomp.bwd_launches) == before
+    assert launches_of('ucomp_fwd', 'ucomp_bwd') == before
 
 
 @pytest.mark.parametrize("nq,ld,nb,last", [(2, 1, 3, 2), (3, 3, 2, 1),
