@@ -19,6 +19,15 @@
 //   ulp; the backward computes sin/cos of phi_{b+1} anyway), which halves
 //   the residual bytes.
 //
+//   The primal forward also takes the angles in place of the phases
+//   (ANGLES; no gradient needed): x (N, nb * n), block-major, as the
+//   model's encoding leaves it, read in place (4 bytes a row and qubit,
+//   against phi's 4 * D / n).  Each thread forms the phases of its
+//   amplitudes in registers as quanonet_torch/ops/hea.py encoding_phases
+//   does, phi_{b,k} = 1/2 sum_i z_i(k) x_{b,i} with z_i(k) = 1 - 2 bit_i(k),
+//   summed in the same order; the products by +-1 and 1/2 are exact, so
+//   the output equals the phase route's bit for bit.
+//
 //   B1b  _bwd_kernel, the reverse sweep, here as two launches (three when
 //   the batch is split into slices):
 //
@@ -256,9 +265,45 @@ __device__ __forceinline__ void bwd_product(
   }
 }
 
+// ── the phases from the angles (B1f's ANGLES route) ──────────────────────
+
+// qubits n of a width D = 2^n
+__host__ __device__ constexpr int qubits_of(int d) {
+  return d > 1 ? 1 + qubits_of(d / 2) : 0;
+}
+
+// the NQ angles of block b at one row of x (rows, nb * NQ), read in place
+// with scalar loads (a row's angles need no alignment)
+template <int NQ>
+__device__ __forceinline__ void load_angles(const float* __restrict__ x,
+                                            long long row, int b, int nb,
+                                            float (&a)[NQ]) {
+  const float* p = x + (row * nb + b) * NQ;
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) a[i] = p[i];
+}
+
+// phi_k of this thread's amplitudes k = tj * CJ + c from one row's angles,
+// in hea.encoding_phases' order: z_0 x_0, then + z_i x_i for i = 1 .. NQ-1,
+// then times 1/2, with z_i = 1 - 2 bit_i(k); every product is exact
+template <int NQ, int CJ>
+__device__ __forceinline__ void angle_phases(const float (&a)[NQ], int tj,
+                                             float (&ph)[CJ]) {
+#pragma unroll
+  for (int c = 0; c < CJ; ++c) {
+    const int k = tj * CJ + c;
+    float f = (k & 1 ? -1.f : 1.f) * a[0];
+#pragma unroll
+    for (int i = 1; i < NQ; ++i) f = f + ((k >> i) & 1 ? -1.f : 1.f) * a[i];
+    ph[c] = 0.5f * f;
+  }
+}
+
 // ── B1f: forward, primal output and (SAVE) each block's input state ──────
 
-template <int D, int NT, int CJ, int P, bool SAVE>
+// With ANGLES, phi is the angle matrix x (n, nb * log2 D) and the phases
+// are formed in registers (the primal forward only).
+template <int D, int NT, int CJ, int P, bool SAVE, bool ANGLES>
 __global__ void __launch_bounds__(NT)
 hea_chain_fwd_kernel(const float* __restrict__ mt_r,
                      const float* __restrict__ mt_i,
@@ -268,7 +313,8 @@ hea_chain_fwd_kernel(const float* __restrict__ mt_r,
                      int nb, int n, float inv_sqrt) {
   using T = Tile<D, NT, CJ, P>;
   constexpr int JT = T::JT, RG = T::RG, R = T::R, LD = T::LD,
-                NBUF = T::NBUF;
+                NBUF = T::NBUF, NQ = qubits_of(D);
+  static_assert(!(SAVE && ANGLES), "the angle route saves no residuals");
 
   extern __shared__ __align__(16) float smem[];
   float* x_r = smem;              // (R, LD) state tile
@@ -299,7 +345,13 @@ hea_chain_fwd_kernel(const float* __restrict__ mt_r,
     float vr[CJ], vi[CJ];
     if (row < n) {
       float ph[CJ];
-      load_vec<CJ>(phi + row * D + tj * CJ, ph);
+      if constexpr (ANGLES) {
+        float ang[NQ];
+        load_angles<NQ>(phi, row, 0, nb, ang);
+        angle_phases<NQ, CJ>(ang, tj, ph);
+      } else {
+        load_vec<CJ>(phi + row * D + tj * CJ, ph);
+      }
 #pragma unroll
       for (int c = 0; c < CJ; ++c) {
         float sn, cs;
@@ -320,15 +372,24 @@ hea_chain_fwd_kernel(const float* __restrict__ mt_r,
   }
 
   for (int b = 0;; ++b) {
-    // the next phase step's phases, asked for before the product so that
-    // their latency hides behind it
+    // the next phase step's phases (or angles), asked for before the
+    // product so that their latency hides behind it
     float ph[P][CJ];
+    float ang[P][NQ];
     if (b + 1 < nb) {
-      const float* pb = phi + static_cast<size_t>(b + 1) * nd;
+      if constexpr (ANGLES) {
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const long long row = row0 + p * RG + rg;
-        if (row < n) load_vec<CJ>(pb + row * D + tj * CJ, ph[p]);
+        for (int p = 0; p < P; ++p) {
+          const long long row = row0 + p * RG + rg;
+          if (row < n) load_angles<NQ>(phi, row, b + 1, nb, ang[p]);
+        }
+      } else {
+        const float* pb = phi + static_cast<size_t>(b + 1) * nd;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const long long row = row0 + p * RG + rg;
+          if (row < n) load_vec<CJ>(pb + row * D + tj * CJ, ph[p]);
+        }
       }
     }
     // M_b^T has landed (the group of M_{b+1}^T may still be in flight)
@@ -369,6 +430,9 @@ hea_chain_fwd_kernel(const float* __restrict__ mt_r,
     for (int p = 0; p < P; ++p) {
       const int lr = p * RG + rg;
       const long long row = row0 + lr;
+      if constexpr (ANGLES) {
+        if (row < n) angle_phases<NQ, CJ>(ang[p], tj, ph[p]);
+      }
       float vr[CJ], vi[CJ];
 #pragma unroll
       for (int c = 0; c < CJ; ++c) {
@@ -722,14 +786,14 @@ cudaError_t allow_smem(K kernel, size_t bytes, std::atomic<unsigned>& done) {
   return err;
 }
 
-template <int D, int NT, int CJ, int P, bool SAVE>
+template <int D, int NT, int CJ, int P, bool SAVE, bool ANGLES = false>
 cudaError_t launch_forward(const float* mt_r, const float* mt_i,
                            const float* phi, float* out_r, float* out_i,
                            float* st_r, float* st_i, int nb, int n,
                            cudaStream_t stream) {
   using T = Tile<D, NT, CJ, P>;
   static std::atomic<unsigned> done{0};
-  const auto kernel = hea_chain_fwd_kernel<D, NT, CJ, P, SAVE>;
+  const auto kernel = hea_chain_fwd_kernel<D, NT, CJ, P, SAVE, ANGLES>;
   cudaError_t err = allow_smem(kernel, T::fwd_smem_bytes, done);
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>((n + T::R - 1) / T::R);
@@ -817,6 +881,25 @@ extern "C" int hea_chain_forward(const float* mt_r, const float* mt_i,
                      mt_r, mt_i, phi, out_r, out_i, st_r, st_i, nb, n, s);
   HEA_TILES(HEA_FWD)
 #undef HEA_FWD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// B1f on the angles: x (n, nb * log2 d), contiguous, block-major, in place
+// of the phases (any alignment); the primal output only, equal bit for bit
+// to hea_chain_forward's on the phases that hea.encoding_phases forms from
+// x, at the same tile.
+extern "C" int hea_chain_forward_angles(const float* mt_r, const float* mt_i,
+                                        const float* x, float* out_r,
+                                        float* out_i, int nb, int n, int d,
+                                        int tile, void* stream) {
+  if (nb < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define HEA_FWD_ANGLES(D_, T_, NT_, CJ_, P_)                                \
+  if (d == D_ && tile == T_)                                                \
+    return launch_forward<D_, NT_, CJ_, P_, false, true>(                   \
+        mt_r, mt_i, x, out_r, out_i, nullptr, nullptr, nb, n, s);
+  HEA_TILES(HEA_FWD_ANGLES)
+#undef HEA_FWD_ANGLES
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -26,6 +26,11 @@ read once.
 * CPU tensors -> the plain versions (:func:`hea.chain_dense`,
   :func:`hea.chain_dense_saved`, :func:`hea.chain_backward_dense`);
   CUDA tensors launch the kernels or raise.
+
+:func:`forward_pallas` with no gradient needed on CUDA tensors builds no
+phases: the primal kernel takes the angles x as the model's encoding
+leaves them and forms the phases in registers
+(:func:`chain_forward_angles`), bit for bit the phase route's output.
 """
 import ctypes
 import os
@@ -102,6 +107,8 @@ def _lib():
     lib = _build.load(KERNEL)
     lib.hea_chain_forward.argtypes = [_VP] * 7 + [_I] * 4 + [_VP]
     lib.hea_chain_forward.restype = _I
+    lib.hea_chain_forward_angles.argtypes = [_VP] * 5 + [_I] * 4 + [_VP]
+    lib.hea_chain_forward_angles.restype = _I
     lib.hea_chain_backward.argtypes = [_VP] * 14 + [_I] * 5 + [_VP]
     lib.hea_chain_backward.restype = _I
     lib.hea_chain_error_string.argtypes = [_I]
@@ -133,7 +140,8 @@ def _check(named, device):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, phi on {device}")
+            raise ValueError(f"{name} is on {t.device}, the other "
+                             f"operands on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if name.startswith('mt_') or name == 'phi':
@@ -190,6 +198,47 @@ def chain_forward(mt_r, mt_i, phi, save_residuals=False):
         _raise_on(lib, err, 'hea_chain_forward')
         tracing.count('hea_chain_fwd')
     return (out_r, out_i, *st)
+
+
+def chain_forward_angles(mt_r, mt_i, x, nb):
+    """The primal forward kernel on CUDA tensors, on the angles: (sr, si)
+    of the chain whose phases :func:`hea.encoding_phases` forms from x
+    (N, nb·n), block-major and contiguous as the model's encoding leaves
+    it; the kernel forms them in registers.  Equal bit for bit to
+    ``chain_forward(mt_r, mt_i, encoding_phases(spec, x))``.  No
+    residuals."""
+    if mt_r.dim() != 3:
+        raise ValueError(f"mt_r must be (nb, D, D), got {tuple(mt_r.shape)}")
+    d = mt_r.shape[-1]
+    if d not in DIMS:
+        raise ValueError(f"the block-chain kernel takes D in {DIMS}, got {d}")
+    if nb < 1:
+        raise ValueError("the chain needs at least one block")
+    width = nb * (d.bit_length() - 1)
+    if x.dim() != 2 or x.shape[1] != width:
+        raise ValueError(f"x must be (N, {width}) for {nb} blocks at D = "
+                         f"{d}, got {tuple(x.shape)}")
+    n = x.shape[0]
+    if n >= 2 ** 31:
+        raise ValueError(f"batch of {n} rows is too large for one launch")
+    _check((('mt_r', mt_r, (nb, d, d)), ('mt_i', mt_i, (nb, d, d)),
+            ('x', x, (n, width))), x.device)
+    if x.device.type != 'cuda':
+        raise ValueError(f"the angle route runs on a CUDA device, x is on "
+                         f"{x.device}")
+    dev = x.device
+    out_r = torch.empty((n, d), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n, d), dtype=torch.float32, device=dev)
+    if n:
+        lib = _lib()
+        geo = chain_geometry(n, d, sm_count(dev.index))
+        err = _build.on_device(dev, lambda: lib.hea_chain_forward_angles(
+            mt_r.data_ptr(), mt_i.data_ptr(), x.data_ptr(), out_r.data_ptr(),
+            out_i.data_ptr(), nb, n, d, geo.tile, _stream(dev)))
+        _raise_on(lib, err, 'hea_chain_forward_angles')
+        tracing.count('hea_chain_fwd')
+        tracing.count('hea_chain_fwd_angles')
+    return out_r, out_i
 
 
 def mbar_tile_side(d):
@@ -275,13 +324,16 @@ class BlockChain(torch.autograd.Function):
                                   gr.contiguous(), gi.contiguous())
 
 
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def block_chain(mt_r, mt_i, phi):
     """(mt_r, mt_i, phi) -> (sr, si): the chain of
     :func:`quanonet_torch.ops.hea.chain_dense`, through the CUDA kernels
     for CUDA tensors.  mt_* (nb, D, D), phi (nb, N, D), float32,
     contiguous."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (mt_r, mt_i, phi)):
+    if _needs_grad(mt_r, mt_i, phi):
         return BlockChain.apply(mt_r, mt_i, phi)
     with tracing.span('circuit.chain_fwd', rows=phi.shape[1],
                       device=phi.is_cuda):
@@ -357,10 +409,19 @@ def _prepare(spec, weights, x):
 
 
 def forward_pallas(spec, weights, x):
-    """(sr, si) of the circuit through the block-chain kernels."""
+    """(sr, si) of the circuit through the block-chain kernels: with no
+    gradient needed on CUDA tensors the primal kernel on the angles (the
+    ``circuit.operands`` span holds only the block matrices), else
+    :func:`block_chain` on :func:`_prepare`'s phases."""
     if not spec.uniform_encode:
         raise ValueError(
             "the block-chain engine requires n_encode == n_qubits per block")
+    if x.is_cuda and not _needs_grad(weights, x):
+        with tracing.span('circuit.operands', device=True):
+            mt_r, mt_i = block_mats(spec, weights)
+        with tracing.span('circuit.chain_fwd', rows=x.shape[0], device=True):
+            return chain_forward_angles(mt_r, mt_i, x.contiguous(),
+                                        spec.n_blocks)
     return block_chain(*_prepare(spec, weights, x))
 
 

@@ -3,8 +3,11 @@ Times the chain kernels of one checkout on the card: CUDA events around the
 wrapper (``chip_smoke.time_ms``) and the kernels' own time in a profiler
 trace (``chip_smoke.kernel_device_ms``), beside the bounds of
 ``chip_smoke``.  ``--kernel block`` (the default): the block-chain kernels
-(B1f, its residual variant, and B1b with all its launches) at the
-flagship's shapes (Q5 Net40-2-20-2: nb 60, D 32) and several batch sizes.
+(B1f on the phases, on the angles where the checkout has that route, its
+residual variant, and B1b with all its launches) and the whole no-grad
+forward (``forward_pallas`` under ``inference_mode``: operands and chain)
+at the flagship's shapes (Q5 Net40-2-20-2: nb 60, D 32) and several batch
+sizes.
 ``--kernel fused``: the fused-group chain kernels (B2f primal and residual,
 B2b with each of its launches) at Q8, Q10 and Q12 for N = 1, 100 and 1000,
 Q10 at N = 8192, Q14 at N = 32 and the Q16 forward at N = 8.
@@ -111,6 +114,10 @@ def time_checkout(root, ns, reps, tile=None):
 
         def bwd():
             cuda_hea.chain_backward(*ops, st_r, st_i, *g)
+
+        def forward():
+            with torch.inference_mode():
+                cuda_hea.forward_pallas(spec, w, x)
         nb, d = spec.n_blocks, spec.dim
         row = {"N": n, "nb": nb, "D": d,
                "fwd_ms": chip_smoke.time_ms(fwd, reps),
@@ -125,7 +132,17 @@ def time_checkout(root, ns, reps, tile=None):
                "bwd_device_ms_by_kernel": chip_smoke._profiled(
                    bwd, 20).get("top_device_ms_per_step"),
                "fwd_bound_ms": chip_smoke.chain_bound(nb, n, d)[0],
-               "bwd_bound_ms": chip_smoke.bwd_bound(nb, n, d)[0]}
+               "bwd_bound_ms": chip_smoke.bwd_bound(nb, n, d)[0],
+               # the whole no-grad forward: operands and chain
+               "forward_ms": chip_smoke.time_ms(forward, reps),
+               "forward_device_ms": chip_smoke.kernel_device_ms(forward,
+                                                                None)}
+        if hasattr(cuda_hea, 'chain_forward_angles'):
+            def fwd_angles():
+                cuda_hea.chain_forward_angles(ops[0], ops[1], x, nb)
+            row["fwd_angles_ms"] = chip_smoke.time_ms(fwd_angles, reps)
+            row["fwd_angles_device_ms"] = chip_smoke.kernel_device_ms(
+                fwd_angles, 'hea_chain_fwd')
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         if hasattr(cuda_hea, 'chain_geometry'):
             row["geometry"] = cuda_hea.chain_geometry(n, d, sms)._asdict()
@@ -562,7 +579,9 @@ def summarize(paths):
     import numpy as np
     runs = [json.load(open(p)) for p in paths]
     keys = ("fwd_ms", "fwd_device_ms", "fwd_saved_ms", "fwd_saved_device_ms",
-            "bwd_ms", "bwd_device_ms", "adam_ms", "adam_host_ms",
+            "bwd_ms", "bwd_device_ms", "fwd_angles_ms",
+            "fwd_angles_device_ms", "forward_ms", "forward_device_ms",
+            "adam_ms", "adam_host_ms",
             "adam_queued_device_ms", "adam_device_ms")
     out = {}
     for label in sorted({r["label"] for r in runs}):

@@ -1,8 +1,8 @@
 // A CPU stand-in for the parts of the CUDA runtime and device code that
-// quanonet_torch/csrc/fused_chain.cu, embed_chain.cu, ucomp.cu and adam.cu
-// use, so that their kernels can run on the CPU in tests (tests/
-// test_torch_port_fused_emulated.py, _embed_emulated.py,
-// _ucomp_emulated.py, _adam_emulated.py): each CUDA
+// quanonet_torch/csrc/fused_chain.cu, embed_chain.cu, ucomp.cu, adam.cu and
+// hea_chain.cu use, so that their kernels can run on the CPU in tests
+// (tests/test_torch_port_fused_emulated.py, _embed_emulated.py,
+// _ucomp_emulated.py, _adam_emulated.py, _hea_emulated.py): each CUDA
 // thread a user-level context (ucontext) on one OS thread, switched at
 // __syncthreads and at the warp shuffles and MMAs, the blocks of a grid one
 // after another, one shared-memory array per launch.  The test replaces the source's inline-PTX helpers

@@ -9,10 +9,13 @@ the card run them with
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda
 """
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from quanonet_torch import tracing
 from quanonet_torch.ops import cuda_hea, hea
 from quanonet_torch.ops.hamiltonian import simple_ham_diag
 from quanonet_torch.profile_step import launch_counts, launches_of
@@ -173,6 +176,74 @@ def test_every_tile_ragged_and_at_its_boundaries(card, monkeypatch, d, tile):
             for a, b in zip(got, want):
                 assert (a - b).abs().max().item() <= _bwd_tol(b), where
             assert all(torch.equal(a, b) for a, b in zip(got, again)), where
+
+
+ANGLE_NS = (1, 7, 100, 8192, 20000, 20003)
+
+
+@pytest.mark.parametrize("nb", [1, 60])
+@pytest.mark.parametrize("nq", range(1, 8))
+def test_angle_route_equals_phase_route(card, monkeypatch, nq, nb):
+    """B1f on the angles against B1f on encoding_phases of the same x, bit
+    for bit: at every N of ANGLE_NS with the tile chain_geometry picks,
+    and at the ragged N = 20,003 with each tile of TILES forced in turn."""
+    d = 2 ** nq
+    spec = hea.HEASpec(nq, ((nq, 0),) * nb)
+    geometry = cuda_hea.chain_geometry
+    forced = [(n, None) for n in ANGLE_NS] + [(20003, t) for t in range(3)]
+    for n, tile in forced:
+        monkeypatch.setattr(
+            cuda_hea, 'chain_geometry', geometry if tile is None else
+            (lambda nn, dd, sms, t=tile: cuda_hea.tile_geometry(dd, t, nn)))
+        (mt_r, mt_i, _), rng = _unitary_operands(d, nb, 1, 7 * n + nq, card)
+        x = torch.tensor(rng.uniform(-8, 8, (n, nb * nq)).astype(np.float32),
+                         device=card)
+        got = cuda_hea.chain_forward_angles(mt_r, mt_i, x, nb)
+        want = cuda_hea.chain_forward(mt_r, mt_i,
+                                      hea.encoding_phases(spec, x))
+        torch.cuda.synchronize()
+        where = f"D={d} nb={nb} N={n} tile={tile}"
+        assert torch.equal(got[0], want[0]), where
+        assert torch.equal(got[1], want[1]), where
+
+
+def test_flagship_inference_takes_the_angles_bit_for_bit(card):
+    """The released flagship under inference_mode: hea_expectation_pallas
+    (the angle route) equals the phase route bit for bit, and counts one
+    angle launch a forward; a forward under a gradient counts none."""
+    from quanonet_torch.infer import load_model
+    model, _ = load_model(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        'pretrained_weights', 'Advection', 'Advection_QuanONet_Net40-2-20-2_'
+        'Q5_TF_S0.1_1000x100_Seed0', 'best_model.ckpt'), 100, 2,
+        device='cuda')
+    rng = np.random.RandomState(11)
+    branch = torch.tensor(rng.randn(20000, 100).astype(np.float32),
+                          device=card)
+    trunk = torch.tensor(rng.rand(20000, 2).astype(np.float32), device=card)
+    spec, diag = model.spec, model.measure.diag
+    keys = ('hea_chain_fwd', 'hea_chain_fwd_angles')
+
+    def counts():
+        c = tracing.counts()
+        return tuple(c[k] for k in keys)
+    with torch.inference_mode():
+        x = model.encode(branch, trunk)
+        before = counts()
+        got = cuda_hea.hea_expectation_pallas(spec, model.ansatz, x, diag)
+        mid = counts()
+        want = hea.diag_expectation_pair(
+            *cuda_hea.block_chain(*cuda_hea._prepare(spec, model.ansatz, x)),
+            diag)
+        after = counts()
+    assert torch.equal(got, want)
+    assert (mid[0] - before[0], mid[1] - before[1]) == (1, 1)
+    assert (after[0] - mid[0], after[1] - mid[1]) == (1, 0)
+    out = model(branch[:100], trunk[:100])
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert counts()[1] == after[1]
+    assert model.ansatz.grad is not None
 
 
 def test_model_training_step_matches_dense(card):

@@ -146,6 +146,7 @@ class _FakeFn:
 class _FakeLib:
     def __init__(self):
         self.hea_chain_forward = _FakeFn()
+        self.hea_chain_forward_angles = _FakeFn()
         self.hea_chain_backward = _FakeFn()
         self.hea_chain_error_string = _FakeFn(b'')
         self.hea_chain_tile_rows = _FakeFn(
@@ -194,8 +195,9 @@ def test_library_loaded_and_configured_once(monkeypatch):
             cuda_hea.chain_backward(*mt, phi, st_r, st_i, *g)
         assert loads == ['hea_chain']
         assert props == [None]
-        for fn in (lib.hea_chain_forward, lib.hea_chain_backward,
-                   lib.hea_chain_error_string, lib.hea_chain_tile_rows):
+        for fn in (lib.hea_chain_forward, lib.hea_chain_forward_angles,
+                   lib.hea_chain_backward, lib.hea_chain_error_string,
+                   lib.hea_chain_tile_rows):
             assert fn.configured == 1
         after = launches_of('hea_chain_fwd', 'hea_chain_bwd')
         assert (after[0] - before[0], after[1] - before[1]) == (6, 3)
